@@ -92,6 +92,64 @@ class Record:
         return d
 
 
+def mlp_tol(ref, ref32):
+    """(tolerance, noise) for an MLP kernel output held against its plain
+    bf16 version `ref`; `ref32` is the plain f32 version (see check)."""
+    noise = float((ref - ref32).abs().max())
+    return max(2.0 * noise, 1e-3 * float(ref.abs().max())), noise
+
+
+def planted_mlp(torch, ws, bs, emb, g, fault):
+    """The plain bf16 MLP with one planted fault, a stand-in for a wrong
+    kernel: (output (N, 3), padded dws, dbs) through autograd, g the output
+    gradient (None: forward only). "relu6_fwd" drops layer 6's ReLU;
+    "relu6_mask" keeps its value but passes its gradient unmasked (a wrong
+    ReLU mask in the backward); "skip_offset" takes h4's share of the
+    skip-split delta from layer 5's weight rows 0:256 (the embedding's
+    offset) instead of EMB_PAD:EMB_PAD+256."""
+    from contexture_nerf_tpu_torch.ops import mlp_kernel as mk
+
+    bf = torch.bfloat16
+
+    def dot(a, b):
+        return a.to(bf).float() @ b.to(bf).float()
+
+    ws = [w.detach().clone().requires_grad_() for w in ws]
+    bs = [b.detach().clone().requires_grad_() for b in bs]
+    e = emb.float()
+    h = e
+    for i in range(mk.DEPTH):
+        if i == mk.SKIP + 1 and fault == "skip_offset":
+            h4 = h[:, mk.EMB_PAD:]
+            wrong = dot(h4, ws[i][:mk.W].detach())
+            x = dot(torch.cat([e, h4.detach()], -1), ws[i]) + bs[i] \
+                + (wrong - wrong.detach())
+        else:
+            x = dot(h, ws[i]) + bs[i]
+        if i == 6 and fault == "relu6_fwd":
+            h = x
+        elif i == 6 and fault == "relu6_mask":
+            h = x + (torch.relu(x) - x).detach()
+        else:
+            h = torch.relu(x)
+        if i == mk.SKIP:
+            h = torch.cat([e, h], dim=-1)
+    out = (dot(h, ws[mk.DEPTH]) + bs[mk.DEPTH])[:, :3]
+    if g is None:
+        return out.detach(), None, None
+    out.backward(g)
+    return out.detach(), [w.grad for w in ws], [b.grad for b in bs]
+
+
+def attention_tol(ref):
+    """Tolerance for flash attention held against its plain version: a
+    tenth of the plain output's RMS. Both round P and the output to bf16 at
+    other points, which measures one bf16 ulp of the largest outputs (about
+    a twentieth of the RMS at these lengths); a dropped KV source or a wrong
+    softmax scale moves the output by a sizeable part of its RMS."""
+    return 0.1 * float(ref.float().pow(2).mean().sqrt())
+
+
 def mlp_phases(torch, rec_fwd, rec_bwd, seed, n_canvas, n_slice, failures):
     from contexture_nerf_tpu_torch.models.fields import NeRF2D
     from contexture_nerf_tpu_torch.ops import mlp_kernel as mk
@@ -113,18 +171,26 @@ def mlp_phases(torch, rec_fwd, rec_bwd, seed, n_canvas, n_slice, failures):
         other orders, so a sum next to a rounding boundary flips one ulp and
         the flip cascades through the later layers. The plain bf16 version's
         distance from plain f32 measures that noise; the kernel must stay
-        within twice it (or 1e-3 of max|plain| where bf16 is exact). A wrong
-        kernel is off by the outputs' own scale."""
+        within twice it (or 1e-3 of max|plain| where bf16 is exact). The
+        planted faults below show that a wrong kernel misses it."""
         err = float((got - ref).abs().max())
-        noise = float((ref - ref32).abs().max())
-        tol = max(2.0 * noise, 1e-3 * float(ref.abs().max()))
+        tol, noise = mlp_tol(ref, ref32)
         ok = err <= tol and bool(torch.isfinite(got).all())
         print(f"  {name}: max_abs_err {err:.3e} (tol {tol:.3e} = max(2 x "
-              f"bf16-vs-f32 {noise:.3e}, 1e-3 max|plain|)) "
-              f"{'ok' if ok else 'MISS'}")
+              f"bf16-vs-f32 {noise:.3e}, 1e-3 max|plain|); max|plain| "
+              f"{float(ref.abs().max()):.3e}) {'ok' if ok else 'MISS'}")
         if not ok:
             failures.append(name)
         return err
+
+    def caught(name, got, refs, refs32):
+        """A planted fault must miss the tolerance on at least one tensor."""
+        ratio = max(float((a - b).abs().max()) / mlp_tol(b, c)[0]
+                    for a, b, c in zip(got, refs, refs32))
+        print(f"  planted fault {name}: max err/tol {ratio:.2f} "
+              f"{'caught' if ratio > 1 else 'NOT CAUGHT'}")
+        if not ratio > 1:
+            failures.append(f"tolerance passes planted fault {name}")
 
     for label, n in (("canvas", n_canvas), ("slice", n_slice),
                      ("ragged", 1000)):  # ragged: not a multiple of 64
@@ -141,6 +207,11 @@ def mlp_phases(torch, rec_fwd, rec_bwd, seed, n_canvas, n_slice, failures):
                   mk.fused_nerf2d_plain(ws, bs, uv, 10, f32))
         if label == "ragged":
             continue
+        if label == "slice":
+            caught("K1 relu6_fwd (layer 6 without its ReLU)",
+                   [planted_mlp(torch, ws, bs, emb, None, "relu6_fwd")[0]],
+                   [mk.fused_nerf2d_plain(ws, bs, emb, None, bf)],
+                   [mk.fused_nerf2d_plain(ws, bs, emb, None, f32)])
         ms = cuda_ms(lambda: mk.mlp_fwd_kernel(wflat, bflat, emb, None))
         pms = cuda_ms(lambda: mk.fused_nerf2d_plain(ws, bs, emb, None, bf),
                       reps=5)
@@ -170,6 +241,9 @@ def mlp_phases(torch, rec_fwd, rec_bwd, seed, n_canvas, n_slice, failures):
             failures.append("K2 determinism")
         check("K2 mlp_bwd uv dW0", mk.mlp_bwd_kernel(wflat, bflat, uv, g, 10)
               [0][0], rws[0], fws[0])
+        for fault in ("relu6_mask", "skip_offset"):
+            _, pws, pbs = planted_mlp(torch, ws, bs, emb, g, fault)
+            caught(f"K2 {fault}", pws + pbs, rws + rbs, fws + fbs)
         ms = cuda_ms(lambda: mk.mlp_bwd_kernel(wflat, bflat, emb, g, None))
         pms = cuda_ms(
             lambda: mk.fused_nerf2d_bwd_plain(ws, bs, emb, g, None, bf),
@@ -187,8 +261,6 @@ def attention_phases(torch, rec1, rec2, seed, failures):
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed + 1)
-    tol = 2e-2  # bf16 output; P is rounded to bf16 before P V in both,
-    # unnormalised in the kernel, normalised in the plain version
     # (B, H, Sq, Skv, Se, launches per step) at the main path's routed shapes
     shapes = [(2, 5, 1600, 1600, 0, 5), (2, 5, 9600, 9600, 0, 2),
               (2, 10, 2400, 2400, 0, 2),
@@ -203,12 +275,26 @@ def attention_phases(torch, rec1, rec2, seed, failures):
         got = att.flash_attention(q, k, v, ek, ev)
         ref = att.flash_attention_plain(q, k, v, ek, ev)
         err = float((got.float() - ref.float()).abs().max())
+        tol = attention_tol(ref)
         ok = err <= tol and bool(torch.isfinite(got.float()).all())
         name = f"K{4 if se else 3} flash ({B},{H},{sq},{skv}+{se})"
-        print(f"  {name}: max_abs_err {err:.3e} (tol {tol:g}) "
-              f"{'ok' if ok else 'MISS'}")
+        print(f"  {name}: max_abs_err {err:.3e} (tol {tol:.3e} = 0.1 "
+              f"RMS(plain)) {'ok' if ok else 'MISS'}")
         if not ok:
             failures.append(name)
+        # planted faults, through the kernel itself: the TPU's padded width
+        # in the softmax scale (1/sqrt(128) for 1/sqrt(64)), and the second
+        # KV source dropped
+        faults = {"scale 1/sqrt(128)": att.flash_attention(
+            (q.float() * 0.5 ** 0.5).to(q.dtype), k, v, ek, ev)}
+        if se:
+            faults["second source dropped"] = att.flash_attention(q, k, v)
+        for fname, bad in faults.items():
+            ratio = float((bad.float() - ref.float()).abs().max()) / tol
+            print(f"    planted fault {fname}: max err/tol {ratio:.2f} "
+                  f"{'caught' if ratio > 1 else 'NOT CAUGHT'}")
+            if not ratio > 1:
+                failures.append(f"{name}: tolerance passes {fname}")
         ms = cuda_ms(lambda: att.flash_attention(q, k, v, ek, ev))
         pms = cuda_ms(lambda: att.flash_attention_plain(q, k, v, ek, ev),
                       reps=3, warmup=1)

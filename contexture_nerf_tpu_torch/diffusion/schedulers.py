@@ -11,14 +11,16 @@ from __future__ import annotations
 
 import torch
 
+from contexture_nerf_tpu_torch import resolve_device
 
-def make_alphas_cumprod(device="cpu") -> torch.Tensor:
+
+def make_alphas_cumprod(device="cuda") -> torch.Tensor:
     """(1000,) f32 alphas_cumprod of the scaled-linear schedule. Computed in
     f32, as the reference is (JAX without x64 demotes its float64
     request)."""
     betas = torch.linspace(0.00085 ** 0.5, 0.012 ** 0.5, 1000,
                            dtype=torch.float32) ** 2
-    return torch.cumprod(1.0 - betas, dim=0).to(device)
+    return torch.cumprod(1.0 - betas, dim=0).to(resolve_device(device))
 
 
 def _acp(alphas_cumprod, t, sample):

@@ -12,6 +12,7 @@ from typing import Tuple
 import torch
 import torch.nn as nn
 
+from contexture_nerf_tpu_torch import resolve_device
 from contexture_nerf_tpu_torch.ops.mlp_kernel import fused_nerf2d
 
 
@@ -29,12 +30,13 @@ class NeRF2D(nn.Module):
     """8x256 ReLU MLP on the 42-dim embedding, 3 outputs; the input is
     concatenated as [emb, h] after layer 4 (the only configuration the
     reference instantiates, and the one the fused kernels take). Parameters
-    f32."""
+    f32, on `device` (the card unless the caller asks for the CPU)."""
 
     D, W, SKIP, INPUT_CH, OUTPUT_CH = 8, 256, 4, 42, 3
 
-    def __init__(self, generator: torch.Generator = None, device="cpu"):
+    def __init__(self, generator: torch.Generator = None, device="cuda"):
         super().__init__()
+        device = resolve_device(device)
         fan_in = self.INPUT_CH
         for i in range(self.D):
             setattr(self, f"pts_linear_{i}",
@@ -68,10 +70,10 @@ class NeRF2D(nn.Module):
         return self.output_linear(h)
 
 
-def uv_lattice(res: int, device="cpu") -> torch.Tensor:
+def uv_lattice(res: int, device="cuda") -> torch.Tensor:
     """res^2 UV lattice: pixel (row i, col j) -> (u = j/(res-1),
     v = i/(res-1)). Returns (res*res, 2)."""
-    lin = torch.linspace(0.0, 1.0, res, device=device)
+    lin = torch.linspace(0.0, 1.0, res, device=resolve_device(device))
     vv, uu = torch.meshgrid(lin, lin, indexing="ij")
     return torch.stack([uu, vv], dim=-1).reshape(-1, 2)
 

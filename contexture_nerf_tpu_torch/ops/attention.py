@@ -12,7 +12,6 @@ as `_xla_attention` does.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
 
 import torch
 
@@ -115,17 +114,11 @@ def flash_attention(q, k, v, extra_k=None, extra_v=None):
     return out
 
 
-def attention(q, k, v, extra_k=None, extra_v=None,
-              use_kernel: Optional[bool] = None):
+def attention(q, k, v, extra_k=None, extra_v=None):
     """Multi-head attention over (B, H, S, d) tensors, dispatched by shape as
     the reference does: the kernel for long sequences on the card, plain
     matmul + softmax (extra KV concatenated) otherwise."""
-    if use_kernel is None:
-        use_kernel = q.is_cuda
     se = 0 if extra_k is None else extra_k.shape[2]
-    if use_kernel and routes_to_kernel(q.shape[2], k.shape[2], se):
+    if q.is_cuda and routes_to_kernel(q.shape[2], k.shape[2], se):
         return flash_attention(q, k, v, extra_k, extra_v)
-    if extra_k is not None:
-        k = torch.cat([k, extra_k], dim=2)
-        v = torch.cat([v, extra_v], dim=2)
-    return xla_attention_plain(q, k, v)
+    return flash_attention_plain(q, k, v, extra_k, extra_v)

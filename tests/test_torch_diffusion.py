@@ -332,7 +332,7 @@ def test_grid_merge_and_split():
 
 
 def test_schedule_noise_and_velocity():
-    acp = tsch.make_alphas_cumprod()
+    acp = tsch.make_alphas_cumprod(device="cpu")
     jacp = jsch.make_alphas_cumprod()
     _close(acp, jacp, 1e-6)
     x, n, t = _r(2, 4, 6, 6), _r(2, 4, 6, 6), np.array([3, 741])

@@ -124,7 +124,7 @@ def test_fields_match_reference(models):
     from contexture_nerf_tpu.models.fields import \
         texture_from_mlp as jax_texture
 
-    np.testing.assert_allclose(uv_lattice(7).numpy(),
+    np.testing.assert_allclose(uv_lattice(7, device="cpu").numpy(),
                                np.asarray(jax_lattice(7)), atol=1e-7)
     tex, raw = texture_from_mlp(mlp, 16)
     jtex, jraw = jax_texture(jmlp, params, 16, use_fused=False)
