@@ -6,15 +6,19 @@ Run from the root of a checkout, on a machine with one NVIDIA GPU:
     python3 chip_smoke.py [--seed N] [--profile]
 
 It builds the hand-written CUDA kernels from csrc/, holds each against its
-plain PyTorch version at the shapes the SDS step gives it (and checks that
-two MLP-backward runs are bit-identical), then drives the full-width SDS
-paint step (Zero123++ UNet + depth ControlNet + SD VAE encoder + the 8x256
-texture MLP, a 960x640 canvas, bf16, random towers from the seed) for one
-warm-up and three timed steps, checking that each kernel's launch count
-rose by the count derived for one step. Any failed phase exits non-zero.
-The last line is {"ok": true, "device": {...}}; the line before it is the
-JSON record of the kernels. --profile also writes a torch.profiler table of
-one step to chiprun_out/.
+plain PyTorch version at the shapes the main path gives it (and checks that
+two MLP-backward runs and two rasterizer runs are bit-identical, and that
+planted faults miss the tolerances), then drives the main path at full
+width from a mesh on disk: `build_sds_trainer` on shapes/torus.obj at the
+default config (7 views of 1200x1200 rasterized, the 1024^2 texture, the
+CLIP text and vision towers and the VAE conditioning of `prepare_sds`,
+then the Zero123++ UNet + depth ControlNet + SD VAE encoder + 8x256 MLP on a
+960x640 canvas, bf16, random towers from the seed) for one warm-up and
+three timed SDS steps. prepare_sds's launches and each step's must equal
+the counts derived for them. Any failed phase exits non-zero. The last line
+is {"ok": true, "device": {...}}; the line before it is the JSON record of
+the kernels. --profile also writes a torch.profiler table of one step to
+chiprun_out/.
 """
 
 import argparse
@@ -26,6 +30,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 H100_BF16_FLOPS = 989e12  # dense tensor-core bf16, H100 SXM data sheet
+H100_FP32_FLOPS = 67e12  # FP32 outside the tensor cores, H100 SXM data sheet
 H100_BYTES_S = 3.35e12  # HBM3, H100 SXM data sheet
 
 
@@ -61,16 +66,19 @@ def cuda_ms(fn, reps=10, warmup=2):
     return times[len(times) // 2]
 
 
-def bound(flops, nbytes):
-    t_ops = flops / H100_BF16_FLOPS * 1e3
+def bound(flops, nbytes, peak=H100_BF16_FLOPS):
+    t_ops = flops / peak * 1e3
     t_bytes = nbytes / H100_BYTES_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
 class Record:
-    """Per-kernel numbers summed over the launches of one SDS step."""
+    """Per-kernel numbers summed over the launches of one run of the main
+    path's stage that launches it (one SDS step, or prepare_sds); `peak` is
+    the card's operation rate for the kernel's arithmetic."""
 
-    def __init__(self, name, source, replaces):
+    def __init__(self, name, source, replaces, peak=H100_BF16_FLOPS):
+        self.peak = peak
         self.d = {"name": name, "route": "cuda", "source": source,
                   "replaces": replaces, "launches": 0, "max_abs_err": 0.0,
                   "ms": 0.0, "plain_ms": 0.0, "flops": 0.0, "bytes": 0.0,
@@ -88,7 +96,8 @@ class Record:
 
     def out(self):
         d = dict(self.d)
-        d["bound_ms"], d["bound_by"] = bound(d.pop("flops"), d.pop("bytes"))
+        d["bound_ms"], d["bound_by"] = bound(d.pop("flops"), d.pop("bytes"),
+                                             self.peak)
         return d
 
 
@@ -253,6 +262,23 @@ def mlp_phases(torch, rec_fwd, rec_bwd, seed, n_canvas, n_slice, failures):
                     n * 48 * 2 + n * 3 * 4 + wbytes
                     + (wflat.numel() + bflat.numel()) * 4)
 
+    # K1 on the texture lattice that prepare_sds queries once (uv in); its
+    # time is printed here and kept out of the per-step record
+    from contexture_nerf_tpu_torch.models.fields import uv_lattice
+
+    uv = uv_lattice(1024, device=dev)
+    err = check(f"K1 mlp_fwd uv lattice ({uv.shape[0]}, 2)",
+                mk.mlp_fwd_kernel(wflat, bflat, uv, 10),
+                mk.fused_nerf2d_plain(ws, bs, uv, 10, bf),
+                mk.fused_nerf2d_plain(ws, bs, uv, 10, f32))
+    rec_fwd.d["max_abs_err"] = max(rec_fwd.d["max_abs_err"], err)
+    ms = cuda_ms(lambda: mk.mlp_fwd_kernel(wflat, bflat, uv, 10))
+    pms = cuda_ms(lambda: mk.fused_nerf2d_plain(ws, bs, uv, 10, bf), reps=3)
+    b_ms, b_by = bound(2.0 * uv.shape[0] * macs,
+                       uv.shape[0] * (2 * 4 + 3 * 4) + wbytes)
+    print(f"    ms {ms:.3f} plain_ms {pms:.3f} bound_ms {b_ms:.3f} ({b_by}); "
+          "once per prepare_sds")
+
 
 def attention_phases(torch, rec1, rec2, seed, failures):
     import torch.nn.functional as F
@@ -312,46 +338,224 @@ def attention_phases(torch, rec1, rec2, seed, failures):
             rec.add(err, 0.0, 0.0, 0.0, 0.0, 0)
 
 
-def smoke_setup(seed, tile_px=320):
-    """Stand-in for prepare_sds's output (until that slice is ported): the
-    shapes it returns at full width, made from the seed with numpy. A smooth
-    blob per tile for the mask, a blob-shaped depth, UVs in [0, 1]."""
+def pixel_face_pairs(torch, fvi, H, W):
+    """(pixel, face) pairs whose face box covers the pixel centre: the work
+    the rasterizer must do for these faces (every such pair gets its edge
+    functions evaluated)."""
+    from contexture_nerf_tpu_torch.raster.rasterize import pixel_centers
+
+    ys, xs = pixel_centers(H, W, fvi.device)
+    ys = ys.flip(0).contiguous()  # ascending
+
+    def count(axis, lo, hi):
+        return (torch.searchsorted(axis, hi.contiguous(), right=True)
+                - torch.searchsorted(axis, lo.contiguous())).clamp(min=0)
+
+    x, y = fvi[..., 0], fvi[..., 1]
+    n = count(xs, x.amin(-1), x.amax(-1)) * count(ys, y.amin(-1), y.amax(-1))
+    return float(n.double().sum())
+
+
+def numpy_uv_sphere(n_lat, n_lon):
+    """A UV sphere of 2 n_lon (n_lat - 1) faces (vertices (N, 3) f32,
+    faces (F, 3) i64), built with numpy."""
     import numpy as np
 
-    rng = np.random.default_rng(seed)
-    H, W = 3 * tile_px, 2 * tile_px
-    yy, xx = np.mgrid[0:H, 0:W].astype(np.float32)
-    ty, tx = (yy % tile_px) / tile_px - 0.5, (xx % tile_px) / tile_px - 0.5
-    r = np.sqrt(ty ** 2 + tx ** 2)
-    radius = 0.3 + 0.1 * rng.random((3, 2)).astype(np.float32)
-    rad = np.repeat(np.repeat(radius, tile_px, 0), tile_px, 1)
-    mask = 1.0 / (1.0 + np.exp((r - rad) / 0.02))
-    depth = mask * (1.0 - r / rad).clip(0, 1) + 0.5 * (1 - mask)
-    return {
-        "depth_grid": np.repeat(depth[None, None], 3, 1).astype(np.float32),
-        "mask_grid": mask[None, None].astype(np.float32),
-        "uv_grid_pts": rng.random((H * W, 2), dtype=np.float32),
-        "cond_lat_pair": rng.standard_normal(
-            (2, 4, tile_px // 8, tile_px // 8)).astype(np.float32),
-        "encoder_hidden_states": rng.standard_normal(
-            (2, 77, 1024)).astype(np.float32),
-        "tile_probs": np.full(6, 1.0 / 6.0, np.float32),
-    }
+    th = np.pi * np.arange(n_lat + 1) / n_lat
+    ph = 2 * np.pi * np.arange(n_lon + 1) / n_lon
+    t, p = np.meshgrid(th, ph, indexing="ij")
+    verts = np.stack([np.sin(t) * np.cos(p), np.cos(t), np.sin(t) * np.sin(p)],
+                     -1).reshape(-1, 3).astype(np.float32)
+    i, j = np.meshgrid(np.arange(n_lat), np.arange(n_lon), indexing="ij")
+    a, b = i * (n_lon + 1) + j, i * (n_lon + 1) + j + 1
+    c, d = a + n_lon + 1, b + n_lon + 1
+    upper = np.stack([a, c, b], -1)[1:].reshape(-1, 3)
+    lower = np.stack([b, c, d], -1)[:-1].reshape(-1, 3)
+    return verts, np.concatenate([upper, lower]).astype(np.int64)
+
+
+def raster_phases(torch, rec, cfg, failures):
+    """K5 against its plain version: the torus's 7 views at 1200^2 (the
+    main path's launch), a 50,880-face sphere on one 1200^2 view, and the
+    torus at a ragged 777 x 1234. Planted faults run through the plain
+    version on the torus."""
+    from contexture_nerf_tpu_torch.models.textured_mesh import \
+        TexturedMeshModel
+    from contexture_nerf_tpu_torch.raster import raster_kernel as rk
+    from contexture_nerf_tpu_torch.raster.rasterize import rasterize_geometry
+    from contexture_nerf_tpu_torch.training.trainer import view_angles
+
+    dev = torch.device("cuda")
+    res = cfg.render.train_grid_size
+    mm = TexturedMeshModel(cfg.guide, render_grid_size=res, device=dev)
+    th, ph, r = view_angles(cfg.render)
+    _, fvc, torus_fvi, _ = mm.project(th, ph, r)
+    torus_z = fvc[..., 2].contiguous()
+    v, f = numpy_uv_sphere(160, 160)
+    v = torch.from_numpy(v * 0.6).to(dev)
+    v[:, 1] += 0.25
+    _, fvc, sphere_fvi, _ = mm.renderer.project(
+        v, torch.from_numpy(f).to(dev), th[:1], ph[:1], r[:1], 0.25)
+    cases = [("torus 7 views", torus_z, torus_fvi, res, res),
+             (f"sphere {f.shape[0]} faces", fvc[..., 2].contiguous(),
+              sphere_fvi, res, res),
+             ("torus 2 views ragged", torus_z[:2], torus_fvi[:2], 777, 1234)]
+    for name, fvz, fvi, H, W in cases:
+        idx, bary = rk.rasterize_geometry_kernel(fvz, fvi, H, W)
+        idx2, bary2 = rk.rasterize_geometry_kernel(fvz, fvi, H, W)
+        p_idx, p_bary = rasterize_geometry(fvz, fvi, H, W)
+        a = rk.raster_agreement(idx, bary, p_idx, p_bary, fvz)
+        same = torch.equal(idx, idx2) and torch.equal(bary, bary2)
+        ok = rk.agreement_ok(a) and same
+        label = f"K5 raster {name} ({fvz.shape[0]}x{H}x{W}, " \
+                f"F={fvz.shape[1]})"
+        print(f"  {label}: face_idx agree {a['agree']:.6f} on {a['covered']} "
+              f"covered px, {a['mismatch']} mismatched ({a['unexplained']} "
+              f"neither a z tie <= 1e-6 nor an edge <= 1e-5), bary max err "
+              f"{a['bary_err']:.3e} (tol 1e-5), two runs bit-identical "
+              f"{same} {'ok' if ok else 'MISS'}")
+        if not ok:
+            failures.append(label)
+        if name != "torus 7 views":
+            rec.add(a["bary_err"], 0.0, 0.0, 0.0, 0.0, times=0)
+            continue
+        for fault, (fz, fi) in {
+                "z test reversed (farthest face wins)": (-fvz, fvi),
+                "last 64-face chunk dropped": (fvz[:, :-64], fvi[:, :-64]),
+        }.items():
+            b = rk.raster_agreement(*rasterize_geometry(fz, fi, H, W),
+                                    p_idx, p_bary, fvz)
+            caught = not rk.agreement_ok(b)
+            print(f"    planted fault {fault}: agree {b['agree']:.6f}, "
+                  f"{b['unexplained']} unexplained "
+                  f"{'caught' if caught else 'NOT CAUGHT'}")
+            if not caught:
+                failures.append(f"K5 limits pass planted fault {fault}")
+        ms = cuda_ms(lambda: rk.rasterize_geometry_kernel(fvz, fvi, H, W))
+        pms = cuda_ms(lambda: rasterize_geometry(fvz, fvi, H, W), reps=2,
+                      warmup=1)
+        pairs = pixel_face_pairs(torch, fvi, H, W)
+        B, F = fvz.shape[:2]
+        nbytes = B * H * W * 16 + B * F * (16 + 64) + (H + W) * 4
+        print(f"    ms {ms:.3f} (face setup + launch) plain_ms {pms:.3f}; "
+              f"{pairs:.4g} (pixel, face) pairs in a face box, "
+              f"{pairs / (B * H * W):.2f} a pixel")
+        rec.add(a["bary_err"], ms, pms, 20.0 * pairs, nbytes)
+
+
+def prepare_sds_launches():
+    """Kernel launches of prepare_sds on the card: K5 once for the 7 views,
+    K1 once for the texture lattice; nothing else launches a kernel there
+    (CLIP's 257 and 77 tokens route to the plain attention path)."""
+    from contexture_nerf_tpu_torch.ops import _build
+
+    return {k: {"raster": 1, "mlp_fwd": 1}.get(k, 0)
+            for k in _build.launch_counts}
+
+
+def check_setup(torch, setup, trainer, failures):
+    """prepare_sds's outputs: the shapes at full width, finite values, an
+    object on the canvas, UVs in [0, 1], probabilities that sum to 1."""
+    t = trainer.tile_px
+    shapes = {"depth_grid": (1, 3, 3 * t, 2 * t),
+              "mask_grid": (1, 1, 3 * t, 2 * t),
+              "uv_grid_pts": (6 * t * t, 2), "cond_image": (1, 3, t, t),
+              "cond_lat_pair": (2, 4, t // 8, t // 8),
+              "encoder_hidden_states": (2, 77, 1024), "tile_probs": (6,)}
+    for k, shape in shapes.items():
+        x = setup[k]
+        if tuple(x.shape) != shape or not bool(torch.isfinite(x).all()):
+            failures.append(f"prepare_sds {k}: shape {tuple(x.shape)} "
+                            f"(want {shape}) or non-finite")
+    m = setup["mask_grid"]
+    uv = setup["uv_grid_pts"]
+    ok = (float(m.max()) > 0.99 and float(m.min()) < 0.01
+          and float(uv.min()) >= 0 and float(uv.max()) <= 1
+          and abs(float(setup["tile_probs"].sum()) - 1) < 1e-5
+          and len(setup["bboxes6"]) == 6)
+    print(f"  setup: mask_grid mean {float(m.mean()):.4f}, cond_image mean "
+          f"{float(setup['cond_image'].mean()):.4f}, depth_grid mean "
+          f"{float(setup['depth_grid'].mean()):.4f}, tile_probs "
+          f"{[round(float(p), 4) for p in setup['tile_probs']]}, bboxes6 "
+          f"{setup['bboxes6']} {'ok' if ok else 'BAD'}")
+    if not ok:
+        failures.append("prepare_sds outputs out of range")
+
+
+def groupnorm_traffic(torch, trainer, run_step):
+    """The GroupNorm(+SiLU) calls of one SDS step, where K6 (the TPU's
+    fused GroupNorm kernel, not yet ported) would run: their count, the
+    bytes a two-phase kernel must move (read x twice, write y once), the
+    least time the card could take for them (bytes; their ~10 FP32
+    operations an element need less) and the plain path's device time,
+    from CUDA events around each call."""
+    from contexture_nerf_tpu_torch.ops.groupnorm import GroupNormSiLU
+
+    calls = []
+
+    def pre(mod, inp):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        calls.append([inp[0], ev])
+
+    def post(mod, inp, out):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        x = calls[-1][0]
+        calls[-1] = (x.numel(), 2 * x.numel() * x.element_size()
+                     + out.numel() * out.element_size(), calls[-1][1], ev)
+
+    mods = [m for m in trainer.teacher.modules()
+            if isinstance(m, GroupNormSiLU)]
+    hooks = [h for m in mods for h in (m.register_forward_pre_hook(pre),
+                                       m.register_forward_hook(post))]
+    try:
+        run_step()
+        torch.cuda.synchronize()
+    finally:
+        for h in hooks:
+            h.remove()
+    elems = sum(c[0] for c in calls)
+    nbytes = sum(c[1] for c in calls)
+    plain_ms = sum(c[2].elapsed_time(c[3]) for c in calls)
+    b_ms, b_by = bound(10.0 * elems, nbytes, H100_FP32_FLOPS)
+    return {"calls": len(calls), "bytes": nbytes, "bound_ms": b_ms,
+            "bound_by": b_by, "plain_ms": plain_ms}
 
 
 def main_path(torch, seed, profile, failures):
     from contexture_nerf_tpu_torch.core.config import config_from_dict
     from contexture_nerf_tpu_torch.ops import _build
-    from contexture_nerf_tpu_torch.training.trainer import SDSTrainer
+    from contexture_nerf_tpu_torch.training.trainer import build_sds_trainer
 
-    t0 = time.perf_counter()
-    cfg = config_from_dict({"optim": {"seed": seed}})
-    trainer = SDSTrainer(cfg, smoke_setup(seed), device="cuda")
+    cfg = config_from_dict({"optim": {"seed": seed}, "guide": {
+        "shape_path": str(ROOT / "shapes" / "torus.obj")}})
+    timings = {}
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer, setup = build_sds_trainer(cfg, device="cuda", timings=timings)
+    torch.cuda.synchronize()
+    built_s = time.perf_counter() - t0
+    prep = dict(_build.launch_counts)
     n_params = sum(p.numel() for p in trainer.teacher.parameters())
-    print(f"  SDSTrainer built in {time.perf_counter() - t0:.1f} s: teacher "
-          f"{n_params / 1e6:.1f} M params ({trainer.dtype}), canvas "
+    n_clip = sum(p.numel() for m in (trainer.teacher.text_encoder,
+                                     trainer.teacher.vision_encoder)
+                 for p in m.parameters())
+    prep_ms = sum(timings.values())
+    print(f"  build_sds_trainer (teacher init + prepare_sds + trainer) "
+          f"{built_s:.1f} s: teacher {n_params / 1e6:.1f} M params "
+          f"({n_clip / 1e6:.1f} M of them CLIP) in {trainer.dtype}, canvas "
           f"{trainer.grid_hw}, backward slice {trainer.sl_h}x{trainer.sl_w}")
+    print(f"  prepare_sds {prep_ms:.1f} ms: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in timings.items()) + " ms; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; launches "
+        f"{json.dumps(prep)}")
+    if prep != prepare_sds_launches():
+        failures.append(f"prepare_sds launches {prep} != "
+                        f"{prepare_sds_launches()}")
+    check_setup(torch, setup, trainer, failures)
     expected = trainer.expected_kernel_launches()
     print(f"  expected launches per step: {json.dumps(expected)}")
     init = {k: v.clone() for k, v in trainer.mlp.state_dict().items()}
@@ -382,7 +586,7 @@ def main_path(torch, seed, profile, failures):
         losses.append(float(loss))
         if i:
             step_ms.append(ms)
-    launches = dict(_build.launch_counts)
+    launches = {k: prep[k] + _build.launch_counts[k] for k in prep}
     changed = any(not torch.equal(init[k], params[k]) for k in init)
     if not changed:
         failures.append("params did not change")
@@ -391,6 +595,11 @@ def main_path(torch, seed, profile, failures):
     print(f"  SDS step median {step_ms[len(step_ms) // 2]:.1f} ms "
           f"(timed {', '.join(f'{m:.1f}' for m in step_ms)}), peak memory "
           f"{mem:.2f} GiB, params changed: {changed} [{card_line()}]")
+    k6 = groupnorm_traffic(torch, trainer, lambda: trainer.step(ts[-1]))
+    print(f"  K6 (not ported) on one more step: {k6['calls']} GroupNorm "
+          f"calls, {k6['bytes'] / 1e9:.3f} GB to move (x read twice, y "
+          f"written once), bound_ms {k6['bound_ms']:.3f} ({k6['bound_by']}), "
+          f"plain path {k6['plain_ms']:.2f} ms of device time")
     if profile:
         out = ROOT / "chiprun_out"
         out.mkdir(exist_ok=True)
@@ -451,13 +660,22 @@ def main():
             "flash_attn_two_source",
             "contexture_nerf_tpu_torch/csrc/flash_attn.cu",
             "contexture_nerf_tpu/ops/attention.py:159"),
+        "raster": Record("raster", "contexture_nerf_tpu_torch/csrc/raster.cu",
+                         "contexture_nerf_tpu/raster/pallas_raster.py:41",
+                         peak=H100_FP32_FLOPS),
     }
+    from contexture_nerf_tpu_torch.core.config import config_from_dict
+
     print("kernel phases (kernel vs plain, main-path shapes, bf16):")
     mlp_phases(torch, recs["mlp_fwd"], recs["mlp_bwd"], args.seed,
                960 * 640, 448 * 448, failures)
     attention_phases(torch, recs["flash_attn_single"],
                      recs["flash_attn_two_source"], args.seed, failures)
-    print("main path: full-width SDS step")
+    print("K5 phase (kernel vs plain, f32):")
+    raster_phases(torch, recs["raster"], config_from_dict({"guide": {
+        "shape_path": str(ROOT / "shapes" / "torus.obj")}}), failures)
+    print("main path: shapes/torus.obj -> prepare_sds -> full-width SDS "
+          "steps")
     launches = main_path(torch, args.seed, args.profile, failures)
     for name, rec in recs.items():
         rec.d["launches"] = launches.get(name, 0)

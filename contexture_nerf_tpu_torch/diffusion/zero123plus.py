@@ -1,29 +1,40 @@
 """The Zero123++ SDS teacher: UNet with reference attention + depth
-ControlNet + the VAE encoder, and the latent/image scalings.
+ControlNet + the VAE encoder + the CLIP text and vision towers, and the
+latent/image scalings.
 
 Counterpart of contexture_nerf_tpu/diffusion/zero123plus.py
-(`scale_latents` ... `unscale_image`, and `Zero123PlusPipeline`'s
-`embed_control_cond`, `_cfg_core`, `_cfg_v_pred`,
-`_cfg_v_pred_individual`). The CLIP towers, the tokenizer and
-`prepare_conditioning` belong to `prepare_sds` and wait for that slice; the
-teacher takes `cond_lat_pair` and `encoder_hidden_states` as inputs.
+(`scale_latents` ... `unscale_image`, `default_ramping_coefficients`, and
+`Zero123PlusPipeline`'s `encode_condition_image`, `prepare_conditioning`,
+`embed_control_cond`, `_cfg_core`, `_cfg_v_pred`, `_cfg_v_pred_individual`).
+The conditioning takes its two VAE posterior draws as tensors, so a test
+can feed the reference's.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn as nn
-import torch.nn.functional as F
 
 from contexture_nerf_tpu_torch import resolve_device
 from contexture_nerf_tpu_torch.diffusion import schedulers as sch
+from contexture_nerf_tpu_torch.diffusion.clip import (
+    CLIPTextConfig, CLIPTextModel, CLIPTokenizer, CLIPVisionConfig,
+    CLIPVisionModelWithProjection)
 from contexture_nerf_tpu_torch.diffusion.controlnet import (ControlNet,
                                                             embed_cond)
 from contexture_nerf_tpu_torch.diffusion.unet import (UNet2DCondition,
                                                       UNetConfig)
-from contexture_nerf_tpu_torch.diffusion.vae import Encoder, VAEConfig
+from contexture_nerf_tpu_torch.diffusion.vae import (Encoder, VAEConfig,
+                                                     encode_moments,
+                                                     sample_gaussian)
+from contexture_nerf_tpu_torch.ops.image import resize_linear
+
+# CLIP image normalization (the feature extractor's mean and std)
+CLIP_MEAN = (0.48145466, 0.4578275, 0.40821073)
+CLIP_STD = (0.26862954, 0.26130258, 0.27577711)
 
 
 def scale_latents(latents):
@@ -42,13 +53,11 @@ def unscale_image(image):
     return image / 0.5 * 0.8
 
 
-def resize_linear(x: torch.Tensor, hw) -> torch.Tensor:
-    """jax.image.resize(method="linear") on NCHW: half-pixel bilinear that
-    antialiases when it downsamples (hence antialias=True), computed in
-    f32."""
-    y = F.interpolate(x.float(), size=tuple(hw), mode="bilinear",
-                      align_corners=False, antialias=True)
-    return y.to(x.dtype)
+def default_ramping_coefficients(n_tokens: int = 77) -> np.ndarray:
+    """Per-token weights of the CLIP image embedding in the prompt
+    embedding. Zero123++ v1.1 learns them; without its checkpoint, a linear
+    ramp over the tokens, as the reference defaults to."""
+    return np.linspace(0.0, 1.0, n_tokens, dtype=np.float32)
 
 
 @torch.no_grad()
@@ -72,10 +81,11 @@ def random_init_(module: nn.Module, generator: torch.Generator) -> None:
 
 
 class Zero123PlusTeacher(nn.Module):
-    """UNet + ControlNet + VAE encoder of the Zero123++ teacher, in one
-    dtype: bf16 at full size, f32 at tiny size (as the reference's
-    trainer chooses). `generator` fills the towers with seeded random
-    weights; without it they keep torch's init (for a bridged load)."""
+    """UNet + ControlNet + VAE encoder + CLIP text and vision towers of the
+    Zero123++ teacher, in one dtype: bf16 at full size, f32 at tiny size
+    (as the reference's trainer chooses). `generator` fills the towers with
+    seeded random weights; without it they keep torch's init (for a bridged
+    load). `tile_px` is the side of one of the 3x2 grid's tiles."""
 
     CONDITIONING_SCALE = 2.0  # the depth ControlNet's, reference trainer
 
@@ -87,15 +97,80 @@ class Zero123PlusTeacher(nn.Module):
         self.unet_config = (UNetConfig.tiny(in_channels=4) if tiny
                             else UNetConfig.zero123plus())
         self.vae_config = VAEConfig.tiny() if tiny else VAEConfig.sd()
+        self.tile_px = 32 if tiny else 320
+        if tiny:
+            self.text_config = CLIPTextConfig.tiny()
+            self.vision_config = CLIPVisionConfig.tiny()
+            # the tiny image embedding is ramped into the tiny text width
+            self.vision_config.projection_dim = self.text_config.hidden_size
+        else:
+            self.text_config = CLIPTextConfig.sd2()
+            self.vision_config = CLIPVisionConfig.vit_h()
         with torch.device(dev):
             self.unet = UNet2DCondition(self.unet_config, self.dtype)
             self.controlnet = ControlNet(self.unet_config, self.dtype)
             self.vae_encoder = Encoder(self.vae_config, self.dtype)
+            self.text_encoder = CLIPTextModel(self.text_config, self.dtype)
+            self.vision_encoder = CLIPVisionModelWithProjection(
+                self.vision_config, self.dtype)
+        self.tokenizer = CLIPTokenizer(
+            vocab_size=self.text_config.vocab_size,
+            max_length=self.text_config.max_positions)
+        self.ramping = torch.from_numpy(default_ramping_coefficients(
+            self.text_config.max_positions)).to(dev)
         if generator is not None:
             random_init_(self, generator)
         self.to(self.dtype)
         self.requires_grad_(False)
         self.alphas_cumprod = sch.make_alphas_cumprod(device=dev)
+
+    # -- conditioning ------------------------------------------------------------
+
+    @torch.no_grad()
+    def encode_condition_image(self, image: torch.Tensor,
+                               eps: torch.Tensor) -> torch.Tensor:
+        """cond image (1,3,H,W) in [-1,1] -> an unscaled sample of its VAE
+        posterior, mean + std * eps."""
+        mean, logvar = encode_moments(self.vae_encoder, image)
+        return sample_gaussian(mean, logvar, eps)
+
+    @torch.no_grad()
+    def encode_condition_pair(self, cond_image: torch.Tensor,
+                              eps_cond: torch.Tensor, eps_neg: torch.Tensor
+                              ) -> torch.Tensor:
+        """(2,4,h,w) CFG latents [negative (an all-zero image), positive]."""
+        cond_lat = self.encode_condition_image(cond_image, eps_cond)
+        negative_lat = self.encode_condition_image(
+            torch.zeros_like(cond_image), eps_neg)
+        return torch.cat([negative_lat, cond_lat])
+
+    @torch.no_grad()
+    def clip_hidden_states(self, cond_image: torch.Tensor) -> torch.Tensor:
+        """(2,77,ctx) encoder hidden states [empty prompt, empty prompt +
+        ramped CLIP image embedding] of a cond image in [-1,1]."""
+        dev = cond_image.device
+        sz = self.vision_config.image_size
+        x01 = resize_linear(cond_image.float() / 2 + 0.5, (sz, sz))
+        mean = torch.tensor(CLIP_MEAN, device=dev).reshape(1, 3, 1, 1)
+        std = torch.tensor(CLIP_STD, device=dev).reshape(1, 3, 1, 1)
+        global_embeds = self.vision_encoder((x01 - mean) / std)[:, None, :]
+        empty_ids = torch.from_numpy(self.tokenizer([""])).long().to(dev)
+        text_embeds = self.text_encoder(empty_ids)
+        cond_hidden = text_embeds + global_embeds * self.ramping.reshape(
+            1, -1, 1)
+        return torch.cat([text_embeds, cond_hidden])
+
+    def prepare_conditioning(self, cond_image: torch.Tensor,
+                             eps_cond: torch.Tensor, eps_neg: torch.Tensor
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """cond_image (1,3,Hc,Wc) in [-1,1] -> (cond_lat_pair (2,4,h,w),
+        encoder_hidden_states (2,77,ctx)), CFG pairs [negative, positive].
+        eps_cond / eps_neg are the normal draws of the two VAE posterior
+        samples."""
+        return (self.encode_condition_pair(cond_image, eps_cond, eps_neg),
+                self.clip_hidden_states(cond_image))
+
+    # -- the SDS teacher ------------------------------------------------------------
 
     def embed_control_cond(self, depth_image, latent_hw):
         """ControlNet hint embedding of a depth image (B,3,H,W), resized to

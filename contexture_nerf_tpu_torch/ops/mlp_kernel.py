@@ -223,8 +223,9 @@ def _check_kernel_inputs(x, multires, compute_dtype):
     elif x.shape[1] != EMB_PAD or x.dtype != torch.bfloat16:
         raise ValueError(f"emb must be (N, {EMB_PAD}) bfloat16, got "
                          f"{tuple(x.shape)} {x.dtype}")
-    if x.shape[0] >= 2 ** 31 // 2048:
-        raise ValueError("too many points for int32 offsets")
+    # the kernels index rows with int (element offsets are 64-bit)
+    if x.shape[0] > 2 ** 31 - 1 - 64:
+        raise ValueError("too many points for int32 row indices")
 
 
 def mlp_fwd_kernel(wflat, bflat, x, multires):

@@ -1,12 +1,17 @@
-"""The SDS paint step and loop, counterparts of
-contexture_nerf_tpu/training/trainer.py `_build_sds_step` (render_grid_latent,
+"""The SDS paint step and loop, and the setup that feeds them: counterparts
+of contexture_nerf_tpu/training/trainer.py `ConTEXTure.define_view_weights`,
+`ConTEXTure.prepare_sds`, `_build_sds_step` (render_grid_latent,
 render_grid_latent_local, sds_step) and the loop of `paint_zero123plus`.
 
-`SDSTrainer` takes the `setup` dict that the reference's `prepare_sds`
-returns (numpy arrays or tensors): depth_grid, mask_grid, uv_grid_pts,
-cond_lat_pair, encoder_hidden_states and tile_probs. `prepare_sds` itself
-(rasterizer, SD2-depth bootstrap, CLIP) and its `edit_mask_pts`
-(guide.reference_texture) come with the next slices.
+`prepare_sds` renders the mesh's 7 fixed views once (K5 rasterizes them in
+one launch on the card; K1 queries the MLP on the texture lattice), crops
+and resizes the front view into the condition image and the 6 target views
+into the depth, mask and UV grids, and computes the CLIP and VAE
+conditioning. `build_sds_trainer` goes from a config to a ready
+`SDSTrainer`: mesh model, MLP, teacher, `prepare_sds`, trainer. The 50-step
+SD2-depth front-view bootstrap (skip_bootstrap=False), `edit_mask_pts`
+(guide.reference_texture) and `optim.exact_lattice_render` come with later
+slices.
 
 One step: query the texture MLP at the grid's UVs (the fused kernel on the
 card), composite with the mask, VAE-encode and DDPM-noise, run the Zero123++
@@ -17,23 +22,35 @@ and the 1/2-sum-square loss on one sampled latent tile, back-propagate
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+import contextlib
+import logging
+import time
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from contexture_nerf_tpu_torch import resolve_device
-from contexture_nerf_tpu_torch.core.config import TrainConfig
+from contexture_nerf_tpu_torch.core.config import RenderConfig, TrainConfig
 from contexture_nerf_tpu_torch.diffusion import schedulers as sch
 from contexture_nerf_tpu_torch.diffusion.vae import encode_moments
 from contexture_nerf_tpu_torch.diffusion.zero123plus import (
     Zero123PlusTeacher, scale_image, scale_latents)
 from contexture_nerf_tpu_torch.models.fields import NeRF2D
+from contexture_nerf_tpu_torch.models.textured_mesh import TexturedMeshModel
 from contexture_nerf_tpu_torch.ops.attention import routes_to_kernel
-from contexture_nerf_tpu_torch.ops.grid import split_grid_to_6
+from contexture_nerf_tpu_torch.ops.grid import merge_6_to_grid, split_grid_to_6
+from contexture_nerf_tpu_torch.ops.image import (crop_and_resize,
+                                                 get_nonzero_region_tuple)
 from contexture_nerf_tpu_torch.ops.mlp_kernel import (fused_nerf2d,
                                                       fused_nerf2d_emb,
                                                       pad_embedding)
+from contexture_nerf_tpu_torch.ops.view_weights import compute_view_weights
+from contexture_nerf_tpu_torch.raster.render import RenderCache
+from contexture_nerf_tpu_torch.training.views_dataset import \
+    Zero123PlusDataset
+
+logger = logging.getLogger("contexture_nerf_tpu_torch")
 
 GUIDANCE_SCALE = 10.0  # reference trainer.py:768
 GRAD_SCALE = 0.2  # reference trainer.py:830
@@ -49,31 +66,34 @@ def _to(x, device, dtype=None):
 
 
 class SDSTrainer:
-    """The SDS texture loop of the Zero123++ teacher on one device."""
+    """The SDS texture loop of the Zero123++ teacher on one device. `setup`
+    is what `prepare_sds` returns. The step's random draws come from
+    `generator` (a new one seeded with optim.seed if None), which also
+    fills a teacher or MLP made here."""
 
     def __init__(self, cfg: TrainConfig, setup: Dict, teacher:
                  Optional[Zero123PlusTeacher] = None,
                  mlp: Optional[NeRF2D] = None, tiny: bool = False,
-                 device="cuda"):
+                 device="cuda", generator: Optional[torch.Generator] = None):
         dev = self.device = resolve_device(device)
         if cfg.optim.exact_lattice_render:
             raise NotImplementedError(
-                "optim.exact_lattice_render renders through the raster "
-                "cache of prepare_sds; it arrives with the rasterizer slice "
-                "(raster/pallas_raster.py)")
+                "optim.exact_lattice_render samples the texture lattice "
+                "through the rasterizer's cache of the 6 target views "
+                "(prepare_sds's cache6); a later slice ports it")
         if setup.get("edit_mask_pts") is not None:
             raise NotImplementedError(
-                "edit_mask_pts (guide.reference_texture) arrives with the "
-                "prepare_sds slice")
+                "edit_mask_pts (guide.reference_texture) comes with a later "
+                "slice")
         self.cfg = cfg
-        self.generator = torch.Generator(device=dev).manual_seed(
-            cfg.optim.seed)
+        self.generator = generator or torch.Generator(
+            device=dev).manual_seed(cfg.optim.seed)
         self.teacher = teacher or Zero123PlusTeacher(
             tiny=tiny, device=dev, generator=self.generator)
         self.dtype = self.teacher.dtype
         self.mlp = mlp or NeRF2D(generator=self.generator, device=dev)
         self.mlp.to(dev)
-        self.tile_px = 32 if tiny else 320
+        self.tile_px = self.teacher.tile_px
         self.vae_down = self.teacher.vae_config.downsample
         self.lat_tile = self.tile_px // self.vae_down
         self.grid_hw = (3 * self.tile_px, 2 * self.tile_px)
@@ -281,7 +301,8 @@ class SDSTrainer:
         configs and the attention routing rule: the MLP forward once for the
         canvas (plus once for the backward slice with local_sds_grad), its
         backward once, and every teacher self-attention the rule routes to
-        the flash kernel (cross-attention's 77 tokens never are)."""
+        the flash kernel (cross-attention's 77 tokens never are); the
+        rasterizer never (it runs once, in prepare_sds)."""
         ucfg = self.teacher.unet_config
         nb = len(ucfg.block_out_channels)
         lpb, depth = ucfg.layers_per_block, ucfg.transformer_depth
@@ -309,4 +330,201 @@ class SDSTrainer:
         single = sum(1 for c in calls if c[2] == 0 and routes_to_kernel(*c))
         two = sum(1 for c in calls if c[2] > 0 and routes_to_kernel(*c))
         return {"mlp_fwd": 2 if self.local_grad else 1, "mlp_bwd": 1,
-                "flash_attn_single": single, "flash_attn_two_source": two}
+                "flash_attn_single": single, "flash_attn_two_source": two,
+                "raster": 0}
+
+
+# -- prepare_sds: mesh -> views -> setup -------------------------------------------
+
+TILE_WEIGHTING = ("uniform", "weighted", "mixed")
+
+
+@contextlib.contextmanager
+def _phase(timings: Optional[Dict[str, float]], name: str, device):
+    """Wall milliseconds of a block into timings[name], the device
+    synchronised at both ends (nothing is timed when timings is None)."""
+    if timings is None:
+        yield
+        return
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    yield
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    timings[name] = timings.get(name, 0.0) + (time.perf_counter() - t0) * 1e3
+
+
+def view_angles(render: RenderConfig
+                ) -> Tuple[List[float], List[float], List[float]]:
+    """(thetas, phis, radii) of the 7 fixed views: the front, then the 6
+    Zero123++ targets, phi shifted by render.front_offset."""
+    poses = Zero123PlusDataset(render).poses()
+    front_offset = np.deg2rad(render.front_offset)
+    return ([p["theta"] for p in poses],
+            [(p["phi"] - front_offset) % (2 * np.pi) for p in poses],
+            [p["radius"] for p in poses])
+
+
+def define_view_weights(mesh_model: TexturedMeshModel, render: RenderConfig
+                        ) -> Tuple[RenderCache, torch.Tensor]:
+    """The geometry of the 7 fixed views and their view weights (B,1,H,W)
+    bool: True where the pixel's face is seen most head-on in this view."""
+    thetas, phis, radii = view_angles(render)
+    cache = mesh_model.render_geometry(theta=thetas, phi=phis, radius=radii)
+    weights = compute_view_weights(cache.face_idx[:, None],
+                                   cache.face_normals[..., 2])
+    return cache, weights
+
+
+def tile_probabilities(object_masks: torch.Tensor, view_weights: torch.Tensor,
+                       mode: str) -> torch.Tensor:
+    """Sampling probabilities of the 6 grid tiles (views 1..6), from the
+    share of each view's foreground pixels whose face it sees best:
+    'uniform' (the default), 'weighted' (by that share) or 'mixed' (half
+    and half). When no view has such a pixel, the shares fall back to
+    uniform. Returns (6,) f32 on the host."""
+    if mode not in TILE_WEIGHTING:
+        raise ValueError(f"optim.tile_weighting: unknown mode {mode!r} "
+                         "(expected uniform|mixed|weighted)")
+    fg = object_masks > 0.5
+    best = view_weights & fg
+    frac = best.sum(dim=(1, 2, 3)) / fg.sum(dim=(1, 2, 3)).clamp(min=1)
+    w6 = frac.float().cpu().numpy().astype(np.float64)[1:]
+    uniform = np.full(6, 1.0 / 6.0)
+    if w6.sum() <= 0:
+        if mode != "uniform":
+            logger.warning("all view weights are zero; tile_weighting "
+                           f"'{mode}' falls back to uniform")
+        w6 = uniform.copy()
+    w6 = w6 / w6.sum()
+    probs = {"uniform": uniform, "weighted": w6,
+             "mixed": 0.5 * uniform + 0.5 * w6}[mode]
+    return torch.from_numpy((probs / probs.sum()).astype(np.float32))
+
+
+def condition_eps(teacher: Zero123PlusTeacher, generator: torch.Generator
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The two normal draws of the VAE posterior samples of the condition
+    latents (positive, negative), (1, 4, t/8, t/8) each, in the teacher's
+    dtype."""
+    lat = teacher.tile_px // teacher.vae_config.downsample
+    dev = generator.device
+    return tuple(torch.randn((1, teacher.vae_config.latent_channels, lat,
+                              lat), generator=generator, device=dev
+                             ).to(teacher.dtype) for _ in range(2))
+
+
+@torch.no_grad()
+def prepare_sds(cfg: TrainConfig, mesh_model: TexturedMeshModel, mlp: NeRF2D,
+                teacher: Zero123PlusTeacher,
+                eps: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                skip_bootstrap: bool = False,
+                generator: Optional[torch.Generator] = None,
+                timings: Optional[Dict[str, float]] = None) -> Dict:
+    """All-view geometry and the one-time teacher conditioning: the static
+    setup that `SDSTrainer` takes. With skip_bootstrap the condition image
+    is the current front render (the SD2-depth img2img bootstrap is a later
+    slice). `eps` = (eps_cond, eps_neg), the VAE posterior draws of the
+    condition latents; drawn from `generator` when None. `timings`, when
+    given, receives the wall ms of the phases geometry, render, crops, vae
+    and clip.
+
+    Returns depth_grid (1,3,3t,2t), mask_grid (1,1,3t,2t), uv_grid_pts
+    (6t^2, 2), cond_image (1,3,t,t), cond_lat_pair (2,4,t/8,t/8),
+    encoder_hidden_states (2,77,ctx), tile_probs (6,) and bboxes6 (the 6
+    target views' crop boxes)."""
+    if not skip_bootstrap:
+        raise NotImplementedError(
+            "prepare_sds(skip_bootstrap=False) runs the 50-step SD2-depth "
+            "front-view bootstrap (diffusion/sd_depth.py), which a later "
+            "slice ports; pass skip_bootstrap=True to condition on the "
+            "front render")
+    if cfg.optim.exact_lattice_render:
+        raise NotImplementedError(
+            "optim.exact_lattice_render keeps the rasterizer's cache of the "
+            "6 target views (cache6); a later slice ports it")
+    if cfg.guide.reference_texture is not None:
+        raise NotImplementedError(
+            "guide.reference_texture (edit_mask_pts) comes with a later slice")
+    dev = mesh_model.device
+    tp = teacher.tile_px
+    if eps is None:
+        eps = condition_eps(teacher, generator or torch.Generator(
+            device=dev).manual_seed(cfg.optim.seed))
+    eps_cond, eps_neg = (e.to(dev) for e in eps)
+
+    with _phase(timings, "geometry", dev):
+        cache, view_weights = define_view_weights(mesh_model, cfg.render)
+    with _phase(timings, "render", dev):
+        outputs = mesh_model.render(
+            mlp, render_cache=cache,
+            background=torch.tensor([0.5, 0.5, 0.5], device=dev))
+        object_masks = outputs["mask"]
+        depth_maps = 1.0 - outputs["depth"]
+    with _phase(timings, "crops", dev):
+        masks_np = object_masks[:, 0].cpu().numpy()
+        bboxes = [get_nonzero_region_tuple(m) for m in masks_np]
+        # the condition image: the front view cropped to tp^2 on gray
+        front_rgb = crop_and_resize(outputs["image"][:1], bboxes[0], tp, tp)
+        front_a = crop_and_resize(object_masks[:1], bboxes[0], tp, tp)
+        cond_image = front_rgb * front_a + 0.5 * (1 - front_a)
+        # the 6 target views: depth on gray, and the mask-weighted UVs
+        uv_maps = cache.uv_features.permute(0, 3, 1, 2)
+        depth_tiles, uv_tiles, m_tiles = [], [], []
+        for i in range(1, len(bboxes)):
+            a = crop_and_resize(object_masks[i:i + 1], bboxes[i], tp, tp)
+            d = crop_and_resize(depth_maps[i:i + 1], bboxes[i], tp, tp)
+            depth_tiles.append(torch.cat([d, d, d], dim=1) * a + 0.5 * (1 - a))
+            m = cache.mask[i:i + 1]
+            m_t = crop_and_resize(m, bboxes[i], tp, tp)
+            uvm = crop_and_resize(uv_maps[i:i + 1] * m, bboxes[i], tp, tp)
+            uv_tiles.append(uvm / m_t.clamp(min=1e-6))
+            m_tiles.append(m_t)
+        depth_grid = merge_6_to_grid(torch.cat(depth_tiles))
+        uv_grid = merge_6_to_grid(torch.cat(uv_tiles))
+        mask_grid = merge_6_to_grid(torch.cat(m_tiles))
+        uv_pts = uv_grid[0].permute(1, 2, 0).reshape(-1, 2).clamp(0.0, 1.0)
+    with _phase(timings, "vae", dev):
+        cond_lat_pair = teacher.encode_condition_pair(cond_image * 2 - 1,
+                                                      eps_cond, eps_neg)
+    with _phase(timings, "clip", dev):
+        ehs = teacher.clip_hidden_states(cond_image * 2 - 1)
+    tile_probs = tile_probabilities(object_masks, view_weights,
+                                    cfg.optim.tile_weighting)
+    return {"depth_grid": depth_grid, "mask_grid": mask_grid,
+            "uv_grid_pts": uv_pts.contiguous(), "cond_image": cond_image,
+            "cond_lat_pair": cond_lat_pair, "encoder_hidden_states": ehs,
+            "tile_probs": tile_probs.to(dev), "bboxes6": bboxes[1:]}
+
+
+def build_sds_trainer(cfg: TrainConfig, tiny: bool = False, device="cuda",
+                      teacher: Optional[Zero123PlusTeacher] = None,
+                      mlp: Optional[NeRF2D] = None,
+                      eps: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                      timings: Optional[Dict[str, float]] = None
+                      ) -> Tuple[SDSTrainer, Dict]:
+    """From a config to a ready SDS loop: the mesh model of
+    guide.shape_path, the texture MLP and the teacher (seeded random
+    weights from optim.seed unless given), `prepare_sds` without the
+    bootstrap, then the trainer, whose draws continue the same generator.
+    Returns (trainer, setup)."""
+    if cfg.guide.initial_texture is not None:
+        raise NotImplementedError(
+            "guide.initial_texture (fitting the MLP to an image) comes with "
+            "a later slice")
+    dev = resolve_device(device)
+    generator = torch.Generator(device=dev).manual_seed(cfg.optim.seed)
+    teacher = teacher or Zero123PlusTeacher(tiny=tiny, device=dev,
+                                            generator=generator)
+    mlp = mlp or NeRF2D(generator=generator, device=dev)
+    mesh_model = TexturedMeshModel(
+        cfg.guide, render_grid_size=cfg.render.train_grid_size,
+        texture_resolution=cfg.guide.texture_resolution,
+        compute_dtype=teacher.dtype, device=dev)
+    setup = prepare_sds(cfg, mesh_model, mlp, teacher, eps=eps,
+                        skip_bootstrap=True, generator=generator,
+                        timings=timings)
+    trainer = SDSTrainer(cfg, setup, teacher=teacher, mlp=mlp, tiny=tiny,
+                         device=dev, generator=generator)
+    return trainer, setup

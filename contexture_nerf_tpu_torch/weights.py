@@ -6,9 +6,13 @@ example `jax.tree.map(np.asarray, params)`); this module needs neither JAX
 nor flax. Port modules keep the flax names, so the mapping is mechanical:
   - a conv `kernel` (kh, kw, I, O) becomes `weight` (O, I, kh, kw);
   - a Dense `kernel` (in, out) becomes `weight` (out, in);
-  - a LayerNorm / GroupNorm `scale` becomes `weight`; `bias` stays.
+  - a LayerNorm / GroupNorm `scale` becomes `weight`; `bias` stays;
+  - an nn.Embed `embedding` (num, features) becomes `weight` as it is;
+  - raw parameters (CLIP's `position_embedding`, `class_embedding`) keep
+    their names and layout.
 Values come out f32; `load_state_dict` casts them to the module's dtype.
-A loader for diffusers checkpoints arrives with the `prepare_sds` slice.
+A loader for diffusers checkpoints waits until such checkpoint files are in
+the repository.
 """
 
 from __future__ import annotations
@@ -18,6 +22,9 @@ from typing import Dict, Iterator, Tuple
 
 import numpy as np
 import torch
+
+
+RAW_PARAMS = ("position_embedding", "class_embedding")
 
 
 def _leaves(tree: Mapping, prefix: str = "") -> Iterator[Tuple[str, object]]:
@@ -33,7 +40,7 @@ def convert_tree(tree: Mapping) -> Dict[str, torch.Tensor]:
     """A flax module's variables ({"params": ...} or the bare tree) -> a
     torch state_dict with the same module path: NeRF2D -> models.fields.NeRF2D,
     UNet2DCondition -> diffusion.unet, ControlNet -> diffusion.controlnet,
-    any layers.py block -> its port."""
+    the CLIP towers -> diffusion.clip, any layers.py block -> its port."""
     if "params" in tree and isinstance(tree["params"], Mapping):
         tree = tree["params"]
     out = {}
@@ -48,9 +55,9 @@ def convert_tree(tree: Mapping) -> Dict[str, torch.Tensor]:
             else:
                 raise ValueError(f"{path}: unexpected kernel rank {a.ndim}")
             leaf = "weight"
-        elif leaf == "scale":
+        elif leaf in ("scale", "embedding"):
             leaf = "weight"
-        elif leaf != "bias":
+        elif leaf not in ("bias",) + RAW_PARAMS:
             raise ValueError(f"{path}: unknown parameter kind {leaf!r}")
         out[".".join(mods + [leaf])] = torch.from_numpy(np.array(a))
     return out
@@ -65,8 +72,13 @@ def vae_encoder_state_dict(vae_params: Mapping) -> Dict[str, torch.Tensor]:
 
 def load_teacher(teacher, zp_params: Mapping) -> None:
     """Zero123PlusPipeline.params (numpy tree with "unet", "controlnet",
-    "vae") into a Zero123PlusTeacher."""
+    "vae" and, where given, the CLIP towers "text" and "vision") into a
+    Zero123PlusTeacher."""
     teacher.unet.load_state_dict(convert_tree(zp_params["unet"]))
     teacher.controlnet.load_state_dict(convert_tree(zp_params["controlnet"]))
     teacher.vae_encoder.load_state_dict(
         vae_encoder_state_dict(zp_params["vae"]))
+    for key, tower in (("text", teacher.text_encoder),
+                       ("vision", teacher.vision_encoder)):
+        if key in zp_params:
+            tower.load_state_dict(convert_tree(zp_params[key]))

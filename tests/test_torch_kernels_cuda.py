@@ -16,16 +16,27 @@ bf16 is exact), as chip_smoke.py holds them. Attention: both versions round
 P and the output to bf16 at other points, about one bf16 ulp of the largest
 outputs; the kernel must stay within a tenth of the plain output's RMS, which
 a dropped second KV source or a softmax scale of 1/sqrt(128) for 1/sqrt(64)
-exceeds (checked here too).
+exceeds (checked here too). The rasterizer (K5) repeats its plain
+version's arithmetic without FMA contraction and breaks z ties by the lowest
+face index: face_idx must agree on at least 99.99% of covered pixels, every
+mismatch a z tie (|dz| <= 1e-6) or an edge pixel (min barycentric <= 1e-5),
+bary within 1e-5 where the faces agree, and two runs bit-identical; a
+reversed z test and a dropped last face chunk must miss those limits.
 """
 
 import pytest
 import torch
 
-from contexture_nerf_tpu_torch.models.fields import NeRF2D
+from contexture_nerf_tpu_torch.core.config import config_from_dict
+from contexture_nerf_tpu_torch.models.fields import NeRF2D, uv_lattice
+from contexture_nerf_tpu_torch.models.textured_mesh import TexturedMeshModel
 from contexture_nerf_tpu_torch.ops import _build
 from contexture_nerf_tpu_torch.ops import attention as att
 from contexture_nerf_tpu_torch.ops import mlp_kernel as mk
+from contexture_nerf_tpu_torch.raster import raster_kernel as rk
+from contexture_nerf_tpu_torch.raster.rasterize import rasterize_geometry
+from contexture_nerf_tpu_torch.training.trainer import view_angles
+from tools.make_shapes import uv_sphere
 
 pytestmark = pytest.mark.cuda
 
@@ -67,6 +78,19 @@ def test_mlp_kernels_match_plain(cuda, n):
     again = mk.mlp_bwd_kernel(wflat, bflat, emb, g, None)
     assert all(torch.equal(a, b) for a, b in zip(dws + dbs,
                                                  again[0] + again[1]))
+
+
+def test_mlp_fwd_kernel_takes_the_texture_lattice(cuda):
+    """prepare_sds queries the MLP on the 1024^2 UV lattice: 2^20 points."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    mlp = NeRF2D(generator=gen, device=cuda).requires_grad_(False)
+    params = [p for lin in mlp.linears() for p in (lin.weight, lin.bias)]
+    ws, bs = mk.pack_params(params, 10)
+    wflat, bflat = mk.flatten_params(ws, bs, torch.bfloat16)
+    uv = uv_lattice(1024, device=cuda)
+    assert _agrees(mk.mlp_fwd_kernel(wflat, bflat, uv, 10),
+                   mk.fused_nerf2d_plain(ws, bs, uv, 10, torch.bfloat16),
+                   mk.fused_nerf2d_plain(ws, bs, uv, 10, torch.float32))
 
 
 def test_fused_entry_points_launch_the_kernels(cuda):
@@ -112,3 +136,52 @@ def test_flash_attention_rejects_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="64"):
         w = torch.zeros((1, 1, 8, 32), device=cuda, dtype=torch.bfloat16)
         att.flash_attention(w, w, w)
+
+
+def _faces(cuda, shape):
+    """(fvz, fvi) of the 7 fixed views of the torus, or of a 50,880-face
+    UV sphere (0.6 across, as the paint path normalizes) on the front
+    view."""
+    cfg = config_from_dict({"guide": {"shape_path": "shapes/torus.obj"}})
+    mm = TexturedMeshModel(cfg.guide, device=cuda)
+    th, ph, r = view_angles(cfg.render)
+    if shape == "torus":
+        _, fvc, fvi, _ = mm.project(th, ph, r)
+    else:
+        v, f, _, _ = uv_sphere(160, 160)
+        v = torch.from_numpy(v * 0.6).to(cuda)
+        v[:, 1] += 0.25
+        _, fvc, fvi, _ = mm.renderer.project(
+            v, torch.from_numpy(f).to(cuda), th[:1], ph[:1], r[:1], 0.25)
+    return fvc[..., 2].contiguous(), fvi.contiguous()
+
+
+@pytest.mark.parametrize("shape,views,H,W", [
+    ("torus", 7, 1200, 1200), ("sphere", 1, 1200, 1200),
+    ("torus", 2, 777, 1234)])
+def test_raster_kernel_matches_plain(cuda, shape, views, H, W):
+    fvz, fvi = _faces(cuda, shape)
+    fvz, fvi = fvz[:views], fvi[:views]
+    before = _build.launch_counts["raster"]
+    idx, bary = rk.rasterize_geometry(fvz, fvi, H, W)
+    assert _build.launch_counts["raster"] == before + 1
+    again = rk.rasterize_geometry_kernel(fvz, fvi, H, W)
+    assert torch.equal(idx, again[0]) and torch.equal(bary, again[1])
+    p_idx, p_bary = rasterize_geometry(fvz, fvi, H, W)
+    a = rk.raster_agreement(idx, bary, p_idx, p_bary, fvz)
+    assert rk.agreement_ok(a), a
+    assert a["covered"] > 0.02 * views * H * W
+    if shape == "torus" and views == 7:
+        for fz, fi in ((-fvz, fvi), (fvz[:, :-64], fvi[:, :-64])):
+            b = rk.raster_agreement(*rasterize_geometry(fz, fi, H, W),
+                                    p_idx, p_bary, fvz)
+            assert not rk.agreement_ok(b), b
+
+
+def test_raster_kernel_rejects_what_it_does_not_take(cuda):
+    z = torch.zeros((1, 4, 3), device=cuda)
+    with pytest.raises(ValueError, match="B, F, 3, 2"):
+        rk.rasterize_geometry_kernel(z, torch.zeros((1, 4, 3), device=cuda),
+                                     8, 8)
+    with pytest.raises(ValueError, match="CUDA"):
+        rk.rasterize_geometry_kernel(z.cpu(), torch.zeros((1, 4, 3, 2)), 8, 8)

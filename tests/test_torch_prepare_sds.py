@@ -1,0 +1,232 @@
+"""The port's prepare_sds (contexture_nerf_tpu_torch.training.trainer)
+against the JAX reference's `ConTEXTure.prepare_sds(skip_bootstrap=True)`,
+tiny models, f32, on the CPU, on a UV sphere; then one SDS step of each on
+its own setup.
+
+One tiny JAX trainer is built per module. prepare_sds without the
+bootstrap never touches the SD2-depth towers, so the fixture does not build
+them. The port gets the reference's MLP, VAE and CLIP weights through
+weights.py and the two VAE posterior draws re-derived with jax.random from
+the reference's key.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from contexture_nerf_tpu.core.config import config_from_dict
+from contexture_nerf_tpu.training.trainer import ConTEXTure
+from contexture_nerf_tpu_torch import weights
+from contexture_nerf_tpu_torch.core.config import \
+    config_from_dict as torch_config_from_dict
+from contexture_nerf_tpu_torch.diffusion.zero123plus import \
+    Zero123PlusTeacher
+from contexture_nerf_tpu_torch.models.fields import NeRF2D
+from contexture_nerf_tpu_torch.models.textured_mesh import TexturedMeshModel
+from contexture_nerf_tpu_torch.training.trainer import (build_sds_trainer,
+                                                        define_view_weights,
+                                                        prepare_sds,
+                                                        tile_probabilities)
+from tools.make_shapes import uv_sphere, write_obj
+
+T = 500
+KEY = 3
+MODES = ("uniform", "weighted", "mixed")
+
+
+def _cfg_dict(tmp, mode="uniform"):
+    return {
+        "log": {"exp_name": "torch_prep", "exp_root": str(tmp / "exp"),
+                "log_images": False, "save_mesh": False},
+        "render": {"train_grid_size": 32, "eval_grid_size": 32},
+        "guide": {"text": "torch_prep", "shape_path": str(tmp / "s.obj"),
+                  "texture_resolution": 16},
+        "optim": {"seed": 0, "sds_iterations": 1, "tile_weighting": mode,
+                  "local_sds_margin_px": 8,
+                  "precompute_uv_embedding": False},
+    }
+
+
+def _eps(key, shape):
+    """The draws of the reference's prepare_sds -> prepare_conditioning
+    -> encode_condition_image (positive, negative)."""
+    _, k_cond = jax.random.split(key)
+    k1, k2 = jax.random.split(k_cond)
+    return tuple(torch.from_numpy(np.asarray(jax.random.normal(k, shape)))
+                 for k in (k1, k2))
+
+
+@pytest.fixture(scope="module")
+def reference(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("torch_prep")
+    write_obj(tmp / "s.obj", *uv_sphere(6, 8))
+    mp = pytest.MonkeyPatch()
+    mp.setattr(ConTEXTure, "_init_diffusion", lambda self: None)
+    mp.setattr(ConTEXTure, "_calc_text_embeddings", lambda self: (None, None))
+    try:
+        tr = ConTEXTure(config_from_dict(_cfg_dict(tmp)), tiny_models=True,
+                        backend="xla")
+        runs = {}
+        for mode in MODES:
+            tr.cfg.optim.tile_weighting = mode
+            key = tr.key
+            runs[mode] = (key, tr.prepare_sds(skip_bootstrap=True))
+        yield tmp, tr, runs
+    finally:
+        mp.undo()
+
+
+def _port_parts(tr):
+    teacher = Zero123PlusTeacher(tiny=True, device="cpu")
+    weights.load_teacher(teacher,
+                         jax.tree.map(np.asarray, tr.zero123plus.params))
+    mlp = NeRF2D(device="cpu")
+    mlp.load_state_dict(weights.convert_tree(
+        jax.tree.map(np.asarray, tr.texture_params)))
+    return teacher, mlp
+
+
+@pytest.fixture(scope="module")
+def port(reference):
+    tmp, tr, runs = reference
+    teacher, mlp = _port_parts(tr)
+    key, ref = runs["uniform"]
+    cfg = torch_config_from_dict(_cfg_dict(tmp))
+    eps = _eps(key, (1,) + tuple(ref["cond_lat_pair"].shape[1:]))
+    trainer, setup = build_sds_trainer(cfg, tiny=True, device="cpu",
+                                       teacher=teacher, mlp=mlp, eps=eps)
+    return trainer, setup
+
+
+def _close(got, ref, atol, name):
+    np.testing.assert_allclose(np.asarray(got), np.asarray(ref), atol=atol,
+                               rtol=0, err_msg=name)
+
+
+def test_prepare_sds_matches_reference(reference, port):
+    _, _, runs = reference
+    _, ref = runs["uniform"]
+    _, setup = port
+    assert setup["bboxes6"] == [tuple(b) for b in ref["bboxes6"]]
+    # f32 throughout; measured errors in brackets. The rasterized faces
+    # agree pixel for pixel here (no pixel centre sits within rounding of an
+    # edge), so the mask grid is exact and the UVs and the condition image
+    # differ only by the camera math's, the MLP's and the resizes' rounding
+    # (7e-6); the per-view depth normalization divides by the sphere's z
+    # range and so multiplies that rounding (1.4e-5); the VAE and CLIP sum
+    # their convolutions and matmuls in other orders (4e-5 of max 5.2, and
+    # 4e-6)
+    _close(setup["mask_grid"], ref["mask_grid"], 1e-6, "mask_grid")
+    _close(setup["depth_grid"], ref["depth_grid"], 5e-5, "depth_grid")
+    _close(setup["uv_grid_pts"], ref["uv_grid_pts"], 2e-5, "uv_grid_pts")
+    _close(setup["cond_image"], ref["cond_image"], 2e-5, "cond_image")
+    _close(setup["cond_lat_pair"], ref["cond_lat_pair"], 2e-4,
+           "cond_lat_pair")
+    _close(setup["encoder_hidden_states"], ref["encoder_hidden_states"],
+           2e-5, "encoder_hidden_states")
+    assert float(setup["mask_grid"].max()) > 0.5  # the sphere is in view
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_tile_probs_match_reference(reference, mode):
+    tmp, tr, runs = reference
+    _, ref = runs[mode]
+    cfg = torch_config_from_dict(_cfg_dict(tmp, mode))
+    mesh_model = TexturedMeshModel(cfg.guide, render_grid_size=32,
+                                   texture_resolution=16, device="cpu")
+    cache, view_weights = define_view_weights(mesh_model, cfg.render)
+    probs = tile_probabilities(cache.mask, view_weights, mode)
+    np.testing.assert_allclose(probs.numpy(), np.asarray(ref["tile_probs"]),
+                               atol=1e-7, rtol=0)
+    if mode != "uniform":  # the sphere's views are not all alike
+        assert float(probs.max() - probs.min()) > 1e-3
+    # no best-view pixel anywhere: every mode falls back to uniform, as the
+    # reference's w6.sum() <= 0 branch does
+    none = tile_probabilities(cache.mask, torch.zeros_like(view_weights),
+                              mode)
+    np.testing.assert_allclose(none.numpy(), np.full(6, 1 / 6), atol=1e-7)
+
+
+def test_tile_probs_fallback_matches_reference(reference):
+    """The reference with every view weight False (its all-zero branch)."""
+    tmp, tr, _ = reference
+    mp = pytest.MonkeyPatch()
+    orig = tr.define_view_weights
+
+    def no_best_view():
+        orig()
+        tr.view_weights = jnp.zeros_like(tr.view_weights)
+
+    mp.setattr(tr, "define_view_weights", no_best_view)
+    try:
+        tr.cfg.optim.tile_weighting = "weighted"
+        ref = tr.prepare_sds(skip_bootstrap=True)
+    finally:
+        mp.undo()
+    cfg = torch_config_from_dict(_cfg_dict(tmp, "weighted"))
+    mesh_model = TexturedMeshModel(cfg.guide, render_grid_size=32,
+                                   texture_resolution=16, device="cpu")
+    cache, view_weights = define_view_weights(mesh_model, cfg.render)
+    probs = tile_probabilities(cache.mask, torch.zeros_like(view_weights),
+                               "weighted")
+    np.testing.assert_allclose(probs.numpy(), np.asarray(ref["tile_probs"]),
+                               atol=1e-7, rtol=0)
+
+
+def _draws(tile_probs, z_shape, cl_shape):
+    """The step's draws, as sds_step and _cfg_core take them from the key."""
+    k_enc, k_noise, k_teach, k_tile = jax.random.split(
+        jax.random.PRNGKey(KEY), 4)
+    k_neg, k_cond = jax.random.split(k_teach)
+    return {
+        "tile_idx": int(jax.random.choice(k_tile, 6, p=tile_probs)),
+        "eps": np.asarray(jax.random.normal(k_enc, z_shape, jnp.float32)),
+        "noise": np.asarray(jax.random.normal(k_noise, z_shape)),
+        "neg_noise": np.asarray(jax.random.normal(k_neg, cl_shape)),
+        "cond_noise": np.asarray(jax.random.normal(k_cond, cl_shape)),
+    }
+
+
+def test_sds_step_on_ported_setup_matches_reference(reference, port):
+    _, tr, runs = reference
+    _, ref = runs["uniform"]
+    trainer, _ = port
+    tr.cfg.optim.tile_weighting = "uniform"
+    step, optimizer, hot = tr._build_sds_step(ref, None)
+    params = tr.texture_params
+    p_ref, _, loss_ref, gn_ref, fisher_ref, grid_ref = step(
+        params, optimizer.init(params), jnp.asarray([T], jnp.int32),
+        jax.random.PRNGKey(KEY), hot)
+    draws = _draws(hot["tile_probs"], trainer.latent_shape(),
+                   tuple(hot["cond_lat_pair"].shape[1:]))
+    _, loss, gn, fisher, grid = trainer.step(T, draws)
+    # each side on its own setup, which differ as bounded above: the
+    # MLP's Fourier embedding (top frequency 2^9) turns the UVs' 7e-6 into
+    # up to 6e-4 on the composited grid, and the teacher's CFG at 10
+    # amplifies the conditioning's differences (measured: loss 1e-7, grad
+    # norm 1.2e-4, fisher 1e-6 relative)
+    np.testing.assert_allclose(float(loss), float(loss_ref), rtol=1e-4)
+    np.testing.assert_allclose(float(gn), float(gn_ref), rtol=2e-3)
+    np.testing.assert_allclose(float(fisher), float(fisher_ref), rtol=1e-4)
+    _close(grid, grid_ref, 2e-3, "grid")
+
+
+def test_prepare_sds_waits_for_the_bootstrap_slice(reference, port):
+    tmp, tr, _ = reference
+    trainer, _ = port
+    cfg = torch_config_from_dict(_cfg_dict(tmp))
+    mesh_model = TexturedMeshModel(cfg.guide, render_grid_size=32,
+                                   texture_resolution=16, device="cpu")
+    with pytest.raises(NotImplementedError, match="SD2-depth"):
+        prepare_sds(cfg, mesh_model, trainer.mlp, trainer.teacher)
+
+
+def test_mesh_without_uvs_waits_for_atlas_unwrap(tmp_path):
+    v, f, _, _ = uv_sphere(4, 6)
+    write_obj(tmp_path / "nouv.obj", v, f)
+    cfg = torch_config_from_dict({"guide": {
+        "shape_path": str(tmp_path / "nouv.obj")}})
+    with pytest.raises(NotImplementedError, match="atlas_unwrap"):
+        TexturedMeshModel(cfg.guide, device="cpu")
