@@ -7,18 +7,22 @@ Run from the root of a checkout, on a machine with one NVIDIA GPU:
 
 It builds the hand-written CUDA kernels from csrc/, holds each against its
 plain PyTorch version at the shapes the main path gives it (and checks that
-two MLP-backward runs and two rasterizer runs are bit-identical, and that
+two MLP-backward, rasterizer and GroupNorm runs are bit-identical, and that
 planted faults miss the tolerances), then drives the main path at full
 width from a mesh on disk: `build_sds_trainer` on shapes/torus.obj at the
-default config (7 views of 1200x1200 rasterized, the 1024^2 texture, the
-CLIP text and vision towers and the VAE conditioning of `prepare_sds`,
-then the Zero123++ UNet + depth ControlNet + SD VAE encoder + 8x256 MLP on a
-960x640 canvas, bf16, random towers from the seed) for one warm-up and
-three timed SDS steps. prepare_sds's launches and each step's must equal
-the counts derived for them. Any failed phase exits non-zero. The last line
-is {"ok": true, "device": {...}}; the line before it is the JSON record of
-the kernels. --profile also writes a torch.profiler table of one step to
-chiprun_out/.
+default config with guide.text "a photo of a dairy cow" (7 views of
+1200x1200 rasterized, the 1024^2 texture, the SD2-depth front-view
+bootstrap: the SD2 text tower, 51 PLMS steps of the SD2-depth UNet under
+CFG at 7.5 and the 512^2 VAE decode; then the CLIP text and vision towers
+and the VAE conditioning of `prepare_sds`, then the Zero123++ UNet + depth
+ControlNet + SD VAE encoder + 8x256 MLP on a 960x640 canvas, bf16, random
+towers from the seed) for one warm-up and three timed SDS steps, then one
+step with the GroupNorms hooked (K6's calls, bytes and per-shape times) and
+one with the plain GroupNorm path. prepare_sds's launches and each step's
+must equal the counts derived for them. Any failed phase exits non-zero.
+The last line is {"ok": true, "device": {...}}; the line before it is the
+JSON record of the kernels. --profile also writes a torch.profiler table of
+one step to chiprun_out/.
 """
 
 import argparse
@@ -262,8 +266,9 @@ def mlp_phases(torch, rec_fwd, rec_bwd, seed, n_canvas, n_slice, failures):
                     n * 48 * 2 + n * 3 * 4 + wbytes
                     + (wflat.numel() + bflat.numel()) * 4)
 
-    # K1 on the texture lattice that prepare_sds queries once (uv in); its
-    # time is printed here and kept out of the per-step record
+    # K1 on the texture lattice that prepare_sds queries twice (the 7 views,
+    # the bootstrap's front pose; uv in); its time is printed here and kept
+    # out of the per-step record
     from contexture_nerf_tpu_torch.models.fields import uv_lattice
 
     uv = uv_lattice(1024, device=dev)
@@ -277,7 +282,7 @@ def mlp_phases(torch, rec_fwd, rec_bwd, seed, n_canvas, n_slice, failures):
     b_ms, b_by = bound(2.0 * uv.shape[0] * macs,
                        uv.shape[0] * (2 * 4 + 3 * 4) + wbytes)
     print(f"    ms {ms:.3f} plain_ms {pms:.3f} bound_ms {b_ms:.3f} ({b_by}); "
-          "once per prepare_sds")
+          "twice per prepare_sds")
 
 
 def attention_phases(torch, rec1, rec2, seed, failures):
@@ -336,6 +341,75 @@ def attention_phases(torch, rec1, rec2, seed, failures):
             rec.add(err, ms, pms, flops, nbytes, times, lms)
         else:
             rec.add(err, 0.0, 0.0, 0.0, 0.0, 0)
+
+
+def activations(torch, shape, dtype, gen):
+    """An activation-like input: per-channel means 0.5 + 0.5 N(0, 1) and
+    scales 0.5 + U(0, 1), so the mean is nonzero and the channels of a
+    group differ (a shifted group boundary changes the statistics)."""
+    C, dev = shape[1], gen.device
+    cs = (1, C) + (1,) * (len(shape) - 2)
+    mu = 0.5 + 0.5 * torch.randn((C,), generator=gen, device=dev)
+    sd = 0.5 + torch.rand((C,), generator=gen, device=dev)
+    x = torch.randn(shape, generator=gen, device=dev) * sd.reshape(cs)
+    return (x + mu.reshape(cs)).to(dtype)
+
+
+def planted_group_norm(torch, x, scale, bias, groups, eps, act, out_dtype,
+                       fault):
+    """The plain GroupNorm(+SiLU) with one planted fault, a stand-in for a
+    wrong K6: "boundary" takes each group's statistics over channels shifted
+    by one; "no_silu" drops the SiLU; "chunk" leaves one of K6's chunks (the
+    middle one of each group) out of the sums, still dividing by n."""
+    from contexture_nerf_tpu_torch.ops import groupnorm as gn
+
+    B, C = x.shape[:2]
+    xf = x.float()
+    src = (xf.roll(-1, dims=1) if fault == "boundary" else xf).reshape(
+        B, groups, -1)
+    n = src.shape[-1]
+    if fault == "chunk":
+        s, chunk, _ = gn.kernel_split(n, B * groups, x.element_size())
+        keep = torch.ones(n, device=x.device)
+        keep[(s // 2) * chunk:(s // 2 + 1) * chunk] = 0
+        src = src * keep
+    mean = src.sum(-1, keepdim=True) / n
+    var = (src * src).sum(-1, keepdim=True) / n - mean * mean
+    y = ((xf.reshape(B, groups, -1) - mean) * torch.rsqrt(var + eps)
+         ).reshape(x.shape)
+    shape = (1, C) + (1,) * (x.dim() - 2)
+    y = y * scale.float().reshape(shape) + bias.float().reshape(shape)
+    if act and fault != "no_silu":
+        y = y * torch.sigmoid(y)
+    return y.to(out_dtype)
+
+
+def groupnorm_limit(torch, x, scale, bias, groups, eps, act, plain):
+    """K6's per-element limit against its plain output `plain`: for bf16
+    output one bf16 ulp of |plain| plus the floor from the rounding of the
+    f32 statistics (ops/groupnorm.py bf16_limit); for f32 output 4x the
+    plain f32 path's own largest distance from the same formula in f64
+    (both sides err by the statistics' and the elementwise rounding)."""
+    from contexture_nerf_tpu_torch.ops import groupnorm as gn
+
+    if plain.dtype == torch.bfloat16:
+        return gn.bf16_limit(plain, x, scale, groups, eps, act)
+    B, C = x.shape[:2]
+    xd = x.double().reshape(B, groups, -1)
+    mean = xd.mean(-1, keepdim=True)
+    var = (xd * xd).mean(-1, keepdim=True) - mean * mean
+    y = ((xd - mean) * torch.rsqrt(var + eps)).reshape(x.shape)
+    shape = (1, C) + (1,) * (x.dim() - 2)
+    y = y * scale.double().reshape(shape) + bias.double().reshape(shape)
+    if act:
+        y = y * torch.sigmoid(y)
+    noise = float((plain.double() - y).abs().max())
+    return torch.full_like(plain, 4.0 * noise, dtype=torch.float32)
+
+
+def groupnorm_ratio(torch, got, plain, limit):
+    """max |got - plain| / limit over the elements (<= 1 passes)."""
+    return float(((got.float() - plain.float()).abs() / limit).max())
 
 
 def pixel_face_pairs(torch, fvi, H, W):
@@ -443,25 +517,100 @@ def raster_phases(torch, rec, cfg, failures):
         rec.add(a["bary_err"], ms, pms, 20.0 * pairs, nbytes)
 
 
-def prepare_sds_launches():
-    """Kernel launches of prepare_sds on the card: K5 once for the 7 views,
-    K1 once for the texture lattice; nothing else launches a kernel there
-    (CLIP's 257 and 77 tokens route to the plain attention path)."""
-    from contexture_nerf_tpu_torch.ops import _build
+# (label, x shape, x dtype, out dtype, eps, act) of the K6 phase: the
+# bootstrap's UNet (64^2 latent, 320-1280 channels) and 512^2 decoder, the
+# SDS step's UNet (120x80 latent) and canvas encoder (960x640), and ragged
+# shapes off the 16-byte pack
+GN_SHAPES = [
+    ("bootstrap UNet resnet", (2, 320, 64, 64), "bf16", "bf16", 1e-5, True),
+    ("bootstrap UNet transformer", (2, 640, 32, 32), "bf16", "bf16", 1e-6,
+     False),
+    ("bootstrap UNet mid", (2, 1280, 8, 8), "bf16", "bf16", 1e-5, True),
+    ("decoder 512^2", (1, 128, 512, 512), "bf16", "bf16", 1e-6, True),
+    ("decoder 256^2", (1, 512, 256, 256), "bf16", "bf16", 1e-6, True),
+    ("step UNet resnet", (2, 320, 120, 80), "bf16", "bf16", 1e-5, True),
+    ("step encoder 960x640", (1, 128, 960, 640), "bf16", "bf16", 1e-6, True),
+    ("ragged f32", (1, 96, 7, 13), "f32", "f32", 1e-5, True),
+    ("ragged bf16 -> f32", (2, 64, 5, 9), "bf16", "f32", 1e-6, False),
+    ("ragged f32 -> bf16", (1, 64, 33, 17), "f32", "bf16", 1e-5, True),
+]
+FAULTS = {"boundary": "group boundary shifted by one channel",
+          "no_silu": "SiLU dropped",
+          "chunk": "one chunk's partials left out of the statistics"}
 
-    return {k: {"raster": 1, "mlp_fwd": 1}.get(k, 0)
-            for k in _build.launch_counts}
+
+def groupnorm_phase(torch, seed, failures):
+    """K6 against its plain version at GN_SHAPES on activation-like inputs
+    (nonzero, per-channel means): within groupnorm_limit on every element,
+    two runs bit-identical, the planted faults outside the limit; and the
+    autograd path's gradients against the plain path's."""
+    from contexture_nerf_tpu_torch.ops import groupnorm as gn
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed + 2)
+    dts = {"bf16": torch.bfloat16, "f32": torch.float32}
+    worst = 0.0
+    for label, shape, dt, odt, eps, act in GN_SHAPES:
+        x = activations(torch, shape, dts[dt], gen)
+        C = shape[1]
+        scale = 1 + 0.3 * torch.randn((C,), generator=gen, device=dev)
+        bias = 0.2 * torch.randn((C,), generator=gen, device=dev)
+        args = (scale, bias, 32, eps, act, dts[odt])
+        got = gn.group_norm_silu_kernel(x, *args)
+        same = torch.equal(got, gn.group_norm_silu_kernel(x, *args))
+        plain = gn.group_norm_silu_plain(x, *args)
+        limit = groupnorm_limit(torch, x, scale, bias, 32, eps, act, plain)
+        ratio = groupnorm_ratio(torch, got, plain, limit)
+        err = float((got.float() - plain.float()).abs().max())
+        worst = max(worst, err)
+        ok = ratio <= 1.0 and same and bool(torch.isfinite(got.float()).all())
+        name = f"K6 groupnorm {label} {shape} {dt}->{odt} eps {eps} act {act}"
+        what = ("1 bf16 ulp + statistics floor" if odt == "bf16"
+                else "4x plain f32 vs f64")
+        print(f"  {name}: max_abs_err {err:.3e}, max err/limit {ratio:.3f} "
+              f"(limit: {what}), two runs bit-identical {same} "
+              f"{'ok' if ok else 'MISS'}")
+        if not ok:
+            failures.append(name)
+        if not (act and dt == odt == "bf16"):
+            continue
+        for fault, what in FAULTS.items():
+            bad = planted_group_norm(torch, x, *args, fault)
+            r = groupnorm_ratio(torch, bad, plain, limit)
+            print(f"    planted fault {what}: max err/limit {r:.2f} "
+                  f"{'caught' if r > 1 else 'NOT CAUGHT'}")
+            if not r > 1:
+                failures.append(f"{name}: limit passes planted fault {fault}")
+    x = activations(torch, (2, 320, 24, 20), torch.float32, gen)
+    scale = 1 + 0.3 * torch.randn((320,), generator=gen, device=dev)
+    bias = 0.2 * torch.randn((320,), generator=gen, device=dev)
+    w = torch.randn(x.shape, generator=gen, device=dev)
+
+    def grads(fn):
+        ins = [t.clone().requires_grad_() for t in (x, scale, bias)]
+        (fn(*ins, 32, 1e-6, True, torch.float32) * w).sum().backward()
+        return [t.grad for t in ins]
+
+    g_k, g_p = grads(gn.group_norm_silu), grads(gn.group_norm_silu_plain)
+    g_err = max(float((a - b).abs().max()) for a, b in zip(g_k, g_p))
+    print(f"  K6 autograd (forward K6, backward through the plain version): "
+          f"gradients vs the plain path's max_abs_err {g_err:.3e} (tol 1e-5)")
+    if not g_err <= 1e-5:
+        failures.append("K6 autograd gradients")
+    return worst
 
 
-def check_setup(torch, setup, trainer, failures):
+def check_setup(torch, setup, trainer, res, failures):
     """prepare_sds's outputs: the shapes at full width, finite values, an
-    object on the canvas, UVs in [0, 1], probabilities that sum to 1."""
+    object on the canvas, UVs in [0, 1], probabilities that sum to 1, and
+    the bootstrapped front view (res x res) in [0, 1]."""
     t = trainer.tile_px
     shapes = {"depth_grid": (1, 3, 3 * t, 2 * t),
               "mask_grid": (1, 1, 3 * t, 2 * t),
               "uv_grid_pts": (6 * t * t, 2), "cond_image": (1, 3, t, t),
               "cond_lat_pair": (2, 4, t // 8, t // 8),
-              "encoder_hidden_states": (2, 77, 1024), "tile_probs": (6,)}
+              "encoder_hidden_states": (2, 77, 1024), "tile_probs": (6,),
+              "front_rgb": (1, 3, res, res)}
     for k, shape in shapes.items():
         x = setup[k]
         if tuple(x.shape) != shape or not bool(torch.isfinite(x).all()):
@@ -469,93 +618,201 @@ def check_setup(torch, setup, trainer, failures):
                             f"(want {shape}) or non-finite")
     m = setup["mask_grid"]
     uv = setup["uv_grid_pts"]
+    f = setup["front_rgb"]
     ok = (float(m.max()) > 0.99 and float(m.min()) < 0.01
           and float(uv.min()) >= 0 and float(uv.max()) <= 1
+          and float(f.min()) >= 0 and float(f.max()) <= 1
           and abs(float(setup["tile_probs"].sum()) - 1) < 1e-5
           and len(setup["bboxes6"]) == 6)
-    print(f"  setup: mask_grid mean {float(m.mean()):.4f}, cond_image mean "
-          f"{float(setup['cond_image'].mean()):.4f}, depth_grid mean "
-          f"{float(setup['depth_grid'].mean()):.4f}, tile_probs "
-          f"{[round(float(p), 4) for p in setup['tile_probs']]}, bboxes6 "
-          f"{setup['bboxes6']} {'ok' if ok else 'BAD'}")
+    print(f"  setup: bootstrapped front view {tuple(f.shape)} in "
+          f"[{float(f.min()):.4f}, {float(f.max()):.4f}] mean "
+          f"{float(f.mean()):.4f}, mask_grid mean {float(m.mean()):.4f}, "
+          f"cond_image mean {float(setup['cond_image'].mean()):.4f}, "
+          f"depth_grid mean {float(setup['depth_grid'].mean()):.4f}, "
+          f"tile_probs {[round(float(p), 4) for p in setup['tile_probs']]}, "
+          f"bboxes6 {setup['bboxes6']} {'ok' if ok else 'BAD'}")
     if not ok:
         failures.append("prepare_sds outputs out of range")
 
 
-def groupnorm_traffic(torch, trainer, run_step):
-    """The GroupNorm(+SiLU) calls of one SDS step, where K6 (the TPU's
-    fused GroupNorm kernel, not yet ported) would run: their count, the
-    bytes a two-phase kernel must move (read x twice, write y once), the
-    least time the card could take for them (bytes; their ~10 FP32
-    operations an element need less) and the plain path's device time,
-    from CUDA events around each call."""
-    from contexture_nerf_tpu_torch.ops.groupnorm import GroupNormSiLU
+def groupnorm_traffic(torch, modules, run):
+    """The GroupNorm(+SiLU) calls of `run()` in the GroupNormSiLU modules of
+    `modules`: their count, the bytes K6 must move for them (read x twice,
+    write y once), the least time the card could take (bytes; their ~12
+    FP32 operations an element need less), the stream time between CUDA
+    events around each call (launch gaps included), and the calls grouped
+    by signature (shape, dtypes, eps, act) -> [count, a sample call's
+    (x, scale, bias, groups, eps, act, out_dtype)]."""
+    from contexture_nerf_tpu_torch.ops.groupnorm import (GroupNormSiLU,
+                                                         traffic_bytes)
 
-    calls = []
+    calls, sigs = [], {}
 
     def pre(mod, inp):
+        x = inp[0]
         ev = torch.cuda.Event(enable_timing=True)
         ev.record()
-        calls.append([inp[0], ev])
+        key = (tuple(x.shape), x.dtype, mod.out_dtype, mod.eps, mod.act)
+        if key not in sigs:
+            sigs[key] = [0, (x.detach().clone(), mod.weight.detach(),
+                             mod.bias.detach(), mod.groups, mod.eps, mod.act,
+                             mod.out_dtype)]
+        sigs[key][0] += 1
+        calls.append([traffic_bytes(x, mod.out_dtype), x.numel(), ev])
 
     def post(mod, inp, out):
         ev = torch.cuda.Event(enable_timing=True)
         ev.record()
-        x = calls[-1][0]
-        calls[-1] = (x.numel(), 2 * x.numel() * x.element_size()
-                     + out.numel() * out.element_size(), calls[-1][1], ev)
+        calls[-1].append(ev)
 
-    mods = [m for m in trainer.teacher.modules()
+    mods = [m for mod in modules for m in mod.modules()
             if isinstance(m, GroupNormSiLU)]
     hooks = [h for m in mods for h in (m.register_forward_pre_hook(pre),
                                        m.register_forward_hook(post))]
     try:
-        run_step()
+        run()
         torch.cuda.synchronize()
     finally:
         for h in hooks:
             h.remove()
-    elems = sum(c[0] for c in calls)
-    nbytes = sum(c[1] for c in calls)
-    plain_ms = sum(c[2].elapsed_time(c[3]) for c in calls)
-    b_ms, b_by = bound(10.0 * elems, nbytes, H100_FP32_FLOPS)
+    nbytes = sum(c[0] for c in calls)
+    b_ms, b_by = bound(12.0 * sum(c[1] for c in calls), nbytes,
+                       H100_FP32_FLOPS)
     return {"calls": len(calls), "bytes": nbytes, "bound_ms": b_ms,
-            "bound_by": b_by, "plain_ms": plain_ms}
+            "bound_by": b_by,
+            "stream_ms": sum(c[2].elapsed_time(c[3]) for c in calls),
+            "sigs": sigs}
 
 
-def main_path(torch, seed, profile, failures):
+def groupnorm_signature_times(torch, sigs, failures):
+    """K6, its plain version and the library's F.group_norm (+ F.silu: two
+    calls) timed at each signature's sample input, and K6 held against the
+    plain version there: (ms, plain_ms, library_ms, max_abs_err), each time
+    summed over the signature's calls."""
+    import torch.nn.functional as F
+
+    from contexture_nerf_tpu_torch.ops import groupnorm as gn
+
+    ms = pms = lms = err = 0.0
+    rows = []
+    for (shape, dt, odt, eps, act), (n, args) in sigs.items():
+        x, scale, bias, groups = args[:4]
+        got = gn.group_norm_silu_kernel(*args)
+        plain = gn.group_norm_silu_plain(*args)
+        limit = groupnorm_limit(torch, x, scale, bias, groups, eps, act,
+                                plain)
+        ratio = groupnorm_ratio(torch, got, plain, limit)
+        err = max(err, float((got.float() - plain.float()).abs().max()))
+        if not ratio <= 1.0:
+            failures.append(f"K6 at main-path shape {shape}: err/limit "
+                            f"{ratio:.3f}")
+        w, b = scale.to(x.dtype), bias.to(x.dtype)
+
+        def lib():
+            y = F.group_norm(x, groups, w, b, eps)
+            return F.silu(y) if act else y
+
+        k = cuda_ms(lambda: gn.group_norm_silu_kernel(*args))
+        p = cuda_ms(lambda: gn.group_norm_silu_plain(*args), reps=5)
+        li = cuda_ms(lib)
+        ms, pms, lms = ms + n * k, pms + n * p, lms + n * li
+        rows.append((n * gn.traffic_bytes(x, odt), n, shape, k, p, li))
+    for nbytes, n, shape, k, p, li in sorted(rows, reverse=True)[:6]:
+        b_ms = nbytes / n / H100_BYTES_S * 1e3
+        print(f"    {n} x {shape}: K6 {k:.4f} ms, plain {p:.4f}, library "
+              f"{li:.4f}, bound {b_ms:.4f} (bytes) a call; K6 at "
+              f"{100 * b_ms / k:.0f}% of the bound")
+    return ms, pms, lms, err
+
+
+def main_path(torch, seed, profile, rec_gn, failures):
     from contexture_nerf_tpu_torch.core.config import config_from_dict
+    from contexture_nerf_tpu_torch.diffusion.sd_depth import \
+        StableDiffusionDepth
     from contexture_nerf_tpu_torch.ops import _build
-    from contexture_nerf_tpu_torch.training.trainer import build_sds_trainer
+    from contexture_nerf_tpu_torch.ops import groupnorm as gn
+    from contexture_nerf_tpu_torch.training import trainer as tr
 
     cfg = config_from_dict({"optim": {"seed": seed}, "guide": {
+        "text": "a photo of a dairy cow",
         "shape_path": str(ROOT / "shapes" / "torus.obj")}})
     timings = {}
+    dev = torch.device("cuda")
     torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sd = StableDiffusionDepth(
+        device=dev, generator=torch.Generator(device=dev).manual_seed(seed))
+    torch.cuda.synchronize()
+    sd_s = time.perf_counter() - t0
+    n_sd = sum(p.numel() for p in sd.parameters())
     _build.reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    trainer, setup = build_sds_trainer(cfg, device="cuda", timings=timings)
+    trainer, setup = tr.build_sds_trainer(cfg, device="cuda",
+                                          timings=timings, diffusion=sd)
     torch.cuda.synchronize()
     built_s = time.perf_counter() - t0
     prep = dict(_build.launch_counts)
+    prep_peak = torch.cuda.max_memory_allocated() / 2 ** 30
     n_params = sum(p.numel() for p in trainer.teacher.parameters())
     n_clip = sum(p.numel() for m in (trainer.teacher.text_encoder,
                                      trainer.teacher.vision_encoder)
                  for p in m.parameters())
     prep_ms = sum(timings.values())
+    boot_ms = sum(v for k, v in timings.items() if k.startswith("bootstrap"))
+    print(f"  SD2-depth stack (UNet, inpaint UNet, VAE, text tower) "
+          f"{n_sd / 1e6:.1f} M params in {sd.dtype}, random init "
+          f"{sd_s:.1f} s")
     print(f"  build_sds_trainer (teacher init + prepare_sds + trainer) "
           f"{built_s:.1f} s: teacher {n_params / 1e6:.1f} M params "
           f"({n_clip / 1e6:.1f} M of them CLIP) in {trainer.dtype}, canvas "
           f"{trainer.grid_hw}, backward slice {trainer.sl_h}x{trainer.sl_w}")
-    print(f"  prepare_sds {prep_ms:.1f} ms: " + ", ".join(
-        f"{k} {v:.1f}" for k, v in timings.items()) + " ms; peak memory "
-        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; launches "
-        f"{json.dumps(prep)}")
-    if prep != prepare_sds_launches():
-        failures.append(f"prepare_sds launches {prep} != "
-                        f"{prepare_sds_launches()}")
-    check_setup(torch, setup, trainer, failures)
+    print(f"  prepare_sds {prep_ms:.1f} ms (bootstrap {boot_ms:.1f}): "
+          + ", ".join(f"{k} {v:.1f}" for k, v in timings.items())
+          + f" ms; peak memory {prep_peak:.2f} GiB; launches "
+          f"{json.dumps(prep)}")
+    want = tr.prepare_sds_kernel_launches(cfg, trainer.teacher, sd)
+    print(f"  expected launches of prepare_sds: {json.dumps(want)}")
+    if prep != want:
+        failures.append(f"prepare_sds launches {prep} != {want}")
+    check_setup(torch, setup, trainer, cfg.render.train_grid_size, failures)
+
+    # K6's share of prepare_sds, from one more call of each part with the
+    # GroupNorms hooked: 51 UNet calls, the decode, the two condition encodes
+    steps = len(sd.scheduler.timesteps(tr.BOOTSTRAP_STEPS))
+    lat = torch.randn(sd.latent_shape(), device=dev)
+    lat_in = torch.cat([torch.cat([lat] * 2), torch.randn(
+        (2, 1) + sd.latent_shape()[2:], device=dev)], 1)
+    text = sd.get_text_embeds([cfg.guide.text])
+    with torch.no_grad():
+        parts = {
+            "UNet call": (steps, groupnorm_traffic(
+                torch, [sd.unet], lambda: sd.unet(lat_in, 981, text))),
+            "decode": (1, groupnorm_traffic(
+                torch, [sd.vae_decoder], lambda: sd.decode_latents(lat))),
+            "condition encodes": (1, groupnorm_traffic(
+                torch, [trainer.teacher.vae_encoder],
+                lambda: trainer.teacher.encode_condition_pair(
+                    setup["cond_image"] * 2 - 1,
+                    *tr.condition_eps(trainer.teacher, torch.Generator(
+                        device=dev).manual_seed(seed))))),
+        }
+    p_calls = sum(n * t["calls"] for n, t in parts.values())
+    p_bytes = sum(n * t["bytes"] for n, t in parts.values())
+    p_stream = sum(n * t["stream_ms"] for n, t in parts.values())
+    p_bound = sum(n * t["bound_ms"] for n, t in parts.values())
+    print(f"  K6 in prepare_sds: {p_calls} calls ("
+          + ", ".join(f"{n} x {t['calls']} a {k}" for k, (n, t) in
+                      parts.items())
+          + f"), {p_bytes / 1e9:.3f} GB to move, bound_ms {p_bound:.3f} "
+          f"(bytes), K6 stream time {p_stream:.2f} ms (CUDA events around "
+          "each call, launch gaps included)")
+    if p_calls != want["groupnorm"]:
+        failures.append(f"K6 calls in prepare_sds {p_calls} != "
+                        f"{want['groupnorm']}")
+    del sd, parts, lat, lat_in, text
+    torch.cuda.empty_cache()
+
     expected = trainer.expected_kernel_launches()
     print(f"  expected launches per step: {json.dumps(expected)}")
     init = {k: v.clone() for k, v in trainer.mlp.state_dict().items()}
@@ -567,17 +824,17 @@ def main_path(torch, seed, profile, failures):
         before = dict(_build.launch_counts)
         torch.cuda.synchronize()
         a = time.perf_counter()
-        params, loss, gn, fisher, grid = trainer.step(t)
+        params, loss, gnorm, fisher, grid = trainer.step(t)
         torch.cuda.synchronize()
         ms = (time.perf_counter() - a) * 1e3
         delta = {k: _build.launch_counts[k] - before[k] for k in before}
         print(f"  step {i} ({'warm-up' if i == 0 else 'timed'}) t={t}: "
-              f"loss {float(loss):.6g} grad_norm {float(gn):.6g} fisher "
+              f"loss {float(loss):.6g} grad_norm {float(gnorm):.6g} fisher "
               f"{float(fisher):.6g} {ms:.1f} ms launches {json.dumps(delta)}")
         if delta != expected:
             failures.append(f"step {i} launches {delta} != {expected}")
         finite = all(bool(torch.isfinite(x).all())
-                     for x in (loss, gn, fisher, grid))
+                     for x in (loss, gnorm, fisher, grid))
         if not finite or not all(bool(torch.isfinite(p).all())
                                  for p in params.values()):
             failures.append(f"step {i}: non-finite output")
@@ -591,15 +848,45 @@ def main_path(torch, seed, profile, failures):
     if not changed:
         failures.append("params did not change")
     step_ms.sort()
+    med = step_ms[len(step_ms) // 2]
     mem = torch.cuda.max_memory_allocated() / 2 ** 30
-    print(f"  SDS step median {step_ms[len(step_ms) // 2]:.1f} ms "
+    print(f"  SDS step median {med:.1f} ms "
           f"(timed {', '.join(f'{m:.1f}' for m in step_ms)}), peak memory "
           f"{mem:.2f} GiB, params changed: {changed} [{card_line()}]")
-    k6 = groupnorm_traffic(torch, trainer, lambda: trainer.step(ts[-1]))
-    print(f"  K6 (not ported) on one more step: {k6['calls']} GroupNorm "
-          f"calls, {k6['bytes'] / 1e9:.3f} GB to move (x read twice, y "
-          f"written once), bound_ms {k6['bound_ms']:.3f} ({k6['bound_by']}), "
-          f"plain path {k6['plain_ms']:.2f} ms of device time")
+
+    # K6 on one more step, hooked; then the plain GroupNorm path beside it
+    k6 = groupnorm_traffic(torch, [trainer.teacher],
+                           lambda: trainer.step(ts[-1]))
+    gn.USE_KERNEL = False
+    try:
+        torch.cuda.synchronize()
+        a = time.perf_counter()
+        trainer.step(ts[-1])
+        torch.cuda.synchronize()
+        plain_step_ms = (time.perf_counter() - a) * 1e3
+        pl = groupnorm_traffic(torch, [trainer.teacher],
+                               lambda: trainer.step(ts[-1]))
+    finally:
+        gn.USE_KERNEL = True
+    print(f"  K6 on one step: {k6['calls']} GroupNorm calls, "
+          f"{k6['bytes'] / 1e9:.3f} GB to move (x read twice, y written "
+          f"once), bound_ms {k6['bound_ms']:.3f} ({k6['bound_by']}); stream "
+          f"time K6 {k6['stream_ms']:.2f} ms, plain {pl['stream_ms']:.2f} ms "
+          f"(CUDA events around each call, launch gaps included)")
+    print(f"  SDS step with USE_KERNEL=False (plain GroupNorm): "
+          f"{plain_step_ms:.1f} ms, beside K6's median {med:.1f} ms")
+    if k6["calls"] != expected["groupnorm"]:
+        failures.append(f"K6 calls in a step {k6['calls']} != "
+                        f"{expected['groupnorm']}")
+    ms, pms, lms, err = groupnorm_signature_times(torch, k6["sigs"],
+                                                  failures)
+    print(f"  K6 at the step's {len(k6['sigs'])} shapes, timed alone and "
+          f"summed over the step's calls: ms {ms:.3f} plain_ms {pms:.3f} "
+          f"library_ms {lms:.3f} (F.group_norm, + F.silu where act: two "
+          f"calls) bound_ms {k6['bound_ms']:.3f}; max_abs_err {err:.3e}")
+    rec_gn.add(err, ms, pms, 12.0 * sum(
+        n * a[0].numel() for n, a in k6["sigs"].values()), k6["bytes"],
+        lib_ms=lms)
     if profile:
         out = ROOT / "chiprun_out"
         out.mkdir(exist_ok=True)
@@ -663,6 +950,10 @@ def main():
         "raster": Record("raster", "contexture_nerf_tpu_torch/csrc/raster.cu",
                          "contexture_nerf_tpu/raster/pallas_raster.py:41",
                          peak=H100_FP32_FLOPS),
+        "groupnorm": Record("groupnorm",
+                            "contexture_nerf_tpu_torch/csrc/groupnorm.cu",
+                            "contexture_nerf_tpu/ops/groupnorm.py:69",
+                            peak=H100_FP32_FLOPS),
     }
     from contexture_nerf_tpu_torch.core.config import config_from_dict
 
@@ -674,9 +965,12 @@ def main():
     print("K5 phase (kernel vs plain, f32):")
     raster_phases(torch, recs["raster"], config_from_dict({"guide": {
         "shape_path": str(ROOT / "shapes" / "torus.obj")}}), failures)
-    print("main path: shapes/torus.obj -> prepare_sds -> full-width SDS "
-          "steps")
-    launches = main_path(torch, args.seed, args.profile, failures)
+    print("K6 phase (kernel vs plain, activation-like inputs):")
+    groupnorm_phase(torch, args.seed, failures)
+    print("main path: shapes/torus.obj -> prepare_sds (SD2-depth bootstrap) "
+          "-> full-width SDS steps")
+    launches = main_path(torch, args.seed, args.profile, recs["groupnorm"],
+                         failures)
     for name, rec in recs.items():
         rec.d["launches"] = launches.get(name, 0)
         if rec.d["launches"] == 0:

@@ -8,6 +8,10 @@ compiled at first use into `build/torch_kernels/` and bound with ctypes
 (`ops/_build.py`).
 """
 
+import contextlib
+import time
+from typing import Dict, Optional
+
 import torch
 
 
@@ -22,3 +26,20 @@ def resolve_device(device="cuda") -> torch.device:
             "torch.cuda.is_available() is False; pass device='cpu' to run "
             "the plain PyTorch path on the CPU")
     return dev
+
+
+@contextlib.contextmanager
+def phase(timings: Optional[Dict[str, float]], name: str, device):
+    """Wall milliseconds of a block added to timings[name], a CUDA device
+    synchronised at both ends (nothing is timed when timings is None)."""
+    if timings is None:
+        yield
+        return
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    yield
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    timings[name] = timings.get(name, 0.0) + (time.perf_counter() - t0) * 1e3

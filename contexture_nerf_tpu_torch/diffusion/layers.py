@@ -225,4 +225,6 @@ class Transformer2DModel(nn.Module):
             h = getattr(self, f"transformer_blocks_{i}")(
                 h, context=context, ref_kv=rkv, ref_out=ref_out)
         h = self.proj_out(h).reshape(B, H, W, C).permute(0, 3, 1, 2)
-        return h + residual
+        # residual first: the sum takes its NCHW layout (h is a permuted
+        # view), so the next GroupNorm gets the contiguous x that K6 takes
+        return residual + h

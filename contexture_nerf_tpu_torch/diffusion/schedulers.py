@@ -1,13 +1,16 @@
-"""DDPM noise schedule pieces the SDS step needs, and the DreamTime t
-schedule.
+"""DDPM noise schedule pieces the SDS step needs, PNDM (PLMS) for the
+SD2-depth img2img bootstrap, and the DreamTime t schedule.
 
 Counterpart of contexture_nerf_tpu/diffusion/schedulers.py
-(`make_alphas_cumprod`, `add_noise`, `velocity_target`,
-`dreamtime_schedule`). SD's "scaled_linear" betas: linspace(sqrt(b0),
+(`make_alphas_cumprod`, `add_noise`, `velocity_target`, `PLMSState`,
+`PNDM`, `dreamtime_schedule`). SD's "scaled_linear" betas: linspace(sqrt(b0),
 sqrt(b1), T)^2, with b0 = 0.00085, b1 = 0.012.
 """
 
 from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import List, Tuple
 
 import torch
 
@@ -39,6 +42,91 @@ def velocity_target(alphas_cumprod, sample, noise, t):
     """v = sqrt(acp) eps - sqrt(1 - acp) x_0."""
     acp = _acp(alphas_cumprod, t, sample)
     return torch.sqrt(acp) * noise - torch.sqrt(1.0 - acp) * sample
+
+
+@dataclass
+class PLMSState:
+    """The PLMS ring of the last four eps predictions (oldest first), how
+    many of them are real, the held sample and the step counter. The
+    tensors are f32, as the reference's state is; the counts are host ints
+    (the loop runs on the host)."""
+
+    ets: List[torch.Tensor]
+    ets_count: int
+    cur_sample: torch.Tensor
+    counter: int
+
+
+class PNDM:
+    """PNDM with skip_prk_steps and steps_offset=1 (PLMS), as configured for
+    SD2-depth: the 51-entry timestep sequence repeats its second entry, the
+    counter == 1 step re-runs from the held sample at t + ratio, and the
+    linear-multistep orders ramp 1, 1, 2, 3, 4."""
+
+    def __init__(self, alphas_cumprod: torch.Tensor,
+                 num_train_timesteps: int = 1000):
+        self.alphas_cumprod = alphas_cumprod
+        self.num_train_timesteps = num_train_timesteps
+
+    @staticmethod
+    def create(num_train_timesteps: int = 1000, device="cuda") -> "PNDM":
+        return PNDM(make_alphas_cumprod(device), num_train_timesteps)
+
+    def timesteps(self, num_inference_steps: int) -> List[int]:
+        """ts = arange(n) * ratio + 1, then [ts[:-1], ts[-2], ts[-1]]
+        reversed."""
+        ratio = self.num_train_timesteps // num_inference_steps
+        ts = [i * ratio + 1 for i in range(num_inference_steps)]
+        return (ts[:-1] + ts[-2:-1] + ts[-1:])[::-1]
+
+    def add_noise(self, sample, noise, t):
+        return add_noise(self.alphas_cumprod, sample, noise, t)
+
+    def init_state(self, sample_shape, device) -> PLMSState:
+        z = torch.zeros(sample_shape, dtype=torch.float32, device=device)
+        return PLMSState([z] * 4, 0, z, 0)
+
+    def _prev_sample(self, sample, t: int, prev_t: int, eps):
+        """diffusers' _get_prev_sample closed form, in f32."""
+        acp = self.alphas_cumprod
+        acp_t = acp[max(t, 0)]
+        acp_prev = acp[prev_t] if prev_t >= 0 else torch.ones_like(acp_t)
+        sample_coeff = torch.sqrt(acp_prev / acp_t)
+        denom = (acp_t * torch.sqrt(1 - acp_prev)
+                 + torch.sqrt(acp_t * (1 - acp_t) * acp_prev))
+        eps_coeff = (acp_prev - acp_t) / denom
+        return sample_coeff * sample - eps_coeff * eps
+
+    def step(self, state: PLMSState, model_output: torch.Tensor, t: int,
+             sample: torch.Tensor, num_inference_steps: int
+             ) -> Tuple[PLMSState, torch.Tensor]:
+        """One PLMS step; returns (new state, previous sample)."""
+        ratio = self.num_train_timesteps // num_inference_steps
+        t = int(t)
+        counter = state.counter
+        if counter == 1:  # re-run from cur_sample with t := t + ratio
+            eff_t, eff_prev_t = t + ratio, t
+        else:
+            eff_t, eff_prev_t = t, t - ratio
+        ets, ets_count = state.ets, state.ets_count
+        if counter != 1:
+            ets = ets[1:] + [model_output]
+            ets_count = min(ets_count + 1, 4)
+        e1, e2, e3, e4 = ets[-1], ets[-2], ets[-3], ets[-4]
+        use_sample = state.cur_sample if counter == 1 else sample
+        cur_sample = sample if counter == 0 else state.cur_sample
+        if ets_count == 1 and counter == 0:
+            eps = model_output
+        elif counter == 1:
+            eps = (model_output + e1) / 2
+        elif ets_count == 2:
+            eps = (3 * e1 - e2) / 2
+        elif ets_count == 3:
+            eps = (23 * e1 - 16 * e2 + 5 * e3) / 12
+        else:
+            eps = (55 * e1 - 59 * e2 + 37 * e3 - 9 * e4) / 24
+        prev = self._prev_sample(use_sample, eff_t, eff_prev_t, eps)
+        return PLMSState(ets, ets_count, cur_sample, counter + 1), prev
 
 
 def dreamtime_schedule(alphas_cumprod: torch.Tensor, total_iterations: int,

@@ -1,0 +1,231 @@
+"""SD2-depth guidance: the text embedding and the depth-conditioned img2img
+that bootstraps the front view.
+
+Counterpart of contexture_nerf_tpu/diffusion/sd_depth.py
+`StableDiffusionDepth` (`__init__`, `get_text_embeds`, `encode_imgs`,
+`decode_latents`, `img2img_step` with all of `_build_img2img`). The
+reference compiles the 50-step PNDM loop into one graph (a scan, with a
+`lax.cond` between the depth UNet and the 9-channel inpaint UNet at
+10 < i < 20); here it is a host loop and the cond a Python `if`. The
+random draws of the loop (the two VAE posterior draws, the initial latent
+and the blending noise) are tensors a caller may pass, so a test can feed
+the reference's `jax.random` draws. Encodes whose result the path discards
+(the ground-truth latent without blending or noised_gt_init, the masked
+latent without the inpaint branch) are skipped, as XLA drops them.
+
+Not ported yet: `img2img_single_step`, `produce_latents`, `prompt_to_img`,
+`sds_grad`, `load_concept` and the diffusers weight loader (the towers start
+from seeded random weights).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn as nn
+
+from contexture_nerf_tpu_torch import phase, resolve_device
+from contexture_nerf_tpu_torch.diffusion import schedulers as sch
+from contexture_nerf_tpu_torch.diffusion.clip import (CLIPTextConfig,
+                                                      CLIPTextModel,
+                                                      CLIPTokenizer)
+from contexture_nerf_tpu_torch.diffusion.unet import (UNet2DCondition,
+                                                      UNetConfig)
+from contexture_nerf_tpu_torch.diffusion.vae import (Decoder, Encoder,
+                                                     VAEConfig, decode,
+                                                     encode_moments,
+                                                     sample_gaussian)
+from contexture_nerf_tpu_torch.diffusion.zero123plus import random_init_
+from contexture_nerf_tpu_torch.ops.image import (resize_bicubic,
+                                                 resize_linear,
+                                                 resize_nearest)
+
+SD_VAE_SCALE = 0.18215
+DRAWS = ("eps_enc", "eps_enc2", "latents", "noise")  # the reference's order
+
+
+class StableDiffusionDepth(nn.Module):
+    """SD2-depth UNet (5 channels), SD2-inpaint UNet (9 channels), the SD
+    VAE (encoder and decoder), the SD2 CLIP text tower and its tokenizer,
+    and the PNDM scheduler. bf16 at full size, f32 at tiny size, as the
+    reference's trainer chooses. `generator` fills the towers with seeded
+    random weights; without it they keep torch's init (for a bridged
+    load)."""
+
+    def __init__(self, tiny: bool = False, device="cuda",
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        dev = self.device = resolve_device(device)
+        self.num_train_timesteps = 1000
+        self.dtype = torch.float32 if tiny else torch.bfloat16
+        if tiny:
+            self.unet_config = UNetConfig.tiny(in_channels=5)
+            self.inpaint_config = UNetConfig.tiny(in_channels=9)
+            self.vae_config = VAEConfig.tiny()
+            self.text_config = CLIPTextConfig.tiny()
+        else:
+            self.unet_config = UNetConfig.sd2_depth()
+            self.inpaint_config = UNetConfig.sd2_inpaint()
+            self.vae_config = VAEConfig.sd()
+            self.text_config = CLIPTextConfig.sd2()
+        with torch.device(dev):
+            self.unet = UNet2DCondition(self.unet_config, self.dtype)
+            self.inpaint_unet = UNet2DCondition(self.inpaint_config,
+                                                self.dtype)
+            self.vae_encoder = Encoder(self.vae_config, self.dtype)
+            self.vae_decoder = Decoder(self.vae_config, self.dtype)
+            self.text_encoder = CLIPTextModel(self.text_config, self.dtype)
+        self.tokenizer = CLIPTokenizer(
+            vocab_size=self.text_config.vocab_size,
+            max_length=self.text_config.max_positions)
+        if generator is not None:
+            random_init_(self, generator)
+        self.to(self.dtype)
+        self.requires_grad_(False)
+        self.scheduler = sch.PNDM.create(self.num_train_timesteps, device=dev)
+        self.alphas = self.scheduler.alphas_cumprod
+
+    @property
+    def image_size(self) -> int:
+        """The side img2img works at: 512 for the SD2 widths, 64 at tiny
+        size."""
+        return 512 if self.unet_config.block_out_channels[0] >= 320 else 64
+
+    # -- text ------------------------------------------------------------------
+
+    @torch.no_grad()
+    def get_text_embeds(self, prompts, negative_prompts=None) -> torch.Tensor:
+        """[uncond; cond] CFG embedding pair (2N, 77, hidden), f32."""
+        if isinstance(prompts, str):
+            prompts = [prompts]
+        if negative_prompts is None:
+            negative_prompts = [""] * len(prompts)
+
+        def embed(p):
+            ids = torch.from_numpy(self.tokenizer(p)).long().to(self.device)
+            return self.text_encoder(ids)
+
+        return torch.cat([embed(negative_prompts), embed(prompts)])
+
+    # -- VAE -------------------------------------------------------------------
+
+    @torch.no_grad()
+    def encode_imgs(self, imgs: torch.Tensor, eps: torch.Tensor
+                    ) -> torch.Tensor:
+        """[0,1] images -> scaled latents, eps the posterior's normal
+        draw."""
+        mean, logvar = encode_moments(self.vae_encoder, 2 * imgs - 1)
+        return sample_gaussian(mean, logvar, eps) * SD_VAE_SCALE
+
+    @torch.no_grad()
+    def decode_latents(self, latents: torch.Tensor) -> torch.Tensor:
+        """scaled latents -> [0,1] images, in the VAE's dtype."""
+        imgs = decode(self.vae_decoder, latents / SD_VAE_SCALE)
+        return torch.clamp(imgs / 2 + 0.5, 0.0, 1.0)
+
+    # -- img2img ---------------------------------------------------------------
+
+    def latent_shape(self) -> Tuple[int, ...]:
+        lat = self.image_size // self.vae_config.downsample
+        return (1, self.vae_config.latent_channels, lat, lat)
+
+    def draw(self, seed: int) -> Dict[str, torch.Tensor]:
+        """img2img's four normal draws (DRAWS), f32, from a generator seeded
+        with `seed`."""
+        g = torch.Generator(device=self.device).manual_seed(seed)
+        return {k: torch.randn(self.latent_shape(), generator=g,
+                               device=self.device) for k in DRAWS}
+
+    @torch.no_grad()
+    def img2img_step(self, text_embeddings, inputs, depth_mask,
+                     guidance_scale: float = 7.5, strength: float = 1.0,
+                     num_inference_steps: int = 50, update_mask=None,
+                     fixed_seed: Optional[int] = None,
+                     intermediate_vis: bool = False,
+                     use_latent_blending: bool = False,
+                     use_inpaint: bool = True,
+                     draws: Optional[Dict[str, torch.Tensor]] = None,
+                     timings: Optional[Dict[str, float]] = None
+                     ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+        """Depth-conditioned img2img. inputs (1,3,h,w) in [0,1], depth_mask
+        (1,1,h,w) and update_mask (1,1,h,w) are crops of any size: the image
+        is resized (linear) to image_size, the depth (bicubic) to the
+        latent size, the mask (nearest) to both. strength runs the last
+        int(n * strength) scheduler steps. Without an update mask the loop
+        starts from the ground truth noised to the first kept timestep,
+        otherwise from pure noise. `draws` (DRAWS, each of latent_shape())
+        default to a generator seeded with fixed_seed (0 if None). With
+        use_inpaint the inpaint UNet takes the steps 10 < i < 20.
+        `timings`, when given, receives bootstrap_unet (resizes, encodes
+        and the loop) and bootstrap_decode. Returns ([0,1] rgb (1,3,S,S),
+        the intermediate images)."""
+        dev = self.device
+        S = self.image_size
+        lat_sz = S // self.vae_config.downsample
+        pndm = self.scheduler
+        init_t = min(int(num_inference_steps * strength), num_inference_steps)
+        t_start = max(num_inference_steps - init_t, 0)
+        timesteps = pndm.timesteps(num_inference_steps)[t_start:]
+        if draws is None:
+            draws = self.draw(0 if fixed_seed is None else fixed_seed)
+        d = {k: draws[k].to(dev, torch.float32) for k in DRAWS}
+
+        with phase(timings, "bootstrap_unet", dev):
+            rgb = resize_linear(inputs.to(dev, torch.float32), (S, S))
+            depth = resize_bicubic(depth_mask.to(dev, torch.float32),
+                                   (lat_sz, lat_sz))
+            noised_gt_init = update_mask is None
+            if update_mask is None:
+                update_mask = torch.ones((1, 1, S, S), device=dev)
+            else:
+                update_mask = resize_nearest(
+                    update_mask.to(dev, torch.float32), (S, S))
+            dmin, dmax = depth.min(), depth.max()
+            depth = 2.0 * (depth - dmin) / torch.clamp(dmax - dmin,
+                                                       min=1e-8) - 1.0
+            depth_pair = torch.cat([depth] * 2)
+            # the ground-truth latent only where the path reads it
+            gt = (self.encode_imgs(rgb, d["eps_enc"])
+                  if noised_gt_init or use_latent_blending else None)
+            if noised_gt_init:
+                latents = pndm.add_noise(gt, d["noise"], timesteps[0])
+            else:
+                latents = d["latents"]
+            mask_small = resize_nearest(update_mask, (S, S))
+            mask_lat = resize_nearest(update_mask, (lat_sz, lat_sz))
+            masked_latents = None
+            if use_inpaint and len(timesteps) > 11:  # some i in (10, 20)
+                masked = rgb * (mask_small < 0.5) + 0.5 * (mask_small >= 0.5)
+                masked_latents = self.encode_imgs(masked, d["eps_enc2"])
+            text = text_embeddings.to(dev)
+            state = pndm.init_state(latents.shape, dev)
+            n_vis = min(10, len(timesteps))
+            sel = set(np.linspace(0, len(timesteps) - 1, n_vis).astype(
+                np.int32).tolist()) if intermediate_vis else set()
+            inters = []
+            for i, t in enumerate(timesteps):
+                if use_latent_blending and (i <= 10 or i >= 20):
+                    truth = pndm.add_noise(gt, d["noise"], t)
+                    latents = latents * mask_lat + truth * (1 - mask_lat)
+                if masked_latents is not None and 10 < i < 20:
+                    lat_in = torch.cat([torch.cat([latents] * 2),
+                                        torch.cat([mask_lat] * 2),
+                                        torch.cat([masked_latents] * 2)], 1)
+                    pred = self.inpaint_unet(lat_in, t, text)
+                else:
+                    lat_in = torch.cat([torch.cat([latents] * 2), depth_pair],
+                                       1)
+                    pred = self.unet(lat_in, t, text)
+                u, c = pred.chunk(2)
+                # the difference in the tower dtype, the guidance in f32
+                noise_pred = u.float() + guidance_scale * (c - u).float()
+                state, latents = pndm.step(state, noise_pred, t, latents,
+                                           num_inference_steps)
+                if i in sel:
+                    inters.append(latents)
+        with phase(timings, "bootstrap_decode", dev):
+            img = self.decode_latents(latents)
+            intermediates = [self.decode_latents(x) for x in inters]
+        return img, intermediates

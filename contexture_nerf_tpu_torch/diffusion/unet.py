@@ -1,5 +1,5 @@
-"""UNet2DCondition (SD2 / Zero123++ denoiser), NCHW; counterpart of
-contexture_nerf_tpu/diffusion/unet.py. `ref_out` / `ref_kv_list` carry the
+"""UNet2DCondition (SD2-depth / SD2-inpaint / Zero123++ denoiser), NCHW;
+counterpart of contexture_nerf_tpu/diffusion/unet.py. `ref_out` / `ref_kv_list` carry the
 Zero123++ reference attention; `down_residuals` / `mid_residual` take the
 ControlNet's (NCHW) injections.
 """
@@ -36,6 +36,16 @@ class UNetConfig:
         self.cross_attention_dim = cross_attention_dim
         self.num_heads = tuple(num_heads)
         self.transformer_depth = transformer_depth
+
+    @staticmethod
+    def sd2_depth():
+        """SD2-depth: the latent and the depth map, 5 input channels."""
+        return UNetConfig(in_channels=5)
+
+    @staticmethod
+    def sd2_inpaint():
+        """SD2-inpaint: latent, mask and masked latent, 9 input channels."""
+        return UNetConfig(in_channels=9)
 
     @staticmethod
     def zero123plus():

@@ -1,7 +1,7 @@
-"""AutoencoderKL (SD VAE) encoder, NCHW; counterpart of
-contexture_nerf_tpu/diffusion/vae.py (`VAEConfig`, `Encoder`,
-`encode_moments`, `sample_gaussian`). The decoder is not on the SDS step
-and waits for a later slice.
+"""AutoencoderKL (SD VAE) encoder and decoder, NCHW; counterpart of
+contexture_nerf_tpu/diffusion/vae.py (`VAEConfig`, `Encoder`, `Decoder`,
+`encode_moments`, `decode`, `sample_gaussian`). The SDS step uses the
+encoder; the SD2-depth bootstrap decodes its final latent.
 """
 
 from __future__ import annotations
@@ -13,7 +13,8 @@ import torch.nn as nn
 
 from contexture_nerf_tpu_torch.diffusion.layers import (Conv, Dense,
                                                         Downsample2D,
-                                                        ResnetBlock2D)
+                                                        ResnetBlock2D,
+                                                        Upsample2D)
 from contexture_nerf_tpu_torch.ops.groupnorm import GroupNormSiLU
 
 
@@ -101,6 +102,46 @@ class Encoder(nn.Module):
         return self.quant_conv(self.conv_out(self.conv_norm_out(h)))
 
 
+class Decoder(nn.Module):
+    """post_quant_conv, conv_in, a mid block (resnet, attention, resnet),
+    layers_per_block + 1 resnets per up block (deepest first) with an
+    Upsample2D after every block but the last, then GroupNorm+SiLU and
+    conv_out."""
+
+    def __init__(self, config: VAEConfig, dtype=torch.float32):
+        super().__init__()
+        cfg = self.config = config
+        self.dtype = dtype
+        lat = cfg.latent_channels
+        ch = cfg.block_out_channels[-1]
+        self.post_quant_conv = Conv(lat, lat, 1)
+        self.conv_in = Conv(lat, ch, 3, padding=1)
+        self.mid_resnet_0 = ResnetBlock2D(ch, ch, eps=1e-6, dtype=dtype)
+        self.mid_attn = VAEAttention(ch, dtype)
+        self.mid_resnet_1 = ResnetBlock2D(ch, ch, eps=1e-6, dtype=dtype)
+        for bi in reversed(range(len(cfg.block_out_channels))):
+            out_ch = cfg.block_out_channels[bi]
+            for li in range(cfg.layers_per_block + 1):
+                setattr(self, f"up_{bi}_resnet_{li}",
+                        ResnetBlock2D(ch, out_ch, eps=1e-6, dtype=dtype))
+                ch = out_ch
+            if bi > 0:
+                setattr(self, f"up_{bi}_upsample", Upsample2D(out_ch))
+        self.conv_norm_out = GroupNormSiLU(ch, 32, 1e-6, out_dtype=dtype)
+        self.conv_out = Conv(ch, cfg.in_channels, 3, padding=1)
+
+    def forward(self, z):
+        cfg = self.config
+        h = self.conv_in(self.post_quant_conv(z))
+        h = self.mid_resnet_1(self.mid_attn(self.mid_resnet_0(h)))
+        for bi in reversed(range(len(cfg.block_out_channels))):
+            for li in range(cfg.layers_per_block + 1):
+                h = getattr(self, f"up_{bi}_resnet_{li}")(h)
+            if bi > 0:
+                h = getattr(self, f"up_{bi}_upsample")(h)
+        return self.conv_out(self.conv_norm_out(h))
+
+
 def encode_moments(encoder: Encoder, images: torch.Tensor
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """images (B,3,H,W) in [-1,1] -> (mean, logvar) each (B,latent,h,w),
@@ -108,6 +149,12 @@ def encode_moments(encoder: Encoder, images: torch.Tensor
     moments = encoder(images.to(encoder.dtype))
     mean, logvar = moments.chunk(2, dim=1)
     return mean, logvar.clamp(-30.0, 20.0)
+
+
+def decode(decoder: Decoder, latents: torch.Tensor) -> torch.Tensor:
+    """latents (B,latent,h,w) -> images (B,3,H,W) in about [-1, 1], in the
+    decoder's dtype."""
+    return decoder(latents.to(decoder.dtype))
 
 
 def sample_gaussian(mean: torch.Tensor, logvar: torch.Tensor,

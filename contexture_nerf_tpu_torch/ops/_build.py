@@ -38,12 +38,14 @@ SOURCES: Dict[str, tuple] = {
     "mlp_bwd": ("mlp_bwd.cu", ("mlp_common.cuh",)),
     "flash_attn": ("flash_attn.cu", ()),
     "raster": ("raster.cu", ()),
+    "groupnorm": ("groupnorm.cu", ()),
 }
 
 # launches per kernel, by the names chip_smoke.py reports
 launch_counts: Dict[str, int] = {
     "mlp_fwd": 0, "mlp_bwd": 0,
     "flash_attn_single": 0, "flash_attn_two_source": 0, "raster": 0,
+    "groupnorm": 0,
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

@@ -1,6 +1,8 @@
 """Image-space utilities: the port's counterparts of
 contexture_nerf_tpu/ops/image.py `get_view_direction`,
-`get_nonzero_region_tuple`, `resize_bilinear` and `crop_and_resize`.
+`get_nonzero_region_tuple`, `resize_bilinear` and `crop_and_resize`, and
+the `jax.image.resize` methods the SD2-depth bootstrap uses (linear,
+bicubic, nearest).
 
 Bounding boxes are host-side integer math on fixed masks, computed once at
 setup; the crops they give are static slices.
@@ -56,6 +58,24 @@ def resize_linear(x: torch.Tensor, hw) -> torch.Tensor:
     y = F.interpolate(x.float(), size=tuple(hw), mode="bilinear",
                       align_corners=False, antialias=True)
     return y.to(x.dtype)
+
+
+def resize_bicubic(x: torch.Tensor, hw) -> torch.Tensor:
+    """jax.image.resize(method="bicubic") on NCHW: the Keys kernel with
+    a = -0.5, half-pixel centres, weights over the in-bounds taps
+    normalized, widened to antialias when it shrinks. torch's bicubic is
+    that with antialias=True; without it, torch takes a = -0.75 and clamps
+    at the border. Computed in f32."""
+    y = F.interpolate(x.float(), size=tuple(hw), mode="bicubic",
+                      align_corners=False, antialias=True)
+    return y.to(x.dtype)
+
+
+def resize_nearest(x: torch.Tensor, hw) -> torch.Tensor:
+    """jax.image.resize(method="nearest") on NCHW: output i reads input
+    floor((i + 0.5) * in / out), which is torch's "nearest-exact" (its
+    "nearest" reads floor(i * in / out))."""
+    return F.interpolate(x, size=tuple(hw), mode="nearest-exact")
 
 
 def crop_and_resize(x: torch.Tensor, bbox: Tuple[int, int, int, int],

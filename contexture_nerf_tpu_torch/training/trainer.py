@@ -1,17 +1,21 @@
 """The SDS paint step and loop, and the setup that feeds them: counterparts
 of contexture_nerf_tpu/training/trainer.py `ConTEXTure.define_view_weights`,
+`ConTEXTure._calc_text_embeddings`, `ConTEXTure.paint_viewpoint`,
 `ConTEXTure.prepare_sds`, `_build_sds_step` (render_grid_latent,
 render_grid_latent_local, sds_step) and the loop of `paint_zero123plus`.
 
 `prepare_sds` renders the mesh's 7 fixed views once (K5 rasterizes them in
-one launch on the card; K1 queries the MLP on the texture lattice), crops
-and resizes the front view into the condition image and the 6 target views
-into the depth, mask and UV grids, and computes the CLIP and VAE
-conditioning. `build_sds_trainer` goes from a config to a ready
-`SDSTrainer`: mesh model, MLP, teacher, `prepare_sds`, trainer. The 50-step
-SD2-depth front-view bootstrap (skip_bootstrap=False), `edit_mask_pts`
-(guide.reference_texture) and `optim.exact_lattice_render` come with later
-slices.
+one launch on the card; K1 queries the MLP on the texture lattice), then
+bootstraps the front view: `paint_viewpoint` renders the front pose (K5, K1
+again), and the SD2-depth UNet repaints its crop in a 50-step PNDM img2img
+(diffusion/sd_depth.py) whose decode is pasted back into the frame. It
+crops and resizes that front view into the condition image and the 6
+target views into the depth, mask and UV grids, and computes the CLIP and
+VAE conditioning. `build_sds_trainer` goes from a config to a ready
+`SDSTrainer`: mesh model, MLP, teacher, SD2-depth stack, `prepare_sds`,
+trainer. `edit_mask_pts` (guide.reference_texture), `optim.exact_lattice_render`
+and the repaint passes of `paint_viewpoint` (paint_step > 1: median fill,
+the inpaint UNet) come with later slices.
 
 One step: query the texture MLP at the grid's UVs (the fused kernel on the
 card), composite with the mask, VAE-encode and DDPM-noise, run the Zero123++
@@ -22,26 +26,31 @@ and the 1/2-sum-square loss on one sampled latent tile, back-propagate
 
 from __future__ import annotations
 
-import contextlib
 import logging
-import time
+from pathlib import Path
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from contexture_nerf_tpu_torch import resolve_device
-from contexture_nerf_tpu_torch.core.config import RenderConfig, TrainConfig
+from contexture_nerf_tpu_torch import phase, resolve_device
+from contexture_nerf_tpu_torch.core.config import (GuideConfig, RenderConfig,
+                                                   TrainConfig)
 from contexture_nerf_tpu_torch.diffusion import schedulers as sch
-from contexture_nerf_tpu_torch.diffusion.vae import encode_moments
+from contexture_nerf_tpu_torch.diffusion.sd_depth import StableDiffusionDepth
+from contexture_nerf_tpu_torch.diffusion.unet import UNetConfig
+from contexture_nerf_tpu_torch.diffusion.vae import VAEConfig, encode_moments
 from contexture_nerf_tpu_torch.diffusion.zero123plus import (
     Zero123PlusTeacher, scale_image, scale_latents)
 from contexture_nerf_tpu_torch.models.fields import NeRF2D
 from contexture_nerf_tpu_torch.models.textured_mesh import TexturedMeshModel
+from contexture_nerf_tpu_torch.ops import _build
+from contexture_nerf_tpu_torch.ops import groupnorm
 from contexture_nerf_tpu_torch.ops.attention import routes_to_kernel
 from contexture_nerf_tpu_torch.ops.grid import merge_6_to_grid, split_grid_to_6
 from contexture_nerf_tpu_torch.ops.image import (crop_and_resize,
-                                                 get_nonzero_region_tuple)
+                                                 get_nonzero_region_tuple,
+                                                 resize_linear)
 from contexture_nerf_tpu_torch.ops.mlp_kernel import (fused_nerf2d,
                                                       fused_nerf2d_emb,
                                                       pad_embedding)
@@ -56,6 +65,7 @@ GUIDANCE_SCALE = 10.0  # reference trainer.py:768
 GRAD_SCALE = 0.2  # reference trainer.py:830
 MULTIRES = 10
 LOG_EVERY = 50  # iterations between logged metrics, as the reference
+BOOTSTRAP_STEPS = 50  # img2img_step's num_inference_steps, as the reference
 
 
 def _to(x, device, dtype=None):
@@ -149,7 +159,9 @@ class SDSTrainer:
         return (torch.tanh(out) + 1.0) / 2.0
 
     def _composite(self, rgb, h, w, mask):
-        img = rgb.reshape(h, w, 3).permute(2, 0, 1)[None]
+        # contiguous NCHW: a permuted view would carry its channels-last
+        # layout through the VAE's convolutions into its GroupNorms (K6)
+        img = rgb.reshape(h, w, 3).permute(2, 0, 1)[None].contiguous()
         img = torch.clamp(img * mask + 0.5 * (1 - mask), 0.0, 1.0)
         return scale_image(img * 2 - 1)
 
@@ -300,59 +312,109 @@ class SDSTrainer:
         """Kernel launches of one step on the card, derived from the
         configs and the attention routing rule: the MLP forward once for the
         canvas (plus once for the backward slice with local_sds_grad), its
-        backward once, and every teacher self-attention the rule routes to
-        the flash kernel (cross-attention's 77 tokens never are); the
-        rasterizer never (it runs once, in prepare_sds)."""
+        backward once, every teacher self-attention the rule routes to the
+        flash kernel (cross-attention's 77 tokens never are), and K6 for
+        every GroupNorm of the two UNet passes, the ControlNet and the VAE
+        encodes (the canvas, and the slice with local_sds_grad); the
+        rasterizer never (it runs in prepare_sds)."""
         ucfg = self.teacher.unet_config
-        nb = len(ucfg.block_out_channels)
-        lpb, depth = ucfg.layers_per_block, ucfg.transformer_depth
-
-        def tokens(hw, level):
-            h, w = hw
-            for _ in range(level):
-                h, w = -(-h // 2), -(-w // 2)
-            return h * w
-
         lat = self.latent_shape()[2:]
         cond = tuple(self.cond_lat_pair.shape[2:])
         calls = []  # (Sq, Skv, Se) of each self-attention
-        for bi in range(nb):
-            cross = ucfg.is_cross(bi)
-            n_unet = ((2 * lpb + 1) if cross else 0) * depth
-            n_cn = (lpb if cross else 0) * depth
-            if bi == nb - 1:  # the mid block's transformer
-                n_unet += depth
-                n_cn += depth
-            tc, tl = tokens(cond, bi), tokens(lat, bi)
+        for (level, n_unet), (_, n_cn) in zip(self_attention_levels(ucfg),
+                                              self_attention_levels(
+                                                  ucfg, controlnet=True)):
+            tc, tl = tokens_at(cond, level), tokens_at(lat, level)
             calls += [(tc, tc, 0)] * n_unet  # write pass
             calls += [(tl, tl, tc)] * n_unet  # read pass, reference tokens
             calls += [(tl, tl, 0)] * n_cn  # ControlNet
         single = sum(1 for c in calls if c[2] == 0 and routes_to_kernel(*c))
         two = sum(1 for c in calls if c[2] > 0 and routes_to_kernel(*c))
-        return {"mlp_fwd": 2 if self.local_grad else 1, "mlp_bwd": 1,
+        encodes = 2 if self.local_grad else 1
+        gn = (2 * unet_groupnorms(ucfg) + unet_groupnorms(ucfg, True)
+              + encodes * vae_groupnorms(self.teacher.vae_config))
+        return {"mlp_fwd": encodes, "mlp_bwd": 1,
                 "flash_attn_single": single, "flash_attn_two_source": two,
-                "raster": 0}
+                "raster": 0, "groupnorm": gn if groupnorm.USE_KERNEL else 0}
+
+
+# -- launches derived from the configs ----------------------------------------------
+
+def tokens_at(hw, level: int) -> int:
+    """Tokens of a (h, w) latent after `level` stride-2 downsamples."""
+    h, w = hw
+    for _ in range(level):
+        h, w = -(-h // 2), -(-w // 2)
+    return h * w
+
+
+def self_attention_levels(ucfg: UNetConfig, controlnet: bool = False
+                          ) -> List[Tuple[int, int]]:
+    """(level, self-attentions) of one UNet call (or ControlNet call, which
+    has the down and mid blocks only)."""
+    nb = len(ucfg.block_out_channels)
+    lpb, depth = ucfg.layers_per_block, ucfg.transformer_depth
+    out = []
+    for bi in range(nb):
+        per = lpb if controlnet else 2 * lpb + 1
+        n = (per if ucfg.is_cross(bi) else 0) * depth
+        if bi == nb - 1:  # the mid block's transformer
+            n += depth
+        out.append((bi, n))
+    return out
+
+
+def unet_groupnorms(ucfg: UNetConfig, controlnet: bool = False) -> int:
+    """GroupNorm calls of one UNet (or ControlNet) call: two in each resnet,
+    one in each transformer, and the UNet's conv_norm_out."""
+    nb, lpb = len(ucfg.block_out_channels), ucfg.layers_per_block
+    n_cross = sum(1 for bi in range(nb) if ucfg.is_cross(bi))
+    if controlnet:
+        return 2 * (nb * lpb + 2) + n_cross * lpb + 1
+    return 2 * (nb * (2 * lpb + 1) + 2) + n_cross * (2 * lpb + 1) + 1 + 1
+
+
+def vae_groupnorms(vcfg: VAEConfig, decoder: bool = False) -> int:
+    """GroupNorm calls of one VAE encode (or decode): two in each resnet,
+    the mid attention's, and conv_norm_out."""
+    nb, lpb = len(vcfg.block_out_channels), vcfg.layers_per_block
+    resnets = nb * (lpb + 1 if decoder else lpb) + 2
+    return 2 * resnets + 2
+
+
+def prepare_sds_kernel_launches(cfg: TrainConfig,
+                                teacher: Zero123PlusTeacher,
+                                diffusion: Optional[StableDiffusionDepth]
+                                ) -> Dict[str, int]:
+    """Kernel launches of prepare_sds on the card: K5 and K1 once for the 7
+    views, K6 in the two VAE encodes of the condition pair; with the
+    bootstrap (`diffusion` given), K5 and K1 once more for the front pose,
+    and for each of the PLMS sequence's UNet calls its K3 self-attentions
+    and K6 GroupNorms, then K6 in the decode (and in the intermediate
+    decodes with log.vis_diffusion_steps). CLIP's 77 and 257 tokens route
+    to the plain attention path."""
+    counts = {k: 0 for k in _build.launch_counts}
+    counts["raster"] = counts["mlp_fwd"] = 1
+    gn = 2 * vae_groupnorms(teacher.vae_config)
+    if diffusion is not None:
+        counts["raster"] += 1
+        counts["mlp_fwd"] += 1
+        steps = len(diffusion.scheduler.timesteps(BOOTSTRAP_STEPS))
+        lat = diffusion.latent_shape()[2:]
+        single = sum(n for level, n in self_attention_levels(
+            diffusion.unet_config)
+            if routes_to_kernel(tokens_at(lat, level), tokens_at(lat, level)))
+        counts["flash_attn_single"] += steps * single
+        decodes = 1 + (min(10, steps) if cfg.log.vis_diffusion_steps else 0)
+        gn += (steps * unet_groupnorms(diffusion.unet_config)
+               + decodes * vae_groupnorms(diffusion.vae_config, decoder=True))
+    counts["groupnorm"] = gn if groupnorm.USE_KERNEL else 0
+    return counts
 
 
 # -- prepare_sds: mesh -> views -> setup -------------------------------------------
 
 TILE_WEIGHTING = ("uniform", "weighted", "mixed")
-
-
-@contextlib.contextmanager
-def _phase(timings: Optional[Dict[str, float]], name: str, device):
-    """Wall milliseconds of a block into timings[name], the device
-    synchronised at both ends (nothing is timed when timings is None)."""
-    if timings is None:
-        yield
-        return
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    t0 = time.perf_counter()
-    yield
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    timings[name] = timings.get(name, 0.0) + (time.perf_counter() - t0) * 1e3
 
 
 def view_angles(render: RenderConfig
@@ -415,31 +477,108 @@ def condition_eps(teacher: Zero123PlusTeacher, generator: torch.Generator
                              ).to(teacher.dtype) for _ in range(2))
 
 
+def calc_text_embeddings(cfg: TrainConfig, diffusion: StableDiffusionDepth):
+    """(text_z, text_string): the [uncond; cond] pairs of guide.text and of
+    guide.text + ", front view", as the reference's trainer computes them
+    for the Zero123++ paint path (the only one it paints with)."""
+    if not cfg.guide.use_zero123plus or cfg.guide.append_direction:
+        raise ValueError("the paint path needs guide.use_zero123plus=True "
+                         "and guide.append_direction=False")
+    text_string = [cfg.guide.text, cfg.guide.text + ", front view"]
+    return [diffusion.get_text_embeds([t]) for t in text_string], text_string
+
+
+def background_image(guide: GuideConfig, device) -> torch.Tensor:
+    """(3, H, W) in [0, 1]: guide.background_img where the file exists (read
+    with PIL), otherwise the reference's 64^2 gray."""
+    path = Path(guide.background_img)
+    if path.exists():
+        from PIL import Image
+
+        im = np.asarray(Image.open(path).convert("RGB"), np.float32) / 255.0
+        return torch.from_numpy(np.ascontiguousarray(
+            im.transpose(2, 0, 1))).to(device)
+    return torch.full((3, 64, 64), 0.5, device=device)
+
+
+@torch.no_grad()
+def paint_viewpoint(cfg: TrainConfig, mesh_model: TexturedMeshModel,
+                    mlp: NeRF2D, diffusion: StableDiffusionDepth, text_z,
+                    draws: Optional[Dict[str, torch.Tensor]] = None,
+                    timings: Optional[Dict[str, float]] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The first paint step of the front view: render the front pose on the
+    background (green with guide.use_background_color, else the background
+    image resized to the grid), crop the object's box, repaint the crop by
+    SD2-depth img2img (guidance guide.guidance_scale, the seed
+    optim.seed, the crop's mask as the update mask; the inpaint UNet only
+    serves later paint steps) and paste the result, resized back, into the
+    frame. `draws` go to img2img_step. Returns (rgb (1,3,H,W), object mask
+    (1,1,H,W)). `timings` receives bootstrap_render, bootstrap_unet,
+    bootstrap_decode and bootstrap_paste."""
+    dev = mesh_model.device
+    pose = Zero123PlusDataset(cfg.render).poses()[0]
+    phi = pose["phi"] - np.deg2rad(cfg.render.front_offset)
+    phi = float(phi + 2 * np.pi if phi < 0 else phi)
+    with phase(timings, "bootstrap_render", dev):
+        if cfg.guide.use_background_color:
+            background = torch.tensor([0.0, 0.8, 0.0], device=dev)
+        else:
+            sz = cfg.render.train_grid_size
+            background = resize_linear(background_image(cfg.guide, dev)[None],
+                                       (sz, sz))
+        outputs = mesh_model.render(mlp, theta=[pose["theta"]], phi=[phi],
+                                    radius=[pose["radius"]],
+                                    background=background)
+        rgb_render, object_mask = outputs["image"], outputs["mask"]
+        mh, mw, Mh, Mw = get_nonzero_region_tuple(object_mask[0, 0])
+        cropped_rgb = rgb_render[:, :, mh:Mh, mw:Mw]
+        cropped_depth = outputs["depth"][:, :, mh:Mh, mw:Mw]
+        cropped_mask = object_mask[:, :, mh:Mh, mw:Mw]
+    out, _ = diffusion.img2img_step(
+        text_z[1], cropped_rgb, cropped_depth,
+        guidance_scale=cfg.guide.guidance_scale, strength=1.0,
+        num_inference_steps=BOOTSTRAP_STEPS, update_mask=cropped_mask,
+        fixed_seed=cfg.optim.seed,
+        intermediate_vis=cfg.log.vis_diffusion_steps, use_inpaint=False,
+        draws=draws, timings=timings)
+    with phase(timings, "bootstrap_paste", dev):
+        rgb_output = rgb_render.clone()
+        rgb_output[:, :, mh:Mh, mw:Mw] = resize_linear(out, (Mh - mh,
+                                                             Mw - mw))
+    return rgb_output, object_mask
+
+
 @torch.no_grad()
 def prepare_sds(cfg: TrainConfig, mesh_model: TexturedMeshModel, mlp: NeRF2D,
                 teacher: Zero123PlusTeacher,
                 eps: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
                 skip_bootstrap: bool = False,
                 generator: Optional[torch.Generator] = None,
-                timings: Optional[Dict[str, float]] = None) -> Dict:
-    """All-view geometry and the one-time teacher conditioning: the static
-    setup that `SDSTrainer` takes. With skip_bootstrap the condition image
-    is the current front render (the SD2-depth img2img bootstrap is a later
-    slice). `eps` = (eps_cond, eps_neg), the VAE posterior draws of the
-    condition latents; drawn from `generator` when None. `timings`, when
-    given, receives the wall ms of the phases geometry, render, crops, vae
-    and clip.
+                timings: Optional[Dict[str, float]] = None,
+                diffusion: Optional[StableDiffusionDepth] = None,
+                bootstrap_draws: Optional[Dict[str, torch.Tensor]] = None
+                ) -> Dict:
+    """The front-view bootstrap, all-view geometry and the one-time teacher
+    conditioning: the static setup that `SDSTrainer` takes. The bootstrap
+    (`paint_viewpoint` through `diffusion`, the SD2-depth stack) repaints
+    the front view that the condition image is cut from; with
+    skip_bootstrap the condition image is the current front render. `eps` =
+    (eps_cond, eps_neg), the VAE posterior draws of the condition latents;
+    drawn from `generator` when None. `bootstrap_draws` go to img2img_step.
+    `timings`, when given, receives the wall ms of the phases geometry,
+    render, the bootstrap's (bootstrap_text, bootstrap_render,
+    bootstrap_unet, bootstrap_decode, bootstrap_paste), crops, vae and clip.
 
     Returns depth_grid (1,3,3t,2t), mask_grid (1,1,3t,2t), uv_grid_pts
     (6t^2, 2), cond_image (1,3,t,t), cond_lat_pair (2,4,t/8,t/8),
-    encoder_hidden_states (2,77,ctx), tile_probs (6,) and bboxes6 (the 6
-    target views' crop boxes)."""
-    if not skip_bootstrap:
-        raise NotImplementedError(
-            "prepare_sds(skip_bootstrap=False) runs the 50-step SD2-depth "
-            "front-view bootstrap (diffusion/sd_depth.py), which a later "
-            "slice ports; pass skip_bootstrap=True to condition on the "
-            "front render")
+    encoder_hidden_states (2,77,ctx), tile_probs (6,), bboxes6 (the 6
+    target views' crop boxes) and front_rgb (1,3,H,W), the front view the
+    condition image is cut from."""
+    if not skip_bootstrap and diffusion is None:
+        raise ValueError("the bootstrap (skip_bootstrap=False) needs the "
+                         "SD2-depth stack: pass diffusion=StableDiffusionDepth"
+                         "(...)")
     if cfg.optim.exact_lattice_render:
         raise NotImplementedError(
             "optim.exact_lattice_render keeps the rasterizer's cache of the "
@@ -454,20 +593,29 @@ def prepare_sds(cfg: TrainConfig, mesh_model: TexturedMeshModel, mlp: NeRF2D,
             device=dev).manual_seed(cfg.optim.seed))
     eps_cond, eps_neg = (e.to(dev) for e in eps)
 
-    with _phase(timings, "geometry", dev):
+    with phase(timings, "geometry", dev):
         cache, view_weights = define_view_weights(mesh_model, cfg.render)
-    with _phase(timings, "render", dev):
+    with phase(timings, "render", dev):
         outputs = mesh_model.render(
             mlp, render_cache=cache,
             background=torch.tensor([0.5, 0.5, 0.5], device=dev))
         object_masks = outputs["mask"]
         depth_maps = 1.0 - outputs["depth"]
-    with _phase(timings, "crops", dev):
+    if skip_bootstrap:
+        rgb_front, mask_front = outputs["image"][:1], object_masks[:1]
+    else:
+        with phase(timings, "bootstrap_text", dev):
+            text_z, _ = calc_text_embeddings(cfg, diffusion)
+        rgb_front, mask_front = paint_viewpoint(
+            cfg, mesh_model, mlp, diffusion, text_z, draws=bootstrap_draws,
+            timings=timings)
+    with phase(timings, "crops", dev):
         masks_np = object_masks[:, 0].cpu().numpy()
         bboxes = [get_nonzero_region_tuple(m) for m in masks_np]
         # the condition image: the front view cropped to tp^2 on gray
-        front_rgb = crop_and_resize(outputs["image"][:1], bboxes[0], tp, tp)
-        front_a = crop_and_resize(object_masks[:1], bboxes[0], tp, tp)
+        bbox_front = get_nonzero_region_tuple(mask_front[0, 0])
+        front_rgb = crop_and_resize(rgb_front, bbox_front, tp, tp)
+        front_a = crop_and_resize(mask_front, bbox_front, tp, tp)
         cond_image = front_rgb * front_a + 0.5 * (1 - front_a)
         # the 6 target views: depth on gray, and the mask-weighted UVs
         uv_maps = cache.uv_features.permute(0, 3, 1, 2)
@@ -485,30 +633,36 @@ def prepare_sds(cfg: TrainConfig, mesh_model: TexturedMeshModel, mlp: NeRF2D,
         uv_grid = merge_6_to_grid(torch.cat(uv_tiles))
         mask_grid = merge_6_to_grid(torch.cat(m_tiles))
         uv_pts = uv_grid[0].permute(1, 2, 0).reshape(-1, 2).clamp(0.0, 1.0)
-    with _phase(timings, "vae", dev):
+    with phase(timings, "vae", dev):
         cond_lat_pair = teacher.encode_condition_pair(cond_image * 2 - 1,
                                                       eps_cond, eps_neg)
-    with _phase(timings, "clip", dev):
+    with phase(timings, "clip", dev):
         ehs = teacher.clip_hidden_states(cond_image * 2 - 1)
     tile_probs = tile_probabilities(object_masks, view_weights,
                                     cfg.optim.tile_weighting)
     return {"depth_grid": depth_grid, "mask_grid": mask_grid,
             "uv_grid_pts": uv_pts.contiguous(), "cond_image": cond_image,
             "cond_lat_pair": cond_lat_pair, "encoder_hidden_states": ehs,
-            "tile_probs": tile_probs.to(dev), "bboxes6": bboxes[1:]}
+            "tile_probs": tile_probs.to(dev), "bboxes6": bboxes[1:],
+            "front_rgb": rgb_front}
 
 
 def build_sds_trainer(cfg: TrainConfig, tiny: bool = False, device="cuda",
                       teacher: Optional[Zero123PlusTeacher] = None,
                       mlp: Optional[NeRF2D] = None,
                       eps: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-                      timings: Optional[Dict[str, float]] = None
+                      timings: Optional[Dict[str, float]] = None,
+                      skip_bootstrap: bool = False,
+                      diffusion: Optional[StableDiffusionDepth] = None,
+                      bootstrap_draws: Optional[Dict[str, torch.Tensor]] = None
                       ) -> Tuple[SDSTrainer, Dict]:
     """From a config to a ready SDS loop: the mesh model of
-    guide.shape_path, the texture MLP and the teacher (seeded random
-    weights from optim.seed unless given), `prepare_sds` without the
-    bootstrap, then the trainer, whose draws continue the same generator.
-    Returns (trainer, setup)."""
+    guide.shape_path, the texture MLP, the teacher and (unless
+    skip_bootstrap) the SD2-depth stack, each with seeded random weights
+    from optim.seed unless given; `prepare_sds` with the front-view
+    bootstrap, as the reference's paint loop runs it; then the trainer,
+    whose draws continue the same generator. The SD2-depth stack is not
+    kept: the loop does not use it. Returns (trainer, setup)."""
     if cfg.guide.initial_texture is not None:
         raise NotImplementedError(
             "guide.initial_texture (fitting the MLP to an image) comes with "
@@ -518,13 +672,17 @@ def build_sds_trainer(cfg: TrainConfig, tiny: bool = False, device="cuda",
     teacher = teacher or Zero123PlusTeacher(tiny=tiny, device=dev,
                                             generator=generator)
     mlp = mlp or NeRF2D(generator=generator, device=dev)
+    if not skip_bootstrap and diffusion is None:
+        diffusion = StableDiffusionDepth(tiny=tiny, device=dev,
+                                         generator=generator)
     mesh_model = TexturedMeshModel(
         cfg.guide, render_grid_size=cfg.render.train_grid_size,
         texture_resolution=cfg.guide.texture_resolution,
         compute_dtype=teacher.dtype, device=dev)
     setup = prepare_sds(cfg, mesh_model, mlp, teacher, eps=eps,
-                        skip_bootstrap=True, generator=generator,
-                        timings=timings)
+                        skip_bootstrap=skip_bootstrap, generator=generator,
+                        timings=timings, diffusion=diffusion,
+                        bootstrap_draws=bootstrap_draws)
     trainer = SDSTrainer(cfg, setup, teacher=teacher, mlp=mlp, tiny=tiny,
                          device=dev, generator=generator)
     return trainer, setup

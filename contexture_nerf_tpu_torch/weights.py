@@ -64,10 +64,15 @@ def convert_tree(tree: Mapping) -> Dict[str, torch.Tensor]:
 
 
 def vae_encoder_state_dict(vae_params: Mapping) -> Dict[str, torch.Tensor]:
-    """flax AutoencoderKL variables -> diffusion.vae.Encoder (the encoder
-    subtree; the decoder waits for its slice)."""
+    """flax AutoencoderKL variables -> diffusion.vae.Encoder."""
     tree = vae_params["params"] if "params" in vae_params else vae_params
     return convert_tree(tree["encoder"])
+
+
+def vae_decoder_state_dict(vae_params: Mapping) -> Dict[str, torch.Tensor]:
+    """flax AutoencoderKL variables -> diffusion.vae.Decoder."""
+    tree = vae_params["params"] if "params" in vae_params else vae_params
+    return convert_tree(tree["decoder"])
 
 
 def load_teacher(teacher, zp_params: Mapping) -> None:
@@ -82,3 +87,16 @@ def load_teacher(teacher, zp_params: Mapping) -> None:
                        ("vision", teacher.vision_encoder)):
         if key in zp_params:
             tower.load_state_dict(convert_tree(zp_params[key]))
+
+
+def load_sd_depth(diffusion, sd_params: Mapping) -> None:
+    """StableDiffusionDepth.params (numpy tree with "unet", "inpaint_unet",
+    "vae" and "text") into the port's StableDiffusionDepth."""
+    diffusion.unet.load_state_dict(convert_tree(sd_params["unet"]))
+    diffusion.inpaint_unet.load_state_dict(
+        convert_tree(sd_params["inpaint_unet"]))
+    diffusion.vae_encoder.load_state_dict(
+        vae_encoder_state_dict(sd_params["vae"]))
+    diffusion.vae_decoder.load_state_dict(
+        vae_decoder_state_dict(sd_params["vae"]))
+    diffusion.text_encoder.load_state_dict(convert_tree(sd_params["text"]))

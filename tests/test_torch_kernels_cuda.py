@@ -22,6 +22,12 @@ face index: face_idx must agree on at least 99.99% of covered pixels, every
 mismatch a z tie (|dz| <= 1e-6) or an edge pixel (min barycentric <= 1e-5),
 bary within 1e-5 where the faces agree, and two runs bit-identical; a
 reversed z test and a dropped last face chunk must miss those limits.
+GroupNorm (K6) repeats its plain version's elementwise arithmetic and sums
+the f32 statistics in another order: bf16 output within one bf16 ulp of the
+plain output plus a floor from the statistics' rounding, f32 output within
+4x the plain f32 path's distance from f64 (chip_smoke.groupnorm_limit), two
+runs bit-identical; a group boundary shifted by one channel, a dropped SiLU
+and a chunk left out of the sums must miss those limits.
 """
 
 import pytest
@@ -32,10 +38,13 @@ from contexture_nerf_tpu_torch.models.fields import NeRF2D, uv_lattice
 from contexture_nerf_tpu_torch.models.textured_mesh import TexturedMeshModel
 from contexture_nerf_tpu_torch.ops import _build
 from contexture_nerf_tpu_torch.ops import attention as att
+from contexture_nerf_tpu_torch.ops import groupnorm as gn
 from contexture_nerf_tpu_torch.ops import mlp_kernel as mk
 from contexture_nerf_tpu_torch.raster import raster_kernel as rk
 from contexture_nerf_tpu_torch.raster.rasterize import rasterize_geometry
 from contexture_nerf_tpu_torch.training.trainer import view_angles
+from chip_smoke import (activations, groupnorm_limit, groupnorm_ratio,
+                        planted_group_norm)
 from tools.make_shapes import uv_sphere
 
 pytestmark = pytest.mark.cuda
@@ -185,3 +194,72 @@ def test_raster_kernel_rejects_what_it_does_not_take(cuda):
                                      8, 8)
     with pytest.raises(ValueError, match="CUDA"):
         rk.rasterize_geometry_kernel(z.cpu(), torch.zeros((1, 4, 3, 2)), 8, 8)
+
+
+# (x shape, x dtype, out dtype, eps, act): the bootstrap's UNet (64^2
+# latent) and 512^2 decoder, the SDS step's UNet (120x80) and canvas
+# encoder (960x640), and ragged shapes off the 16-byte pack
+GN_CASES = [
+    ((2, 320, 64, 64), torch.bfloat16, torch.bfloat16, 1e-5, True),
+    ((2, 1280, 8, 8), torch.bfloat16, torch.bfloat16, 1e-6, False),
+    ((1, 128, 512, 512), torch.bfloat16, torch.bfloat16, 1e-6, True),
+    ((2, 320, 120, 80), torch.bfloat16, torch.bfloat16, 1e-5, True),
+    ((1, 128, 960, 640), torch.bfloat16, torch.bfloat16, 1e-6, True),
+    ((1, 96, 7, 13), torch.float32, torch.float32, 1e-5, True),
+    ((2, 64, 5, 9), torch.bfloat16, torch.float32, 1e-6, False),
+    ((1, 64, 33, 17), torch.float32, torch.bfloat16, 1e-5, True),
+]
+
+
+@pytest.mark.parametrize("shape,dt,out_dt,eps,act", GN_CASES)
+def test_groupnorm_kernel_matches_plain(cuda, shape, dt, out_dt, eps, act):
+    gen = torch.Generator(device=cuda).manual_seed(sum(shape))
+    x = activations(torch, shape, dt, gen)
+    C = shape[1]
+    scale = 1 + 0.3 * torch.randn((C,), generator=gen, device=cuda)
+    bias = 0.2 * torch.randn((C,), generator=gen, device=cuda)
+    args = (scale, bias, 32, eps, act, out_dt)
+    before = _build.launch_counts["groupnorm"]
+    got = gn.group_norm_silu(x, *args)
+    assert _build.launch_counts["groupnorm"] == before + 1
+    assert got.dtype == out_dt and torch.isfinite(got.float()).all()
+    assert torch.equal(got, gn.group_norm_silu_kernel(x, *args))
+    plain = gn.group_norm_silu_plain(x, *args)
+    limit = groupnorm_limit(torch, x, scale, bias, 32, eps, act, plain)
+    assert groupnorm_ratio(torch, got, plain, limit) <= 1.0
+    if act and dt == torch.bfloat16:
+        for fault in ("boundary", "no_silu", "chunk"):
+            bad = planted_group_norm(torch, x, *args, fault)
+            assert groupnorm_ratio(torch, bad, plain, limit) > 1.0, fault
+
+
+def test_groupnorm_kernel_gradients_match_plain(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    x = activations(torch, (2, 64, 12, 10), torch.float32, gen)
+    scale = 1 + 0.3 * torch.randn((64,), generator=gen, device=cuda)
+    bias = 0.2 * torch.randn((64,), generator=gen, device=cuda)
+    w = torch.randn((2, 64, 12, 10), generator=gen, device=cuda)
+
+    def grads(fn):
+        ins = [t.clone().requires_grad_() for t in (x, scale, bias)]
+        (fn(*ins, 32, 1e-5, True, torch.float32) * w).sum().backward()
+        return [t.grad for t in ins]
+
+    before = _build.launch_counts["groupnorm"]
+    got = grads(gn.group_norm_silu)
+    assert _build.launch_counts["groupnorm"] == before + 1
+    for a, b in zip(got, grads(gn.group_norm_silu_plain)):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-5)
+
+
+def test_groupnorm_kernel_rejects_what_it_does_not_take(cuda):
+    s = torch.ones(64, device=cuda)
+    x = torch.zeros((1, 64, 8, 8), device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        gn.group_norm_silu(x.transpose(2, 3), s, s)
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        gn.group_norm_silu(x.half(), s, s)
+    with pytest.raises(ValueError, match="multiple of groups"):
+        gn.group_norm_silu(x[:, :40].contiguous(), s[:40], s[:40])
+    with pytest.raises(ValueError, match="CUDA"):
+        gn.group_norm_silu_kernel(x.cpu(), s.cpu(), s.cpu())

@@ -1,13 +1,15 @@
 """The port's prepare_sds (contexture_nerf_tpu_torch.training.trainer)
-against the JAX reference's `ConTEXTure.prepare_sds(skip_bootstrap=True)`,
-tiny models, f32, on the CPU, on a UV sphere; then one SDS step of each on
-its own setup.
+against the JAX reference's `ConTEXTure.prepare_sds`, tiny models, f32, on
+the CPU, on a UV sphere: without the bootstrap (skip_bootstrap=True), then
+one SDS step of each on its own setup; and with the SD2-depth front-view
+bootstrap, the whole slice as the reference's paint loop runs it.
 
-One tiny JAX trainer is built per module. prepare_sds without the
-bootstrap never touches the SD2-depth towers, so the fixture does not build
-them. The port gets the reference's MLP, VAE and CLIP weights through
-weights.py and the two VAE posterior draws re-derived with jax.random from
-the reference's key.
+Two tiny JAX trainers are built per module: one without its SD2-depth
+towers (prepare_sds without the bootstrap never touches them), and one with
+them, their weights perturbed off the init. The port gets the reference's
+MLP, VAE, CLIP and SD2-depth weights through weights.py, the two VAE
+posterior draws of the conditioning re-derived with jax.random from the
+reference's key, and the bootstrap's four draws from PRNGKey(optim.seed).
 """
 
 import jax
@@ -21,10 +23,13 @@ from contexture_nerf_tpu.training.trainer import ConTEXTure
 from contexture_nerf_tpu_torch import weights
 from contexture_nerf_tpu_torch.core.config import \
     config_from_dict as torch_config_from_dict
+from contexture_nerf_tpu_torch.diffusion.sd_depth import (DRAWS,
+                                                          StableDiffusionDepth)
 from contexture_nerf_tpu_torch.diffusion.zero123plus import \
     Zero123PlusTeacher
 from contexture_nerf_tpu_torch.models.fields import NeRF2D
 from contexture_nerf_tpu_torch.models.textured_mesh import TexturedMeshModel
+from contexture_nerf_tpu_torch.ops.groupnorm import GroupNormSiLU
 from contexture_nerf_tpu_torch.training.trainer import (build_sds_trainer,
                                                         define_view_weights,
                                                         prepare_sds,
@@ -34,6 +39,10 @@ from tools.make_shapes import uv_sphere, write_obj
 T = 500
 KEY = 3
 MODES = ("uniform", "weighted", "mixed")
+# the reference's own towers, which the `reference` fixture stubs out while
+# it is alive
+_INIT_DIFFUSION = ConTEXTure._init_diffusion
+_CALC_TEXT = ConTEXTure._calc_text_embeddings
 
 
 def _cfg_dict(tmp, mode="uniform"):
@@ -96,7 +105,8 @@ def port(reference):
     cfg = torch_config_from_dict(_cfg_dict(tmp))
     eps = _eps(key, (1,) + tuple(ref["cond_lat_pair"].shape[1:]))
     trainer, setup = build_sds_trainer(cfg, tiny=True, device="cpu",
-                                       teacher=teacher, mlp=mlp, eps=eps)
+                                       teacher=teacher, mlp=mlp, eps=eps,
+                                       skip_bootstrap=True)
     return trainer, setup
 
 
@@ -213,14 +223,113 @@ def test_sds_step_on_ported_setup_matches_reference(reference, port):
     _close(grid, grid_ref, 2e-3, "grid")
 
 
-def test_prepare_sds_waits_for_the_bootstrap_slice(reference, port):
-    tmp, tr, _ = reference
+def _perturbed(tree, seed=0):
+    """Every leaf moved off its init (norm scales off 1, biases off 0)."""
+    rng = np.random.default_rng(seed)
+
+    def move(x):
+        x = np.asarray(x, np.float32)
+        if x.ndim <= 1:
+            return x + 0.1 * rng.standard_normal(x.shape).astype(np.float32)
+        return x + rng.standard_normal(x.shape).astype(np.float32) \
+            / np.sqrt(int(np.prod(x.shape[:-1])))
+    return jax.tree.map(move, tree)
+
+
+def _boot_cfg(tmp):
+    d = _cfg_dict(tmp)
+    d["guide"]["text"] = "a photo of a dairy cow"
+    d["log"]["exp_name"] = "torch_boot"
+    return d
+
+
+@pytest.fixture(scope="module")
+def bootstrapped(tmp_path_factory):
+    """The reference with its SD2-depth towers: prepare_sds() with the
+    50-step bootstrap, as its paint loop calls it."""
+    tmp = tmp_path_factory.mktemp("torch_boot")
+    write_obj(tmp / "s.obj", *uv_sphere(6, 8))
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(ConTEXTure, "_init_diffusion", _INIT_DIFFUSION)
+        mp.setattr(ConTEXTure, "_calc_text_embeddings", _CALC_TEXT)
+        tr = ConTEXTure(config_from_dict(_boot_cfg(tmp)), tiny_models=True,
+                        backend="xla")
+    tr.diffusion.params = jax.tree.map(jnp.asarray,
+                                       _perturbed(tr.diffusion.params, 7))
+    # the text pairs from the perturbed text tower, as __init__ makes them
+    tr.text_z, tr.text_string = _CALC_TEXT(tr)
+    key = tr.key
+    return tmp, tr, key, tr.prepare_sds()
+
+
+def test_prepare_sds_with_bootstrap_matches_reference(bootstrapped):
+    tmp, tr, key, ref = bootstrapped
+    teacher, mlp = _port_parts(tr)
+    sd = StableDiffusionDepth(tiny=True, device="cpu")
+    weights.load_sd_depth(sd, jax.tree.map(np.asarray, tr.diffusion.params))
+    cfg = torch_config_from_dict(_boot_cfg(tmp))
+    eps = _eps(key, (1,) + tuple(ref["cond_lat_pair"].shape[1:]))
+    keys = jax.random.split(jax.random.PRNGKey(cfg.optim.seed), 4)
+    draws = {k: torch.from_numpy(np.array(jax.random.normal(
+        kk, sd.latent_shape()))) for k, kk in zip(DRAWS, keys)}
+    timings = {}
+    _, setup = build_sds_trainer(cfg, tiny=True, device="cpu",
+                                 teacher=teacher, mlp=mlp, eps=eps,
+                                 diffusion=sd, bootstrap_draws=draws,
+                                 timings=timings)
+    assert {"bootstrap_text", "bootstrap_render", "bootstrap_unet",
+            "bootstrap_decode", "bootstrap_paste"} <= set(timings)
+    # f32 throughout; measured errors in brackets. The bootstrap runs 51
+    # UNet steps under CFG at 7.5 and a decode, whose summation-order
+    # differences reach the condition image (2.1e-6) and, through the VAE,
+    # its latents (2.0e-5 of max 4.8) and the CLIP states (2.8e-6); the
+    # geometry is the skip_bootstrap path's, held as tightly as there
+    _close(setup["cond_image"], ref["cond_image"], 2e-5, "cond_image")
+    _close(setup["cond_lat_pair"], ref["cond_lat_pair"], 2e-4,
+           "cond_lat_pair")
+    _close(setup["encoder_hidden_states"], ref["encoder_hidden_states"],
+           2e-5, "encoder_hidden_states")
+    _close(setup["depth_grid"], ref["depth_grid"], 5e-5, "depth_grid")
+    _close(setup["mask_grid"], ref["mask_grid"], 1e-6, "mask_grid")
+    # the bootstrap changed the condition image: it is not the front render
+    _, no_boot = build_sds_trainer(cfg, tiny=True, device="cpu",
+                                   teacher=teacher, mlp=mlp, eps=eps,
+                                   skip_bootstrap=True)
+    assert float((setup["cond_image"] - no_boot["cond_image"]).abs().max()) \
+        > 1e-2
+
+
+def test_prepare_sds_bootstrap_needs_the_sd2_stack(reference, port):
+    tmp, _, _ = reference
     trainer, _ = port
     cfg = torch_config_from_dict(_cfg_dict(tmp))
     mesh_model = TexturedMeshModel(cfg.guide, render_grid_size=32,
                                    texture_resolution=16, device="cpu")
-    with pytest.raises(NotImplementedError, match="SD2-depth"):
+    with pytest.raises(ValueError, match="SD2-depth"):
         prepare_sds(cfg, mesh_model, trainer.mlp, trainer.teacher)
+
+
+def test_groupnorm_inputs_are_contiguous_on_the_main_path(reference):
+    """K6 takes contiguous NCHW x only and raises otherwise; the CPU path
+    does not. Every GroupNorm input of the bootstrap, the conditioning and
+    an SDS step must already be contiguous (a permuted view carries its
+    layout through the convolutions)."""
+    tmp, _, _ = reference
+    cfg = torch_config_from_dict(_boot_cfg(tmp))
+    gen = torch.Generator().manual_seed(0)
+    teacher = Zero123PlusTeacher(tiny=True, device="cpu", generator=gen)
+    sd = StableDiffusionDepth(tiny=True, device="cpu", generator=gen)
+    seen = []
+    for m in (teacher, sd):
+        for g in m.modules():
+            if isinstance(g, GroupNormSiLU):
+                g.register_forward_pre_hook(
+                    lambda mod, inp: seen.append(inp[0].is_contiguous()))
+    trainer, _ = build_sds_trainer(cfg, tiny=True, device="cpu",
+                                   teacher=teacher, diffusion=sd)
+    n_setup = len(seen)
+    trainer.step(T)
+    assert n_setup > 1000 and len(seen) > n_setup + 50 and all(seen)
 
 
 def test_mesh_without_uvs_waits_for_atlas_unwrap(tmp_path):
