@@ -35,6 +35,16 @@ from contexture_nerf_tpu_torch.ops import groupnorm as gn
 
 J_DT = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread for this module: the suite runs several test
+    processes at once, and more threads than cores slow all of them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 # (B, C, H, W, act, x dtype, out dtype, eps); H x W ragged (not a multiple
 # of the 16-byte pack) in three of them
 CASES = [

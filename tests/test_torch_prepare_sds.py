@@ -4,12 +4,13 @@ the CPU, on a UV sphere: without the bootstrap (skip_bootstrap=True), then
 one SDS step of each on its own setup; and with the SD2-depth front-view
 bootstrap, the whole slice as the reference's paint loop runs it.
 
-Two tiny JAX trainers are built per module: one without its SD2-depth
-towers (prepare_sds without the bootstrap never touches them), and one with
-them, their weights perturbed off the init. The port gets the reference's
-MLP, VAE, CLIP and SD2-depth weights through weights.py, the two VAE
-posterior draws of the conditioning re-derived with jax.random from the
-reference's key, and the bootstrap's four draws from PRNGKey(optim.seed).
+One tiny JAX trainer, with its SD2-depth towers, is built per module and
+runs prepare_sds without the bootstrap (once per tile weighting), then
+with it, its SD2-depth weights perturbed off the init. The port gets the
+reference's MLP, VAE, CLIP and SD2-depth weights through weights.py, the
+two VAE posterior draws of the conditioning re-derived with jax.random from
+the reference's key, and the bootstrap's four draws from
+PRNGKey(optim.seed).
 """
 
 import jax
@@ -39,10 +40,16 @@ from tools.make_shapes import uv_sphere, write_obj
 T = 500
 KEY = 3
 MODES = ("uniform", "weighted", "mixed")
-# the reference's own towers, which the `reference` fixture stubs out while
-# it is alive
-_INIT_DIFFUSION = ConTEXTure._init_diffusion
-_CALC_TEXT = ConTEXTure._calc_text_embeddings
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread for this module: the suite runs several test
+    processes at once, and more threads than cores slow all of them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _cfg_dict(tmp, mode="uniform"):
@@ -50,7 +57,8 @@ def _cfg_dict(tmp, mode="uniform"):
         "log": {"exp_name": "torch_prep", "exp_root": str(tmp / "exp"),
                 "log_images": False, "save_mesh": False},
         "render": {"train_grid_size": 32, "eval_grid_size": 32},
-        "guide": {"text": "torch_prep", "shape_path": str(tmp / "s.obj"),
+        "guide": {"text": "a photo of a dairy cow",
+                  "shape_path": str(tmp / "s.obj"),
                   "texture_resolution": 16},
         "optim": {"seed": 0, "sds_iterations": 1, "tile_weighting": mode,
                   "local_sds_margin_px": 8,
@@ -71,20 +79,14 @@ def _eps(key, shape):
 def reference(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("torch_prep")
     write_obj(tmp / "s.obj", *uv_sphere(6, 8))
-    mp = pytest.MonkeyPatch()
-    mp.setattr(ConTEXTure, "_init_diffusion", lambda self: None)
-    mp.setattr(ConTEXTure, "_calc_text_embeddings", lambda self: (None, None))
-    try:
-        tr = ConTEXTure(config_from_dict(_cfg_dict(tmp)), tiny_models=True,
-                        backend="xla")
-        runs = {}
-        for mode in MODES:
-            tr.cfg.optim.tile_weighting = mode
-            key = tr.key
-            runs[mode] = (key, tr.prepare_sds(skip_bootstrap=True))
-        yield tmp, tr, runs
-    finally:
-        mp.undo()
+    tr = ConTEXTure(config_from_dict(_cfg_dict(tmp)), tiny_models=True,
+                    backend="xla")
+    runs = {}
+    for mode in MODES:
+        tr.cfg.optim.tile_weighting = mode
+        key = tr.key
+        runs[mode] = (key, tr.prepare_sds(skip_bootstrap=True))
+    return tmp, tr, runs
 
 
 def _port_parts(tr):
@@ -236,47 +238,46 @@ def _perturbed(tree, seed=0):
     return jax.tree.map(move, tree)
 
 
-def _boot_cfg(tmp):
-    d = _cfg_dict(tmp)
-    d["guide"]["text"] = "a photo of a dairy cow"
-    d["log"]["exp_name"] = "torch_boot"
-    return d
-
-
 @pytest.fixture(scope="module")
-def bootstrapped(tmp_path_factory):
-    """The reference with its SD2-depth towers: prepare_sds() with the
-    50-step bootstrap, as its paint loop calls it."""
-    tmp = tmp_path_factory.mktemp("torch_boot")
-    write_obj(tmp / "s.obj", *uv_sphere(6, 8))
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(ConTEXTure, "_init_diffusion", _INIT_DIFFUSION)
-        mp.setattr(ConTEXTure, "_calc_text_embeddings", _CALC_TEXT)
-        tr = ConTEXTure(config_from_dict(_boot_cfg(tmp)), tiny_models=True,
-                        backend="xla")
+def bootstrapped(reference):
+    """The reference's prepare_sds() with the 50-step bootstrap, as its paint
+    loop calls it, after the skip_bootstrap runs."""
+    tmp, tr, _ = reference
+    tr.cfg.optim.tile_weighting = "uniform"
     tr.diffusion.params = jax.tree.map(jnp.asarray,
                                        _perturbed(tr.diffusion.params, 7))
     # the text pairs from the perturbed text tower, as __init__ makes them
-    tr.text_z, tr.text_string = _CALC_TEXT(tr)
+    tr.text_z, tr.text_string = tr._calc_text_embeddings()
     key = tr.key
     return tmp, tr, key, tr.prepare_sds()
 
 
-def test_prepare_sds_with_bootstrap_matches_reference(bootstrapped):
+def test_prepare_sds_with_bootstrap_matches_reference(reference,
+                                                      bootstrapped):
+    """The whole slice, and every GroupNorm input of it and of one SDS step
+    contiguous: K6 takes contiguous NCHW x only and raises otherwise, which
+    the CPU path does not enforce (a permuted view carries its layout
+    through the convolutions)."""
     tmp, tr, key, ref = bootstrapped
     teacher, mlp = _port_parts(tr)
     sd = StableDiffusionDepth(tiny=True, device="cpu")
     weights.load_sd_depth(sd, jax.tree.map(np.asarray, tr.diffusion.params))
-    cfg = torch_config_from_dict(_boot_cfg(tmp))
+    seen = []
+    for m in (teacher, sd):
+        for g in m.modules():
+            if isinstance(g, GroupNormSiLU):
+                g.register_forward_pre_hook(
+                    lambda mod, inp: seen.append(inp[0].is_contiguous()))
+    cfg = torch_config_from_dict(_cfg_dict(tmp))
     eps = _eps(key, (1,) + tuple(ref["cond_lat_pair"].shape[1:]))
     keys = jax.random.split(jax.random.PRNGKey(cfg.optim.seed), 4)
     draws = {k: torch.from_numpy(np.array(jax.random.normal(
         kk, sd.latent_shape()))) for k, kk in zip(DRAWS, keys)}
     timings = {}
-    _, setup = build_sds_trainer(cfg, tiny=True, device="cpu",
-                                 teacher=teacher, mlp=mlp, eps=eps,
-                                 diffusion=sd, bootstrap_draws=draws,
-                                 timings=timings)
+    trainer, setup = build_sds_trainer(cfg, tiny=True, device="cpu",
+                                       teacher=teacher, mlp=mlp, eps=eps,
+                                       diffusion=sd, bootstrap_draws=draws,
+                                       timings=timings)
     assert {"bootstrap_text", "bootstrap_render", "bootstrap_unet",
             "bootstrap_decode", "bootstrap_paste"} <= set(timings)
     # f32 throughout; measured errors in brackets. The bootstrap runs 51
@@ -292,11 +293,12 @@ def test_prepare_sds_with_bootstrap_matches_reference(bootstrapped):
     _close(setup["depth_grid"], ref["depth_grid"], 5e-5, "depth_grid")
     _close(setup["mask_grid"], ref["mask_grid"], 1e-6, "mask_grid")
     # the bootstrap changed the condition image: it is not the front render
-    _, no_boot = build_sds_trainer(cfg, tiny=True, device="cpu",
-                                   teacher=teacher, mlp=mlp, eps=eps,
-                                   skip_bootstrap=True)
-    assert float((setup["cond_image"] - no_boot["cond_image"]).abs().max()) \
-        > 1e-2
+    no_boot = reference[2]["uniform"][1]["cond_image"]
+    assert float(np.abs(np.asarray(setup["cond_image"])
+                        - np.asarray(no_boot)).max()) > 1e-2
+    n_setup = len(seen)
+    trainer.step(T)
+    assert n_setup > 1000 and len(seen) > n_setup + 50 and all(seen)
 
 
 def test_prepare_sds_bootstrap_needs_the_sd2_stack(reference, port):
@@ -307,29 +309,6 @@ def test_prepare_sds_bootstrap_needs_the_sd2_stack(reference, port):
                                    texture_resolution=16, device="cpu")
     with pytest.raises(ValueError, match="SD2-depth"):
         prepare_sds(cfg, mesh_model, trainer.mlp, trainer.teacher)
-
-
-def test_groupnorm_inputs_are_contiguous_on_the_main_path(reference):
-    """K6 takes contiguous NCHW x only and raises otherwise; the CPU path
-    does not. Every GroupNorm input of the bootstrap, the conditioning and
-    an SDS step must already be contiguous (a permuted view carries its
-    layout through the convolutions)."""
-    tmp, _, _ = reference
-    cfg = torch_config_from_dict(_boot_cfg(tmp))
-    gen = torch.Generator().manual_seed(0)
-    teacher = Zero123PlusTeacher(tiny=True, device="cpu", generator=gen)
-    sd = StableDiffusionDepth(tiny=True, device="cpu", generator=gen)
-    seen = []
-    for m in (teacher, sd):
-        for g in m.modules():
-            if isinstance(g, GroupNormSiLU):
-                g.register_forward_pre_hook(
-                    lambda mod, inp: seen.append(inp[0].is_contiguous()))
-    trainer, _ = build_sds_trainer(cfg, tiny=True, device="cpu",
-                                   teacher=teacher, diffusion=sd)
-    n_setup = len(seen)
-    trainer.step(T)
-    assert n_setup > 1000 and len(seen) > n_setup + 50 and all(seen)
 
 
 def test_mesh_without_uvs_waits_for_atlas_unwrap(tmp_path):

@@ -37,6 +37,16 @@ from contexture_nerf_tpu_torch.ops.image import resize_bicubic, resize_nearest
 PROMPT = "a photo of a dairy cow"
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread for this module: the suite runs several test
+    processes at once, and more threads than cores slow all of them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _perturbed(tree, seed=0):
     """Every leaf moved off its init, as numpy f32."""
     rng = np.random.default_rng(seed)
