@@ -16,8 +16,9 @@
 // IEEE division in the sigmoid), so kernel and plain version differ only in
 // the order in which the statistics are summed.
 //
-// What bounds it on an H100: bytes. Two reads of x and one write of y at
-// 3.35 TB/s; the ~12 FP32 operations an element need far less than the
+// What bounds it on an H100: bytes. The function must read x once and write
+// y once at 3.35 TB/s; this two-pass design reads x twice, 1.5x that for bf16
+// in and out. The ~12 FP32 operations an element need far less than the
 // 67 TFLOP/s non-tensor rate. The TPU kernel streams each group twice on a
 // sequential grid, carrying the sums in VMEM scratch; Hopper's blocks run in
 // no order, so the two phases are two launches here.

@@ -29,6 +29,7 @@ from contexture_nerf_tpu_torch.ops import _build
 USE_KERNEL = True
 
 THREADS = 256  # the kernel's CTA size
+LAUNCHES_PER_CALL = 2  # gn_stats, then gn_apply
 TARGET_CTAS = 8 * 132  # CTAs to put in flight: 8 for each of the H100's SMs
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 
@@ -125,7 +126,7 @@ def group_norm_silu_kernel(x: torch.Tensor, scale: torch.Tensor,
         int(out_dtype == torch.bfloat16), bg, groups, C // groups, n, hw, s,
         chunk, float(eps), int(act), int(vec), _build.stream_ptr(x.device))
     _build.check(err, "groupnorm_fwd")
-    _build.launch_counts["groupnorm"] += 1
+    _build.launch_counts["groupnorm"] += LAUNCHES_PER_CALL
     return out
 
 
@@ -167,47 +168,6 @@ def group_norm_silu(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     elif x.device.type != "cpu":
         raise ValueError(f"unsupported device {x.device}")
     return group_norm_silu_plain(x, scale, bias, groups, eps, act, out_dtype)
-
-
-def statistics_floor(x: torch.Tensor, scale: torch.Tensor, groups: int,
-                     eps: float, act: bool,
-                     rho: float = 2.0 ** -14) -> torch.Tensor:
-    """The part of |K6 - plain| that the rounding of the f32 statistics can
-    cause, per element of x (f32, shaped like x). Both sum in f32 trees,
-    each in its own order; with every term rounded at most 1024 times on its
-    way into a sum, the mean and E[x^2] each err by at most rho = 2^-14
-    (1024 f32 ulps) of mean|x| and of E[x^2]. Propagated through
-    (x - mean) * rstd * scale (d rstd = rstd^3 d var / 2) and the SiLU's
-    slope (< 1.1), and doubled, since both sides err."""
-    B, C = x.shape[:2]
-    xd = x.double().reshape(B, groups, -1)
-    mean = xd.mean(-1, keepdim=True)
-    m_abs = xd.abs().mean(-1, keepdim=True)
-    e2 = (xd * xd).mean(-1, keepdim=True)
-    rstd = torch.rsqrt((e2 - mean * mean).clamp(min=0) + eps)
-    d_mean = rho * m_abs
-    d_var = rho * (e2 + 2.0 * mean.abs() * m_abs)
-    d = d_mean * rstd + (xd - mean).abs() * (0.5 * d_var * rstd ** 3)
-    shape = (1, C) + (1,) * (x.dim() - 2)
-    d = d.reshape(x.shape) * scale.double().abs().reshape(shape)
-    return (2.0 * (1.1 if act else 1.0) * d).float()
-
-
-def bf16_limit(plain: torch.Tensor, x: torch.Tensor, scale: torch.Tensor,
-               groups: int, eps: float, act: bool) -> torch.Tensor:
-    """The per-element limit of |K6 - plain| for bf16 output: one bf16 ulp
-    at the plain output's magnitude (the two round f32 values that differ
-    only by the statistics' rounding), plus `statistics_floor` for the
-    values near zero."""
-    a = plain.float().abs().clamp(min=2.0 ** -126)
-    ulp = torch.exp2(torch.floor(torch.log2(a)) - 7.0)
-    return ulp + statistics_floor(x, scale, groups, eps, act)
-
-
-def traffic_bytes(x: torch.Tensor, out_dtype) -> int:
-    """Bytes K6 must move for one call: x read twice, y written once."""
-    return x.numel() * (2 * x.element_size()
-                        + torch.empty((), dtype=out_dtype).element_size())
 
 
 class GroupNormSiLU(torch.nn.Module):

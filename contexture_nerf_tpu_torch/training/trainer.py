@@ -313,10 +313,10 @@ class SDSTrainer:
         configs and the attention routing rule: the MLP forward once for the
         canvas (plus once for the backward slice with local_sds_grad), its
         backward once, every teacher self-attention the rule routes to the
-        flash kernel (cross-attention's 77 tokens never are), and K6 for
-        every GroupNorm of the two UNet passes, the ControlNet and the VAE
-        encodes (the canvas, and the slice with local_sds_grad); the
-        rasterizer never (it runs in prepare_sds)."""
+        flash kernel (cross-attention's 77 tokens never are), and K6 (two
+        launches) for every GroupNorm of the two UNet passes, the ControlNet
+        and the VAE encodes (the canvas, and the slice with local_sds_grad);
+        the rasterizer never (it runs in prepare_sds)."""
         ucfg = self.teacher.unet_config
         lat = self.latent_shape()[2:]
         cond = tuple(self.cond_lat_pair.shape[2:])
@@ -335,7 +335,7 @@ class SDSTrainer:
               + encodes * vae_groupnorms(self.teacher.vae_config))
         return {"mlp_fwd": encodes, "mlp_bwd": 1,
                 "flash_attn_single": single, "flash_attn_two_source": two,
-                "raster": 0, "groupnorm": gn if groupnorm.USE_KERNEL else 0}
+                "raster": 0, "groupnorm": groupnorm_launches(gn)}
 
 
 # -- launches derived from the configs ----------------------------------------------
@@ -374,6 +374,12 @@ def unet_groupnorms(ucfg: UNetConfig, controlnet: bool = False) -> int:
     return 2 * (nb * (2 * lpb + 1) + 2) + n_cross * (2 * lpb + 1) + 1 + 1
 
 
+def groupnorm_launches(calls: int) -> int:
+    """K6's launches for `calls` GroupNorm calls on the card (none when the
+    kernel is switched off)."""
+    return groupnorm.LAUNCHES_PER_CALL * calls if groupnorm.USE_KERNEL else 0
+
+
 def vae_groupnorms(vcfg: VAEConfig, decoder: bool = False) -> int:
     """GroupNorm calls of one VAE encode (or decode): two in each resnet,
     the mid attention's, and conv_norm_out."""
@@ -391,8 +397,8 @@ def prepare_sds_kernel_launches(cfg: TrainConfig,
     bootstrap (`diffusion` given), K5 and K1 once more for the front pose,
     and for each of the PLMS sequence's UNet calls its K3 self-attentions
     and K6 GroupNorms, then K6 in the decode (and in the intermediate
-    decodes with log.vis_diffusion_steps). CLIP's 77 and 257 tokens route
-    to the plain attention path."""
+    decodes with log.vis_diffusion_steps); K6 launches twice a GroupNorm.
+    CLIP's 77 and 257 tokens route to the plain attention path."""
     counts = {k: 0 for k in _build.launch_counts}
     counts["raster"] = counts["mlp_fwd"] = 1
     gn = 2 * vae_groupnorms(teacher.vae_config)
@@ -408,7 +414,7 @@ def prepare_sds_kernel_launches(cfg: TrainConfig,
         decodes = 1 + (min(10, steps) if cfg.log.vis_diffusion_steps else 0)
         gn += (steps * unet_groupnorms(diffusion.unet_config)
                + decodes * vae_groupnorms(diffusion.vae_config, decoder=True))
-    counts["groupnorm"] = gn if groupnorm.USE_KERNEL else 0
+    counts["groupnorm"] = groupnorm_launches(gn)
     return counts
 
 

@@ -30,11 +30,11 @@ from contexture_nerf_tpu_torch.diffusion.zero123plus import \
     Zero123PlusTeacher
 from contexture_nerf_tpu_torch.models.fields import NeRF2D
 from contexture_nerf_tpu_torch.models.textured_mesh import TexturedMeshModel
-from contexture_nerf_tpu_torch.ops.groupnorm import GroupNormSiLU
-from contexture_nerf_tpu_torch.training.trainer import (build_sds_trainer,
-                                                        define_view_weights,
-                                                        prepare_sds,
-                                                        tile_probabilities)
+from contexture_nerf_tpu_torch.ops.groupnorm import (LAUNCHES_PER_CALL,
+                                                     GroupNormSiLU)
+from contexture_nerf_tpu_torch.training.trainer import (
+    build_sds_trainer, define_view_weights, prepare_sds,
+    prepare_sds_kernel_launches, tile_probabilities)
 from tools.make_shapes import uv_sphere, write_obj
 
 T = 500
@@ -257,7 +257,8 @@ def test_prepare_sds_with_bootstrap_matches_reference(reference,
     """The whole slice, and every GroupNorm input of it and of one SDS step
     contiguous: K6 takes contiguous NCHW x only and raises otherwise, which
     the CPU path does not enforce (a permuted view carries its layout
-    through the convolutions)."""
+    through the convolutions). The GroupNorm calls of prepare_sds are the
+    ones its K6 launches are derived from."""
     tmp, tr, key, ref = bootstrapped
     teacher, mlp = _port_parts(tr)
     sd = StableDiffusionDepth(tiny=True, device="cpu")
@@ -297,6 +298,9 @@ def test_prepare_sds_with_bootstrap_matches_reference(reference,
     assert float(np.abs(np.asarray(setup["cond_image"])
                         - np.asarray(no_boot)).max()) > 1e-2
     n_setup = len(seen)
+    # the launches derived for the card: two of K6 a GroupNorm call
+    assert prepare_sds_kernel_launches(cfg, teacher, sd)["groupnorm"] == \
+        LAUNCHES_PER_CALL * n_setup
     trainer.step(T)
     assert n_setup > 1000 and len(seen) > n_setup + 50 and all(seen)
 
