@@ -3,12 +3,13 @@
 
 Run from the root of a checkout, on a machine with one NVIDIA GPU:
 
-    python3 chip_smoke.py [--seed N] [--profile]
+    python3 chip_smoke.py [--seed N] [--profile] [--sweep]
 
 It builds the hand-written CUDA kernels from csrc/, holds each against its
 plain PyTorch version at the shapes the main path gives it (and checks that
-two MLP-backward, rasterizer and GroupNorm runs are bit-identical, and that
-planted faults miss the tolerances), then drives the main path at full
+two MLP-backward, flash-attention, rasterizer and GroupNorm runs are
+bit-identical, and that planted faults miss the tolerances), then drives
+the main path at full
 width from a mesh on disk: `build_sds_trainer` on shapes/torus.obj at the
 default config with guide.text "a photo of a dairy cow" (7 views of
 1200x1200 rasterized, the 1024^2 texture, the SD2-depth front-view
@@ -17,15 +18,18 @@ CFG at 7.5 and the 512^2 VAE decode; then the CLIP text and vision towers
 and the VAE conditioning of `prepare_sds`, then the Zero123++ UNet + depth
 ControlNet + SD VAE encoder + 8x256 MLP on a 960x640 canvas, bf16, random
 towers from the seed) for one warm-up and three timed SDS steps, then one
-step with the GroupNorms hooked (K6's calls, bytes and per-shape times) and
-one with the plain GroupNorm path. prepare_sds's launches and each step's
-must equal the counts derived for them. Any failed phase exits non-zero.
-The last line is {"ok": true, "device": {...}}; the line before it is the
-JSON record of the kernels. --profile also writes a torch.profiler table of
-one step to chiprun_out/.
+step with the GroupNorms and the attention layers hooked (K6's calls, bytes
+and per-shape times; K3/K4 held to their limit on every kernel-routed call,
+as on one bootstrap UNet call) and one with the plain GroupNorm path.
+prepare_sds's launches and each step's must equal the counts derived for
+them. Any failed phase exits non-zero. The last line is {"ok": true,
+"device": {...}}; the line before it is the JSON record of the kernels.
+--profile also writes a torch.profiler table of one step to chiprun_out/;
+--sweep also times K3/K4 at every tile of ATTENTION_TILES.
 """
 
 import argparse
+import contextlib
 import json
 import subprocess
 import sys
@@ -68,6 +72,24 @@ def cuda_ms(fn, reps=10, warmup=2):
         times.append(a.elapsed_time(b))
     times.sort()
     return times[len(times) // 2]
+
+
+def device_ms(fn, reps=20):
+    """Milliseconds of device time a call of fn() spends in kernels (the
+    profiler's self device time over reps calls, after a warm-up): the
+    card's own time, without the host work between launches that cuda_ms
+    also counts where a call is shorter than its host work."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as p:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in p.key_averages()) \
+        / reps / 1e3
 
 
 def bound(flops, nbytes, peak=H100_BF16_FLOPS):
@@ -154,13 +176,90 @@ def planted_mlp(torch, ws, bs, emb, g, fault):
     return out.detach(), [w.grad for w in ws], [b.grad for b in bs]
 
 
-def attention_tol(ref):
-    """Tolerance for flash attention held against its plain version: a
-    tenth of the plain output's RMS. Both round P and the output to bf16 at
-    other points, which measures one bf16 ulp of the largest outputs (about
-    a twentieth of the RMS at these lengths); a dropped KV source or a wrong
-    softmax scale moves the output by a sizeable part of its RMS."""
-    return 0.1 * float(ref.float().pow(2).mean().sqrt())
+BF16_U = 2.0 ** -8  # bf16 unit roundoff: 8-bit significand, round to nearest
+
+
+def attention_limit(torch, q, k, v, ek, ev, plain, rows=2048):
+    """Per-element limit for flash attention held against its plain output
+    `plain` (f32, shaped like it). The two round P to bf16 at different
+    points: the kernel before normalisation (exp(s - m) with its running m),
+    the plain version after (p / l); each rounding errs by at most u = 2^-8
+    of P, so element (i, c) of the sums differs by d = sum_j e_j P_ij v_jc,
+    |e_j| <= 2u. That is at most R = 2u sum_j P_ij |v_jc|. Keys that are
+    copies of one another (a flat background gives many) share their P, v
+    and rounding, so each group g of identical (k_j, v_j) rows adds one
+    term e_g W_ig v_gc, W_ig = sum over g of P_ij; distinct groups' e_g act
+    as independent uniform draws, and d stays within 8 standard deviations,
+    8 u sqrt(2/3 sum_g W_ig^2 v_gc^2). d is the smaller of the two; then both
+    round the output to bf16, which adds one bf16 ulp at |plain| + d. The
+    f32 sums' own rounding is ~2^-24 of these and is left out. P is the
+    plain version's f32 softmax, taken `rows` queries at a time."""
+    if ek is not None:
+        k, v = torch.cat([k, ek], 2), torch.cat([v, ev], 2)
+    kf, vf = k.float(), v.float()
+    va = vf.abs()
+    B, H = q.shape[:2]
+    groups = {}  # (b, h) -> (group of each key, v of each group squared)
+    for b in range(B):
+        for h in range(H):
+            rows_kv = torch.cat([k[b, h], v[b, h]], -1).view(torch.int16)
+            _, inv = torch.unique(rows_kv, dim=0, return_inverse=True)
+            vg = vf.new_zeros((int(inv.max()) + 1, vf.shape[-1]))
+            groups[b, h] = inv, vg.index_copy_(0, inv, vf[b, h]) ** 2
+    parts = []
+    for i in range(0, q.shape[2], rows):
+        logits = torch.matmul(q[:, :, i:i + rows].float(),
+                              kf.transpose(-1, -2)) * (q.shape[-1] ** -0.5)
+        p = torch.softmax(logits, dim=-1)
+        del logits
+        r = 2.0 * BF16_U * torch.matmul(p, va)
+        var = torch.empty_like(r)
+        for (b, h), (inv, vg2) in groups.items():
+            w = p.new_zeros((p.shape[2], vg2.shape[0]))
+            w.index_add_(1, inv, p[b, h])
+            var[b, h] = torch.matmul(w * w, vg2)
+        del p
+        sd = BF16_U * torch.sqrt(2.0 / 3.0 * var)
+        parts.append(torch.minimum(r, 8.0 * sd))
+    d = torch.cat(parts, 2)
+    mag = (plain.float().abs() + d).clamp(min=2.0 ** -126)
+    return d + torch.exp2(torch.floor(torch.log2(mag)) - 7.0)
+
+
+def attention_ratio(torch, got, plain, limit):
+    """max |got - plain| / limit over the elements (<= 1 passes)."""
+    return float(((got.float() - plain.float()).abs() / limit).max())
+
+
+ATTENTION_FAULTS = {"scale": "softmax scale 1/sqrt(128) for 1/sqrt(64)",
+                    "dropped": "second KV source dropped",
+                    "tail": "ragged tails unmasked (zero keys up to the tile)"}
+
+
+def planted_attention(torch, fn, q, k, v, ek, ev, fault, tile):
+    """Attention with one planted fault, a stand-in for a wrong kernel:
+    "scale" and "dropped" run `fn` (the kernel, or the plain version) with
+    q scaled by sqrt(1/2) (the TPU's padded width in the scale) or without
+    the second source; "tail" runs the plain version on each source padded
+    with zero keys and values up to a multiple of `tile` keys, which is what
+    a kernel that forgot its tail mask computes (TMA reads zeros past the
+    end, and a zero key scores 0). None when the fault does not apply."""
+    from contexture_nerf_tpu_torch.ops.attention import flash_attention_plain
+
+    if fault == "scale":
+        return fn((q.float() * 0.5 ** 0.5).to(q.dtype), k, v, ek, ev)
+    if fault == "dropped":
+        return fn(q, k, v) if ek is not None else None
+
+    def pad(t):
+        if t is None or not t.shape[2] % tile:
+            return t
+        n = -t.shape[2] % tile
+        return torch.cat([t, t.new_zeros(t.shape[:2] + (n, t.shape[3]))], 2)
+
+    if all(t is None or not t.shape[2] % tile for t in (k, ek)):
+        return None
+    return flash_attention_plain(q, pad(k), pad(v), pad(ek), pad(ev))
 
 
 def mlp_phases(torch, rec_fwd, rec_bwd, seed, n_canvas, n_slice, failures):
@@ -285,62 +384,193 @@ def mlp_phases(torch, rec_fwd, rec_bwd, seed, n_canvas, n_slice, failures):
           "twice per prepare_sds")
 
 
-def attention_phases(torch, rec1, rec2, seed, failures):
+# (B, H, Sq, Skv, Se, launches a step, launches in prepare_sds) of the
+# attention phase: the main path's routed shapes (the SDS step's teacher:
+# UNet write and read passes and ControlNet at 9600, 2400 and 1600 tokens,
+# the read pass's second source of 1600 and 400 reference tokens; the
+# bootstrap's SD2-depth UNet: 5 self-attentions at 64^2 and 5 at 32^2
+# tokens in each of its 51 PLMS calls), then ragged ones
+ATTENTION_SHAPES = [
+    (2, 5, 1600, 1600, 0, 5, 0), (2, 5, 9600, 9600, 0, 2, 0),
+    (2, 10, 2400, 2400, 0, 2, 0), (2, 5, 9600, 9600, 1600, 5, 0),
+    (2, 10, 2400, 2400, 400, 5, 0), (2, 5, 4096, 4096, 0, 0, 5 * 51),
+    (2, 10, 1024, 1024, 0, 0, 5 * 51), (1, 3, 777, 1234, 0, 0, 0),
+    (1, 3, 777, 1234, 301, 0, 0)]
+# (query rows, keys) of a CTA tile, swept with --sweep
+ATTENTION_TILES = [(128, 128), (192, 128), (128, 176), (192, 176)]
+
+
+def attention_check(torch, att, args, failures, name, faults=True):
+    """The kernel on args (q, k, v, extra_k, extra_v) against the plain
+    version within attention_limit, two runs bit-identical, and (faults)
+    the planted faults outside the limit. Returns max |kernel - plain|."""
+    got = att.flash_attention(*args)
+    same = torch.equal(got, att.flash_attention(*args))
+    plain = att.flash_attention_plain(*args)
+    limit = attention_limit(torch, *args, plain)
+    ratio = attention_ratio(torch, got, plain, limit)
+    err = float((got.float() - plain.float()).abs().max())
+    ok = ratio <= 1.0 and same and bool(torch.isfinite(got.float()).all())
+    print(f"  {name}: max_abs_err {err:.3e}, max err/limit {ratio:.3f}, two "
+          f"runs bit-identical {same} {'ok' if ok else 'MISS'}")
+    if not ok:
+        failures.append(name)
+    if not faults:
+        return err
+    keys = args[1].shape[2] + (0 if args[3] is None else args[3].shape[2])
+    pad = sum(-t.shape[2] % att.KV_TILE for t in args[1::2] if t is not None)
+    for fault, what in ATTENTION_FAULTS.items():
+        bad = planted_attention(torch, att.flash_attention, *args, fault,
+                                att.KV_TILE)
+        if bad is None:
+            continue
+        r = attention_ratio(torch, bad, plain, limit)
+        # a forgotten tail mask must show where its zero keys are >= 2% of
+        # all keys (the 1600-key tail, the 2400 + 400 tails)
+        need = fault != "tail" or pad >= 0.02 * keys
+        verdict = "caught" if r > 1 else ("NOT CAUGHT" if need else
+                                          "not caught (not required)")
+        print(f"    planted fault {what}: max err/limit {r:.2f} {verdict}"
+              + (f" ({pad} zero keys among {keys})" if fault == "tail"
+                 else ""))
+        if need and not r > 1:
+            failures.append(f"{name}: limit passes planted fault {fault}")
+    return err
+
+
+def attention_phases(torch, rec1, rec2, seed, sweep, failures):
+    """K3/K4 at ATTENTION_SHAPES on (B, H, S, 64) views of (B, S, H, 64)
+    memory, the layout the attention layers pass: held to attention_limit,
+    bit-identical twice, planted faults caught; timed against the plain
+    version and SDPA. The step's shapes go into the per-step records;
+    prepare_sds's are summed over its launches and printed apart."""
     import torch.nn.functional as F
 
     from contexture_nerf_tpu_torch.ops import attention as att
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed + 1)
-    # (B, H, Sq, Skv, Se, launches per step) at the main path's routed shapes
-    shapes = [(2, 5, 1600, 1600, 0, 5), (2, 5, 9600, 9600, 0, 2),
-              (2, 10, 2400, 2400, 0, 2),
-              (2, 5, 9600, 9600, 1600, 5), (2, 10, 2400, 2400, 400, 5),
-              (1, 3, 777, 1234, 0, 0), (1, 3, 777, 1234, 301, 0)]
-    for B, H, sq, skv, se, times in shapes:
-        def rnd(s):
-            return torch.randn((B, H, s, 64), generator=gen, device=dev,
-                               dtype=torch.bfloat16)
-        q, k, v = rnd(sq), rnd(skv), rnd(skv)
-        ek, ev = (rnd(se), rnd(se)) if se else (None, None)
-        got = att.flash_attention(q, k, v, ek, ev)
-        ref = att.flash_attention_plain(q, k, v, ek, ev)
-        err = float((got.float() - ref.float()).abs().max())
-        tol = attention_tol(ref)
-        ok = err <= tol and bool(torch.isfinite(got.float()).all())
+    prep = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "device_ms": 0.0,
+            "library_device_ms": 0.0, "flops": 0.0, "bytes": 0.0,
+            "launches": 0}
+    step = {3: [0.0, 0.0], 4: [0.0, 0.0]}  # K3, K4: device ms, SDPA's
+    for B, H, sq, skv, se, times, prep_times in ATTENTION_SHAPES:
+        def heads(s):
+            return torch.randn((B, s, H, 64), generator=gen, device=dev,
+                               dtype=torch.bfloat16).permute(0, 2, 1, 3)
+        args = (heads(sq), heads(skv), heads(skv)) + (
+            (heads(se), heads(se)) if se else (None, None))
         name = f"K{4 if se else 3} flash ({B},{H},{sq},{skv}+{se})"
-        print(f"  {name}: max_abs_err {err:.3e} (tol {tol:.3e} = 0.1 "
-              f"RMS(plain)) {'ok' if ok else 'MISS'}")
-        if not ok:
-            failures.append(name)
-        # planted faults, through the kernel itself: the TPU's padded width
-        # in the softmax scale (1/sqrt(128) for 1/sqrt(64)), and the second
-        # KV source dropped
-        faults = {"scale 1/sqrt(128)": att.flash_attention(
-            (q.float() * 0.5 ** 0.5).to(q.dtype), k, v, ek, ev)}
-        if se:
-            faults["second source dropped"] = att.flash_attention(q, k, v)
-        for fname, bad in faults.items():
-            ratio = float((bad.float() - ref.float()).abs().max()) / tol
-            print(f"    planted fault {fname}: max err/tol {ratio:.2f} "
-                  f"{'caught' if ratio > 1 else 'NOT CAUGHT'}")
-            if not ratio > 1:
-                failures.append(f"{name}: tolerance passes {fname}")
-        ms = cuda_ms(lambda: att.flash_attention(q, k, v, ek, ev))
-        pms = cuda_ms(lambda: att.flash_attention_plain(q, k, v, ek, ev),
-                      reps=3, warmup=1)
+        err = attention_check(torch, att, args, failures, name)
+        q, k, v, ek, ev = args
+        ms = cuda_ms(lambda: att.flash_attention(*args))
+        pms = cuda_ms(lambda: att.flash_attention_plain(*args), reps=3,
+                      warmup=1)
         kc = torch.cat([k, ek], 2) if se else k
         vc = torch.cat([v, ev], 2) if se else v
         lms = cuda_ms(lambda: F.scaled_dot_product_attention(q, kc, vc))
-        print(f"    ms {ms:.3f} plain_ms {pms:.3f} library_ms {lms:.3f}")
         nkv = skv + se
         flops = 4.0 * B * H * sq * nkv * 64
         nbytes = 2 * B * H * 64 * (2 * sq + 2 * nkv)
+        b_ms = bound(flops, nbytes)[0]
+        dms = device_ms(lambda: att.flash_attention(*args))
+        dlms = device_ms(lambda: F.scaled_dot_product_attention(q, kc, vc))
+        print(f"    ms {ms:.4f} plain_ms {pms:.3f} library_ms {lms:.4f} "
+              f"(SDPA) bound_ms {b_ms:.4f}; device time {dms:.4f} ms, "
+              f"{flops / dms / 1e9:.0f} TFLOP/s (SDPA {dlms:.4f} ms, "
+              f"{flops / dlms / 1e9:.0f})")
+        if sweep and (times or prep_times):
+            row = []
+            for bm, bn in ATTENTION_TILES:
+                t = device_ms(lambda: att.flash_attention(*args,
+                                                          tiles=(bm, bn)))
+                row.append(f"{bm}x{bn} {t:.4f}")
+            print("    tile sweep (query rows x keys: device ms): "
+                  + ", ".join(row))
         rec = rec2 if se else rec1
-        if times:
-            rec.add(err, ms, pms, flops, nbytes, times, lms)
-        else:
-            rec.add(err, 0.0, 0.0, 0.0, 0.0, 0)
+        rec.add(err, ms, pms, flops, nbytes, times, lms if times else None)
+        step[4 if se else 3][0] += times * dms
+        step[4 if se else 3][1] += times * dlms
+        if prep_times:
+            for key, val in (("ms", ms), ("plain_ms", pms), ("library_ms", lms),
+                             ("device_ms", dms), ("library_device_ms", dlms),
+                             ("flops", flops), ("bytes", nbytes)):
+                prep[key] += prep_times * val
+            prep["launches"] += prep_times
+    # the other side of the routing rule: the step's self-attentions that it
+    # sends to the plain path, through the kernel beside it (a reading for
+    # the thresholds; nothing here changes the rule)
+    for B, H, sq, skv, se in ((2, 20, 600, 600, 100), (2, 5, 256, 256, 0)):
+        def heads(s):
+            return torch.randn((B, s, H, 64), generator=gen, device=dev,
+                               dtype=torch.bfloat16).permute(0, 2, 1, 3)
+        args = (heads(sq), heads(skv), heads(skv)) + (
+            (heads(se), heads(se)) if se else (None, None))
+        attention_check(torch, att, args, failures,
+                        f"unrouted ({B},{H},{sq},{skv}+{se}) through the "
+                        f"kernel", faults=False)
+        ms = cuda_ms(lambda: att.flash_attention(*args))
+        pms = cuda_ms(lambda: att.flash_attention_plain(*args))
+        print(f"    kernel ms {ms:.4f} plain_ms {pms:.4f} (the plain path "
+              f"takes it now)")
+    b_ms, b_by = bound(prep["flops"], prep["bytes"])
+    print(f"  K3 at prepare_sds's shapes, summed over its {prep['launches']} "
+          f"launches: ms {prep['ms']:.3f} plain_ms {prep['plain_ms']:.3f} "
+          f"library_ms {prep['library_ms']:.3f} (SDPA) bound_ms {b_ms:.3f} "
+          f"({b_by}); device time {prep['device_ms']:.3f} ms (SDPA "
+          f"{prep['library_device_ms']:.3f})")
+    for kn, (dms, dlms) in step.items():
+        print(f"  K{kn} at the step's shapes, summed over its launches: "
+              f"device time {dms:.3f} ms (SDPA {dlms:.3f})")
+
+
+@contextlib.contextmanager
+def routed_attention_calls():
+    """While active, record the (q, k, v, extra_k, extra_v) of every
+    attention() call of the attention layers that routes to the kernel, as
+    the layers pass them (views, not copies)."""
+    from contexture_nerf_tpu_torch.diffusion import layers
+    from contexture_nerf_tpu_torch.ops import attention as att
+
+    calls, orig = [], layers.attention
+
+    def record(q, k, v, extra_k=None, extra_v=None):
+        se = 0 if extra_k is None else extra_k.shape[2]
+        if q.is_cuda and att.routes_to_kernel(q.shape[2], k.shape[2], se):
+            calls.append((q, k, v, extra_k, extra_v))
+        return orig(q, k, v, extra_k=extra_k, extra_v=extra_v)
+
+    layers.attention = record
+    try:
+        yield calls
+    finally:
+        layers.attention = orig
+
+
+def check_routed_calls(torch, calls, label, failures):
+    """K3/K4 held to attention_limit on every recorded kernel-routed call's
+    real inputs. Returns (max |kernel - plain|, K3 calls, K4 calls)."""
+    from contexture_nerf_tpu_torch.ops import attention as att
+
+    worst = err = 0.0
+    strided = 0
+    with torch.no_grad():
+        for args in calls:
+            got = att.flash_attention(*args)
+            plain = att.flash_attention_plain(*args)
+            limit = attention_limit(torch, *args, plain)
+            worst = max(worst, attention_ratio(torch, got, plain, limit))
+            err = max(err, float((got.float() - plain.float()).abs().max()))
+            strided += not all(t.is_contiguous() for t in args
+                               if t is not None)
+    two = sum(1 for a in calls if a[3] is not None)
+    print(f"  K3/K4 on the {len(calls)} kernel-routed attention calls of "
+          f"{label} ({len(calls) - two} K3, {two} K4; real activations, "
+          f"{strided} of them strided views): largest err/limit "
+          f"{worst:.3f}, max_abs_err {err:.3e}")
+    if not worst <= 1.0:
+        failures.append(f"K3/K4 on {label}: err/limit {worst:.3f}")
+    return err, len(calls) - two, two
 
 
 def activations(torch, shape, dtype, gen):
@@ -759,7 +989,7 @@ def groupnorm_signature_times(torch, sigs, failures):
     return ms, pms, lms, err
 
 
-def main_path(torch, seed, profile, rec_gn, failures):
+def main_path(torch, seed, profile, recs, failures):
     from contexture_nerf_tpu_torch.core.config import config_from_dict
     from contexture_nerf_tpu_torch.diffusion.sd_depth import \
         StableDiffusionDepth
@@ -818,7 +1048,7 @@ def main_path(torch, seed, profile, rec_gn, failures):
     lat_in = torch.cat([torch.cat([lat] * 2), torch.randn(
         (2, 1) + sd.latent_shape()[2:], device=dev)], 1)
     text = sd.get_text_embeds([cfg.guide.text])
-    with torch.no_grad():
+    with torch.no_grad(), routed_attention_calls() as boot_calls:
         parts = {
             "UNet call": (steps, groupnorm_traffic(
                 torch, [sd.unet], lambda: sd.unet(lat_in, 981, text))),
@@ -852,11 +1082,20 @@ def main_path(torch, seed, profile, rec_gn, failures):
         for key, (c, args) in t["sigs"].items():
             sigs.setdefault(key, [0, args])[0] += n * c
     ms, pms, lms, err = groupnorm_signature_times(torch, sigs, failures)
-    rec_gn.d["max_abs_err"] = max(rec_gn.d["max_abs_err"], err)
+    recs["groupnorm"].d["max_abs_err"] = max(
+        recs["groupnorm"].d["max_abs_err"], err)
     print(f"  K6 at prepare_sds's {len(sigs)} shapes, timed alone and summed "
           f"over its calls: ms {ms:.3f} plain_ms {pms:.3f} library_ms "
           f"{lms:.3f} bound_ms {p_bound:.3f}; max_abs_err {err:.3e}")
-    del sd, parts, sigs, lat, lat_in, text
+    # K3 on the bootstrap UNet call's real self-attention inputs
+    err, single, _ = check_routed_calls(torch, boot_calls,
+                                        "a bootstrap UNet call", failures)
+    recs["flash_attn_single"].d["max_abs_err"] = max(
+        recs["flash_attn_single"].d["max_abs_err"], err)
+    if steps * single != want["flash_attn_single"]:
+        failures.append(f"K3 in prepare_sds: {steps} x {single} routed calls "
+                        f"!= {want['flash_attn_single']}")
+    del sd, parts, sigs, lat, lat_in, text, boot_calls
     torch.cuda.empty_cache()
 
     expected = trainer.expected_kernel_launches()
@@ -900,9 +1139,20 @@ def main_path(torch, seed, profile, rec_gn, failures):
           f"(timed {', '.join(f'{m:.1f}' for m in step_ms)}), peak memory "
           f"{mem:.2f} GiB, params changed: {changed} [{card_line()}]")
 
-    # K6 on one more step, hooked; then the plain GroupNorm path beside it
-    k6 = groupnorm_traffic(torch, [trainer.teacher],
-                           lambda: trainer.step(ts[-1]))
+    # K6 and the routed attention calls on one more step, hooked; then the
+    # plain GroupNorm path beside it
+    with routed_attention_calls() as step_calls:
+        k6 = groupnorm_traffic(torch, [trainer.teacher],
+                               lambda: trainer.step(ts[-1]))
+    err, single, two = check_routed_calls(torch, step_calls, "one SDS step",
+                                          failures)
+    del step_calls
+    for key, n in (("flash_attn_single", single),
+                   ("flash_attn_two_source", two)):
+        recs[key].d["max_abs_err"] = max(recs[key].d["max_abs_err"], err)
+        if n != expected[key]:
+            failures.append(f"{key}: {n} routed calls in a step != "
+                            f"{expected[key]}")
     gn.USE_KERNEL = False
     try:
         torch.cuda.synchronize()
@@ -931,7 +1181,7 @@ def main_path(torch, seed, profile, rec_gn, failures):
           f"summed over the step's calls: ms {ms:.3f} plain_ms {pms:.3f} "
           f"library_ms {lms:.3f} (F.group_norm, + F.silu where act: two "
           f"calls) bound_ms {k6['bound_ms']:.3f}; max_abs_err {err:.3e}")
-    rec_gn.add(err, ms, pms, 12.0 * sum(
+    recs["groupnorm"].add(err, ms, pms, 12.0 * sum(
         n * a[0].numel() for n, a in k6["sigs"].values()), k6["bytes"],
         lib_ms=lms)
     if profile:
@@ -954,6 +1204,8 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true")
+    ap.add_argument("--sweep", action="store_true",
+                    help="also time K3/K4 at every tile in ATTENTION_TILES")
     args = ap.parse_args()
     import torch
 
@@ -1008,7 +1260,8 @@ def main():
     mlp_phases(torch, recs["mlp_fwd"], recs["mlp_bwd"], args.seed,
                960 * 640, 448 * 448, failures)
     attention_phases(torch, recs["flash_attn_single"],
-                     recs["flash_attn_two_source"], args.seed, failures)
+                     recs["flash_attn_two_source"], args.seed, args.sweep,
+                     failures)
     print("K5 phase (kernel vs plain, f32):")
     raster_phases(torch, recs["raster"], config_from_dict({"guide": {
         "shape_path": str(ROOT / "shapes" / "torus.obj")}}), failures)
@@ -1016,8 +1269,7 @@ def main():
     groupnorm_phase(torch, args.seed, failures)
     print("main path: shapes/torus.obj -> prepare_sds (SD2-depth bootstrap) "
           "-> full-width SDS steps")
-    launches = main_path(torch, args.seed, args.profile, recs["groupnorm"],
-                         failures)
+    launches = main_path(torch, args.seed, args.profile, recs, failures)
     for name, rec in recs.items():
         rec.d["launches"] = launches.get(name, 0)
         if rec.d["launches"] == 0:

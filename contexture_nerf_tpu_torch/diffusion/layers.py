@@ -135,9 +135,11 @@ class CrossAttention(nn.Module):
         self.to_out = Dense(inner, query_dim)
 
     def _split(self, t):
+        """(B, S, H d) -> a (B, H, S, d) view: the flash kernel reads the
+        projection's memory through its strides, no copy."""
         B, S, _ = t.shape
         return t.reshape(B, S, self.num_heads, self.head_dim).permute(
-            0, 2, 1, 3).contiguous()
+            0, 2, 1, 3)
 
     def forward(self, x, context=None, ref_kv=None):
         ctx = x if context is None else context
@@ -151,6 +153,7 @@ class CrossAttention(nn.Module):
             ev = self._split(self.to_v(r))
         out = attention(q, k, v, extra_k=ek, extra_v=ev)
         B, _, Sq, _ = out.shape
+        # free for the kernel's output, a view of (B, Sq, H, d) memory
         out = out.permute(0, 2, 1, 3).reshape(B, Sq, -1)
         return self.to_out(out)
 

@@ -36,7 +36,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 SOURCES: Dict[str, tuple] = {
     "mlp_fwd": ("mlp_fwd.cu", ("mlp_common.cuh",)),
     "mlp_bwd": ("mlp_bwd.cu", ("mlp_common.cuh",)),
-    "flash_attn": ("flash_attn.cu", ()),
+    "flash_attn": ("flash_attn.cu", ("hopper.cuh",)),
     "raster": ("raster.cu", ()),
     "groupnorm": ("groupnorm.cu", ()),
 }

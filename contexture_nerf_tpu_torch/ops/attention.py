@@ -24,6 +24,7 @@ from contexture_nerf_tpu_torch.ops import _build
 MIN_SQ_KERNEL = 256
 MIN_KV_KERNEL = 1024
 HEAD_DIM = 64
+KV_TILE = 128  # the kernel's keys a tile (BN); each source pads to it
 
 
 def routes_to_kernel(sq: int, skv: int, se: int = 0) -> bool:
@@ -51,6 +52,7 @@ def flash_attention_plain(q, k, v, extra_k=None, extra_v=None):
 
 
 _LIB = None
+_STRIDES = ctypes.c_longlong * 18  # (batch, head, row) of q, k, v, ek, ev, o
 
 
 def _lib():
@@ -58,56 +60,76 @@ def _lib():
     if _LIB is None:
         lib = _build.library("flash_attn")
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.flash_attn_fwd.argtypes = [p, p, p, p, p, p, i, i, i, i, p]
+        lib.flash_attn_fwd.argtypes = [p, p, p, p, p, p, i, i, i, i, i, p, i, i,
+                                       p]
         lib.flash_attn_fwd.restype = i
         _LIB = lib
     return _LIB
 
 
 def _check(name, t, ref, s=None):
+    """Raise unless t is what the kernel takes beside q = ref: on ref's CUDA
+    device, bf16, (B, H, S, 64) with ref's B and H (and length s), rows of
+    64 contiguous elements, the other strides whole 16-byte units and the
+    base 16-byte aligned (the TMA tensor maps' terms). Returns its (batch,
+    head, row) strides in elements; a dimension of size 1 is never stepped
+    over and gets a stand-in."""
+    shape, st = t.shape, t.stride()
     if not t.is_cuda or t.device != ref.device:
         raise ValueError(f"{name} must be on {ref.device}")
     if t.dtype != torch.bfloat16:
         raise ValueError(f"{name} must be bfloat16, got {t.dtype}")
-    if t.dim() != 4 or t.shape[0] != ref.shape[0] or t.shape[1] != ref.shape[1] \
-            or t.shape[3] != HEAD_DIM:
+    if len(shape) != 4 or shape[0] != ref.shape[0] \
+            or shape[1] != ref.shape[1] or shape[3] != HEAD_DIM:
         raise ValueError(f"{name} must be (B, H, S, {HEAD_DIM}) matching q; "
-                         f"got {tuple(t.shape)}")
-    if s is not None and t.shape[2] != s:
-        raise ValueError(f"{name} length {t.shape[2]} != {s}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
+                         f"got {tuple(shape)}")
+    if s is not None and shape[2] != s:
+        raise ValueError(f"{name} length {shape[2]} != {s}")
+    out = [st[i] if shape[i] > 1 else HEAD_DIM for i in range(3)]
+    if st[3] != 1 or out[0] % 8 or out[1] % 8 or out[2] % 8 \
+            or t.data_ptr() % 16:
+        raise ValueError(f"{name} must have a last stride of 1, other strides "
+                         f"multiples of 8 elements and a 16-byte aligned "
+                         f"base; got strides {st}")
+    return out
 
 
-def flash_attention(q, k, v, extra_k=None, extra_v=None):
+def flash_attention(q, k, v, extra_k=None, extra_v=None,
+                    tiles=(0, KV_TILE)):
     """q (B,H,Sq,d), k/v (B,H,Skv,d), optional extra_k/extra_v (B,H,Se,d)
     attended jointly with k/v; 1/sqrt(d) applied inside. A CUDA tensor
-    launches the kernel (bf16, d = 64) or raises; a CPU tensor takes the
-    plain version."""
+    launches the kernel (bf16, d = 64, any strides `_check` takes) or
+    raises; a CPU tensor takes the plain version. On the card the output is
+    a (B,H,Sq,d) view of (B,Sq,H,d) memory, so the heads merge back into
+    the projection's layout for free. tiles: the kernel's (query rows, keys)
+    a CTA tile, 0 query rows picks them by shape."""
     if not q.is_cuda:
         if q.device.type != "cpu":
             raise ValueError(f"unsupported device {q.device}")
         return flash_attention_plain(q, k, v, extra_k, extra_v)
     if (extra_k is None) != (extra_v is None):
         raise ValueError("extra_k and extra_v go together")
-    _check("q", q, q)
-    _check("k", k, q)
-    _check("v", v, q, k.shape[2])
+    B, H, sq, _ = q.shape
+    skv = k.shape[2]
+    if skv == 0:
+        raise ValueError("empty KV source")
+    strides = _check("q", q, q) + _check("k", k, q) + _check("v", v, q, skv)
     se = 0
     if extra_k is not None:
-        _check("extra_k", extra_k, q)
-        _check("extra_v", extra_v, q, extra_k.shape[2])
         se = extra_k.shape[2]
-    B, H, sq, _ = q.shape
-    if k.shape[2] == 0:
-        raise ValueError("empty KV source")
-    out = torch.empty_like(q)
+        strides += _check("extra_k", extra_k, q) + _check(
+            "extra_v", extra_v, q, se)
+    else:
+        strides += strides[3:9]  # stand-ins, never read
+    out = torch.empty((B, sq, H, HEAD_DIM), dtype=q.dtype,
+                      device=q.device).permute(0, 2, 1, 3)
+    strides += [sq * H * HEAD_DIM, HEAD_DIM, H * HEAD_DIM]
     err = _lib().flash_attn_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         extra_k.data_ptr() if se else None,
         extra_v.data_ptr() if se else None,
-        out.data_ptr(), B * H, sq, k.shape[2], se,
-        _build.stream_ptr(q.device))
+        out.data_ptr(), B, H, sq, skv, se, _STRIDES(*strides),
+        tiles[0], tiles[1], _build.stream_ptr(q.device))
     _build.check(err, "flash_attn_fwd")
     _build.launch_counts["flash_attn_two_source" if se
                          else "flash_attn_single"] += 1

@@ -2,8 +2,14 @@
 the JAX reference: the flash kernel in interpret mode and `_xla_attention`,
 f32 on the CPU, where the port's `flash_attention` runs its plain version.
 Also: the port's dispatch routes the same shapes to the kernel as the
-reference routes to Pallas.
+reference routes to Pallas; a tile-by-tile emulation of the CUDA kernel
+(csrc/flash_attn.cu) in bf16 matches the reference's interpret-mode kernel
+and the plain version within chip_smoke.attention_limit, the limit the card
+holds the kernel to, and that limit rejects the planted faults; and the
+attention layer gives the same output on the strided views it now passes.
 """
+
+import math
 
 import jax
 import jax.numpy as jnp
@@ -11,10 +17,13 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import (ATTENTION_FAULTS, attention_limit, attention_ratio,
+                        planted_attention)
 from contexture_nerf_tpu.ops.attention import (_xla_attention, attention as
                                                jax_attention,
                                                flash_attention_pallas,
                                                record_attention_calls)
+from contexture_nerf_tpu_torch.diffusion.layers import CrossAttention
 from contexture_nerf_tpu_torch.ops import _build
 from contexture_nerf_tpu_torch.ops import attention as att
 
@@ -82,3 +91,96 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
     q = torch.zeros((1, 1, 8, 64), dtype=torch.float32)
     with pytest.raises(ValueError):
         att._check("q", q, q)  # not on a CUDA device
+
+
+def emulate_kernel(q, k, v, extra_k=None, extra_v=None, bm=128,
+                   bn=att.KV_TILE):
+    """csrc/flash_attn.cu tile by tile in torch: BM x BN tiles, the first
+    source's key tiles then the second's, each source's tail masked by its
+    length, f32 scores and running max m (score units), P = exp2(s c - m c)
+    rounded to bf16 before P V, O and l rescaled by exp2((m_old - m) c), O
+    divided by l at the end and rounded to bf16."""
+    c = 0.125 * math.log2(math.e)
+    out = torch.empty(q.shape, dtype=torch.bfloat16)
+    sources = [(k, v)] + ([(extra_k, extra_v)] if extra_k is not None else [])
+    for i0 in range(0, q.shape[2], bm):
+        qt = q[:, :, i0:i0 + bm].float()
+        m = torch.full(qt.shape[:3] + (1,), -1e30)
+        l = torch.zeros_like(m)
+        o = torch.zeros(qt.shape)
+        for ks, vs in sources:
+            for t0 in range(0, ks.shape[2], bn):
+                s = qt @ ks[:, :, t0:t0 + bn].float().transpose(-1, -2)
+                mx = torch.maximum(m, s.amax(-1, keepdim=True))
+                a = torch.exp2((m - mx) * c)
+                p = torch.exp2(s * c - mx * c)
+                l = l * a + p.sum(-1, keepdim=True)
+                o = o * a + p.to(torch.bfloat16).float() @ vs[
+                    :, :, t0:t0 + bn].float()
+                m = mx
+        out[:, :, i0:i0 + bm] = (o / l).to(torch.bfloat16)
+    return out
+
+
+TILE_CASES = {  # (Sq, Skv, Se) at B=1, H=2: tails of 1, 16 and BN - 1 keys
+    # in each source, Sq off the 128-row tile
+    "tail1": (200, 129, 0),
+    "tail16_127": (130, 144, 255),
+    "tail127_1": (257, 255, 129),
+    "short": (64, 16, 16),
+}
+
+
+def _bf16_inputs(sq, skv, se, seed=0):
+    rng = np.random.default_rng(seed)
+
+    def r(s):
+        return torch.from_numpy(_rand(rng, 1, 2, s, 64)).to(torch.bfloat16)
+
+    q, k, v = r(sq), r(skv), r(skv)
+    ek, ev = (r(se), r(se)) if se else (None, None)
+    return q, k, v, ek, ev
+
+
+@pytest.mark.parametrize("case", sorted(TILE_CASES))
+def test_kernel_emulation_matches_reference(case):
+    ins = _bf16_inputs(*TILE_CASES[case])
+    emu = emulate_kernel(*ins)
+    ref = torch.from_numpy(np.asarray(flash_attention_pallas(
+        *[None if t is None else jnp.asarray(t.float().numpy(), jnp.bfloat16)
+          for t in ins], interpret=True)).astype(np.float32))
+    plain = att.flash_attention_plain(*ins)
+    for other in (ref, plain):
+        limit = attention_limit(torch, *ins, other)
+        assert attention_ratio(torch, emu, other, limit) <= 1.0
+
+
+@pytest.mark.parametrize("case", sorted(TILE_CASES))
+def test_attention_limit_rejects_planted_faults(case):
+    ins = _bf16_inputs(*TILE_CASES[case], seed=1)
+    plain = att.flash_attention_plain(*ins)
+    limit = attention_limit(torch, *ins, plain)
+    caught = {}
+    for fault in ATTENTION_FAULTS:
+        bad = planted_attention(torch, att.flash_attention_plain, *ins, fault,
+                                att.KV_TILE)
+        if bad is not None:
+            caught[fault] = attention_ratio(torch, bad, plain, limit) > 1.0
+    assert "tail" in caught and all(caught.values()), caught
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cross_attention_takes_strided_heads(dtype, monkeypatch):
+    """CrossAttention passes (B, H, S, d) views of the projections, not
+    copies; the output is the same as with the copies it used to make."""
+    torch.manual_seed(0)
+    layer = CrossAttention(320, 320, 5, 64, dtype).to(dtype)
+    x = torch.randn(2, 300, 320).to(dtype)
+    ref_kv = torch.randn(2, 50, 320)
+    q = layer._split(layer.to_q(x))
+    assert not q.is_contiguous() and q.stride(-1) == 1
+    out = layer(x, ref_kv=ref_kv)
+    split = CrossAttention._split
+    monkeypatch.setattr(CrossAttention, "_split",
+                        lambda self, t: split(self, t).contiguous())
+    assert torch.equal(out, layer(x, ref_kv=ref_kv))

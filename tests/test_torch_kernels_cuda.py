@@ -12,11 +12,13 @@ their plain versions round every matmul operand to bf16 at the same points
 and sum in f32 in other orders; a one-ulp flip cascades through the later
 layers. The plain bf16 version's distance from plain f32 measures that
 noise, and a kernel must stay within twice it (or 1e-3 of max|plain| where
-bf16 is exact), as chip_smoke.py holds them. Attention: both versions round
-P and the output to bf16 at other points, about one bf16 ulp of the largest
-outputs; the kernel must stay within a tenth of the plain output's RMS, which
-a dropped second KV source or a softmax scale of 1/sqrt(128) for 1/sqrt(64)
-exceeds (checked here too). The rasterizer (K5) repeats its plain
+bf16 is exact), as chip_smoke.py holds them. Attention: the kernel rounds
+P to bf16 before normalising it, the plain version after, and both round
+the output; the kernel must stay within chip_smoke.attention_limit (the
+bound those roundings give, per element, plus one bf16 ulp), run
+bit-identically twice, and a softmax scale of 1/sqrt(128), a dropped
+second KV source and unmasked ragged tails must miss the limit. The
+rasterizer (K5) repeats its plain
 version's arithmetic without FMA contraction and breaks z ties by the lowest
 face index: face_idx must agree on at least 99.99% of covered pixels, every
 mismatch a z tie (|dz| <= 1e-6) or an edge pixel (min barycentric <= 1e-5),
@@ -43,8 +45,9 @@ from contexture_nerf_tpu_torch.ops import mlp_kernel as mk
 from contexture_nerf_tpu_torch.raster import raster_kernel as rk
 from contexture_nerf_tpu_torch.raster.rasterize import rasterize_geometry
 from contexture_nerf_tpu_torch.training.trainer import view_angles
-from chip_smoke import (activations, groupnorm_limit, groupnorm_ratio,
-                        planted_group_norm)
+from chip_smoke import (ATTENTION_FAULTS, activations, attention_limit,
+                        attention_ratio, groupnorm_limit, groupnorm_ratio,
+                        planted_attention, planted_group_norm)
 from tools.make_shapes import uv_sphere
 
 pytestmark = pytest.mark.cuda
@@ -115,27 +118,45 @@ def test_fused_entry_points_launch_the_kernels(cuda):
         mk.fused_nerf2d(mlp, uv, 10, compute_dtype=torch.float32)
 
 
-@pytest.mark.parametrize("sq,skv,se", [(777, 1234, 0), (777, 1234, 301),
-                                       (64, 64, 0), (1, 1025, 63)])
-def test_flash_attention_matches_plain(cuda, sq, skv, se):
+# (B, H, Sq, Skv, Se): ragged shapes, the bootstrap's (64^2 and 32^2 tokens),
+# tails of 1, 16 and BN - 1 = 127 keys in each source, Sq off the 128- and
+# 192-row query tiles
+FLASH_CASES = [(2, 3, 777, 1234, 0), (2, 3, 777, 1234, 301), (2, 3, 64, 64, 0),
+               (2, 3, 1, 1025, 63), (2, 5, 4096, 4096, 0),
+               (2, 10, 1024, 1024, 0), (1, 2, 300, 129, 16),
+               (1, 2, 130, 144, 255), (1, 2, 257, 255, 129)]
+
+
+@pytest.mark.parametrize("strided", [False, True])
+@pytest.mark.parametrize("B,H,sq,skv,se", FLASH_CASES)
+def test_flash_attention_matches_plain(cuda, B, H, sq, skv, se, strided):
     gen = torch.Generator(device=cuda).manual_seed(sq + skv + se)
 
     def rnd(s):
-        return torch.randn((2, 3, s, 64), generator=gen, device=cuda,
+        if strided:  # (B, H, S, 64) views of (B, S, H, 64), as layers pass
+            return torch.randn((B, s, H, 64), generator=gen, device=cuda,
+                               dtype=torch.bfloat16).permute(0, 2, 1, 3)
+        return torch.randn((B, H, s, 64), generator=gen, device=cuda,
                            dtype=torch.bfloat16)
 
-    q, k, v = rnd(sq), rnd(skv), rnd(skv)
-    ek, ev = (rnd(se), rnd(se)) if se else (None, None)
-    out = att.flash_attention(q, k, v, ek, ev)
-    ref = att.flash_attention_plain(q, k, v, ek, ev).float()
-    tol = 0.1 * float(ref.pow(2).mean().sqrt())
-    assert float((out.float() - ref).abs().max()) <= tol
-    wrong_scale = att.flash_attention((q.float() * 0.5 ** 0.5).to(q.dtype),
-                                      k, v, ek, ev)
-    assert float((wrong_scale.float() - ref).abs().max()) > tol
-    if se:
-        dropped = att.flash_attention(q, k, v)
-        assert float((dropped.float() - ref).abs().max()) > tol
+    args = (rnd(sq), rnd(skv), rnd(skv)) + (
+        (rnd(se), rnd(se)) if se else (None, None))
+    key = "flash_attn_two_source" if se else "flash_attn_single"
+    before = _build.launch_counts[key]
+    out = att.flash_attention(*args)
+    assert _build.launch_counts[key] == before + 1
+    assert out.shape == args[0].shape and torch.isfinite(out.float()).all()
+    assert torch.equal(out, att.flash_attention(*args))
+    plain = att.flash_attention_plain(*args)
+    limit = attention_limit(torch, *args, plain)
+    assert attention_ratio(torch, out, plain, limit) <= 1.0
+    keys = skv + se
+    pad = sum(-n % att.KV_TILE for n in (skv, se) if n)
+    for fault in ATTENTION_FAULTS:
+        bad = planted_attention(torch, att.flash_attention, *args, fault,
+                                att.KV_TILE)
+        if bad is not None and (fault != "tail" or pad >= 0.02 * keys):
+            assert attention_ratio(torch, bad, plain, limit) > 1.0, fault
 
 
 def test_flash_attention_rejects_what_it_does_not_take(cuda):
