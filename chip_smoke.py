@@ -25,7 +25,7 @@ prepare_sds's launches and each step's must equal the counts derived for
 them. Any failed phase exits non-zero. The last line is {"ok": true,
 "device": {...}}; the line before it is the JSON record of the kernels.
 --profile also writes a torch.profiler table of one step to chiprun_out/;
---sweep also times K3/K4 at every tile of ATTENTION_TILES.
+--sweep also times K3/K4 at each query tile the kernel is built for.
 """
 
 import argparse
@@ -396,8 +396,6 @@ ATTENTION_SHAPES = [
     (2, 10, 2400, 2400, 400, 5, 0), (2, 5, 4096, 4096, 0, 0, 5 * 51),
     (2, 10, 1024, 1024, 0, 0, 5 * 51), (1, 3, 777, 1234, 0, 0, 0),
     (1, 3, 777, 1234, 301, 0, 0)]
-# (query rows, keys) of a CTA tile, swept with --sweep
-ATTENTION_TILES = [(128, 128), (192, 128), (128, 176), (192, 176)]
 
 
 def attention_check(torch, att, args, failures, name, faults=True):
@@ -481,12 +479,11 @@ def attention_phases(torch, rec1, rec2, seed, sweep, failures):
               f"{flops / dlms / 1e9:.0f})")
         if sweep and (times or prep_times):
             row = []
-            for bm, bn in ATTENTION_TILES:
-                t = device_ms(lambda: att.flash_attention(*args,
-                                                          tiles=(bm, bn)))
-                row.append(f"{bm}x{bn} {t:.4f}")
-            print("    tile sweep (query rows x keys: device ms): "
-                  + ", ".join(row))
+            for bm in att.BLOCK_M:
+                t = device_ms(lambda: att.flash_attention(*args, bm))
+                row.append(f"{bm} {t:.4f}")
+            print(f"    query-tile sweep ({att.KV_TILE} keys a tile; query "
+                  f"rows: device ms): " + ", ".join(row))
         rec = rec2 if se else rec1
         rec.add(err, ms, pms, flops, nbytes, times, lms if times else None)
         step[4 if se else 3][0] += times * dms
@@ -1205,7 +1202,7 @@ def main():
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true")
     ap.add_argument("--sweep", action="store_true",
-                    help="also time K3/K4 at every tile in ATTENTION_TILES")
+                    help="also time K3/K4 at each query tile (BLOCK_M)")
     args = ap.parse_args()
     import torch
 

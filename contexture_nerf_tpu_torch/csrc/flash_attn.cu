@@ -45,11 +45,14 @@
 // own strides (the wrapper passes (B, S, H, 64) memory). One launch a call,
 // no split-KV, no atomics: two runs are bit-identical.
 //
+// Tiles: BN = 128 keys; BM = 128 query rows, or 192 (three consumer
+// warpgroups) where that takes fewer rounds of CTAs over the SMs.
+//
 // C interface: int flash_attn_fwd(q, k, v, ek, ev, o, B, H, sq, skv, se,
-// strides, bm, bn, stream); strides holds (batch, head, row) strides in
-// elements for q, k, v, ek, ev, o; ek/ev may be null when se == 0; bm, bn
-// 0 pick the tiles. Returns cudaGetLastError(), or 1000 + the CUresult of
-// a failed tensor-map encode, or 2000 for a tile the library lacks.
+// strides, bm, stream); strides holds (batch, head, row) strides in
+// elements for q, k, v, ek, ev, o; ek/ev may be null when se == 0; bm 0
+// picks the query tile. Returns cudaGetLastError(), or 1000 + the CUresult
+// of a failed tensor-map encode, or 2000 for a tile the library lacks.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -65,6 +68,7 @@ namespace {
 constexpr int D = 64;            // head dim
 constexpr int ROW_BYTES = D * 2;  // one bf16 row: one 128-byte swizzle row
 constexpr int STAGES = 2;        // K and V ring depth
+constexpr int KV_TILE = 128;     // keys a tile, BN (ops/attention.py KV_TILE)
 constexpr float NEG = -1e30f;
 
 template <int BM, int BN>
@@ -455,20 +459,15 @@ int pick_bm(int B, int H, int sq) {
 extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
                               const void* ek, const void* ev, void* o, int B,
                               int H, int sq, int skv, int se,
-                              const long long* strides, int bm, int bn,
+                              const long long* strides, int bm,
                               void* stream) {
   if (B <= 0 || H <= 0 || sq <= 0) return 0;
   const void* t[5] = {q, k, v, ek, ev};
   cudaStream_t s = (cudaStream_t)stream;
   if (bm == 0) bm = pick_bm(B, H, sq);
-  if (bn == 0) bn = 128;
-  if (bm == 128 && bn == 128)
-    return launch<128, 128>(t, o, B, H, sq, skv, se, strides, s);
-  if (bm == 192 && bn == 128)
-    return launch<192, 128>(t, o, B, H, sq, skv, se, strides, s);
-  if (bm == 128 && bn == 176)
-    return launch<128, 176>(t, o, B, H, sq, skv, se, strides, s);
-  if (bm == 192 && bn == 176)
-    return launch<192, 176>(t, o, B, H, sq, skv, se, strides, s);
+  if (bm == 128)
+    return launch<128, KV_TILE>(t, o, B, H, sq, skv, se, strides, s);
+  if (bm == 192)
+    return launch<192, KV_TILE>(t, o, B, H, sq, skv, se, strides, s);
   return 2000;
 }

@@ -25,6 +25,7 @@ MIN_SQ_KERNEL = 256
 MIN_KV_KERNEL = 1024
 HEAD_DIM = 64
 KV_TILE = 128  # the kernel's keys a tile (BN); each source pads to it
+BLOCK_M = (128, 192)  # the kernel's query rows a CTA; it picks by shape
 
 
 def routes_to_kernel(sq: int, skv: int, se: int = 0) -> bool:
@@ -60,7 +61,7 @@ def _lib():
     if _LIB is None:
         lib = _build.library("flash_attn")
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.flash_attn_fwd.argtypes = [p, p, p, p, p, p, i, i, i, i, i, p, i, i,
+        lib.flash_attn_fwd.argtypes = [p, p, p, p, p, p, i, i, i, i, i, p, i,
                                        p]
         lib.flash_attn_fwd.restype = i
         _LIB = lib
@@ -94,15 +95,14 @@ def _check(name, t, ref, s=None):
     return out
 
 
-def flash_attention(q, k, v, extra_k=None, extra_v=None,
-                    tiles=(0, KV_TILE)):
+def flash_attention(q, k, v, extra_k=None, extra_v=None, block_m=0):
     """q (B,H,Sq,d), k/v (B,H,Skv,d), optional extra_k/extra_v (B,H,Se,d)
     attended jointly with k/v; 1/sqrt(d) applied inside. A CUDA tensor
     launches the kernel (bf16, d = 64, any strides `_check` takes) or
     raises; a CPU tensor takes the plain version. On the card the output is
     a (B,H,Sq,d) view of (B,Sq,H,d) memory, so the heads merge back into
-    the projection's layout for free. tiles: the kernel's (query rows, keys)
-    a CTA tile, 0 query rows picks them by shape."""
+    the projection's layout for free. block_m: the kernel's query rows a
+    CTA, one of BLOCK_M; 0 picks by shape (the tile sweep sets it)."""
     if not q.is_cuda:
         if q.device.type != "cpu":
             raise ValueError(f"unsupported device {q.device}")
@@ -128,8 +128,8 @@ def flash_attention(q, k, v, extra_k=None, extra_v=None,
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         extra_k.data_ptr() if se else None,
         extra_v.data_ptr() if se else None,
-        out.data_ptr(), B, H, sq, skv, se, _STRIDES(*strides),
-        tiles[0], tiles[1], _build.stream_ptr(q.device))
+        out.data_ptr(), B, H, sq, skv, se, _STRIDES(*strides), block_m,
+        _build.stream_ptr(q.device))
     _build.check(err, "flash_attn_fwd")
     _build.launch_counts["flash_attn_two_source" if se
                          else "flash_attn_single"] += 1

@@ -159,6 +159,18 @@ def test_flash_attention_matches_plain(cuda, B, H, sq, skv, se, strided):
             assert attention_ratio(torch, bad, plain, limit) > 1.0, fault
 
 
+@pytest.mark.parametrize("block_m", att.BLOCK_M)
+def test_flash_attention_query_tiles_match_plain(cuda, block_m):
+    gen = torch.Generator(device=cuda).manual_seed(block_m)
+    args = [torch.randn((2, s, 3, 64), generator=gen, device=cuda,
+                        dtype=torch.bfloat16).permute(0, 2, 1, 3)
+            for s in (777, 1234, 1234, 301, 301)]
+    out = att.flash_attention(*args, block_m)
+    plain = att.flash_attention_plain(*args)
+    assert attention_ratio(torch, out, plain,
+                           attention_limit(torch, *args, plain)) <= 1.0
+
+
 def test_flash_attention_rejects_what_it_does_not_take(cuda):
     q = torch.zeros((1, 1, 8, 64), device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="bfloat16"):
