@@ -74,22 +74,28 @@ def cuda_ms(fn, reps=10, warmup=2):
     return times[len(times) // 2]
 
 
-def device_ms(fn, reps=20):
+def device_ms(fn, reps=20, tries=3):
     """Milliseconds of device time a call of fn() spends in kernels (the
     profiler's self device time over reps calls, after a warm-up): the
     card's own time, without the host work between launches that cuda_ms
-    also counts where a call is shorter than its host work."""
+    also counts where a call is shorter than its host work. The profiler
+    now and then hands back no device events for a window of short calls;
+    such a window is taken again, up to `tries` times, and a reading that
+    stays empty is NaN ("not measured"), never 0."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as p:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in p.key_averages()) \
-        / reps / 1e3
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as p:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(e.self_device_time_total for e in p.key_averages())
+        if total > 0:
+            return total / reps / 1e3
+    return float("nan")
 
 
 def bound(flops, nbytes, peak=H100_BF16_FLOPS):
@@ -304,8 +310,16 @@ def mlp_phases(torch, rec_fwd, rec_bwd, seed, n_canvas, n_slice, failures):
         if not ratio > 1:
             failures.append(f"tolerance passes planted fault {name}")
 
+    def fwd_identical(name, x, multires):
+        same = torch.equal(mk.mlp_fwd_kernel(wflat, bflat, x, multires),
+                           mk.mlp_fwd_kernel(wflat, bflat, x, multires))
+        print(f"  {name}: two runs bit-identical {same}")
+        if not same:
+            failures.append(f"{name} determinism")
+
+    k1_device = [0.0]  # K1's device ms summed over a step's launches
     for label, n in (("canvas", n_canvas), ("slice", n_slice),
-                     ("ragged", 1000)):  # ragged: not a multiple of 64
+                     ("ragged", 1000)):  # ragged: off the 256-point tile
         uv = torch.rand((n, 2), generator=gen, device=dev)
         emb = mk.pad_embedding(uv, 10, dtype=bf)
         err = check(f"K1 mlp_fwd emb {label} ({n}, 48)",
@@ -324,12 +338,19 @@ def mlp_phases(torch, rec_fwd, rec_bwd, seed, n_canvas, n_slice, failures):
                    [planted_mlp(torch, ws, bs, emb, None, "relu6_fwd")[0]],
                    [mk.fused_nerf2d_plain(ws, bs, emb, None, bf)],
                    [mk.fused_nerf2d_plain(ws, bs, emb, None, f32)])
+        fwd_identical(f"K1 {label}", emb, None)
         ms = cuda_ms(lambda: mk.mlp_fwd_kernel(wflat, bflat, emb, None))
+        dms = device_ms(lambda: mk.mlp_fwd_kernel(wflat, bflat, emb, None),
+                        reps=10)
         pms = cuda_ms(lambda: mk.fused_nerf2d_plain(ws, bs, emb, None, bf),
                       reps=5)
-        print(f"    ms {ms:.3f} plain_ms {pms:.3f}")
-        rec_fwd.add(err, ms, pms, 2.0 * n * macs,
-                    n * 48 * 2 + n * 3 * 4 + wbytes)
+        flops = 2.0 * n * macs
+        b_ms = bound(flops, n * 48 * 2 + n * 3 * 4 + wbytes)[0]
+        print(f"    ms {ms:.3f} (device time {dms:.3f}, "
+              f"{flops / dms / 1e9:.0f} TFLOP/s) plain_ms {pms:.3f} "
+              f"bound_ms {b_ms:.3f}")
+        k1_device[0] += dms
+        rec_fwd.add(err, ms, pms, flops, n * 48 * 2 + n * 3 * 4 + wbytes)
 
     # K2 on the slice, then on a ragged count
     for label, n in (("slice", n_slice), ("ragged", 1000)):
@@ -376,12 +397,17 @@ def mlp_phases(torch, rec_fwd, rec_bwd, seed, n_canvas, n_slice, failures):
                 mk.fused_nerf2d_plain(ws, bs, uv, 10, bf),
                 mk.fused_nerf2d_plain(ws, bs, uv, 10, f32))
     rec_fwd.d["max_abs_err"] = max(rec_fwd.d["max_abs_err"], err)
+    fwd_identical("K1 lattice", uv, 10)
     ms = cuda_ms(lambda: mk.mlp_fwd_kernel(wflat, bflat, uv, 10))
+    dms = device_ms(lambda: mk.mlp_fwd_kernel(wflat, bflat, uv, 10), reps=10)
     pms = cuda_ms(lambda: mk.fused_nerf2d_plain(ws, bs, uv, 10, bf), reps=3)
-    b_ms, b_by = bound(2.0 * uv.shape[0] * macs,
-                       uv.shape[0] * (2 * 4 + 3 * 4) + wbytes)
-    print(f"    ms {ms:.3f} plain_ms {pms:.3f} bound_ms {b_ms:.3f} ({b_by}); "
-          "twice per prepare_sds")
+    flops = 2.0 * uv.shape[0] * macs
+    b_ms, b_by = bound(flops, uv.shape[0] * (2 * 4 + 3 * 4) + wbytes)
+    print(f"    ms {ms:.3f} (device time {dms:.3f}, {flops / dms / 1e9:.0f} "
+          f"TFLOP/s) plain_ms {pms:.3f} bound_ms {b_ms:.3f} ({b_by}); twice "
+          "per prepare_sds")
+    print(f"  K1 at the step's shapes (canvas + slice): device time "
+          f"{k1_device[0]:.3f} ms")
 
 
 # (B, H, Sq, Skv, Se, launches a step, launches in prepare_sds) of the
@@ -586,8 +612,10 @@ def planted_group_norm(torch, x, scale, bias, groups, eps, act, out_dtype,
                        fault):
     """The plain GroupNorm(+SiLU) with one planted fault, a stand-in for a
     wrong K6: "boundary" takes each group's statistics over channels shifted
-    by one; "no_silu" drops the SiLU; "chunk" leaves one of K6's chunks (the
-    middle one of each group) out of the sums, still dividing by n."""
+    by one; "no_silu" drops the SiLU; "chunk" leaves one CTA's share out of
+    the cluster's statistics, still dividing by n: the middle rank's chunk
+    of K6's plan, or for a one-CTA plan its middle bulk-copy piece (all of
+    the group when it is one piece)."""
     from contexture_nerf_tpu_torch.ops import groupnorm as gn
 
     B, C = x.shape[:2]
@@ -596,9 +624,13 @@ def planted_group_norm(torch, x, scale, bias, groups, eps, act, out_dtype,
         B, groups, -1)
     n = src.shape[-1]
     if fault == "chunk":
-        s, chunk, _ = gn.kernel_split(n, B * groups, x.element_size())
+        p = gn.plan(n, B * groups, x.element_size(), max_cluster=(
+            gn.max_cluster() if x.is_cuda else gn.MAX_CLUSTER))
+        share = (p.chunk if p.cluster > 1
+                 else gn.PIECE_BYTES // x.element_size())
+        parts = -(-n // share)
         keep = torch.ones(n, device=x.device)
-        keep[(s // 2) * chunk:(s // 2 + 1) * chunk] = 0
+        keep[(parts // 2) * share:(parts // 2 + 1) * share] = 0
         src = src * keep
     mean = src.sum(-1, keepdim=True) / n
     var = (src * src).sum(-1, keepdim=True) / n - mean * mean
@@ -780,10 +812,14 @@ def raster_phases(torch, rec, cfg, failures):
 # shapes off the 16-byte pack
 GN_SHAPES = [
     ("bootstrap UNet resnet", (2, 320, 64, 64), "bf16", "bf16", 1e-5, True),
+    ("bootstrap UNet resnet, f32 stream", (2, 640, 32, 32), "f32", "bf16",
+     1e-5, True),
     ("bootstrap UNet transformer", (2, 640, 32, 32), "bf16", "bf16", 1e-6,
      False),
     ("bootstrap UNet mid", (2, 1280, 8, 8), "bf16", "bf16", 1e-5, True),
     ("decoder 512^2", (1, 128, 512, 512), "bf16", "bf16", 1e-6, True),
+    ("decoder 512^2, 256 channels", (1, 256, 512, 512), "bf16", "bf16",
+     1e-6, True),
     ("decoder 256^2", (1, 512, 256, 256), "bf16", "bf16", 1e-6, True),
     ("step UNet resnet", (2, 320, 120, 80), "bf16", "bf16", 1e-5, True),
     ("step encoder 960x640", (1, 128, 960, 640), "bf16", "bf16", 1e-6, True),
@@ -793,7 +829,7 @@ GN_SHAPES = [
 ]
 FAULTS = {"boundary": "group boundary shifted by one channel",
           "no_silu": "SiLU dropped",
-          "chunk": "one chunk's partials left out of the statistics"}
+          "chunk": "one CTA's share left out of the cluster's statistics"}
 
 
 def groupnorm_phase(torch, seed, failures):
@@ -812,7 +848,10 @@ def groupnorm_phase(torch, seed, failures):
         C = shape[1]
         scale = 1 + 0.3 * torch.randn((C,), generator=gen, device=dev)
         bias = 0.2 * torch.randn((C,), generator=gen, device=dev)
+        if odt == "bf16":  # the bf16 towers' parameters are bf16
+            scale, bias = scale.to(torch.bfloat16), bias.to(torch.bfloat16)
         args = (scale, bias, 32, eps, act, dts[odt])
+        p = gn.kernel_plan(x)
         got = gn.group_norm_silu_kernel(x, *args)
         same = torch.equal(got, gn.group_norm_silu_kernel(x, *args))
         plain = gn.group_norm_silu_plain(x, *args)
@@ -821,7 +860,8 @@ def groupnorm_phase(torch, seed, failures):
         err = float((got.float() - plain.float()).abs().max())
         worst = max(worst, err)
         ok = ratio <= 1.0 and same and bool(torch.isfinite(got.float()).all())
-        name = f"K6 groupnorm {label} {shape} {dt}->{odt} eps {eps} act {act}"
+        name = (f"K6 groupnorm {label} {shape} {dt}->{odt} eps {eps} act "
+                f"{act} [{p.path}, {p.cluster} CTA{'s' * (p.cluster > 1)}]")
         what = ("1 bf16 ulp + statistics floor" if odt == "bf16"
                 else "4x plain f32 vs f64")
         print(f"  {name}: max_abs_err {err:.3e}, max err/limit {ratio:.3f} "
@@ -941,18 +981,37 @@ def groupnorm_traffic(torch, modules, run):
             "sigs": sigs}
 
 
-def groupnorm_signature_times(torch, sigs, failures):
+def host_us(torch, fn, reps=20):
+    """Host microseconds a call of fn() takes to return (the wrapper's work
+    and the launches, without waiting for the card), averaged over reps."""
+    fn()
+    torch.cuda.synchronize()
+    a = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    b = time.perf_counter()
+    torch.cuda.synchronize()
+    return (b - a) / reps * 1e6
+
+
+def groupnorm_signature_times(torch, sigs, failures, label):
     """K6, its plain version and the library's F.group_norm (+ F.silu: two
     calls) timed at each signature's sample input (a real activation of the
     main path), and K6 held against the plain version there within
-    groupnorm_limit: (ms, plain_ms, library_ms, max_abs_err), each time
-    summed over the signature's calls."""
+    groupnorm_limit. Each signature is timed with CUDA events (cuda_ms), as
+    device time (profiler) and as host microseconds a call, K6's and the
+    library's; the path of K6's plan is noted. Prints the sums by path and
+    the largest signatures, writes every signature's row to
+    chiprun_out/k6_signatures_<label>.txt, and returns (ms, plain_ms,
+    library_ms, max_abs_err, device_ms, library_device_ms), each summed over
+    the signatures' calls."""
     import torch.nn.functional as F
 
     from contexture_nerf_tpu_torch.ops import groupnorm as gn
 
-    ms = pms = lms = err = worst = 0.0
-    rows = []
+    tot = dict.fromkeys(("ms", "pms", "lms", "dms", "ldms"), 0.0)
+    err = worst = 0.0
+    rows, paths = [], {}
     for (shape, dt, odt, eps, act), (n, args) in sigs.items():
         x, scale, bias, groups = args[:4]
         got = gn.group_norm_silu_kernel(*args)
@@ -971,19 +1030,47 @@ def groupnorm_signature_times(torch, sigs, failures):
             y = F.group_norm(x, groups, w, b, eps)
             return F.silu(y) if act else y
 
-        k = cuda_ms(lambda: gn.group_norm_silu_kernel(*args))
-        p = cuda_ms(lambda: gn.group_norm_silu_plain(*args), reps=5)
-        li = cuda_ms(lib)
-        ms, pms, lms = ms + n * k, pms + n * p, lms + n * li
-        rows.append((n * groupnorm_bytes(torch, x, odt), n, shape, k, p, li))
+        def k6():
+            return gn.group_norm_silu_kernel(*args)
+
+        t = {"ms": cuda_ms(k6), "lms": cuda_ms(lib),
+             "pms": cuda_ms(lambda: gn.group_norm_silu_plain(*args), reps=5),
+             "dms": device_ms(k6), "ldms": device_ms(lib)}
+        hu, lhu = host_us(torch, k6), host_us(torch, lib)
+        for k in tot:
+            tot[k] += n * t[k]
+        nbytes = groupnorm_bytes(torch, x, odt)
+        b_ms = nbytes / H100_BYTES_S * 1e3
+        path = gn.kernel_plan(x, groups)
+        agg = paths.setdefault(path.path, [0, 0, 0.0, 0.0, 0.0])
+        for i, v in enumerate((1, n, n * t["dms"], n * t["ldms"],
+                               n * b_ms)):
+            agg[i] += v
+        rows.append((n * nbytes, n, shape, str(dt)[6:], str(odt)[6:],
+                     path.path, path.cluster, t, hu, lhu, b_ms))
     print(f"    K6 held to its limit at {len(sigs)} shapes: largest "
           f"err/limit {worst:.3f}")
-    for nbytes, n, shape, k, p, li in sorted(rows, reverse=True)[:6]:
-        b_ms = nbytes / n / H100_BYTES_S * 1e3
-        print(f"    {n} x {shape}: K6 {k:.4f} ms, plain {p:.4f}, library "
-              f"{li:.4f}, bound {b_ms:.4f} (bytes) a call; K6 at "
-              f"{100 * b_ms / k:.0f}% of the bound")
-    return ms, pms, lms, err
+    for path, (k, n, d, ld, b_ms) in sorted(paths.items()):
+        print(f"    path {path}: {k} shapes, {n} calls; device time K6 "
+              f"{d:.3f} ms, library {ld:.3f}, bound {b_ms:.3f} (bytes); K6 "
+              f"at {100 * b_ms / d:.0f}% of the bound")
+    lines = []
+    for nb, n, shape, dt, odt, path, cs, t, hu, lhu, b_ms in sorted(
+            rows, key=lambda r: r[0], reverse=True):
+        lines.append(
+            f"{n} x {shape} {dt}->{odt} [{path}, {cs} CTA{'s' * (cs > 1)}]: "
+            f"K6 {t['ms']:.4f} ms (device {t['dms']:.4f}, host "
+            f"{hu:.1f} us), library {t['lms']:.4f} (device "
+            f"{t['ldms']:.4f}, host {lhu:.1f} us), plain {t['pms']:.4f}, "
+            f"bound {b_ms:.4f} (bytes) a call; device time at "
+            f"{100 * b_ms / t['dms']:.0f}% of the bound")
+    for line in lines[:6]:
+        print("    " + line)
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    (out / f"k6_signatures_{label}.txt").write_text("\n".join(lines) + "\n")
+    return (tot["ms"], tot["pms"], tot["lms"], err, tot["dms"],
+            tot["ldms"])
 
 
 def main_path(torch, seed, profile, recs, failures):
@@ -1078,12 +1165,14 @@ def main_path(torch, seed, profile, recs, failures):
     for n, t in parts.values():
         for key, (c, args) in t["sigs"].items():
             sigs.setdefault(key, [0, args])[0] += n * c
-    ms, pms, lms, err = groupnorm_signature_times(torch, sigs, failures)
+    ms, pms, lms, err, dms, ldms = groupnorm_signature_times(
+        torch, sigs, failures, "prepare_sds")
     recs["groupnorm"].d["max_abs_err"] = max(
         recs["groupnorm"].d["max_abs_err"], err)
     print(f"  K6 at prepare_sds's {len(sigs)} shapes, timed alone and summed "
           f"over its calls: ms {ms:.3f} plain_ms {pms:.3f} library_ms "
-          f"{lms:.3f} bound_ms {p_bound:.3f}; max_abs_err {err:.3e}")
+          f"{lms:.3f} bound_ms {p_bound:.3f}; device time K6 {dms:.3f} ms, "
+          f"library {ldms:.3f}; max_abs_err {err:.3e}")
     # K3 on the bootstrap UNet call's real self-attention inputs
     err, single, _ = check_routed_calls(torch, boot_calls,
                                         "a bootstrap UNet call", failures)
@@ -1172,12 +1261,13 @@ def main_path(torch, seed, profile, recs, failures):
         failures.append(f"K6 launches in a step "
                         f"{k6['calls'] * gn.LAUNCHES_PER_CALL} != "
                         f"{expected['groupnorm']}")
-    ms, pms, lms, err = groupnorm_signature_times(torch, k6["sigs"],
-                                                  failures)
+    ms, pms, lms, err, dms, ldms = groupnorm_signature_times(
+        torch, k6["sigs"], failures, "step")
     print(f"  K6 at the step's {len(k6['sigs'])} shapes, timed alone and "
           f"summed over the step's calls: ms {ms:.3f} plain_ms {pms:.3f} "
           f"library_ms {lms:.3f} (F.group_norm, + F.silu where act: two "
-          f"calls) bound_ms {k6['bound_ms']:.3f}; max_abs_err {err:.3e}")
+          f"calls) bound_ms {k6['bound_ms']:.3f}; device time K6 "
+          f"{dms:.3f} ms, library {ldms:.3f}; max_abs_err {err:.3e}")
     recs["groupnorm"].add(err, ms, pms, 12.0 * sum(
         n * a[0].numel() for n, a in k6["sigs"].values()), k6["bytes"],
         lib_ms=lms)

@@ -354,36 +354,12 @@ __global__ void __launch_bounds__(Cfg<BM, BN>::THREADS, 1)
   }
 }
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_fn() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
-                                     cudaEnableDefault, &q);
-#else
-    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault,
-                            &q);
-#endif
-    fn = reinterpret_cast<EncodeTiled>(ptr);
-  }
-  return fn;
-}
-
 // A 4-D map (d, row, head, batch) of a (B, H, S, 64) bf16 view with
 // strides st = (batch, head, row) in elements; boxes of `rows` x 64,
 // 128-byte swizzle, rows past S read as zeros.
 int make_map(CUtensorMap* map, const void* ptr, int B, int H, int S,
              const long long* st, int rows) {
-  EncodeTiled fn = encode_fn();
+  EncodeTiled fn = tensor_map_encoder();
   if (fn == nullptr) return 1000 + CUDA_ERROR_NOT_FOUND;
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)H,
                               (cuuint64_t)B};

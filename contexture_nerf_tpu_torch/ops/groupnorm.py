@@ -21,6 +21,8 @@ that the kernel does not take raises; nothing falls back.
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -28,9 +30,13 @@ from contexture_nerf_tpu_torch.ops import _build
 
 USE_KERNEL = True
 
-THREADS = 256  # the kernel's CTA size
-LAUNCHES_PER_CALL = 2  # gn_stats, then gn_apply
-TARGET_CTAS = 8 * 132  # CTAs to put in flight: 8 for each of the H100's SMs
+THREADS = 512  # the kernel's CTA size
+LAUNCHES_PER_CALL = 1  # every plan is one launch (gn_fused)
+SMS = 132  # the H100's SMs: the plan gives every SM at least one CTA
+SMEM_CAP = 112 * 1024  # bytes of x a CTA keeps on chip: two CTAs an SM
+PIECE_BYTES = THREADS * 4 * 16  # one bulk copy (csrc PIECE_VECS vectors)
+MIN_CTA_BYTES = 16 * 1024  # a CTA's share is not split below this
+MAX_CLUSTER = 16  # the largest (non-portable) cluster on an H100
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 
 
@@ -53,22 +59,48 @@ def group_norm_silu_plain(x: torch.Tensor, scale: torch.Tensor,
     return y.to(out_dtype)
 
 
-def kernel_split(n: int, bg: int, itemsize: int):
-    """How K6 cuts each group of n elements (bg groups in all, x of
-    `itemsize` bytes): (S chunks a group, chunk length, vec). Enough chunks
-    to put about TARGET_CTAS CTAs in flight, none shorter than one 16-byte
-    load a thread; with vec (n a multiple of the 16-byte pack) the chunk is
-    a multiple of the pack, so every load is aligned."""
+class Plan(NamedTuple):
+    """How K6 covers one group of n elements: `cluster` CTAs (ranks) of
+    `chunk` elements each, the first `keep` of each rank's share kept in
+    shared memory, the rest (the overflow) read again from device memory;
+    `vec`: 16-byte vectors (else element by element, nothing kept)."""
+    path: str
+    cluster: int
+    chunk: int
+    keep: int
+    vec: bool
+
+
+@functools.lru_cache(maxsize=1024)
+def plan(n: int, bg: int, itemsize: int, vec: bool = True,
+         max_cluster: int = MAX_CLUSTER) -> Plan:
+    """K6's plan for bg groups of n elements of `itemsize` bytes. The
+    cluster doubles while a rank's share exceeds SMEM_CAP, or while the
+    grid leaves SMs without a CTA and halving the share keeps it at least
+    MIN_CTA_BYTES; up to max_cluster. Ranks get equal chunks (multiples of
+    the 16-byte pack with vec; vec also needs n to be a multiple of it), and
+    the cluster is cut to the ranks that hold elements. Path: "cta" or
+    "cluster", "+overflow" where a share exceeds what is kept."""
     pack = 16 // itemsize
-    vec = n % pack == 0
-    s = max(1, min(-(-TARGET_CTAS // bg), -(-n // (THREADS * pack))))
-    chunk = -(-n // s)
-    if vec:
-        chunk += (-chunk) % pack
-    return -(-n // chunk), chunk, vec
+    vec = vec and n % pack == 0
+    unit = pack if vec else 1
+    nbytes = n * itemsize
+    cs = 1
+    while cs < max_cluster and (
+            nbytes > cs * SMEM_CAP
+            or (bg * cs < SMS and nbytes >= 2 * cs * MIN_CTA_BYTES)):
+        cs = min(2 * cs, max_cluster)
+    chunk = -(-n // cs)
+    chunk += (-chunk) % unit
+    cs = -(-n // chunk)
+    keep = min(chunk, SMEM_CAP // itemsize) if vec else 0
+    path = ("cta" if cs == 1 else "cluster") + (
+        "+overflow" if keep < chunk else "")
+    return Plan(path, cs, chunk, keep, vec)
 
 
 _LIB = None
+_MAX_CLUSTER = None
 
 
 def _lib():
@@ -76,11 +108,33 @@ def _lib():
     if _LIB is None:
         lib = _build.library("groupnorm")
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.groupnorm_fwd.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i,
-                                      i, ctypes.c_float, i, i, p]
+        lib.groupnorm_fwd.argtypes = [p, p, p, p] + [i] * 12 + [
+            ctypes.c_float, i, i, p]
         lib.groupnorm_fwd.restype = i
+        lib.groupnorm_max_cluster.argtypes = []
+        lib.groupnorm_max_cluster.restype = i
         _LIB = lib
     return _LIB
+
+
+def max_cluster() -> int:
+    """The largest cluster (16, 8 or 4) of which the card can hold one at
+    full shared memory; asked once."""
+    global _MAX_CLUSTER
+    if _MAX_CLUSTER is None:
+        cs = _lib().groupnorm_max_cluster()
+        if cs <= 0:
+            raise RuntimeError("K6: the card cannot hold a cluster of 4 CTAs "
+                               "at full shared memory")
+        _MAX_CLUSTER = cs
+    return _MAX_CLUSTER
+
+
+def kernel_plan(x: torch.Tensor, groups: int = 32) -> Plan:
+    """The plan K6 takes for this x on the card."""
+    bg = x.shape[0] * groups
+    return plan(x.numel() // bg, bg, x.element_size(),
+                x.data_ptr() % 16 == 0, max_cluster())
 
 
 def group_norm_silu_kernel(x: torch.Tensor, scale: torch.Tensor,
@@ -88,7 +142,7 @@ def group_norm_silu_kernel(x: torch.Tensor, scale: torch.Tensor,
                            eps: float = 1e-5, act: bool = True,
                            out_dtype=None) -> torch.Tensor:
     """K6 on the card: x (B, C, ...) contiguous, bf16 or f32; out_dtype bf16
-    or f32; scale and bias (C,), taken as f32."""
+    or f32; scale and bias (C,) contiguous, bf16 or f32, read as they are."""
     out_dtype = out_dtype or x.dtype
     if not x.is_cuda:
         raise ValueError(f"group_norm_silu_kernel takes a CUDA tensor, got "
@@ -103,28 +157,26 @@ def group_norm_silu_kernel(x: torch.Tensor, scale: torch.Tensor,
         raise ValueError("K6 takes a contiguous (NCHW) x")
     B, C = x.shape[:2]
     for name, t in (("scale", scale), ("bias", bias)):
-        if t.shape != (C,) or t.device != x.device:
-            raise ValueError(f"{name} must be ({C},) on {x.device}; got "
-                             f"{tuple(t.shape)} on {t.device}")
+        if t.shape != (C,) or t.device != x.device \
+                or t.dtype not in KERNEL_DTYPES or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous ({C},) bfloat16 or "
+                             f"float32 on {x.device}; got {tuple(t.shape)} "
+                             f"{t.dtype} on {t.device}")
     bg = B * groups
     n = x.numel() // bg
-    hw = n // (C // groups)
-    if n >= 2 ** 31 or bg > 65535:
-        raise ValueError(f"K6: {bg} groups of {n} elements is beyond its "
-                         "int32 offsets or its grid")
+    if n >= 2 ** 31:
+        raise ValueError(f"K6: groups of {n} elements are beyond its int32 "
+                         "offsets")
     out = torch.empty(x.shape, dtype=out_dtype, device=x.device)
     if x.numel() == 0:
         return out
-    s, chunk, vec = kernel_split(n, bg, x.element_size())
-    vec = vec and x.data_ptr() % 16 == 0
-    partial = torch.empty((bg * s, 2), dtype=torch.float32, device=x.device)
-    sc = scale.to(torch.float32).contiguous()
-    bi = bias.to(torch.float32).contiguous()
+    p = kernel_plan(x, groups)
+    bf = torch.bfloat16
     err = _lib().groupnorm_fwd(
-        x.data_ptr(), sc.data_ptr(), bi.data_ptr(), partial.data_ptr(),
-        out.data_ptr(), int(x.dtype == torch.bfloat16),
-        int(out_dtype == torch.bfloat16), bg, groups, C // groups, n, hw, s,
-        chunk, float(eps), int(act), int(vec), _build.stream_ptr(x.device))
+        x.data_ptr(), scale.data_ptr(), bias.data_ptr(), out.data_ptr(),
+        x.dtype == bf, out_dtype == bf, scale.dtype == bf, bias.dtype == bf,
+        bg, groups, C // groups, n, n // (C // groups), p.cluster, p.chunk,
+        p.keep, eps, act, p.vec, _build.stream_ptr(x.device))
     _build.check(err, "groupnorm_fwd")
     _build.launch_counts["groupnorm"] += LAUNCHES_PER_CALL
     return out
@@ -158,13 +210,19 @@ def group_norm_silu(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                     groups: int = 32, eps: float = 1e-5, act: bool = True,
                     out_dtype=None) -> torch.Tensor:
     """GroupNorm(+SiLU) over NCHW x, differentiable: K6 for a CUDA tensor
-    (the plain version when USE_KERNEL is off), the plain version for a CPU
+    (through the autograd Function only where a gradient is wanted; the
+    plain version when USE_KERNEL is off), the plain version for a CPU
     tensor."""
     out_dtype = out_dtype or x.dtype
     if x.is_cuda:
         if USE_KERNEL:
-            return _GroupNormSiLUKernel.apply(x, scale, bias, groups, eps,
-                                              act, out_dtype)
+            if torch.is_grad_enabled() and (
+                    x.requires_grad or scale.requires_grad
+                    or bias.requires_grad):
+                return _GroupNormSiLUKernel.apply(x, scale, bias, groups, eps,
+                                                  act, out_dtype)
+            return group_norm_silu_kernel(x, scale, bias, groups, eps, act,
+                                          out_dtype)
     elif x.device.type != "cpu":
         raise ValueError(f"unsupported device {x.device}")
     return group_norm_silu_plain(x, scale, bias, groups, eps, act, out_dtype)

@@ -289,28 +289,30 @@ def mlp_bwd_kernel(wflat, bflat, x, g, multires):
 # -- autograd entry points -------------------------------------------------------
 
 class _FusedNeRF2D(torch.autograd.Function):
+    """Packs the parameters once in the forward; on the card the flattened
+    kernel buffers stay in ctx for K2."""
+
     @staticmethod
     def forward(ctx, x, multires, emb_multires, cdt, *params):
         ctx.multires, ctx.emb_multires, ctx.cdt = multires, emb_multires, cdt
         ctx.save_for_backward(x, *params)
         ws, bs = pack_params(params, emb_multires)
         if x.is_cuda:
-            wflat, bflat = flatten_params(ws, bs, cdt)
-            return mlp_fwd_kernel(wflat, bflat, x, multires)
+            ctx.flat = flatten_params(ws, bs, cdt)
+            return mlp_fwd_kernel(*ctx.flat, x, multires)
         if x.device.type != "cpu":
             raise ValueError(f"unsupported device {x.device}")
+        ctx.packed = (ws, bs)
         return fused_nerf2d_plain(ws, bs, x, multires, cdt)
 
     @staticmethod
     def backward(ctx, g):
         x, *params = ctx.saved_tensors
-        ws, bs = pack_params(params, ctx.emb_multires)
         g = g.float().contiguous()
         if x.is_cuda:
-            wflat, bflat = flatten_params(ws, bs, ctx.cdt)
-            dws, dbs = mlp_bwd_kernel(wflat, bflat, x, g, ctx.multires)
+            dws, dbs = mlp_bwd_kernel(*ctx.flat, x, g, ctx.multires)
         else:
-            dws, dbs = fused_nerf2d_bwd_plain(ws, bs, x, g, ctx.multires,
+            dws, dbs = fused_nerf2d_bwd_plain(*ctx.packed, x, g, ctx.multires,
                                               ctx.cdt)
         grads = unpack_grads(dws, dbs, ctx.emb_multires)
         dx = torch.zeros_like(x) if ctx.needs_input_grad[0] else None

@@ -313,8 +313,8 @@ class SDSTrainer:
         configs and the attention routing rule: the MLP forward once for the
         canvas (plus once for the backward slice with local_sds_grad), its
         backward once, every teacher self-attention the rule routes to the
-        flash kernel (cross-attention's 77 tokens never are), and K6 (two
-        launches) for every GroupNorm of the two UNet passes, the ControlNet
+        flash kernel (cross-attention's 77 tokens never are), and K6 (one
+        launch) for every GroupNorm of the two UNet passes, the ControlNet
         and the VAE encodes (the canvas, and the slice with local_sds_grad);
         the rasterizer never (it runs in prepare_sds)."""
         ucfg = self.teacher.unet_config
@@ -375,8 +375,8 @@ def unet_groupnorms(ucfg: UNetConfig, controlnet: bool = False) -> int:
 
 
 def groupnorm_launches(calls: int) -> int:
-    """K6's launches for `calls` GroupNorm calls on the card (none when the
-    kernel is switched off)."""
+    """K6's launches for `calls` GroupNorm calls on the card, one a call
+    whatever the plan (none when the kernel is switched off)."""
     return groupnorm.LAUNCHES_PER_CALL * calls if groupnorm.USE_KERNEL else 0
 
 
@@ -397,7 +397,7 @@ def prepare_sds_kernel_launches(cfg: TrainConfig,
     bootstrap (`diffusion` given), K5 and K1 once more for the front pose,
     and for each of the PLMS sequence's UNet calls its K3 self-attentions
     and K6 GroupNorms, then K6 in the decode (and in the intermediate
-    decodes with log.vis_diffusion_steps); K6 launches twice a GroupNorm.
+    decodes with log.vis_diffusion_steps); K6 launches once a GroupNorm.
     CLIP's 77 and 257 tokens route to the plain attention path."""
     counts = {k: 0 for k in _build.launch_counts}
     counts["raster"] = counts["mlp_fwd"] = 1

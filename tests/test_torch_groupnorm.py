@@ -4,9 +4,14 @@ against the JAX reference on the CPU: the plain version against
 channels-last, so the inputs are transposed), and the gradients against
 `jax.grad` of the reference's custom-VJP `group_norm_silu`. Then what the
 CPU can check of the kernel's dispatch and limits: a CPU tensor takes the
-plain version and launches nothing, K6's chunking covers every group, and
-the limits chip_smoke.py holds K6 to pass a plain run whose statistics were
-summed in another order but reject the three planted faults.
+plain version and launches nothing; K6's plan covers every group at every
+GroupNorm signature of the main path (the towers run on the meta device at
+full width); a torch emulation of K6's reduction order (per-thread sums of
+16-byte vectors, warp shuffles, warps in order, then the cluster's ranks in
+order, with the on-chip/overflow split) matches the reference and the Pallas
+kernel in interpret mode; and the limits chip_smoke.py holds K6 to pass a
+plain run whose statistics were summed in another order but reject the
+three planted faults.
 
 Tolerances: f32 output within 2e-6 of max(1, |ref|) (the two sum the
 statistics in other orders); bf16 output within one bf16 ulp of the
@@ -14,14 +19,16 @@ reference's magnitude (plus 1e-6), since f32 values that differ in the
 last bits can round to neighbouring bf16 values.
 """
 
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (activations, groupnorm_limit, groupnorm_ratio,
-                        planted_group_norm)
+from chip_smoke import (GN_SHAPES, activations, groupnorm_limit,
+                        groupnorm_ratio, planted_group_norm)
 from contexture_nerf_tpu.ops.groupnorm import (group_norm_silu as j_gn,
                                                group_norm_silu_pallas,
                                                group_norm_silu_reference)
@@ -136,18 +143,222 @@ def test_cpu_takes_the_plain_version_and_launches_nothing():
         gn.group_norm_silu_kernel(x, s, b)
 
 
-@pytest.mark.parametrize("n,bg,itemsize", [
-    (10 * 4096, 64, 2), (4 * 262144, 32, 2), (40 * 64, 64, 2),
-    (3 * 91, 32, 4), (1, 65535, 4), (30 * 120 * 80, 64, 2)])
-def test_kernel_split_covers_every_group(n, bg, itemsize):
-    s, chunk, vec = gn.kernel_split(n, bg, itemsize)
+def _tower_signatures(monkeypatch, part):
+    """{(x shape, x dtype): calls} of the GroupNorms of one main-path part
+    at full width, bf16 towers run on the meta device (no memory, no
+    arithmetic): the bootstrap's SD2-depth UNet call and 512^2 decode, the
+    condition encode, and the SDS step's Zero123++ UNet write and read
+    passes, its depth ControlNet, and the canvas and slice encodes."""
+    from contexture_nerf_tpu_torch.diffusion import layers
+
+    monkeypatch.setattr(gn, "group_norm_silu", lambda x, s, b, g, e, a, o:
+                        torch.empty(x.shape, dtype=o or x.dtype,
+                                    device=x.device))
+    monkeypatch.setattr(layers, "attention", lambda q, k, v, extra_k=None,
+                        extra_v=None: torch.empty_like(q))
+    bf, sigs = torch.bfloat16, {}
+
+    def hook(mod, inp):
+        key = (tuple(inp[0].shape), inp[0].dtype)
+        sigs[key] = sigs.get(key, 0) + 1
+
+    def e(*shape):
+        return torch.empty(shape, dtype=bf)
+
+    with torch.device("meta"), torch.no_grad():
+        if part in ("bootstrap UNet", "step UNet", "step ControlNet"):
+            cfg = (UNetConfig.sd2_depth() if part == "bootstrap UNet"
+                   else UNetConfig.zero123plus())
+            tower = (ControlNet(cfg, bf) if part == "step ControlNet"
+                     else UNet2DCondition(cfg, bf))
+        elif part == "decode":
+            tower = Decoder(VAEConfig.sd(), bf)
+        else:
+            tower = Encoder(VAEConfig.sd(), bf)
+        tower.to(bf)  # as the teacher and the SD2-depth stack cast theirs
+        for m in tower.modules():
+            if isinstance(m, gn.GroupNormSiLU):
+                m.register_forward_pre_hook(hook)
+        t, ehs = torch.tensor([981]), e(2, 77, 1024)
+        if part == "bootstrap UNet":
+            tower(e(2, 5, 64, 64), t, ehs)
+        elif part == "step UNet":  # the write pass, then the read pass
+            ref = []
+            tower(e(2, 4, 40, 40), t, ehs, ref_out=ref)
+            tower(e(2, 4, 120, 80), t, ehs, ref_kv_list=ref)
+        elif part == "step ControlNet":
+            tower(e(2, 4, 120, 80), t, ehs, e(2, 3, 960, 640), 2.0)
+        elif part == "decode":
+            tower(e(1, 4, 64, 64))
+        else:
+            tower(e(1, 3, *{"condition encode": (320, 320),
+                            "canvas encode": (960, 640),
+                            "slice encode": (448, 448)}[part]))
+    return sigs
+
+
+def _check_plan(n, bg, itemsize, max_cluster):
+    p = gn.plan(n, bg, itemsize, True, max_cluster)
     pack = 16 // itemsize
-    assert vec == (n % pack == 0)
-    assert (s - 1) * chunk < n <= s * chunk  # no empty chunk, none missing
-    if vec:
-        assert chunk % pack == 0
-    # enough CTAs for the card, unless each already holds one load a thread
-    assert bg * s >= gn.TARGET_CTAS or chunk <= gn.THREADS * pack + pack
+    assert p.vec == (n % pack == 0)
+    assert 1 <= p.cluster <= max_cluster
+    # equal chunks, none empty, none missing
+    assert (p.cluster - 1) * p.chunk < n <= p.cluster * p.chunk
+    assert 0 <= p.keep <= p.chunk and p.keep * itemsize <= gn.SMEM_CAP
+    if p.vec:
+        assert p.chunk % pack == 0 and p.keep % pack == 0
+        # a group is kept whole on chip wherever the cluster can hold it
+        if n * itemsize <= max_cluster * gn.SMEM_CAP:
+            assert p.keep == p.chunk
+    else:
+        assert p.keep == 0
+    assert p.path == ("cta" if p.cluster == 1 else "cluster") + (
+        "+overflow" if p.keep < p.chunk else "")
+    # every SM gets a CTA, unless a share is already at its smallest
+    assert (bg * p.cluster >= gn.SMS or p.cluster == max_cluster
+            or n * itemsize < 2 * p.cluster * gn.MIN_CTA_BYTES)
+    return p
+
+
+MAIN_PATH_PARTS = ["bootstrap UNet", "decode", "condition encode",
+                   "step UNet", "step ControlNet", "canvas encode",
+                   "slice encode"]
+
+
+@pytest.mark.parametrize("max_cluster", [16, 8])
+@pytest.mark.parametrize("part", MAIN_PATH_PARTS)
+def test_plan_covers_every_main_path_signature(monkeypatch, part,
+                                               max_cluster):
+    """K6's plan at every GroupNorm signature of the main path, for a card
+    that holds clusters of 16 CTAs at full shared memory and for one that
+    holds 8: every group covered once, on chip wherever it fits, and every
+    signature a whole number of 16-byte vectors (the main path never takes
+    the element-by-element path)."""
+    sigs = _tower_signatures(monkeypatch, part)
+    assert len(sigs) >= 4
+    for (shape, dt), _ in sigs.items():
+        bg = shape[0] * 32
+        n = math.prod(shape) // bg
+        itemsize = torch.empty((), dtype=dt).element_size()
+        assert _check_plan(n, bg, itemsize, max_cluster).vec, shape
+
+
+@pytest.mark.parametrize("label,shape,dt", [
+    (label, shape, dt) for label, shape, dt, *_ in GN_SHAPES])
+def test_plan_covers_the_kernel_phase_shapes(label, shape, dt):
+    itemsize = 2 if dt == "bf16" else 4
+    bg = shape[0] * 32
+    _check_plan(math.prod(shape) // bg, bg, itemsize, gn.MAX_CLUSTER)
+
+
+def test_plans_of_the_largest_groups():
+    """The paths the design names: the 64^2 UNet groups in clusters of 2-4,
+    the decoder's 0.5 M-element groups in 16 on chip and its 1 M-element
+    ones in 16 with an overflow, as the step encoder's 2.46 M-element
+    groups, the smallest in one CTA."""
+    assert gn.plan(40960, 64, 2) == gn.Plan("cluster", 4, 10240, 10240, True)
+    assert gn.plan(20480, 64, 2).cluster == 2
+    assert gn.plan(2560, 64, 2).path == "cta"
+    assert gn.plan(2 ** 19, 32, 2) == gn.Plan("cluster", 16, 32768, 32768,
+                                              True)
+    for n, chunk in ((2 ** 20, 65536), (4 * 960 * 640, 153600)):
+        p = gn.plan(n, 32, 2)
+        assert p.path == "cluster+overflow" and p.cluster == 16
+        assert p.keep * 2 == gn.SMEM_CAP and p.chunk == chunk
+    assert gn.plan(3 * 91, 32, 4).path == "cta+overflow"  # not whole vectors
+
+
+def emulate_k6(x, scale, bias, groups, eps, act, out_dtype, p,
+               threads=gn.THREADS):
+    """csrc/groupnorm.cu's arithmetic in torch for plan p: rank r of a
+    group's cluster owns units [r chunk, (r + 1) chunk) (16-byte vectors, or
+    elements without vec), its first `keep` on chip; thread t sums the kept
+    units t, t + T, ... then the overflow's in increasing order, each unit's
+    elements in order (f32, up to FMA contraction of x*x); the 32 lanes of a
+    warp add by xor shuffles (16, 8, 4, 2, 1), the warps' sums are added in
+    warp order, the ranks' in rank order; then mean, E[x^2] - mean^2 and
+    the elementwise chain in the plain version's order."""
+    B, C = x.shape[:2]
+    xf = x.float().reshape(B * groups, -1)
+    n = xf.shape[1]
+    unit = 16 // x.element_size() if p.vec else 1
+    nu, cu, ku = n // unit, p.chunk // unit, p.keep // unit
+    tot = torch.zeros(B * groups, 2)
+    for r in range(p.cluster):
+        lo = min(r * cu, nu)
+        hi = min(lo + cu, nu)
+        kept = min(ku, hi - lo) if p.vec else 0
+        per_thread = []
+        for t in range(threads):
+            us = list(range(t, kept, threads)) + list(
+                range(kept + t, hi - lo, threads))
+            per_thread.append([lo + u for u in us])
+        steps = max(len(u) for u in per_thread)
+        s = torch.zeros(B * groups, threads)
+        q = torch.zeros(B * groups, threads)
+        for i in range(steps):
+            for k in range(unit):
+                col = torch.tensor([us[i] * unit + k if i < len(us) else -1
+                                    for us in per_thread])
+                v = torch.where(col >= 0, xf[:, col.clamp(min=0)],
+                                torch.zeros(()))
+                s = s + v
+                q = q + v * v
+        for o in (16, 8, 4, 2, 1):
+            perm = torch.arange(threads) ^ o
+            s, q = s + s[:, perm], q + q[:, perm]
+        t = torch.zeros(B * groups, 2)
+        for w in range(threads // 32):
+            t = t + torch.stack([s[:, 32 * w], q[:, 32 * w]], 1)
+        tot = tot + t
+    mean = (tot[:, 0] / n)[:, None]
+    var = (tot[:, 1] / n)[:, None] - mean * mean
+    rstd = torch.rsqrt(var + eps)
+    y = ((xf - mean) * rstd).reshape(x.shape)
+    shape = (1, C) + (1,) * (x.dim() - 2)
+    y = y * scale.float().reshape(shape) + bias.float().reshape(shape)
+    if act:
+        y = y * (1.0 / (1.0 + torch.exp(-y)))
+    return y.to(out_dtype)
+
+
+def _small_plan(n, bg, itemsize, vec, cap, min_bytes, max_cluster):
+    """gn.plan with a shared memory of `cap` bytes a CTA and shares of at
+    least `min_bytes`, so small inputs take the cluster and overflow
+    paths."""
+    old = gn.SMEM_CAP, gn.MIN_CTA_BYTES
+    gn.SMEM_CAP, gn.MIN_CTA_BYTES = cap, min_bytes
+    try:
+        return gn.plan.__wrapped__(n, bg, itemsize, vec, max_cluster)
+    finally:
+        gn.SMEM_CAP, gn.MIN_CTA_BYTES = old
+
+
+# (plan label, SMEM_CAP, MIN_CTA_BYTES, max cluster)
+EMULATED_PLANS = [("as planned", None, None, 16),
+                  ("cluster", 1 << 20, 64, 4),
+                  ("cluster+overflow", 32, 16, 3),
+                  ("cta+overflow", 128, 1 << 20, 1)]
+
+
+@pytest.mark.parametrize("label,cap,min_bytes,max_cluster", EMULATED_PLANS)
+@pytest.mark.parametrize("B,C,H,W,act,dt,out_dt,eps", CASES)
+def test_emulated_kernel_matches_reference_and_pallas(
+        B, C, H, W, act, dt, out_dt, eps, label, cap, min_bytes,
+        max_cluster):
+    x, s, b, xj, sj, bj = _inputs(B, C, H, W, dt)
+    n, bg = C // 32 * H * W, B * 32
+    p = (gn.plan(n, bg, x.element_size()) if cap is None else
+         _small_plan(n, bg, x.element_size(), True, cap, min_bytes,
+                     max_cluster))
+    if label != "as planned":
+        assert p.path == label or not p.vec, p
+    got = emulate_k6(x, s, b, 32, eps, act, out_dt, p)
+    ref = group_norm_silu_reference(xj, sj, bj, 32, eps, act, J_DT[out_dt])
+    pal = group_norm_silu_pallas(xj, sj, bj, 32, eps, act, J_DT[out_dt],
+                                 interpret=True)
+    _assert_close(got, _nchw(ref), out_dt)
+    _assert_close(got, _nchw(pal), out_dt)
 
 
 @pytest.mark.parametrize("out_dt", [torch.bfloat16, torch.float32])

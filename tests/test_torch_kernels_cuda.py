@@ -24,12 +24,12 @@ face index: face_idx must agree on at least 99.99% of covered pixels, every
 mismatch a z tie (|dz| <= 1e-6) or an edge pixel (min barycentric <= 1e-5),
 bary within 1e-5 where the faces agree, and two runs bit-identical; a
 reversed z test and a dropped last face chunk must miss those limits.
-GroupNorm (K6) repeats its plain version's elementwise arithmetic and sums
-the f32 statistics in another order: bf16 output within one bf16 ulp of the
+GroupNorm (K6), one launch a call, repeats its plain version's elementwise
+arithmetic and sums the f32 statistics in another order: bf16 output within one bf16 ulp of the
 plain output plus a floor from the statistics' rounding, f32 output within
 4x the plain f32 path's distance from f64 (chip_smoke.groupnorm_limit), two
 runs bit-identical; a group boundary shifted by one channel, a dropped SiLU
-and a chunk left out of the sums must miss those limits.
+and one CTA's share left out of the sums must miss those limits.
 """
 
 import pytest
@@ -103,6 +103,32 @@ def test_mlp_fwd_kernel_takes_the_texture_lattice(cuda):
     assert _agrees(mk.mlp_fwd_kernel(wflat, bflat, uv, 10),
                    mk.fused_nerf2d_plain(ws, bs, uv, 10, torch.bfloat16),
                    mk.fused_nerf2d_plain(ws, bs, uv, 10, torch.float32))
+
+
+@pytest.mark.parametrize("label,n", [("canvas", 960 * 640),
+                                     ("slice", 448 * 448), ("ragged", 1000),
+                                     ("lattice", 1024 * 1024)])
+def test_mlp_fwd_kernel_at_main_path_sizes(cuda, label, n):
+    """K1 at the step's canvas and backward slice, a count off its 512-point
+    cluster tile, and the 1024^2 lattice of prepare_sds, from uv and from
+    the precomputed embedding; two runs bit-identical."""
+    gen = torch.Generator(device=cuda).manual_seed(n)
+    mlp = NeRF2D(generator=gen, device=cuda).requires_grad_(False)
+    params = [p for lin in mlp.linears() for p in (lin.weight, lin.bias)]
+    ws, bs = mk.pack_params(params, 10)
+    wflat, bflat = mk.flatten_params(ws, bs, torch.bfloat16)
+    uv = (uv_lattice(1024, device=cuda) if label == "lattice"
+          else torch.rand((n, 2), generator=gen, device=cuda))
+    emb = mk.pad_embedding(uv, 10, dtype=torch.bfloat16)
+    for x, multires in ((emb, None), (uv, 10)):
+        before = _build.launch_counts["mlp_fwd"]
+        got = mk.mlp_fwd_kernel(wflat, bflat, x, multires)
+        assert _build.launch_counts["mlp_fwd"] == before + 1
+        assert torch.equal(got, mk.mlp_fwd_kernel(wflat, bflat, x, multires))
+        assert _agrees(got, mk.fused_nerf2d_plain(ws, bs, x, multires,
+                                                  torch.bfloat16),
+                       mk.fused_nerf2d_plain(ws, bs, x, multires,
+                                             torch.float32))
 
 
 def test_fused_entry_points_launch_the_kernels(cuda):
@@ -229,32 +255,55 @@ def test_raster_kernel_rejects_what_it_does_not_take(cuda):
         rk.rasterize_geometry_kernel(z.cpu(), torch.zeros((1, 4, 3, 2)), 8, 8)
 
 
-# (x shape, x dtype, out dtype, eps, act): the bootstrap's UNet (64^2
-# latent) and 512^2 decoder, the SDS step's UNet (120x80) and canvas
-# encoder (960x640), and ragged shapes off the 16-byte pack
+# (x shape, x dtype, out dtype, scale/bias dtype, eps, act): the bootstrap's
+# UNet (64^2 latent; f32 residual stream in, bf16 out, bf16 parameters as
+# the bf16 towers hold them) and 512^2 decoder, the SDS step's UNet
+# (120x80) and canvas encoder (960x640), and ragged shapes off the 16-byte
+# pack. Between them they take every path of K6's plan: one CTA, a
+# cluster, a cluster whose shares overflow its shared memory, and the
+# element-by-element path that keeps nothing on chip.
 GN_CASES = [
-    ((2, 320, 64, 64), torch.bfloat16, torch.bfloat16, 1e-5, True),
-    ((2, 1280, 8, 8), torch.bfloat16, torch.bfloat16, 1e-6, False),
-    ((1, 128, 512, 512), torch.bfloat16, torch.bfloat16, 1e-6, True),
-    ((2, 320, 120, 80), torch.bfloat16, torch.bfloat16, 1e-5, True),
-    ((1, 128, 960, 640), torch.bfloat16, torch.bfloat16, 1e-6, True),
-    ((1, 96, 7, 13), torch.float32, torch.float32, 1e-5, True),
-    ((2, 64, 5, 9), torch.bfloat16, torch.float32, 1e-6, False),
-    ((1, 64, 33, 17), torch.float32, torch.bfloat16, 1e-5, True),
+    ((2, 320, 64, 64), torch.bfloat16, torch.bfloat16, torch.float32, 1e-5,
+     True),
+    ((2, 640, 32, 32), torch.float32, torch.bfloat16, torch.bfloat16, 1e-5,
+     True),
+    ((2, 1280, 8, 8), torch.bfloat16, torch.bfloat16, torch.float32, 1e-6,
+     False),
+    ((2, 2560, 8, 8), torch.float32, torch.bfloat16, torch.bfloat16, 1e-5,
+     True),
+    ((1, 128, 512, 512), torch.bfloat16, torch.bfloat16, torch.bfloat16,
+     1e-6, True),
+    ((1, 256, 512, 512), torch.bfloat16, torch.bfloat16, torch.bfloat16,
+     1e-6, True),
+    ((2, 320, 120, 80), torch.bfloat16, torch.bfloat16, torch.float32, 1e-5,
+     True),
+    ((1, 128, 960, 640), torch.bfloat16, torch.bfloat16, torch.bfloat16,
+     1e-6, True),
+    ((1, 96, 7, 13), torch.float32, torch.float32, torch.float32, 1e-5, True),
+    ((2, 64, 5, 9), torch.bfloat16, torch.float32, torch.float32, 1e-6,
+     False),
+    ((1, 64, 33, 17), torch.float32, torch.bfloat16, torch.float32, 1e-5,
+     True),
 ]
 
 
-@pytest.mark.parametrize("shape,dt,out_dt,eps,act", GN_CASES)
-def test_groupnorm_kernel_matches_plain(cuda, shape, dt, out_dt, eps, act):
+def _gn_inputs(cuda, shape, dt, pdt):
     gen = torch.Generator(device=cuda).manual_seed(sum(shape))
     x = activations(torch, shape, dt, gen)
     C = shape[1]
-    scale = 1 + 0.3 * torch.randn((C,), generator=gen, device=cuda)
-    bias = 0.2 * torch.randn((C,), generator=gen, device=cuda)
+    scale = (1 + 0.3 * torch.randn((C,), generator=gen, device=cuda)).to(pdt)
+    bias = (0.2 * torch.randn((C,), generator=gen, device=cuda)).to(pdt)
+    return x, scale, bias
+
+
+@pytest.mark.parametrize("shape,dt,out_dt,pdt,eps,act", GN_CASES)
+def test_groupnorm_kernel_matches_plain(cuda, shape, dt, out_dt, pdt, eps,
+                                        act):
+    x, scale, bias = _gn_inputs(cuda, shape, dt, pdt)
     args = (scale, bias, 32, eps, act, out_dt)
     before = _build.launch_counts["groupnorm"]
     got = gn.group_norm_silu(x, *args)
-    assert _build.launch_counts["groupnorm"] == before + gn.LAUNCHES_PER_CALL
+    assert _build.launch_counts["groupnorm"] == before + 1
     assert got.dtype == out_dt and torch.isfinite(got.float()).all()
     assert torch.equal(got, gn.group_norm_silu_kernel(x, *args))
     plain = gn.group_norm_silu_plain(x, *args)
@@ -264,6 +313,15 @@ def test_groupnorm_kernel_matches_plain(cuda, shape, dt, out_dt, eps, act):
         for fault in ("boundary", "no_silu", "chunk"):
             bad = planted_group_norm(torch, x, *args, fault)
             assert groupnorm_ratio(torch, bad, plain, limit) > 1.0, fault
+
+
+def test_groupnorm_cases_take_every_path(cuda):
+    paths = set()
+    for shape, dt, _, pdt, _, _ in GN_CASES:
+        x, _, _ = _gn_inputs(cuda, shape, dt, pdt)
+        paths.add(gn.kernel_plan(x).path)
+    assert {"cta", "cluster", "cluster+overflow", "cta+overflow"} <= paths, \
+        paths
 
 
 def test_groupnorm_kernel_gradients_match_plain(cuda):
@@ -280,7 +338,7 @@ def test_groupnorm_kernel_gradients_match_plain(cuda):
 
     before = _build.launch_counts["groupnorm"]
     got = grads(gn.group_norm_silu)
-    assert _build.launch_counts["groupnorm"] == before + gn.LAUNCHES_PER_CALL
+    assert _build.launch_counts["groupnorm"] == before + 1
     for a, b in zip(got, grads(gn.group_norm_silu_plain)):
         torch.testing.assert_close(a, b, rtol=0, atol=1e-5)
 

@@ -144,3 +144,65 @@ def test_kernel_wrappers_reject_what_the_kernels_do_not_take(models):
     emb = mk.pad_embedding(torch.from_numpy(uv), 10, dtype=torch.float32)
     with pytest.raises(ValueError, match="bfloat16"):
         mk.mlp_fwd_kernel(wflat, bflat, emb, None)
+
+
+def emulate_fwd_kernel(ws, bs, x, multires, tile=512):
+    """csrc/mlp_fwd.cu in torch, tile by tile (a cluster of four 128-point
+    CTAs): the embedding rounded to bf16; each hidden layer's f32
+    accumulator built one 16-row weight slab at a time in the order the
+    producer streams them (layer 5: the embedding's 3 slabs, then h4's 16),
+    each slab's product summed in f32 and added to the accumulator; bias
+    and ReLU in f32, then bf16 for the next layer; the output layer's 3
+    columns as each thread of a quad sums its 32 activations of a row
+    (fragment registers in order, two products each), the quad's sums added
+    by xor shuffles (1, then 2), then the bias. ws, bs packed f32."""
+    bf = torch.bfloat16
+    emb = mk._input_embedding(x, multires).to(bf).float()
+    w = [wi.to(bf).float() for wi in ws]
+    out = torch.empty((x.shape[0], 3))
+    for r0 in range(0, x.shape[0], tile):
+        e = emb[r0:r0 + tile]
+        h = e
+        for i in range(mk.DEPTH):
+            a = torch.cat([e, h], -1) if i == mk.SKIP + 1 else h
+            acc = torch.zeros((a.shape[0], mk.W))
+            for k in range(0, a.shape[1], 16):
+                acc = acc + a[:, k:k + 16] @ w[i][k:k + 16]
+            h = torch.relu(acc + bs[i]).to(bf).float()
+        quads = []
+        for t in range(4):
+            o = torch.zeros((h.shape[0], 3))
+            for kk in range(16):
+                for k in (16 * kk + 2 * t, 16 * kk + 2 * t + 8):
+                    o = (o + h[:, k:k + 1] * w[mk.DEPTH][k, :3]) \
+                        + h[:, k + 1:k + 2] * w[mk.DEPTH][k + 1, :3]
+            quads.append(o)
+        s = [quads[t] + quads[t ^ 1] for t in range(4)]
+        out[r0:r0 + tile] = (s[0] + s[2]) + bs[mk.DEPTH][:3]
+    return out
+
+
+@pytest.mark.parametrize("variant", ["uv", "emb"])
+def test_emulated_fwd_kernel_matches_reference_and_plain(models, variant):
+    """The CUDA kernel's schedule, emulated on the CPU, against the JAX
+    kernel in interpret mode (TOL["bf16"], as the port's plain path is
+    held) and against the plain bf16 version within chip_smoke.mlp_tol,
+    the limit the card holds K1 to (2x the plain bf16 version's distance
+    from plain f32)."""
+    from chip_smoke import mlp_tol
+
+    _, params, mlp, uv = models
+    ps = [p.detach() for lin in mlp.linears() for p in (lin.weight,
+                                                         lin.bias)]
+    ws, bs = mk.pack_params(ps, 10)
+    uv_t = torch.from_numpy(uv)
+    x, mr = ((uv_t, 10) if variant == "uv" else
+             (mk.pad_embedding(uv_t, 10, dtype=torch.bfloat16), None))
+    got = emulate_fwd_kernel(ws, bs, x, mr)
+    ref = np.asarray(_jax_out(params, uv, variant, jnp.bfloat16))
+    np.testing.assert_allclose(got.numpy(), ref, rtol=0,
+                               atol=TOL["bf16"] * max(1.0, np.abs(ref).max()))
+    plain = mk.fused_nerf2d_plain(ws, bs, x, mr, torch.bfloat16)
+    tol, _ = mlp_tol(plain, mk.fused_nerf2d_plain(ws, bs, x, mr,
+                                                  torch.float32))
+    assert float((got - plain).abs().max()) <= tol

@@ -298,7 +298,7 @@ def test_prepare_sds_with_bootstrap_matches_reference(reference,
     assert float(np.abs(np.asarray(setup["cond_image"])
                         - np.asarray(no_boot)).max()) > 1e-2
     n_setup = len(seen)
-    # the launches derived for the card: two of K6 a GroupNorm call
+    # the launches derived for the card: one of K6 a GroupNorm call
     assert prepare_sds_kernel_launches(cfg, teacher, sd)["groupnorm"] == \
         LAUNCHES_PER_CALL * n_setup
     trainer.step(T)
