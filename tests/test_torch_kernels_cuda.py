@@ -284,6 +284,8 @@ GN_CASES = [
      False),
     ((1, 64, 33, 17), torch.float32, torch.bfloat16, torch.float32, 1e-5,
      True),
+    ((1, 64, 129, 131), torch.float32, torch.float32, torch.float32, 1e-5,
+     True),  # ragged and over a CTA's share: a cluster, element by element
 ]
 
 
@@ -322,6 +324,10 @@ def test_groupnorm_cases_take_every_path(cuda):
         paths.add(gn.kernel_plan(x).path)
     assert {"cta", "cluster", "cluster+overflow", "cta+overflow"} <= paths, \
         paths
+    x, _, _ = _gn_inputs(cuda, (1, 64, 129, 131), torch.float32,
+                         torch.float32)
+    p = gn.kernel_plan(x)
+    assert not p.vec and p.cluster > 1, p
 
 
 def test_groupnorm_kernel_gradients_match_plain(cuda):
