@@ -98,6 +98,23 @@ def device_ms(fn, reps=20, tries=3):
     return float("nan")
 
 
+def device_ms_by_kernel(fn, reps=10):
+    """{kernel name: device milliseconds a call of fn() spends in it}, the
+    profiler's self device time over reps calls after a warm-up; empty when
+    the profiler hands back no device events ("not measured")."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as p:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: e.self_device_time_total / reps / 1e3
+            for e in p.key_averages() if e.self_device_time_total > 0}
+
+
 def bound(flops, nbytes, peak=H100_BF16_FLOPS):
     t_ops = flops / peak * 1e3
     t_bytes = nbytes / H100_BYTES_S * 1e3
@@ -147,8 +164,21 @@ def planted_mlp(torch, ws, bs, emb, g, fault):
     "relu6_mask" keeps its value but passes its gradient unmasked (a wrong
     ReLU mask in the backward); "skip_offset" takes h4's share of the
     skip-split delta from layer 5's weight rows 0:256 (the embedding's
-    offset) instead of EMB_PAD:EMB_PAD+256."""
+    offset) instead of EMB_PAD:EMB_PAD+256; "dropped_chunk" leaves the
+    middle point chunk of K2's dW plan out of dW_0..dW_7 (one chunk's
+    partial missing from the reduce)."""
     from contexture_nerf_tpu_torch.ops import mlp_kernel as mk
+
+    if fault == "dropped_chunk":
+        out, dws, dbs = planted_mlp(torch, ws, bs, emb, g, None)
+        sms = (torch.cuda.get_device_properties(emb.device)
+               .multi_processor_count if emb.is_cuda else 132)
+        plan = mk.dw_plan(emb.shape[0], sms)
+        span = plan["steps"] * mk.KSTEP
+        q = slice(plan["chunks"] // 2 * span, (plan["chunks"] // 2 + 1) * span)
+        _, cws, _ = planted_mlp(torch, ws, bs, emb[q], g[q], None)
+        return out, [w - c if i < mk.DEPTH else w
+                     for i, (w, c) in enumerate(zip(dws, cws))], dbs
 
     bf = torch.bfloat16
 
@@ -268,6 +298,35 @@ def planted_attention(torch, fn, q, k, v, ek, ev, fault, tile):
     return flash_attention_plain(q, pad(k), pad(v), pad(ek), pad(ev))
 
 
+def mlp_bwd_breakdown(torch, mk, wflat, bflat, emb, g, n):
+    """K2's device time by kernel (TFLOP/s where its operations are
+    counted), the bytes of its buffers and the card's peak memory in a
+    call."""
+    sms = torch.cuda.get_device_properties(emb.device).multi_processor_count
+    plan = mk.dw_plan(n, sms)
+    dw_flops = 2.0 * n * mk.W * sum(mk.LAYER_K[:mk.DEPTH])
+    for name, t in sorted(device_ms_by_kernel(
+            lambda: mk.mlp_bwd_kernel(wflat, bflat, emb, g, None)).items(),
+            key=lambda kv: -kv[1]):
+        rate = (f" ({dw_flops / t / 1e9:.0f} TFLOP/s over dW_0..dW_7)"
+                if "mlp_bwd_dw_kernel" in name else "")
+        print(f"      {name[:70]}: device {t:.3f} ms{rate}")
+    buffers = 2 * n * mk.ACTS_LD * 2
+    partials = 4 * (plan["chunks"] * mk.HIDDEN_NUMEL
+                    + -(-n // mk.OUT_CHUNK) * mk.W * mk.OUT_PAD
+                    + min(sms, -(-n // 64)) * mk.B_NUMEL)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    mk.mlp_bwd_kernel(wflat, bflat, emb, g, None)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"      buffers: act + delta {buffers / 1e9:.3f} GB, partials "
+          f"{partials / 1e6:.1f} MB ({plan['chunks']} chunks of "
+          f"{plan['steps']} k-steps); peak {peak / 2 ** 30:.2f} GiB "
+          f"({(peak - base) / 2 ** 30:.2f} GiB above the inputs)")
+
+
 def mlp_phases(torch, rec_fwd, rec_bwd, seed, n_canvas, n_slice, failures):
     from contexture_nerf_tpu_torch.models.fields import NeRF2D
     from contexture_nerf_tpu_torch.ops import mlp_kernel as mk
@@ -374,17 +433,23 @@ def mlp_phases(torch, rec_fwd, rec_bwd, seed, n_canvas, n_slice, failures):
             failures.append("K2 determinism")
         check("K2 mlp_bwd uv dW0", mk.mlp_bwd_kernel(wflat, bflat, uv, g, 10)
               [0][0], rws[0], fws[0])
-        for fault in ("relu6_mask", "skip_offset"):
+        for fault in ("relu6_mask", "skip_offset", "dropped_chunk"):
             _, pws, pbs = planted_mlp(torch, ws, bs, emb, g, fault)
             caught(f"K2 {fault}", pws + pbs, rws + rbs, fws + fbs)
         ms = cuda_ms(lambda: mk.mlp_bwd_kernel(wflat, bflat, emb, g, None))
+        flops = 2.0 * n * (3 * macs - 42 * 256)
+        dms = device_ms(lambda: mk.mlp_bwd_kernel(wflat, bflat, emb, g, None),
+                        reps=10)
         pms = cuda_ms(
             lambda: mk.fused_nerf2d_bwd_plain(ws, bs, emb, g, None, bf),
             reps=5)
-        print(f"    ms {ms:.3f} plain_ms {pms:.3f}")
-        rec_bwd.add(err, ms, pms, 2.0 * n * (3 * macs - 42 * 256),
-                    n * 48 * 2 + n * 3 * 4 + wbytes
-                    + (wflat.numel() + bflat.numel()) * 4)
+        nbytes = (n * 48 * 2 + n * 3 * 4 + wbytes
+                  + (wflat.numel() + bflat.numel()) * 4)
+        print(f"    ms {ms:.3f} (device time {dms:.3f}, {flops / dms / 1e9:.0f}"
+              f" TFLOP/s) plain_ms {pms:.3f} bound_ms "
+              f"{bound(flops, nbytes)[0]:.3f}")
+        mlp_bwd_breakdown(torch, mk, wflat, bflat, emb, g, n)
+        rec_bwd.add(err, ms, pms, flops, nbytes)
 
     # K1 on the texture lattice that prepare_sds queries twice (the 7 views,
     # the bootstrap's front pose; uv in); its time is printed here and kept
@@ -1293,6 +1358,9 @@ def main():
     ap.add_argument("--profile", action="store_true")
     ap.add_argument("--sweep", action="store_true",
                     help="also time K3/K4 at each query tile (BLOCK_M)")
+    ap.add_argument("--mlp-only", action="store_true",
+                    help="run only the K1/K2 kernel phases and stop (no "
+                    "main path, no result line)")
     args = ap.parse_args()
     import torch
 
@@ -1346,6 +1414,10 @@ def main():
     print("kernel phases (kernel vs plain, main-path shapes, bf16):")
     mlp_phases(torch, recs["mlp_fwd"], recs["mlp_bwd"], args.seed,
                960 * 640, 448 * 448, failures)
+    if args.mlp_only:
+        for f in failures:
+            print(f"FAIL: {f}")
+        return 1 if failures else 0
     attention_phases(torch, recs["flash_attn_single"],
                      recs["flash_attn_two_source"], args.seed, args.sweep,
                      failures)

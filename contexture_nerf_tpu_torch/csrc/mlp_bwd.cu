@@ -5,100 +5,85 @@
 // `fused_nerf2d_emb`. The gradient w.r.t. uv / the embedding is zero there
 // and is not computed here.
 //
-// What bounds it on an H100: operations in principle, about 3x the forward
-// per point (recompute, delta propagation, dW), ~2.9 MFLOP a point. In this
-// first version the bytes of the f32 partial sums bound it instead (below).
+// What it computes (the reference's math): the forward recomputed with bf16
+// operands and f32 sums; dW_8 = act_8^T bf16(g), db_8 = sum g; delta_7 =
+// bf16(g) W_8^T masked by act_8 > 0; then for i = 7..0 dW_i = act_i^T
+// bf16(delta_i) (f32 sums), db_i = the column sums of the f32 delta_i, and
+// delta_{i-1} = bf16(delta_i) W_i^T masked by act_i > 0 (at the skip only
+// W_5's h4 rows carry delta back).
 //
-// Design. The TPU kernel sums dW and db with `+=` into one output across a
-// grid that runs in order; on a GPU the CTAs run at once. So the grid is
-// persistent (one CTA per SM): CTA c takes point blocks c, c + G, c + 2G, ...
-// and adds each block's dW and db into its own f32 partial in device memory
-// (no other CTA touches it); `mlp_bwd_reduce` then adds the G partials in
-// CTA order. No float atomics: two runs on the same inputs give
-// bit-identical gradients.
+// What bounds it on an H100: operations, for the function: about 3x the
+// forward's products a point (~2.9 MFLOP), 0.58 ms at the 448^2 slice. This
+// two-phase design also moves bytes the function need not: each point's
+// activations and deltas (2 x 8 x 256 bf16) are written once and read once
+// or twice, ~3.3-4.9 GB at the slice, a floor of ~1.0-1.5 ms at 3.35 TB/s.
 //
-// Per 64-point block a CTA (8 warps) recomputes the forward with the
-// activations in shared memory, also parking each layer's bf16 activation
-// in a per-CTA scratch slot (mostly L2-resident) for the backward. Then for
-// layer i = 8..0 it forms delta (masked by the ReLU of the next layer, f32
-// from the accumulators, stored bf16 for the matmuls, summed in f32 for db),
-// dW_i += act_i^T @ delta (read-modify-write of the CTA's partial through
-// WMMA accumulator fragments) and delta @ W_i^T. The partial RMW moves about
-// 4 MB per block, which is what bounds this version; keeping dW partials on
-// chip across blocks (split by layer, or a two-phase act/delta + GEMM) is
-// the next step.
+// Design: two phases; no CTA keeps a partial of the whole dW.
+//  - Phase A (`mlp_bwd_delta`, WMMA, a persistent grid of 64-point blocks)
+//    recomputes the forward and writes each point's bf16 activations
+//    act_1..act_8 into an (N, 8 x 256) buffer (and, for the uv input, its
+//    (N, 48) embedding), then runs the delta loop and writes each masked
+//    bf16 delta_7..delta_0 into a second (N, 8 x 256) buffer. db stays in a
+//    per-CTA f32 partial (2,064 floats), summed over the CTA's blocks in
+//    order.
+//  - Phase B (`mlp_bwd_dw`, wgmma) computes dW_i = A_i^T Delta_i for layers
+//    0-7 as a split-K GEMM over the points. A work unit is (128-row block
+//    of one layer's dW, chunk of points): 16 row blocks (1 for layer 0's 48
+//    embedding rows, 2 each for layers 1-4, 6, 7, 1 + 2 for layer 5) times
+//    `chunks` chunks, so the grid is whole waves of the card's SMs. Shaped
+//    like flash_attn.cu: a producer warpgroup (setmaxnreg 24) TMA-loads per
+//    64-point k-step the act tile (64 points x 128 features) and the delta
+//    tile (64 x 256) into a ring of 128-byte-swizzled stages; two consumer
+//    warpgroups each own 64 feature rows and run wgmma m64n256k16 with both
+//    operands MN-major from shared memory (the feature dimension
+//    contiguous). The embedding rows read a 48-wide tensor map whose
+//    out-of-bounds columns TMA fills with zeros; points past N read zeros.
+//    Each unit writes its f32 tile into its chunk's partial of dW_0..dW_7.
+//  - `mlp_bwd_dw_out` sums dW_8 (256 x 3) on the CUDA cores per 1024-point
+//    chunk, in point order.
+//  - `mlp_bwd_reduce` adds partials in chunk (or CTA) order.
+// No float atomics and fixed summation orders: two runs are bit-identical.
 //
-// C interface:
-//   int mlp_bwd(x, x_is_uv, multires, g, w, b, scratch, partial, n, grid,
-//               stream)
-//   int mlp_bwd_reduce(partial, total, numel, grid, stream)
-// each returns cudaGetLastError() after its launch.
+// C interface (each returns cudaGetLastError() after its launch, or 1000 +
+// the CUresult of a failed tensor-map encode):
+//   int mlp_bwd_delta(x, x_is_uv, multires, g, w, b, acts, deltas, emb_out,
+//                     dbpart, n, grid, stream)
+//   int mlp_bwd_dw(acts, deltas, emb, partial, n, chunks, steps, stream)
+//   int mlp_bwd_dw_out(acts, g, partial, n, stream)
+//   int mlp_bwd_reduce(partial, total, numel, count, stream)
+#include <cuda.h>
+
+#include "hopper.cuh"
 #include "mlp_common.cuh"
 
 using namespace mlp;
 
-constexpr long P_NUMEL = W_NUMEL + B_NUMEL;  // one CTA's partial (floats)
+namespace {
 
-// acc (4 feature tiles x 2 column tiles) of dW rows [f0, f0 + 16 nt) +=
-// src[:, c0 : c0 + 16 nt]^T @ delta, for the warp's 32 columns; src is
-// [BM][lds] bf16 in shared memory, delta is s.h.
-__device__ void dw_pass(const Smem& s, float* dw, int ldw, int f0,
-                        const bf16* src, int lds, int c0, int nt) {
-  const int warp = threadIdx.x / 32;
-  FragC acc[4][2];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      if (i < nt)
-        wmma::load_matrix_sync(acc[i][j],
-                               dw + (long)(f0 + 16 * i) * ldw +
-                                   (2 * warp + j) * 16,
-                               ldw, wmma::mem_row_major);
-  for (int k = 0; k < BM; k += 16) {
-    FragB b[2];
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::load_matrix_sync(b[j], s.h + k * W + (2 * warp + j) * 16, W);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      if (i < nt) {
-        FragAT a;  // (features x points) = src^T, col-major view of src
-        wmma::load_matrix_sync(a, src + k * lds + c0 + 16 * i, lds);
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          wmma::mma_sync(acc[i][j], a, b[j], acc[i][j]);
-      }
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      if (i < nt)
-        wmma::store_matrix_sync(
-            dw + (long)(f0 + 16 * i) * ldw + (2 * warp + j) * 16, acc[i][j],
-            ldw, wmma::mem_row_major);
-}
+constexpr int ACTS_LD = DEPTH * W;  // columns of the act and delta buffers
+constexpr long HIDDEN_NUMEL = w_offset(DEPTH);  // dW_0..dW_7: 483,328 floats
+constexpr int OUT_CHUNK = 1024;                 // points a dW_8 partial
 
-// All of dW_i for the block: act_i = s.emb (i = 0), [s.emb, act] (i = SKIP
-// + 1) or act.
-__device__ void dw_layer(const Smem& s, const bf16* act, float* part,
-                         int layer) {
-  float* dw = part + w_offset(layer);
-  if (layer == 0 || layer == SKIP + 1)
-    dw_pass(s, dw, W, 0, s.emb, EMB_PAD, 0, EMB_PAD / 16);
-  if (layer != 0) {
-    const int f0 = layer == SKIP + 1 ? EMB_PAD : 0;
-    for (int t = 0; t < W / 16; t += 4) dw_pass(s, dw, W, f0 + 16 * t, act, W, 16 * t, 4);
+// ---- phase A -------------------------------------------------------------
+
+// rows [0, rows) of src ([.][ld] bf16, global) into dst ([BM][W], shared);
+// the rest zero
+__device__ void load_rows(bf16* dst, const bf16* src, int ld, int rows) {
+  for (int v = threadIdx.x; v < BM * W / 8; v += NTHREADS) {
+    const int r = v / (W / 8), c = v % (W / 8);
+    reinterpret_cast<uint4*>(dst)[v] =
+        r < rows ? reinterpret_cast<const uint4*>(src + (long)r * ld)[c]
+                 : make_uint4(0, 0, 0, 0);
   }
 }
 
 // Epilogue of a delta product held in acc: delta = acc * (mask > 0), stored
-// bf16 into s.h (which may hold the mask itself), column sums added in f32
-// to the CTA's db partial of the layer.
+// bf16 into s.h (which may hold the mask itself) and, for the first `rows`
+// rows, into out (global, rows ACTS_LD apart); column sums of the f32 delta
+// added to the CTA's db partial of the layer.
 __device__ void delta_epilogue(const Smem& s, FragC (&acc)[4][2],
-                               const bf16* mask, float* db) {
+                               const bf16* mask, float* db, bf16* out,
+                               int rows) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   float* st = s.stage + warp * 256;
   float colsum[2] = {0.f, 0.f};
@@ -108,16 +93,21 @@ __device__ void delta_epilogue(const Smem& s, FragC (&acc)[4][2],
     for (int j = 0; j < 2; ++j) {
       wmma::store_matrix_sync(st, acc[i][j], 16, wmma::mem_row_major);
       __syncwarp();
+      // lane: row i*16 + lane/2, 8 contiguous columns from c0
+      const int row = i * 16 + lane / 2, c0 = (2 * warp + j) * 16 + (lane % 2) * 8;
+      __align__(16) bf16 v[8];
 #pragma unroll
       for (int t = 0; t < 8; ++t) {
-        const int e = lane * 8 + t;
-        const int idx = (i * 16 + e / 16) * W + (2 * warp + j) * 16 + e % 16;
         const float d =
-            __bfloat162float(mask[idx]) > 0.f ? st[e] : 0.f;
-        st[e] = d;
-        s.h[idx] = __float2bfloat16(d);
+            __bfloat162float(mask[row * W + c0 + t]) > 0.f ? st[lane * 8 + t] : 0.f;
+        st[lane * 8 + t] = d;
+        v[t] = __float2bfloat16(d);
       }
-      __syncwarp();
+      __syncwarp();  // every lane has read its mask before s.h changes
+      const uint4 pk = *reinterpret_cast<const uint4*>(v);
+      *reinterpret_cast<uint4*>(s.h + row * W + c0) = pk;
+      if (row < rows)
+        *reinterpret_cast<uint4*>(out + (long)row * ACTS_LD + c0) = pk;
       if (lane < 16) {
         float cs = 0.f;
         for (int r = 0; r < 16; ++r) cs += st[r * 16 + lane];
@@ -133,66 +123,56 @@ __device__ void delta_epilogue(const Smem& s, FragC (&acc)[4][2],
 }
 
 __global__ void __launch_bounds__(NTHREADS)
-    mlp_bwd_kernel(const void* __restrict__ x, int x_is_uv, int multires,
-                   const float* __restrict__ g, const bf16* __restrict__ wg,
-                   const float* __restrict__ bg, bf16* __restrict__ scratch,
-                   float* __restrict__ partial, int n) {
+    mlp_bwd_delta_kernel(const void* __restrict__ x, int x_is_uv, int multires,
+                         const float* __restrict__ g,
+                         const bf16* __restrict__ wg,
+                         const float* __restrict__ bg, bf16* __restrict__ acts,
+                         bf16* __restrict__ deltas, bf16* __restrict__ emb_out,
+                         float* __restrict__ dbpart, int n) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   Smem s;
   s.w = reinterpret_cast<bf16*>(smem_raw);
   s.h = s.w + WROWS * W;
   s.emb = s.h + BM * W;
-  bf16* act = s.emb + BM * EMB_PAD;  // [BM][W] act_i (hidden part)
+  bf16* act = s.emb + BM * EMB_PAD;  // [BM][W] the mask of the next delta
   bf16* gs = act + BM * W;           // [BM][OUT_PAD]
   s.stage = reinterpret_cast<float*>(gs + BM * OUT_PAD);
 
   const int warp = threadIdx.x / 32;
-  float* part = partial + (long)blockIdx.x * P_NUMEL;
-  bf16* slot = scratch + (long)blockIdx.x * DEPTH * BM * W;
-  for (long p = threadIdx.x; p < P_NUMEL; p += NTHREADS) part[p] = 0.f;
+  float* part = dbpart + (long)blockIdx.x * B_NUMEL;
+  for (int p = threadIdx.x; p < B_NUMEL; p += NTHREADS) part[p] = 0.f;
 
   const int nblocks = (n + BM - 1) / BM;
   for (int blk = blockIdx.x; blk < nblocks; blk += gridDim.x) {
-    const int row0 = blk * BM;
+    const int row0 = blk * BM, rows = min(BM, n - row0);
+    bf16* acts_blk = acts + (long)row0 * ACTS_LD;
+    bf16* deltas_blk = deltas + (long)row0 * ACTS_LD;
     __syncthreads();
     load_embedding(s, x, x_is_uv, multires, row0, n);
-    // forward recompute; act_{l+1} = output of layer l parks in slot[l]
+    if (emb_out) {
+      __syncthreads();
+      for (int v = threadIdx.x; v < rows * EMB_PAD / 8; v += NTHREADS)
+        reinterpret_cast<uint4*>(emb_out + (long)row0 * EMB_PAD)[v] =
+            reinterpret_cast<const uint4*>(s.emb)[v];
+    }
+    // forward recompute: act_{l+1}, the output of layer l, into its column
+    // block l of the act buffer
     for (int layer = 0; layer < DEPTH; ++layer)
-      hidden_layer(s, wg, bg, layer, slot + (long)layer * BM * W);
+      hidden_layer(s, wg, bg, layer, acts_blk + layer * W, ACTS_LD, rows);
 
-    // output layer: g (padded to 16 columns) and db_out
+    // output layer: g (padded to 16 columns) and db_8
     for (int e = threadIdx.x; e < BM * OUT_PAD; e += NTHREADS) {
       const int r = e / OUT_PAD, c = e % OUT_PAD, row = row0 + r;
       gs[e] = __float2bfloat16(c < 3 && row < n ? g[3 * (long)row + c] : 0.f);
     }
     if (threadIdx.x < 3) {
       float cs = 0.f;
-      for (int r = 0; r < BM && row0 + r < n; ++r)
-        cs += g[3 * (long)(row0 + r) + threadIdx.x];
-      part[W_NUMEL + b_offset(DEPTH) + threadIdx.x] += cs;
+      for (int r = 0; r < rows; ++r) cs += g[3 * (long)(row0 + r) + threadIdx.x];
+      part[b_offset(DEPTH) + threadIdx.x] += cs;
     }
     load_weights(s, wg, DEPTH, 0, W);  // (256, 16); s.w is free after layer 7
     __syncthreads();
-    {  // dW_out (256 x 16) += act_8^T (s.h) @ g; warp w: feature tiles 2w, 2w+1
-      float* dw = part + w_offset(DEPTH);
-#pragma unroll
-      for (int q = 0; q < 2; ++q) {
-        const int f = (2 * warp + q) * 16;
-        FragC acc;
-        wmma::load_matrix_sync(acc, dw + f * OUT_PAD, OUT_PAD,
-                               wmma::mem_row_major);
-        for (int k = 0; k < BM; k += 16) {
-          FragAT a;
-          FragB b;
-          wmma::load_matrix_sync(a, s.h + k * W + f, W);
-          wmma::load_matrix_sync(b, gs + k * OUT_PAD, OUT_PAD);
-          wmma::mma_sync(acc, a, b, acc);
-        }
-        wmma::store_matrix_sync(dw + f * OUT_PAD, acc, OUT_PAD,
-                                wmma::mem_row_major);
-      }
-    }
-    {  // delta_7 = (g @ W_out^T) * (act_8 > 0)
+    {  // delta_7 = (g @ W_8^T) * (act_8 > 0)
       FragC acc[4][2];
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
@@ -200,27 +180,25 @@ __global__ void __launch_bounds__(NTHREADS)
         wmma::load_matrix_sync(a, gs + i * 16 * OUT_PAD, OUT_PAD);
 #pragma unroll
         for (int j = 0; j < 2; ++j) {
-          FragBT b;  // W_out^T: element (k, n) = W_out[n][k]
+          FragBT b;  // W_8^T: element (k, n) = W_8[n][k]
           wmma::load_matrix_sync(b, s.w + (2 * warp + j) * 16 * OUT_PAD,
                                  OUT_PAD);
           wmma::fill_fragment(acc[i][j], 0.f);
           wmma::mma_sync(acc[i][j], a, b, acc[i][j]);
         }
       }
-      __syncthreads();  // dW_out is done reading act_8 in s.h
-      delta_epilogue(s, acc, s.h, part + W_NUMEL + b_offset(DEPTH - 1));
+      __syncthreads();
+      delta_epilogue(s, acc, s.h, part + b_offset(DEPTH - 1),
+                     deltas_blk + (DEPTH - 1) * W, rows);
     }
 
-    for (int layer = DEPTH - 1; layer >= 0; --layer) {
-      __syncthreads();  // delta in s.h is complete
-      if (layer > 0) {
-        copy_vec(act, slot + (long)(layer - 1) * BM * W, BM * W / 8);
-        load_weights(s, wg, layer, layer == SKIP + 1 ? EMB_PAD : 0, W);
-      }
+    for (int layer = DEPTH - 1; layer > 0; --layer) {
+      __syncthreads();  // delta_layer in s.h is complete
+      // act_layer (the mask of delta_{layer-1}) from the act buffer
+      load_rows(act, acts_blk + (layer - 1) * W, ACTS_LD, rows);
+      load_weights(s, wg, layer, layer == SKIP + 1 ? EMB_PAD : 0, W);
       __syncthreads();
-      dw_layer(s, act, part, layer);
-      if (layer == 0) break;
-      // delta_{layer-1} = (delta @ W_layer^T) * (act_layer > 0)
+      // delta_{layer-1} = (delta_layer @ W_layer^T) * (act_layer > 0)
       FragC acc[4][2];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
@@ -241,48 +219,253 @@ __global__ void __launch_bounds__(NTHREADS)
         }
       }
       __syncthreads();  // every warp is done reading delta in s.h
-      delta_epilogue(s, acc, act, part + W_NUMEL + b_offset(layer - 1));
+      delta_epilogue(s, acc, act, part + b_offset(layer - 1),
+                     deltas_blk + (layer - 1) * W, rows);
     }
   }
 }
 
-__global__ void mlp_bwd_reduce_kernel(const float* __restrict__ partial,
-                                      float* __restrict__ total, long numel,
-                                      int grid) {
-  const long p = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= numel) return;
-  float acc = 0.f;
-  for (int c = 0; c < grid; ++c) acc += partial[(long)c * numel + p];
-  total[p] = acc;
-}
-
-static size_t smem_bytes() {
+size_t delta_smem_bytes() {
   return sizeof(bf16) * (WROWS * W + BM * W + BM * EMB_PAD + BM * W +
                          BM * OUT_PAD) +
          sizeof(float) * NWARPS * 256;
 }
 
-extern "C" int mlp_bwd(const void* x, int x_is_uv, int multires,
-                       const void* g, const void* w, const void* b,
-                       void* scratch, void* partial, int n, int grid,
-                       void* stream) {
-  const size_t smem = smem_bytes();
-  cudaFuncSetAttribute(mlp_bwd_kernel,
+// ---- phase B: dW_0..dW_7 -------------------------------------------------
+
+constexpr int KSTEP = 64;                  // points a k-step (a stage)
+constexpr int BOX = 64 * 64 * 2;           // one 64-point x 64-feature box
+constexpr int STAGE_A = 2 * BOX;           // act tile: 128 features
+constexpr int STAGE = STAGE_A + 4 * BOX;   // + delta tile: 256 features
+constexpr int STAGES = 4;
+constexpr int DW_THREADS = 384;            // 2 consumer warpgroups + producer
+constexpr int DW_SMEM = STAGES * STAGE + 16 * STAGES + 1024;
+constexpr int ROW_BLOCKS = 16;
+static_assert(DW_SMEM <= 232448, "shared memory of a CTA");
+static_assert(2 * 32 * 240 + 32 * 24 <= 16384, "registers of a sub-partition");
+
+// row block rb of dW_0..dW_7: its layer, the act-buffer column of its first
+// feature (-1: the embedding), its first dW row and its row count
+struct RowBlock {
+  int layer, acol, row0, rows;
+};
+__device__ __forceinline__ RowBlock row_block(int rb) {
+  if (rb == 0) return {0, -1, 0, EMB_PAD};
+  if (rb == 9) return {SKIP + 1, -1, 0, EMB_PAD};
+  const int i = rb - 1 - (rb > 9), layer = i / 2 + 1, half = i % 2;
+  return {layer, (layer - 1) * W + 128 * half,
+          (layer == SKIP + 1 ? EMB_PAD : 0) + 128 * half, 128};
+}
+
+struct DwParams {
+  float* partial;  // [chunks][HIDDEN_NUMEL]
+  int steps;       // k-steps a chunk
+  int ksteps;      // k-steps in all
+};
+
+__global__ void __launch_bounds__(DW_THREADS, 1)
+    mlp_bwd_dw_kernel(__grid_constant__ const CUtensorMap tm_act,
+                      __grid_constant__ const CUtensorMap tm_delta,
+                      __grid_constant__ const CUtensorMap tm_emb,
+                      const DwParams p) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (hopper::smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t full = base + STAGES * STAGE, empty = full + 8 * STAGES;
+  const int rb = blockIdx.x % ROW_BLOCKS, chunk = blockIdx.x / ROW_BLOCKS;
+  const RowBlock b = row_block(rb);
+  const bool emb = b.acol < 0;
+  const int s0 = chunk * p.steps;
+  const int nsteps = max(0, min(s0 + p.steps, p.ksteps) - s0);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      hopper::mbar_init(full + 8 * s, 1);
+      hopper::mbar_init(empty + 8 * s, 8);  // one arrive per consumer warp
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 256) {
+    // ---- producer warpgroup: one thread issues the loads ----
+    hopper::setmaxnreg_dec<24>();
+    if (threadIdx.x == 256) {
+      for (int i = 0; i < nsteps; ++i) {
+        const uint32_t st = i % STAGES, ph = (i / STAGES) & 1;
+        const uint32_t dst = base + st * STAGE, bar = full + 8 * st;
+        const int pt = (s0 + i) * KSTEP;
+        hopper::mbar_wait(empty + 8 * st, ph ^ 1);  // the first round passes
+        hopper::mbar_arrive_expect_tx(bar, (emb ? BOX : STAGE_A) + 4 * BOX);
+        if (emb) {
+          hopper::tma_load_2d(dst, &tm_emb, bar, 0, pt);
+        } else {
+          hopper::tma_load_2d(dst, &tm_act, bar, b.acol, pt);
+          hopper::tma_load_2d(dst + BOX, &tm_act, bar, b.acol + 64, pt);
+        }
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          hopper::tma_load_2d(dst + STAGE_A + q * BOX, &tm_delta, bar,
+                              b.layer * W + 64 * q, pt);
+      }
+    }
+  } else {
+    // ---- consumer warpgroups: rows 64 wg .. 64 wg + 63 of the block ----
+    hopper::setmaxnreg_inc<240>();
+    const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
+    const int warp = tid / 32, lane = tid % 32;
+    const bool active = !(emb && wg == 1);  // 48 rows: one warpgroup
+    float acc[128];
+#pragma unroll
+    for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+    auto release = [&](int i) {
+      if (lane == 0) hopper::mbar_arrive(empty + 8 * (i % STAGES));
+    };
+    for (int i = 0; i < nsteps; ++i) {
+      const uint32_t st = i % STAGES;
+      hopper::mbar_wait(full + 8 * st, (i / STAGES) & 1);
+      if (!active) {
+        release(i);
+        continue;
+      }
+      const uint32_t a = base + st * STAGE + wg * BOX, d = base + st * STAGE + STAGE_A;
+      hopper::fence_operand(acc);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < KSTEP / 16; ++kk)
+        hopper::wgmma_ss_tt<256>(acc, hopper::desc_sw128(a + kk * 2048),
+                                 hopper::desc_sw128_mn(d + kk * 2048, BOX), 1);
+      hopper::wgmma_commit();
+      if (i > 0) {
+        hopper::wgmma_wait<1>();
+        release(i - 1);
+      }
+    }
+    if (active) {
+      hopper::wgmma_wait<0>();
+      hopper::fence_operand(acc);
+      if (nsteps > 0) release(nsteps - 1);
+      // acc[4j + e]: row 16 warp + lane/4 + 8 (e >= 2), column 8j + 2 (lane
+      // % 4) + (e & 1)
+      const int r = 64 * wg + 16 * warp + lane / 4;
+      float* out = p.partial + (long)chunk * HIDDEN_NUMEL + w_offset(b.layer) +
+                   (long)(b.row0 + r) * W + 2 * (lane % 4);
+#pragma unroll
+      for (int j = 0; j < W / 8; ++j) {
+        if (r < b.rows)
+          *reinterpret_cast<float2*>(out + 8 * j) =
+              make_float2(acc[4 * j], acc[4 * j + 1]);
+        if (r + 8 < b.rows)
+          *reinterpret_cast<float2*>(out + 8 * W + 8 * j) =
+              make_float2(acc[4 * j + 2], acc[4 * j + 3]);
+      }
+    }
+  }
+}
+
+// a (rows, cols) bf16 matrix, rows `ld` elements apart, in boxes of 64 rows
+// x 64 columns with 128-byte swizzle
+int make_map(CUtensorMap* map, const void* ptr, int cols, int rows, int ld) {
+  hopper::EncodeTiled fn = hopper::tensor_map_encoder();
+  if (fn == nullptr) return 1000 + CUDA_ERROR_NOT_FOUND;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)ld * 2};
+  const cuuint32_t box[2] = {64, 64};
+  const cuuint32_t estr[2] = {1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                        const_cast<void*>(ptr), dims, strides, box, estr,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : 1000 + (int)r;
+}
+
+// ---- dW_8 and the reductions ---------------------------------------------
+
+// dW_8 (256 x 16, columns 3.. zero) of the points [c OUT_CHUNK, (c + 1)
+// OUT_CHUNK) for block c: thread f sums act_8[p][f] bf16(g[p][:3]) in point
+// order
+__global__ void __launch_bounds__(W)
+    mlp_bwd_dw_out_kernel(const bf16* __restrict__ acts,
+                          const float* __restrict__ g,
+                          float* __restrict__ partial, int n) {
+  const int f = threadIdx.x, p0 = blockIdx.x * OUT_CHUNK;
+  const int p1 = min(p0 + OUT_CHUNK, n);
+  float s[3] = {0.f, 0.f, 0.f};
+  for (int q = p0; q < p1; ++q) {
+    const float h = __bfloat162float(acts[(long)q * ACTS_LD + (DEPTH - 1) * W + f]);
+#pragma unroll
+    for (int c = 0; c < 3; ++c)
+      s[c] = __fadd_rn(s[c], __fmul_rn(h, __bfloat162float(__float2bfloat16(
+                                              g[3 * (long)q + c]))));
+  }
+  float* o = partial + (long)blockIdx.x * W * OUT_PAD + f * OUT_PAD;
+#pragma unroll
+  for (int c = 0; c < OUT_PAD; ++c) o[c] = c < 3 ? s[c] : 0.f;
+}
+
+// total[p] = sum over c < count, in order, of partial[c numel + p]
+__global__ void mlp_bwd_reduce_kernel(const float* __restrict__ partial,
+                                      float* __restrict__ total, long numel,
+                                      int count) {
+  const long p = (long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (p >= numel) return;
+  float acc = 0.f;
+  for (int c = 0; c < count; ++c) acc += partial[(long)c * numel + p];
+  total[p] = acc;
+}
+
+}  // namespace
+
+extern "C" int mlp_bwd_delta(const void* x, int x_is_uv, int multires,
+                             const void* g, const void* w, const void* b,
+                             void* acts, void* deltas, void* emb_out,
+                             void* dbpart, int n, int grid, void* stream) {
+  const size_t smem = delta_smem_bytes();
+  cudaFuncSetAttribute(mlp_bwd_delta_kernel,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  mlp_bwd_kernel<<<grid, NTHREADS, smem, (cudaStream_t)stream>>>(
+  mlp_bwd_delta_kernel<<<grid, NTHREADS, smem, (cudaStream_t)stream>>>(
       x, x_is_uv, multires, reinterpret_cast<const float*>(g),
       reinterpret_cast<const bf16*>(w), reinterpret_cast<const float*>(b),
-      reinterpret_cast<bf16*>(scratch), reinterpret_cast<float*>(partial), n);
+      reinterpret_cast<bf16*>(acts), reinterpret_cast<bf16*>(deltas),
+      reinterpret_cast<bf16*>(emb_out), reinterpret_cast<float*>(dbpart), n);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int mlp_bwd_dw(const void* acts, const void* deltas,
+                          const void* emb, void* partial, int n, int chunks,
+                          int steps, void* stream) {
+  CUtensorMap ma, md, me;
+  int err = make_map(&ma, acts, ACTS_LD, n, ACTS_LD);
+  if (!err) err = make_map(&md, deltas, ACTS_LD, n, ACTS_LD);
+  if (!err) err = make_map(&me, emb, EMB_PAD, n, EMB_PAD);
+  if (err) return err;
+  cudaFuncSetAttribute(mlp_bwd_dw_kernel,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, DW_SMEM);
+  DwParams p;
+  p.partial = reinterpret_cast<float*>(partial);
+  p.steps = steps;
+  p.ksteps = (n + KSTEP - 1) / KSTEP;
+  mlp_bwd_dw_kernel<<<ROW_BLOCKS * chunks, DW_THREADS, DW_SMEM,
+                      (cudaStream_t)stream>>>(ma, md, me, p);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int mlp_bwd_dw_out(const void* acts, const void* g, void* partial,
+                              int n, void* stream) {
+  mlp_bwd_dw_out_kernel<<<(n + OUT_CHUNK - 1) / OUT_CHUNK, W, 0,
+                          (cudaStream_t)stream>>>(
+      reinterpret_cast<const bf16*>(acts), reinterpret_cast<const float*>(g),
+      reinterpret_cast<float*>(partial), n);
   return (int)cudaGetLastError();
 }
 
 extern "C" int mlp_bwd_reduce(const void* partial, void* total, int numel,
-                              int grid, void* stream) {
-  if (numel != (int)P_NUMEL) return (int)cudaErrorInvalidValue;
+                              int count, void* stream) {
   const int threads = 256;
-  const int blocks = (int)((numel + threads - 1) / threads);
-  mlp_bwd_reduce_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+  mlp_bwd_reduce_kernel<<<(numel + threads - 1) / threads, threads, 0,
+                          (cudaStream_t)stream>>>(
       reinterpret_cast<const float*>(partial),
-      reinterpret_cast<float*>(total), numel, grid);
+      reinterpret_cast<float*>(total), numel, count);
   return (int)cudaGetLastError();
 }

@@ -145,10 +145,11 @@ __device__ __forceinline__ void mma_rows(FragC (&acc)[4][2], const bf16* A,
 }
 
 // Hidden layer `layer` for the block: s.h = relu(in @ W + b) in bf16, where
-// `in` is s.emb (layer 0), [s.emb, s.h] (layer SKIP + 1) or s.h. With
-// `act_out`, the result is also written there ([BM][W] bf16, global).
+// `in` is s.emb (layer 0), [s.emb, s.h] (layer SKIP + 1) or s.h. The first
+// `rows` rows of the result are also written to act_out (global bf16, rows
+// `ld` elements apart).
 __device__ void hidden_layer(const Smem& s, const bf16* wg, const float* bg,
-                             int layer, bf16* act_out) {
+                             int layer, bf16* act_out, int ld, int rows) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   FragC acc[4][2];
 #pragma unroll
@@ -176,15 +177,16 @@ __device__ void hidden_layer(const Smem& s, const bf16* wg, const float* bg,
     for (int j = 0; j < 2; ++j) {
       wmma::store_matrix_sync(st, acc[i][j], 16, wmma::mem_row_major);
       __syncwarp();
+      // lane: row i*16 + lane/2, 8 contiguous columns from c0
+      const int row = i * 16 + lane / 2, c0 = (2 * warp + j) * 16 + (lane % 2) * 8;
+      __align__(16) bf16 v[8];
 #pragma unroll
-      for (int t = 0; t < 8; ++t) {
-        const int e = lane * 8 + t;
-        const int row = i * 16 + e / 16, col = (2 * warp + j) * 16 + e % 16;
-        const float v = fmaxf(st[e] + __ldg(bias + col), 0.f);
-        const bf16 hv = __float2bfloat16(v);
-        s.h[row * W + col] = hv;
-        if (act_out) act_out[row * W + col] = hv;
-      }
+      for (int t = 0; t < 8; ++t)
+        v[t] = __float2bfloat16(fmaxf(st[lane * 8 + t] + __ldg(bias + c0 + t), 0.f));
+      const uint4 pk = *reinterpret_cast<const uint4*>(v);
+      *reinterpret_cast<uint4*>(s.h + row * W + c0) = pk;
+      if (row < rows)
+        *reinterpret_cast<uint4*>(act_out + (long)row * ld + c0) = pk;
       __syncwarp();
     }
   }

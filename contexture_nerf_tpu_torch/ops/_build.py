@@ -35,7 +35,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # library name -> (source compiled, headers it includes)
 SOURCES: Dict[str, tuple] = {
     "mlp_fwd": ("mlp_fwd.cu", ("mlp_common.cuh", "hopper.cuh")),
-    "mlp_bwd": ("mlp_bwd.cu", ("mlp_common.cuh",)),
+    "mlp_bwd": ("mlp_bwd.cu", ("mlp_common.cuh", "hopper.cuh")),
     "flash_attn": ("flash_attn.cu", ("hopper.cuh",)),
     "raster": ("raster.cu", ()),
     "groupnorm": ("groupnorm.cu", ("hopper.cuh",)),

@@ -26,6 +26,7 @@ version.
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import List, Tuple
 
 import torch
@@ -202,10 +203,14 @@ def _lib_fwd():
 
 def _lib_bwd():
     lib = _build.library("mlp_bwd")
-    lib.mlp_bwd.argtypes = [_P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _P]
-    lib.mlp_bwd.restype = _I
+    lib.mlp_bwd_delta.argtypes = [_P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I,
+                                  _I, _P]
+    lib.mlp_bwd_dw.argtypes = [_P, _P, _P, _P, _I, _I, _I, _P]
+    lib.mlp_bwd_dw_out.argtypes = [_P, _P, _P, _I, _P]
     lib.mlp_bwd_reduce.argtypes = [_P, _P, _I, _I, _P]
-    lib.mlp_bwd_reduce.restype = _I
+    for f in (lib.mlp_bwd_delta, lib.mlp_bwd_dw, lib.mlp_bwd_dw_out,
+              lib.mlp_bwd_reduce):
+        f.restype = _I
     return lib
 
 
@@ -247,15 +252,54 @@ def mlp_fwd_kernel(wflat, bflat, x, multires):
     return out
 
 
-# rows per CTA block in mlp_bwd.cu; its per-CTA activation scratch holds
-# DEPTH activations of BLOCK x W bf16
-_BWD_BLOCK = 64
+# K2's two phases (csrc/mlp_bwd.cu): phase A writes every point's bf16
+# activations act_1..act_8 and deltas delta_0..delta_7 into two (N, ACTS_LD)
+# buffers (column block l: the output of hidden layer l, the delta at its
+# input); phase B sums dW_l = A_l^T Delta_l over chunks of KSTEP-point steps
+ACTS_LD = DEPTH * W
+HIDDEN_NUMEL = sum(k * n for k, n in zip(LAYER_K[:DEPTH], LAYER_N[:DEPTH]))
+_BWD_BLOCK = 64  # points a phase-A block
+KSTEP = 64       # points a phase-B k-step
+OUT_CHUNK = 1024  # points a dW_8 partial
+
+
+def dw_row_blocks() -> List[Tuple[int, int, int, int]]:
+    """Phase B's 16 row blocks of dW_0..dW_7, as mlp_bwd.cu's `row_block`:
+    (layer, act-buffer column of the first feature or -1 for the embedding,
+    first dW row, rows). Layers 0 and 5 have one 48-row embedding block;
+    each layer's hidden rows come in two 128-row blocks."""
+    out = [(0, -1, 0, EMB_PAD)]
+    for layer in range(1, DEPTH):
+        if layer == SKIP + 1:
+            out.append((layer, -1, 0, EMB_PAD))
+        r0 = EMB_PAD if layer == SKIP + 1 else 0
+        out += [(layer, (layer - 1) * W + 128 * h, r0 + 128 * h, 128)
+                for h in range(2)]
+    return out
+
+
+def dw_plan(n: int, sms: int) -> dict:
+    """Phase B's grid for n points on a card of `sms` SMs: 16 row blocks
+    times `chunks` point chunks of `steps` k-steps each, the chunk count
+    the least that makes the grid whole waves of `sms` (one CTA an SM)."""
+    rb = len(dw_row_blocks())
+    chunks = math.lcm(rb, sms) // rb
+    ksteps = -(-n // KSTEP)
+    steps = max(1, -(-ksteps // chunks))
+    return {"chunks": chunks, "steps": steps, "ksteps": ksteps,
+            "grid": rb * chunks}
+
+
+def _aligned(t: torch.Tensor) -> bool:
+    return t.data_ptr() % 16 == 0
 
 
 def mlp_bwd_kernel(wflat, bflat, x, g, multires):
     """K2: padded (dws, dbs) f32 from the same inputs as K1 and g (N, 3)
-    f32. Each CTA sums its blocks into its own f32 partial; a second kernel
-    adds the partials in CTA order, so two runs are bit-identical."""
+    f32, in two phases (csrc/mlp_bwd.cu): phase A writes the bf16
+    activation and delta buffers and per-CTA db partials, phase B sums dW
+    per point chunk with wgmma and dW_8 per 1024 points; the partials are
+    added in chunk (CTA) order, so two runs are bit-identical."""
     _check_kernel_inputs(x, multires, wflat.dtype)
     n = x.shape[0]
     if g.shape != (n, 3) or g.dtype != torch.float32 \
@@ -263,25 +307,47 @@ def mlp_bwd_kernel(wflat, bflat, x, g, multires):
         raise ValueError("g must be contiguous (N, 3) float32 on x's device")
     if wflat.numel() != W_NUMEL or bflat.numel() != B_NUMEL:
         raise ValueError("packed weights/biases do not match the kernel")
-    props = torch.cuda.get_device_properties(x.device)
-    nblocks = -(-n // _BWD_BLOCK)
-    grid = max(1, min(props.multi_processor_count, nblocks))
-    scratch = torch.empty((grid, DEPTH, _BWD_BLOCK, W), dtype=torch.bfloat16,
-                          device=x.device)
-    partial = torch.empty((grid, W_NUMEL + B_NUMEL), dtype=torch.float32,
-                          device=x.device)
-    total = torch.empty((W_NUMEL + B_NUMEL,), dtype=torch.float32,
-                        device=x.device)
+    if n == 0:
+        raise ValueError("no points")
+    if not _aligned(x):
+        raise ValueError("x must start on a 16-byte boundary (TMA)")
+    if not x.is_cuda or wflat.device != x.device or bflat.device != x.device:
+        raise ValueError("x, g and the packed weights must lie on one card")
+    dev = x.device
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    grid = max(1, min(sms, -(-n // _BWD_BLOCK)))
+    plan = dw_plan(n, sms)
+    bf, f32 = torch.bfloat16, torch.float32
+    acts = torch.empty((n, ACTS_LD), dtype=bf, device=dev)
+    deltas = torch.empty((n, ACTS_LD), dtype=bf, device=dev)
+    emb = x if multires is None else torch.empty((n, EMB_PAD), dtype=bf,
+                                                 device=dev)
+    dbpart = torch.empty((grid, B_NUMEL), dtype=f32, device=dev)
+    dwpart = torch.empty((plan["chunks"], HIDDEN_NUMEL), dtype=f32,
+                         device=dev)
+    outpart = torch.empty((-(-n // OUT_CHUNK), W * OUT_PAD), dtype=f32,
+                          device=dev)
+    total = torch.empty((W_NUMEL + B_NUMEL,), dtype=f32, device=dev)
     lib = _lib_bwd()
-    stream = _build.stream_ptr(x.device)
-    err = lib.mlp_bwd(x.data_ptr(), int(multires is not None),
-                      int(multires or 0), g.data_ptr(), wflat.data_ptr(),
-                      bflat.data_ptr(), scratch.data_ptr(),
-                      partial.data_ptr(), n, grid, stream)
-    _build.check(err, "mlp_bwd")
-    err = lib.mlp_bwd_reduce(partial.data_ptr(), total.data_ptr(),
-                             W_NUMEL + B_NUMEL, grid, stream)
-    _build.check(err, "mlp_bwd_reduce")
+    stream = _build.stream_ptr(dev)
+    _build.check(lib.mlp_bwd_delta(
+        x.data_ptr(), int(multires is not None), int(multires or 0),
+        g.data_ptr(), wflat.data_ptr(), bflat.data_ptr(), acts.data_ptr(),
+        deltas.data_ptr(), emb.data_ptr() if multires is not None else None,
+        dbpart.data_ptr(), n, grid, stream), "mlp_bwd_delta")
+    _build.check(lib.mlp_bwd_dw(
+        acts.data_ptr(), deltas.data_ptr(), emb.data_ptr(), dwpart.data_ptr(),
+        n, plan["chunks"], plan["steps"], stream), "mlp_bwd_dw")
+    _build.check(lib.mlp_bwd_dw_out(acts.data_ptr(), g.data_ptr(),
+                                    outpart.data_ptr(), n, stream),
+                 "mlp_bwd_dw_out")
+    for part, lo, hi in ((dwpart, 0, HIDDEN_NUMEL),
+                         (outpart, HIDDEN_NUMEL, W_NUMEL),
+                         (dbpart, W_NUMEL, W_NUMEL + B_NUMEL)):
+        _build.check(lib.mlp_bwd_reduce(part.data_ptr(),
+                                        total[lo:].data_ptr(), hi - lo,
+                                        part.shape[0], stream),
+                     "mlp_bwd_reduce")
     _build.launch_counts["mlp_bwd"] += 1
     return split_flat(total[:W_NUMEL], total[W_NUMEL:])
 

@@ -92,6 +92,35 @@ def test_mlp_kernels_match_plain(cuda, n):
                                                  again[0] + again[1]))
 
 
+@pytest.mark.parametrize("label,n", [("slice", 448 * 448),
+                                     ("canvas", 960 * 640)])
+def test_mlp_bwd_kernel_at_main_path_sizes(cuda, label, n):
+    """K2 at the step's backward slice and at the whole canvas, from the
+    precomputed embedding and from uv: every dW and db within the limit of
+    the plain bf16 version, and two runs bit-identical."""
+    gen = torch.Generator(device=cuda).manual_seed(n)
+    mlp = NeRF2D(generator=gen, device=cuda).requires_grad_(False)
+    params = [p for lin in mlp.linears() for p in (lin.weight, lin.bias)]
+    ws, bs = mk.pack_params(params, 10)
+    wflat, bflat = mk.flatten_params(ws, bs, torch.bfloat16)
+    uv = torch.rand((n, 2), generator=gen, device=cuda)
+    emb = mk.pad_embedding(uv, 10, dtype=torch.bfloat16)
+    g = torch.randn((n, 3), generator=gen, device=cuda) * 1e-2
+    for x, multires in ((emb, None), (uv, 10)):
+        before = _build.launch_counts["mlp_bwd"]
+        dws, dbs = mk.mlp_bwd_kernel(wflat, bflat, x, g, multires)
+        assert _build.launch_counts["mlp_bwd"] == before + 1
+        again = mk.mlp_bwd_kernel(wflat, bflat, x, g, multires)
+        assert all(torch.equal(a, b) for a, b in zip(dws + dbs,
+                                                     again[0] + again[1]))
+        rws, rbs = mk.fused_nerf2d_bwd_plain(ws, bs, x, g, multires,
+                                             torch.bfloat16)
+        fws, fbs = mk.fused_nerf2d_bwd_plain(ws, bs, x, g, multires,
+                                             torch.float32)
+        for i, (a, b, c) in enumerate(zip(dws + dbs, rws + rbs, fws + fbs)):
+            assert _agrees(a, b, c), (label, multires, i)
+
+
 def test_mlp_fwd_kernel_takes_the_texture_lattice(cuda):
     """prepare_sds queries the MLP on the 1024^2 UV lattice: 2^20 points."""
     gen = torch.Generator(device=cuda).manual_seed(3)

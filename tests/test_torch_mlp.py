@@ -144,6 +144,24 @@ def test_kernel_wrappers_reject_what_the_kernels_do_not_take(models):
     emb = mk.pad_embedding(torch.from_numpy(uv), 10, dtype=torch.float32)
     with pytest.raises(ValueError, match="bfloat16"):
         mk.mlp_fwd_kernel(wflat, bflat, emb, None)
+    # K2: g's shape and type, at least one point, TMA's 16-byte alignment
+    # of the embedding, and the card
+    emb = mk.pad_embedding(torch.from_numpy(uv), 10, dtype=torch.bfloat16)
+    g = torch.zeros((N, 3))
+    for bad in (g[:, :2].contiguous(), g.double(), g[:-1]):
+        with pytest.raises(ValueError, match="g must be"):
+            mk.mlp_bwd_kernel(wflat, bflat, emb, bad, None)
+    with pytest.raises(ValueError, match="no points"):
+        mk.mlp_bwd_kernel(wflat, bflat, emb[:0], g[:0], None)
+    flat = torch.zeros(N * mk.EMB_PAD + 1, dtype=torch.bfloat16)
+    shifted = flat[1:].view(N, mk.EMB_PAD)
+    with pytest.raises(ValueError, match="16-byte"):
+        mk.mlp_bwd_kernel(wflat, bflat, shifted, g, None)
+    with pytest.raises(ValueError, match="one card"):
+        mk.mlp_bwd_kernel(wflat, bflat, emb, g, None)
+    with pytest.raises(ValueError, match="bf16"):
+        mk.mlp_bwd_kernel(*mk.flatten_params(ws, bs, torch.float32), emb, g,
+                          None)
 
 
 def emulate_fwd_kernel(ws, bs, x, multires, tile=512):
@@ -206,3 +224,134 @@ def test_emulated_fwd_kernel_matches_reference_and_plain(models, variant):
     tol, _ = mlp_tol(plain, mk.fused_nerf2d_plain(ws, bs, x, mr,
                                                   torch.float32))
     assert float((got - plain).abs().max()) <= tol
+
+
+def emulate_bwd_kernel(ws, bs, x, g, multires, sms=132):
+    """csrc/mlp_bwd.cu's two-phase schedule in torch, on the card's plan.
+    Phase A: the forward recomputed with bf16 operands and f32 sums into a
+    bf16 act buffer (act_1..act_8); delta_7 = bf16(g) W_8^T and delta_{i-1}
+    = bf16(delta_i) W_i^T (h4's rows of W_5 at the skip) in f32, masked by
+    act > 0, stored bf16 into the delta buffer; db from the f32 deltas, a
+    column sum per 64-point block, the blocks of each persistent CTA (c,
+    c + G, ...) added in order into its partial, the G partials added in
+    CTA order. Phase B: dW_l = A_l^T bf16(Delta_l) summed per 64-point k-step
+    within each of the plan's chunks, the chunks' f32 partials added in
+    chunk order; dW_8 = act_8^T bf16(g) per 1024-point chunk, in chunk
+    order. ws, bs packed f32; returns padded (dws, dbs) f32."""
+    bf = torch.bfloat16
+    n = x.shape[0]
+    emb = mk._input_embedding(x, multires).to(bf).float()
+    w = [wi.to(bf).float() for wi in ws]
+    acts, h = [], emb
+    for i in range(mk.DEPTH):
+        a = torch.cat([emb, h], -1) if i == mk.SKIP + 1 else h
+        h = torch.relu(a @ w[i] + bs[i]).to(bf).float()
+        acts.append(h)
+    gp = torch.nn.functional.pad(g.float(), (0, mk.OUT_PAD - 3))
+    gb = gp.to(bf).float()
+    deltas = [None] * mk.DEPTH
+    d = (gb @ w[mk.DEPTH].t()) * (acts[mk.DEPTH - 1] > 0)
+    deltas[mk.DEPTH - 1] = d
+    for i in range(mk.DEPTH - 1, 0, -1):
+        wt = w[i][mk.EMB_PAD:] if i == mk.SKIP + 1 else w[i]
+        d = (d.to(bf).float() @ wt.t()) * (acts[i - 1] > 0)
+        deltas[i - 1] = d
+    blk = mk._BWD_BLOCK
+    nblocks = -(-n // blk)
+    grid = max(1, min(sms, nblocks))
+    cols = [gp] + [deltas[i] for i in range(mk.DEPTH - 1, -1, -1)]
+    layers = [mk.DEPTH] + list(range(mk.DEPTH - 1, -1, -1))
+    dbs = [torch.zeros(mk.LAYER_N[i]) for i in range(mk.DEPTH + 1)]
+    for c in range(grid):
+        part = [torch.zeros(mk.LAYER_N[i]) for i in range(mk.DEPTH + 1)]
+        for b in range(c, nblocks, grid):
+            for layer, col in zip(layers, cols):
+                part[layer] = part[layer] + col[b * blk:(b + 1) * blk].sum(0)
+        dbs = [a + p for a, p in zip(dbs, part)]
+    plan = mk.dw_plan(n, sms)
+    span = plan["steps"] * mk.KSTEP
+    ins = [emb] + [torch.cat([emb, acts[i - 1]], -1) if i == mk.SKIP + 1
+                   else acts[i - 1] for i in range(1, mk.DEPTH)]
+    dws = [torch.zeros(mk.LAYER_K[i], mk.LAYER_N[i])
+           for i in range(mk.DEPTH + 1)]
+    for c in range(plan["chunks"]):
+        part = [torch.zeros_like(t) for t in dws[:mk.DEPTH]]
+        for p0 in range(c * span, min((c + 1) * span, n), mk.KSTEP):
+            for i in range(mk.DEPTH):
+                dl = deltas[i][p0:p0 + mk.KSTEP].to(bf).float()
+                part[i] = part[i] + ins[i][p0:p0 + mk.KSTEP].t() @ dl
+        dws[:mk.DEPTH] = [a + p for a, p in zip(dws, part)]
+    for p0 in range(0, n, mk.OUT_CHUNK):
+        q = slice(p0, p0 + mk.OUT_CHUNK)
+        dws[mk.DEPTH] = dws[mk.DEPTH] + acts[mk.DEPTH - 1][q].t() @ gb[q]
+    return dws, dbs
+
+
+@pytest.mark.parametrize("variant", ["uv", "emb"])
+def test_emulated_bwd_kernel_matches_reference_and_plain(models, variant):
+    """K2's two-phase schedule, emulated on the CPU, against the JAX VJP
+    with `_bwd_kernel` in interpret mode (5e-3 of each gradient's largest
+    entry, the bf16 bound of test_backward_matches_reference_vjp) and
+    against the plain bf16 version within chip_smoke.mlp_tol, the limit the
+    card holds K2 to."""
+    from chip_smoke import mlp_tol
+
+    _, params, mlp, uv = models
+
+    def loss_ref(p):
+        return jnp.sum(jnp.tanh(_jax_out(p, uv, variant, jnp.bfloat16)) ** 2)
+
+    g_ref = weights.convert_tree(jax.tree.map(
+        np.asarray, jax.grad(loss_ref)(params)))
+    ps = [p.detach() for lin in mlp.linears() for p in (lin.weight,
+                                                         lin.bias)]
+    ws, bs = mk.pack_params(ps, 10)
+    uv_t = torch.from_numpy(uv)
+    x, mr = ((uv_t, 10) if variant == "uv" else
+             (mk.pad_embedding(uv_t, 10, dtype=torch.bfloat16), None))
+    out = mk.fused_nerf2d_plain(ws, bs, x, mr, torch.bfloat16)
+    t = torch.tanh(out)
+    g = 2 * t * (1 - t * t)
+    dws, dbs = emulate_bwd_kernel(ws, bs, x, g, mr)
+    grads = mk.unpack_grads(dws, dbs, 10)
+    keys = [k for k, _ in mlp.named_parameters()]
+    assert len(keys) == len(grads)
+    for k, got in zip(keys, grads):
+        ref = g_ref[k]
+        scale = max(float(ref.abs().max()), 1e-3)
+        np.testing.assert_allclose(got.numpy(), ref.numpy(),
+                                   atol=5e-3 * scale, err_msg=k)
+    rws, rbs = mk.fused_nerf2d_bwd_plain(ws, bs, x, g, mr, torch.bfloat16)
+    fws, fbs = mk.fused_nerf2d_bwd_plain(ws, bs, x, g, mr, torch.float32)
+    for i, (a, b, c) in enumerate(zip(dws + dbs, rws + rbs, fws + fbs)):
+        tol, _ = mlp_tol(b, c)
+        assert float((a - b).abs().max()) <= tol, i
+
+
+@pytest.mark.parametrize("n", [1, 1000, 200704, 614400])
+def test_dw_work_plan_covers_every_weight_row_and_point_once(n):
+    """Phase B's units (row block, point chunk) cover every (layer, weight
+    row, point) of dW_0..dW_7 exactly once; layers 0 and 5 have a 48-row
+    embedding block; the grid is whole waves of an H100's 132 SMs."""
+    blocks = mk.dw_row_blocks()
+    plan = mk.dw_plan(n, 132)
+    assert plan["grid"] == len(blocks) * plan["chunks"]
+    assert plan["grid"] % 132 == 0
+    emb_blocks = [(l, r0, rows) for l, a, r0, rows in blocks if a < 0]
+    assert emb_blocks == [(0, 0, mk.EMB_PAD), (mk.SKIP + 1, 0, mk.EMB_PAD)]
+    for layer in range(mk.DEPTH):
+        rows = np.zeros(mk.LAYER_K[layer], int)
+        for l, acol, r0, nr in blocks:
+            if l != layer:
+                continue
+            rows[r0:r0 + nr] += 1
+            if acol >= 0:  # hidden rows read act_layer's own columns
+                hid = r0 - (mk.EMB_PAD if layer == mk.SKIP + 1 else 0)
+                assert acol == (layer - 1) * mk.W + hid and nr == 128
+        assert (rows == 1).all(), layer
+    pts = np.zeros(n, int)
+    span = plan["steps"] * mk.KSTEP
+    for c in range(plan["chunks"]):
+        pts[c * span:min((c + 1) * span, n)] += 1
+    assert (pts == 1).all()
+    assert plan["steps"] * plan["chunks"] >= plan["ksteps"] == -(-n // 64)
