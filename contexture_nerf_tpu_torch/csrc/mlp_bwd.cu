@@ -19,13 +19,15 @@
 // or twice, ~3.3-4.9 GB at the slice, a floor of ~1.0-1.5 ms at 3.35 TB/s.
 //
 // Design: two phases; no CTA keeps a partial of the whole dW.
-//  - Phase A (`mlp_bwd_delta`, WMMA, a persistent grid of 64-point blocks)
-//    recomputes the forward and writes each point's bf16 activations
+//  - Phase A. The recompute is K1 itself (mlp_fwd.cu, `mlp_fwd_acts`: its
+//    STORE_ACTS instantiation), which writes each point's bf16 activations
 //    act_1..act_8 into an (N, 8 x 256) buffer (and, for the uv input, its
-//    (N, 48) embedding), then runs the delta loop and writes each masked
-//    bf16 delta_7..delta_0 into a second (N, 8 x 256) buffer. db stays in a
-//    per-CTA f32 partial (2,064 floats), summed over the CTA's blocks in
-//    order.
+//    (N, 48) embedding). Then `mlp_bwd_delta` (WMMA, a persistent grid of
+//    64-point blocks, each layer's weights streamed through shared memory)
+//    runs the delta loop, reading its ReLU masks from the act buffer, and
+//    writes each masked bf16 delta_7..delta_0 into a second (N, 8 x 256)
+//    buffer. db stays in a per-CTA f32 partial (2,064 floats), summed over
+//    the CTA's blocks in order.
 //  - Phase B (`mlp_bwd_dw`, wgmma) computes dW_i = A_i^T Delta_i for layers
 //    0-7 as a split-K GEMM over the points. A work unit is (128-row block
 //    of one layer's dW, chunk of points): 16 row blocks (1 for layer 0's 48
@@ -46,8 +48,7 @@
 //
 // C interface (each returns cudaGetLastError() after its launch, or 1000 +
 // the CUresult of a failed tensor-map encode):
-//   int mlp_bwd_delta(x, x_is_uv, multires, g, w, b, acts, deltas, emb_out,
-//                     dbpart, n, grid, stream)
+//   int mlp_bwd_delta(g, w, acts, deltas, dbpart, n, grid, stream)
 //   int mlp_bwd_dw(acts, deltas, emb, partial, n, chunks, steps, stream)
 //   int mlp_bwd_dw_out(acts, g, partial, n, stream)
 //   int mlp_bwd_reduce(partial, total, numel, count, stream)
@@ -123,19 +124,17 @@ __device__ void delta_epilogue(const Smem& s, FragC (&acc)[4][2],
 }
 
 __global__ void __launch_bounds__(NTHREADS)
-    mlp_bwd_delta_kernel(const void* __restrict__ x, int x_is_uv, int multires,
-                         const float* __restrict__ g,
+    mlp_bwd_delta_kernel(const float* __restrict__ g,
                          const bf16* __restrict__ wg,
-                         const float* __restrict__ bg, bf16* __restrict__ acts,
-                         bf16* __restrict__ deltas, bf16* __restrict__ emb_out,
+                         const bf16* __restrict__ acts,
+                         bf16* __restrict__ deltas,
                          float* __restrict__ dbpart, int n) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   Smem s;
   s.w = reinterpret_cast<bf16*>(smem_raw);
   s.h = s.w + WROWS * W;
-  s.emb = s.h + BM * W;
-  bf16* act = s.emb + BM * EMB_PAD;  // [BM][W] the mask of the next delta
-  bf16* gs = act + BM * W;           // [BM][OUT_PAD]
+  bf16* act = s.h + BM * W;  // [BM][W] the mask of the next delta
+  bf16* gs = act + BM * W;   // [BM][OUT_PAD]
   s.stage = reinterpret_cast<float*>(gs + BM * OUT_PAD);
 
   const int warp = threadIdx.x / 32;
@@ -145,32 +144,21 @@ __global__ void __launch_bounds__(NTHREADS)
   const int nblocks = (n + BM - 1) / BM;
   for (int blk = blockIdx.x; blk < nblocks; blk += gridDim.x) {
     const int row0 = blk * BM, rows = min(BM, n - row0);
-    bf16* acts_blk = acts + (long)row0 * ACTS_LD;
+    const bf16* acts_blk = acts + (long)row0 * ACTS_LD;
     bf16* deltas_blk = deltas + (long)row0 * ACTS_LD;
-    __syncthreads();
-    load_embedding(s, x, x_is_uv, multires, row0, n);
-    if (emb_out) {
-      __syncthreads();
-      for (int v = threadIdx.x; v < rows * EMB_PAD / 8; v += NTHREADS)
-        reinterpret_cast<uint4*>(emb_out + (long)row0 * EMB_PAD)[v] =
-            reinterpret_cast<const uint4*>(s.emb)[v];
-    }
-    // forward recompute: act_{l+1}, the output of layer l, into its column
-    // block l of the act buffer
-    for (int layer = 0; layer < DEPTH; ++layer)
-      hidden_layer(s, wg, bg, layer, acts_blk + layer * W, ACTS_LD, rows);
-
-    // output layer: g (padded to 16 columns) and db_8
+    __syncthreads();  // the previous block is done with shared memory
+    // act_8 (the mask of delta_7), g (padded to 16 columns), W_8 (256, 16)
+    load_rows(s.h, acts_blk + (DEPTH - 1) * W, ACTS_LD, rows);
     for (int e = threadIdx.x; e < BM * OUT_PAD; e += NTHREADS) {
       const int r = e / OUT_PAD, c = e % OUT_PAD, row = row0 + r;
       gs[e] = __float2bfloat16(c < 3 && row < n ? g[3 * (long)row + c] : 0.f);
     }
-    if (threadIdx.x < 3) {
+    if (threadIdx.x < 3) {  // db_8
       float cs = 0.f;
       for (int r = 0; r < rows; ++r) cs += g[3 * (long)(row0 + r) + threadIdx.x];
       part[b_offset(DEPTH) + threadIdx.x] += cs;
     }
-    load_weights(s, wg, DEPTH, 0, W);  // (256, 16); s.w is free after layer 7
+    load_weights(s, wg, DEPTH, 0, W);
     __syncthreads();
     {  // delta_7 = (g @ W_8^T) * (act_8 > 0)
       FragC acc[4][2];
@@ -187,7 +175,6 @@ __global__ void __launch_bounds__(NTHREADS)
           wmma::mma_sync(acc[i][j], a, b, acc[i][j]);
         }
       }
-      __syncthreads();
       delta_epilogue(s, acc, s.h, part + b_offset(DEPTH - 1),
                      deltas_blk + (DEPTH - 1) * W, rows);
     }
@@ -226,8 +213,7 @@ __global__ void __launch_bounds__(NTHREADS)
 }
 
 size_t delta_smem_bytes() {
-  return sizeof(bf16) * (WROWS * W + BM * W + BM * EMB_PAD + BM * W +
-                         BM * OUT_PAD) +
+  return sizeof(bf16) * (WROWS * W + 2 * BM * W + BM * OUT_PAD) +
          sizeof(float) * NWARPS * 256;
 }
 
@@ -417,18 +403,16 @@ __global__ void mlp_bwd_reduce_kernel(const float* __restrict__ partial,
 
 }  // namespace
 
-extern "C" int mlp_bwd_delta(const void* x, int x_is_uv, int multires,
-                             const void* g, const void* w, const void* b,
-                             void* acts, void* deltas, void* emb_out,
-                             void* dbpart, int n, int grid, void* stream) {
+extern "C" int mlp_bwd_delta(const void* g, const void* w, const void* acts,
+                             void* deltas, void* dbpart, int n, int grid,
+                             void* stream) {
   const size_t smem = delta_smem_bytes();
   cudaFuncSetAttribute(mlp_bwd_delta_kernel,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   mlp_bwd_delta_kernel<<<grid, NTHREADS, smem, (cudaStream_t)stream>>>(
-      x, x_is_uv, multires, reinterpret_cast<const float*>(g),
-      reinterpret_cast<const bf16*>(w), reinterpret_cast<const float*>(b),
-      reinterpret_cast<bf16*>(acts), reinterpret_cast<bf16*>(deltas),
-      reinterpret_cast<bf16*>(emb_out), reinterpret_cast<float*>(dbpart), n);
+      reinterpret_cast<const float*>(g), reinterpret_cast<const bf16*>(w),
+      reinterpret_cast<const bf16*>(acts), reinterpret_cast<bf16*>(deltas),
+      reinterpret_cast<float*>(dbpart), n);
   return (int)cudaGetLastError();
 }
 

@@ -46,8 +46,18 @@
 // Every point's arithmetic is the same wherever its tile runs, so two runs
 // are bit-identical.
 //
-// C interface: int mlp_fwd(x, x_is_uv, multires, w, b, out, n, stream)
-// returns cudaGetLastError() after the launch, or 1000 + the CUresult of a
+// STORE_ACTS (the recompute of K2, mlp_bwd.cu): the same kernel, one
+// template flag on. Once a hidden layer's accumulator has its bias, ReLU and
+// bf16 rounding and is packed as the next layer's A fragments, the
+// consumers also store it, with 32-bit stores (each quad writes 16
+// contiguous bytes of a row), into column block l of K2's (N, 8 x 256)
+// activation buffer; with the uv input the embedding's fragments go to an
+// (N, 48) buffer too; the output layer is skipped. With the flag off (K1
+// itself) the stores compile away.
+//
+// C interface: int mlp_fwd(x, x_is_uv, multires, w, b, out, n, stream) and
+// int mlp_fwd_acts(x, x_is_uv, multires, w, b, acts, emb_out, n, stream)
+// return cudaGetLastError() after the launch, or 1000 + the CUresult of a
 // failed tensor-map encode, or 2000 if no cluster fits on the card.
 #include <cuda.h>
 
@@ -106,9 +116,12 @@ struct Params {
   const float* bias;
   const bf16* wout;  // the output layer (256, 16)
   float* out;
+  bf16* acts;     // STORE_ACTS: (N, DEPTH * 256) hidden layers' outputs
+  bf16* emb_out;  // STORE_ACTS with uv: (N, 48) embedding
   int n, x_is_uv, multires, tiles;  // tiles of CS * BM points
 };
 
+template <bool STORE_ACTS>
 __global__ void __launch_bounds__(THREADS, 1)
     mlp_fwd_kernel(__grid_constant__ const CUtensorMap tw, const Params p) {
   extern __shared__ unsigned char smem_raw[];
@@ -168,6 +181,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     for (int i = 0; i < 2 * N / 4; ++i) acc[i] = 0.f;
     uint32_t it = 0;  // slabs consumed
     int issued = 0;   // k16 steps issued in this layer
+    int row0 = 0;     // this thread's first row of the tile
 
     // a slab is done with once its product has completed: warp w tells
     // CTA w % CS of the cluster (a warpgroup's wgmma completes as a whole,
@@ -209,11 +223,18 @@ __global__ void __launch_bounds__(THREADS, 1)
                                       fmaxf(acc[4 * j + 3] + b.y, 0.f));
         a[j / 2][(j & 1) * 2] = r0;
         a[j / 2][(j & 1) * 2 + 1] = r1;
+        if constexpr (STORE_ACTS) {
+          bf16* dst = p.acts + (long)row0 * (mlp::DEPTH * N) + l * N + 8 * j +
+                      2 * quad;
+          if (row0 < p.n) *reinterpret_cast<uint32_t*>(dst) = r0;
+          if (row0 + 8 < p.n)
+            *reinterpret_cast<uint32_t*>(dst + 8 * mlp::DEPTH * N) = r1;
+        }
       }
     };
 
     for (int t = cluster; t < p.tiles; t += clusters) {
-      const int row0 = (t * CS + rank) * BM + wg * 64 + warp * 16 + lane / 4;
+      row0 = (t * CS + rank) * BM + wg * 64 + warp * 16 + lane / 4;
       // the embedding's A fragments (rows row0, row0 + 8), kept in shared
       // memory for layer 5
       {
@@ -239,6 +260,11 @@ __global__ void __launch_bounds__(THREADS, 1)
             }
             e[kk][q] = val;
             emb_slot[(4 * kk + q) * 128] = val;
+            if constexpr (STORE_ACTS) {
+              if (p.x_is_uv && row < p.n)
+                *reinterpret_cast<uint32_t*>(
+                    p.emb_out + (long)row * mlp::EMB_PAD + c) = val;
+            }
           }
         // layer 0
         fence_operand(acc);
@@ -268,6 +294,7 @@ __global__ void __launch_bounds__(THREADS, 1)
         }
         epilogue(l);
       }
+      if constexpr (STORE_ACTS) continue;
       // the output layer's 3 columns on the CUDA cores: fragment register
       // q holds row 8(q & 1) + lane/4, columns 16kk + 2(lane % 4) +
       // 8(q >= 2) and the one after
@@ -330,15 +357,14 @@ int make_map(CUtensorMap* map, const void* w) {
   return r == CUDA_SUCCESS ? 0 : 1000 + (int)r;
 }
 
-}  // namespace
-
-extern "C" int mlp_fwd(const void* x, int x_is_uv, int multires,
-                       const void* w, const void* b, void* out, int n,
-                       void* stream) {
+template <bool STORE_ACTS>
+int launch(const void* x, int x_is_uv, int multires, const void* w,
+           const void* b, void* out, void* acts, void* emb_out, int n,
+           void* stream) {
   if (n <= 0) return 0;
   static int max_clusters = -1;
   if (max_clusters < 0) {
-    cudaFuncSetAttribute(mlp_fwd_kernel,
+    cudaFuncSetAttribute(mlp_fwd_kernel<STORE_ACTS>,
                          cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
     cudaLaunchConfig_t cfg = {};
     cfg.gridDim = dim3(CS);
@@ -351,8 +377,9 @@ extern "C" int mlp_fwd(const void* x, int x_is_uv, int multires,
     attr.val.clusterDim.z = 1;
     cfg.attrs = &attr;
     cfg.numAttrs = 1;
-    if (cudaOccupancyMaxActiveClusters(&max_clusters, mlp_fwd_kernel, &cfg) !=
-        cudaSuccess)
+    if (cudaOccupancyMaxActiveClusters(&max_clusters,
+                                       mlp_fwd_kernel<STORE_ACTS>,
+                                       &cfg) != cudaSuccess)
       max_clusters = 0;
   }
   if (max_clusters <= 0) return 2000;
@@ -364,6 +391,8 @@ extern "C" int mlp_fwd(const void* x, int x_is_uv, int multires,
   p.bias = reinterpret_cast<const float*>(b);
   p.wout = reinterpret_cast<const bf16*>(w) + mlp::w_offset(mlp::DEPTH);
   p.out = reinterpret_cast<float*>(out);
+  p.acts = reinterpret_cast<bf16*>(acts);
+  p.emb_out = reinterpret_cast<bf16*>(emb_out);
   p.n = n;
   p.x_is_uv = x_is_uv;
   p.multires = multires;
@@ -380,7 +409,24 @@ extern "C" int mlp_fwd(const void* x, int x_is_uv, int multires,
   attr.val.clusterDim.z = 1;
   cfg.attrs = &attr;
   cfg.numAttrs = 1;
-  const cudaError_t e = cudaLaunchKernelEx(&cfg, mlp_fwd_kernel, map, p);
+  const cudaError_t e =
+      cudaLaunchKernelEx(&cfg, mlp_fwd_kernel<STORE_ACTS>, map, p);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int mlp_fwd(const void* x, int x_is_uv, int multires,
+                       const void* w, const void* b, void* out, int n,
+                       void* stream) {
+  return launch<false>(x, x_is_uv, multires, w, b, out, nullptr, nullptr, n,
+                       stream);
+}
+
+extern "C" int mlp_fwd_acts(const void* x, int x_is_uv, int multires,
+                            const void* w, const void* b, void* acts,
+                            void* emb_out, int n, void* stream) {
+  return launch<true>(x, x_is_uv, multires, w, b, nullptr, acts, emb_out, n,
+                      stream);
 }

@@ -198,13 +198,14 @@ def _lib_fwd():
     lib = _build.library("mlp_fwd")
     lib.mlp_fwd.argtypes = [_P, _I, _I, _P, _P, _P, _I, _P]
     lib.mlp_fwd.restype = _I
+    lib.mlp_fwd_acts.argtypes = [_P, _I, _I, _P, _P, _P, _P, _I, _P]
+    lib.mlp_fwd_acts.restype = _I
     return lib
 
 
 def _lib_bwd():
     lib = _build.library("mlp_bwd")
-    lib.mlp_bwd_delta.argtypes = [_P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I,
-                                  _I, _P]
+    lib.mlp_bwd_delta.argtypes = [_P, _P, _P, _P, _P, _I, _I, _P]
     lib.mlp_bwd_dw.argtypes = [_P, _P, _P, _P, _I, _I, _I, _P]
     lib.mlp_bwd_dw_out.argtypes = [_P, _P, _P, _I, _P]
     lib.mlp_bwd_reduce.argtypes = [_P, _P, _I, _I, _P]
@@ -296,9 +297,10 @@ def _aligned(t: torch.Tensor) -> bool:
 
 def mlp_bwd_kernel(wflat, bflat, x, g, multires):
     """K2: padded (dws, dbs) f32 from the same inputs as K1 and g (N, 3)
-    f32, in two phases (csrc/mlp_bwd.cu): phase A writes the bf16
-    activation and delta buffers and per-CTA db partials, phase B sums dW
-    per point chunk with wgmma and dW_8 per 1024 points; the partials are
+    f32, in two phases (csrc/mlp_bwd.cu): phase A recomputes the forward
+    through K1's STORE_ACTS instantiation into the bf16 activation buffer,
+    then writes the bf16 delta buffer and per-CTA db partials; phase B sums
+    dW per point chunk with wgmma and dW_8 per 1024 points; the partials are
     added in chunk (CTA) order, so two runs are bit-identical."""
     _check_kernel_inputs(x, multires, wflat.dtype)
     n = x.shape[0]
@@ -330,10 +332,13 @@ def mlp_bwd_kernel(wflat, bflat, x, g, multires):
     total = torch.empty((W_NUMEL + B_NUMEL,), dtype=f32, device=dev)
     lib = _lib_bwd()
     stream = _build.stream_ptr(dev)
-    _build.check(lib.mlp_bwd_delta(
+    _build.check(_lib_fwd().mlp_fwd_acts(
         x.data_ptr(), int(multires is not None), int(multires or 0),
-        g.data_ptr(), wflat.data_ptr(), bflat.data_ptr(), acts.data_ptr(),
-        deltas.data_ptr(), emb.data_ptr() if multires is not None else None,
+        wflat.data_ptr(), bflat.data_ptr(), acts.data_ptr(),
+        emb.data_ptr() if multires is not None else None, n, stream),
+        "mlp_fwd_acts")
+    _build.check(lib.mlp_bwd_delta(
+        g.data_ptr(), wflat.data_ptr(), acts.data_ptr(), deltas.data_ptr(),
         dbpart.data_ptr(), n, grid, stream), "mlp_bwd_delta")
     _build.check(lib.mlp_bwd_dw(
         acts.data_ptr(), deltas.data_ptr(), emb.data_ptr(), dwpart.data_ptr(),
