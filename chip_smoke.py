@@ -314,7 +314,7 @@ def mlp_bwd_breakdown(torch, mk, wflat, bflat, emb, g, n):
     buffers = 2 * n * mk.ACTS_LD * 2
     partials = 4 * (plan["chunks"] * mk.HIDDEN_NUMEL
                     + -(-n // mk.OUT_CHUNK) * mk.W * mk.OUT_PAD
-                    + min(sms, -(-n // 64)) * mk.B_NUMEL)
+                    + 2 * sms * mk.B_NUMEL)
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()

@@ -18,37 +18,38 @@
 // activations and deltas (2 x 8 x 256 bf16) are written once and read once
 // or twice, ~3.3-4.9 GB at the slice, a floor of ~1.0-1.5 ms at 3.35 TB/s.
 //
-// Design: two phases; no CTA keeps a partial of the whole dW.
-//  - Phase A. The recompute is K1 itself (mlp_fwd.cu, `mlp_fwd_acts`: its
-//    STORE_ACTS instantiation), which writes each point's bf16 activations
+// Design: two phases; no CTA keeps a partial of the whole dW, and no WMMA.
+//  - Phase A is two instantiations of K1's pipeline (mlp_fwd.cu: clusters
+//    of 4 CTAs on a persistent grid, weight slabs multicast by TMA, wgmma
+//    m64n256k16 with A in registers). `mlp_fwd_acts` (STORE_ACTS)
+//    recomputes the forward and writes each point's bf16 activations
 //    act_1..act_8 into an (N, 8 x 256) buffer (and, for the uv input, its
-//    (N, 48) embedding). Then `mlp_bwd_delta` (WMMA, a persistent grid of
-//    64-point blocks, each layer's weights streamed through shared memory)
-//    runs the delta loop, reading its ReLU masks from the act buffer, and
-//    writes each masked bf16 delta_7..delta_0 into a second (N, 8 x 256)
-//    buffer. db stays in a per-CTA f32 partial (2,064 floats), summed over
-//    the CTA's blocks in order.
-//  - Phase B (`mlp_bwd_dw`, wgmma) computes dW_i = A_i^T Delta_i for layers
-//    0-7 as a split-K GEMM over the points. A work unit is (128-row block
-//    of one layer's dW, chunk of points): 16 row blocks (1 for layer 0's 48
-//    embedding rows, 2 each for layers 1-4, 6, 7, 1 + 2 for layer 5) times
-//    `chunks` chunks, so the grid is whole waves of the card's SMs. Shaped
-//    like flash_attn.cu: a producer warpgroup (setmaxnreg 24) TMA-loads per
-//    64-point k-step the act tile (64 points x 128 features) and the delta
-//    tile (64 x 256) into a ring of 128-byte-swizzled stages; two consumer
-//    warpgroups each own 64 feature rows and run wgmma m64n256k16 with both
-//    operands MN-major from shared memory (the feature dimension
-//    contiguous). The embedding rows read a 48-wide tensor map whose
-//    out-of-bounds columns TMA fills with zeros; points past N read zeros.
-//    Each unit writes its f32 tile into its chunk's partial of dW_0..dW_7.
+//    (N, 48) embedding). `mlp_delta` (DELTA) streams the transposed weight
+//    stack instead, starts from bf16(g), masks each layer's accumulator by
+//    the stored activations and writes the bf16 delta_7..delta_0 into a
+//    second (N, 8 x 256) buffer; db is summed from the f32 deltas in a
+//    fixed order into one partial per consumer warpgroup.
+//  - Phase B (`mlp_bwd_dw`, this file) computes dW_i = A_i^T Delta_i for
+//    layers 0-7 as a split-K GEMM over the points. A work unit is (128-row
+//    block of one layer's dW, chunk of points): 16 row blocks (1 for layer
+//    0's 48 embedding rows, 2 each for layers 1-4, 6, 7, 1 + 2 for layer
+//    5) times `chunks` chunks, so the grid is whole waves of the card's
+//    SMs. Shaped like flash_attn.cu: a producer warpgroup (setmaxnreg 24)
+//    TMA-loads per 64-point k-step the act tile (64 points x 128 features)
+//    and the delta tile (64 x 256) into a ring of 128-byte-swizzled
+//    stages; two consumer warpgroups each own 64 feature rows and run wgmma
+//    m64n256k16 with both operands MN-major from shared memory (the feature
+//    dimension contiguous). The embedding rows read a 48-wide tensor map
+//    whose out-of-bounds columns TMA fills with zeros; points past N read
+//    zeros. Each unit writes its f32 tile into its chunk's partial of
+//    dW_0..dW_7.
 //  - `mlp_bwd_dw_out` sums dW_8 (256 x 3) on the CUDA cores per 1024-point
 //    chunk, in point order.
-//  - `mlp_bwd_reduce` adds partials in chunk (or CTA) order.
+//  - `mlp_bwd_reduce` adds partials in chunk (or warpgroup) order.
 // No float atomics and fixed summation orders: two runs are bit-identical.
 //
 // C interface (each returns cudaGetLastError() after its launch, or 1000 +
 // the CUresult of a failed tensor-map encode):
-//   int mlp_bwd_delta(g, w, acts, deltas, dbpart, n, grid, stream)
 //   int mlp_bwd_dw(acts, deltas, emb, partial, n, chunks, steps, stream)
 //   int mlp_bwd_dw_out(acts, g, partial, n, stream)
 //   int mlp_bwd_reduce(partial, total, numel, count, stream)
@@ -64,158 +65,6 @@ namespace {
 constexpr int ACTS_LD = DEPTH * W;  // columns of the act and delta buffers
 constexpr long HIDDEN_NUMEL = w_offset(DEPTH);  // dW_0..dW_7: 483,328 floats
 constexpr int OUT_CHUNK = 1024;                 // points a dW_8 partial
-
-// ---- phase A -------------------------------------------------------------
-
-// rows [0, rows) of src ([.][ld] bf16, global) into dst ([BM][W], shared);
-// the rest zero
-__device__ void load_rows(bf16* dst, const bf16* src, int ld, int rows) {
-  for (int v = threadIdx.x; v < BM * W / 8; v += NTHREADS) {
-    const int r = v / (W / 8), c = v % (W / 8);
-    reinterpret_cast<uint4*>(dst)[v] =
-        r < rows ? reinterpret_cast<const uint4*>(src + (long)r * ld)[c]
-                 : make_uint4(0, 0, 0, 0);
-  }
-}
-
-// Epilogue of a delta product held in acc: delta = acc * (mask > 0), stored
-// bf16 into s.h (which may hold the mask itself) and, for the first `rows`
-// rows, into out (global, rows ACTS_LD apart); column sums of the f32 delta
-// added to the CTA's db partial of the layer.
-__device__ void delta_epilogue(const Smem& s, FragC (&acc)[4][2],
-                               const bf16* mask, float* db, bf16* out,
-                               int rows) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  float* st = s.stage + warp * 256;
-  float colsum[2] = {0.f, 0.f};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      wmma::store_matrix_sync(st, acc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      // lane: row i*16 + lane/2, 8 contiguous columns from c0
-      const int row = i * 16 + lane / 2, c0 = (2 * warp + j) * 16 + (lane % 2) * 8;
-      __align__(16) bf16 v[8];
-#pragma unroll
-      for (int t = 0; t < 8; ++t) {
-        const float d =
-            __bfloat162float(mask[row * W + c0 + t]) > 0.f ? st[lane * 8 + t] : 0.f;
-        st[lane * 8 + t] = d;
-        v[t] = __float2bfloat16(d);
-      }
-      __syncwarp();  // every lane has read its mask before s.h changes
-      const uint4 pk = *reinterpret_cast<const uint4*>(v);
-      *reinterpret_cast<uint4*>(s.h + row * W + c0) = pk;
-      if (row < rows)
-        *reinterpret_cast<uint4*>(out + (long)row * ACTS_LD + c0) = pk;
-      if (lane < 16) {
-        float cs = 0.f;
-        for (int r = 0; r < 16; ++r) cs += st[r * 16 + lane];
-        colsum[j] += cs;
-      }
-      __syncwarp();
-    }
-  }
-  if (lane < 16) {
-#pragma unroll
-    for (int j = 0; j < 2; ++j) db[(2 * warp + j) * 16 + lane] += colsum[j];
-  }
-}
-
-__global__ void __launch_bounds__(NTHREADS)
-    mlp_bwd_delta_kernel(const float* __restrict__ g,
-                         const bf16* __restrict__ wg,
-                         const bf16* __restrict__ acts,
-                         bf16* __restrict__ deltas,
-                         float* __restrict__ dbpart, int n) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  Smem s;
-  s.w = reinterpret_cast<bf16*>(smem_raw);
-  s.h = s.w + WROWS * W;
-  bf16* act = s.h + BM * W;  // [BM][W] the mask of the next delta
-  bf16* gs = act + BM * W;   // [BM][OUT_PAD]
-  s.stage = reinterpret_cast<float*>(gs + BM * OUT_PAD);
-
-  const int warp = threadIdx.x / 32;
-  float* part = dbpart + (long)blockIdx.x * B_NUMEL;
-  for (int p = threadIdx.x; p < B_NUMEL; p += NTHREADS) part[p] = 0.f;
-
-  const int nblocks = (n + BM - 1) / BM;
-  for (int blk = blockIdx.x; blk < nblocks; blk += gridDim.x) {
-    const int row0 = blk * BM, rows = min(BM, n - row0);
-    const bf16* acts_blk = acts + (long)row0 * ACTS_LD;
-    bf16* deltas_blk = deltas + (long)row0 * ACTS_LD;
-    __syncthreads();  // the previous block is done with shared memory
-    // act_8 (the mask of delta_7), g (padded to 16 columns), W_8 (256, 16)
-    load_rows(s.h, acts_blk + (DEPTH - 1) * W, ACTS_LD, rows);
-    for (int e = threadIdx.x; e < BM * OUT_PAD; e += NTHREADS) {
-      const int r = e / OUT_PAD, c = e % OUT_PAD, row = row0 + r;
-      gs[e] = __float2bfloat16(c < 3 && row < n ? g[3 * (long)row + c] : 0.f);
-    }
-    if (threadIdx.x < 3) {  // db_8
-      float cs = 0.f;
-      for (int r = 0; r < rows; ++r) cs += g[3 * (long)(row0 + r) + threadIdx.x];
-      part[b_offset(DEPTH) + threadIdx.x] += cs;
-    }
-    load_weights(s, wg, DEPTH, 0, W);
-    __syncthreads();
-    {  // delta_7 = (g @ W_8^T) * (act_8 > 0)
-      FragC acc[4][2];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        FragA a;
-        wmma::load_matrix_sync(a, gs + i * 16 * OUT_PAD, OUT_PAD);
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          FragBT b;  // W_8^T: element (k, n) = W_8[n][k]
-          wmma::load_matrix_sync(b, s.w + (2 * warp + j) * 16 * OUT_PAD,
-                                 OUT_PAD);
-          wmma::fill_fragment(acc[i][j], 0.f);
-          wmma::mma_sync(acc[i][j], a, b, acc[i][j]);
-        }
-      }
-      delta_epilogue(s, acc, s.h, part + b_offset(DEPTH - 1),
-                     deltas_blk + (DEPTH - 1) * W, rows);
-    }
-
-    for (int layer = DEPTH - 1; layer > 0; --layer) {
-      __syncthreads();  // delta_layer in s.h is complete
-      // act_layer (the mask of delta_{layer-1}) from the act buffer
-      load_rows(act, acts_blk + (layer - 1) * W, ACTS_LD, rows);
-      load_weights(s, wg, layer, layer == SKIP + 1 ? EMB_PAD : 0, W);
-      __syncthreads();
-      // delta_{layer-1} = (delta_layer @ W_layer^T) * (act_layer > 0)
-      FragC acc[4][2];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-      for (int k = 0; k < W; k += 16) {
-        FragBT b[2];
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          wmma::load_matrix_sync(b[j], s.w + (2 * warp + j) * 16 * W + k, W);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          FragA a;
-          wmma::load_matrix_sync(a, s.h + i * 16 * W + k, W);
-#pragma unroll
-          for (int j = 0; j < 2; ++j)
-            wmma::mma_sync(acc[i][j], a, b[j], acc[i][j]);
-        }
-      }
-      __syncthreads();  // every warp is done reading delta in s.h
-      delta_epilogue(s, acc, act, part + b_offset(layer - 1),
-                     deltas_blk + (layer - 1) * W, rows);
-    }
-  }
-}
-
-size_t delta_smem_bytes() {
-  return sizeof(bf16) * (WROWS * W + 2 * BM * W + BM * OUT_PAD) +
-         sizeof(float) * NWARPS * 256;
-}
 
 // ---- phase B: dW_0..dW_7 -------------------------------------------------
 
@@ -402,19 +251,6 @@ __global__ void mlp_bwd_reduce_kernel(const float* __restrict__ partial,
 }
 
 }  // namespace
-
-extern "C" int mlp_bwd_delta(const void* g, const void* w, const void* acts,
-                             void* deltas, void* dbpart, int n, int grid,
-                             void* stream) {
-  const size_t smem = delta_smem_bytes();
-  cudaFuncSetAttribute(mlp_bwd_delta_kernel,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  mlp_bwd_delta_kernel<<<grid, NTHREADS, smem, (cudaStream_t)stream>>>(
-      reinterpret_cast<const float*>(g), reinterpret_cast<const bf16*>(w),
-      reinterpret_cast<const bf16*>(acts), reinterpret_cast<bf16*>(deltas),
-      reinterpret_cast<float*>(dbpart), n);
-  return (int)cudaGetLastError();
-}
 
 extern "C" int mlp_bwd_dw(const void* acts, const void* deltas,
                           const void* emb, void* partial, int n, int chunks,

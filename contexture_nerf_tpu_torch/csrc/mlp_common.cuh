@@ -4,22 +4,14 @@
 // bf16, K = 48, 256 x4, 48 + 256, 256 x2, then the output layer (256, 16);
 // biases f32, 256 per hidden layer then 16. The 42-dim Fourier embedding is
 // zero-padded to 48, a multiple of the 16-deep bf16 tensor-core step.
-//
-// The WMMA pieces below serve K2's delta loop (mlp_bwd.cu): a CTA owns BM =
-// 64 points and 8 warps, keeps their delta in shared memory (bf16, 64 x
-// 256) and streams each layer's weights through it (at most 256 rows, 128
-// KB, at a time); warp w owns output columns [32w, 32w + 32) across all 64
-// rows (4 x 2 16x16x16 fragments, f32 accumulators).
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 namespace mlp {
 
-using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
 
 constexpr int EMB_PAD = 48;
@@ -27,10 +19,6 @@ constexpr int W = 256;
 constexpr int SKIP = 4;
 constexpr int DEPTH = 8;
 constexpr int OUT_PAD = 16;
-constexpr int BM = 64;
-constexpr int NWARPS = 8;
-constexpr int NTHREADS = NWARPS * 32;
-constexpr int WROWS = 256;  // weight rows resident in shared memory at once
 
 __host__ __device__ constexpr int layer_k(int i) {
   return i == 0 ? EMB_PAD : (i == SKIP + 1 ? EMB_PAD + W : W);
@@ -46,38 +34,5 @@ __host__ __device__ constexpr long w_offset(int i) {
 __host__ __device__ constexpr int b_offset(int i) { return i * W; }
 constexpr long W_NUMEL = w_offset(DEPTH + 1);
 constexpr int B_NUMEL = DEPTH * W + OUT_PAD;
-
-typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> FragC;
-typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>
-    FragA;
-typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major>
-    FragAT;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>
-    FragB;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>
-    FragBT;
-
-// Shared memory of one CTA; every region is a multiple of 32 bytes, as
-// WMMA loads need.
-struct Smem {
-  bf16* w;       // [WROWS][W] weight rows (or the (256, 16) output layer)
-  bf16* h;       // [BM][W] delta
-  float* stage;  // [NWARPS][16 * 16] per-warp fragment staging
-};
-
-// Copy `nvec` 16-byte vectors from global to shared memory, all threads.
-__device__ __forceinline__ void copy_vec(void* dst, const void* src,
-                                         int nvec) {
-  const uint4* s = reinterpret_cast<const uint4*>(src);
-  uint4* d = reinterpret_cast<uint4*>(dst);
-  for (int v = threadIdx.x; v < nvec; v += NTHREADS) d[v] = s[v];
-}
-
-// Weight rows [r0, r0 + nrows) of layer `layer` into s.w.
-__device__ __forceinline__ void load_weights(const Smem& s, const bf16* wg,
-                                             int layer, int r0, int nrows) {
-  const int n = layer_n(layer);
-  copy_vec(s.w, wg + w_offset(layer) + (long)r0 * n, nrows * n / 8);
-}
 
 }  // namespace mlp

@@ -55,10 +55,24 @@
 // (N, 48) buffer too; the output layer is skipped. With the flag off (K1
 // itself) the stores compile away.
 //
-// C interface: int mlp_fwd(x, x_is_uv, multires, w, b, out, n, stream) and
+// DELTA (K2's delta loop, mlp_bwd.cu's phase A): the same pipeline over
+// the transposed weight stack [W_8^T (16 x 256); W_7^T; W_6^T; W_5[48:]^T;
+// W_4^T; ...; W_1^T] (1808, 256), packed once by ops/mlp_kernel.py, so its
+// B operand is read exactly as K1 reads the weights. The input is g padded
+// to 16 columns (one k16 step); the epilogue multiplies the accumulator by
+// (act_l > 0), read from the act buffer at the fragment positions
+// STORE_ACTS wrote, stores bf16(delta) to K2's delta buffer and re-packs it
+// as the next A; db sums the f32 delta's columns over the warpgroup's rows
+// in a fixed order into a per-warpgroup partial over its statically
+// assigned tiles.
+//
+// C interface: int mlp_fwd(x, x_is_uv, multires, w, b, out, n, stream),
 // int mlp_fwd_acts(x, x_is_uv, multires, w, b, acts, emb_out, n, stream)
-// return cudaGetLastError() after the launch, or 1000 + the CUresult of a
-// failed tensor-map encode, or 2000 if no cluster fits on the card.
+// and int mlp_delta(g, wt, acts, deltas, dbpart, n, ctas, stream) (ctas:
+// out, the CTA count; dbpart holds B_NUMEL floats for each of the CTAs' 2
+// consumer warpgroups) return cudaGetLastError() after the launch, or 1000
+// + the CUresult of a failed tensor-map encode, or 2000 if no cluster fits
+// on the card.
 #include <cuda.h>
 
 #include "hopper.cuh"
@@ -94,6 +108,25 @@ static_assert(SMEM <= 232448, "shared memory of a CTA");
 static_assert(HIDDEN_ROWS == 1888 && STEPS * 16 == HIDDEN_ROWS, "layout");
 static_assert(4 % CS == 0, "each CTA multicasts whole 64-column boxes");
 
+// The kernel's three instantiations: K1 itself; K1 storing its
+// activations for K2 (STORE_ACTS); K2's delta loop over the transposed
+// stack (DELTA).
+enum Mode { FWD = 0, FWD_ACTS = 1, DELTA = 2 };
+// DELTA: the transposed stack [W_8^T (16 rows); W_7^T; W_6^T; W_5[48:]^T;
+// W_4^T; ...; W_1^T] (1808, 256): one k16 step, then 7 layers of 16
+constexpr int DELTA_ROWS = mlp::OUT_PAD + (mlp::DEPTH - 1) * N;
+constexpr int DELTA_STEPS = DELTA_ROWS / 16;  // 113
+constexpr int ACTS_LD = mlp::DEPTH * N;       // K2's act and delta buffers
+// DELTA's shared memory after the ring: each warp's column sums of a
+// layer's delta (two buffers a warpgroup, by layer parity), then each
+// warpgroup's db partial (B_NUMEL floats)
+constexpr int OFF_DBS = STAGES * SLAB;
+constexpr int OFF_DBACC = OFF_DBS + NC * 2 * 4 * N * 4;
+constexpr int OFF_BAR_DELTA = OFF_DBACC + NC * mlp::B_NUMEL * 4;
+constexpr int SMEM_DELTA = OFF_BAR_DELTA + 16 * STAGES + 1024;
+static_assert(SMEM_DELTA <= 232448, "shared memory of a CTA");
+static_assert(DELTA_STEPS * 16 == DELTA_ROWS, "layout");
+
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&p);
@@ -112,25 +145,31 @@ __device__ __forceinline__ float emb_col(float u, float v, int c,
 }
 
 struct Params {
-  const void* x;
+  const void* x;     // uv or the embedding; DELTA: g (N, 3) f32
   const float* bias;
   const bf16* wout;  // the output layer (256, 16)
   float* out;
-  bf16* acts;     // STORE_ACTS: (N, DEPTH * 256) hidden layers' outputs
-  bf16* emb_out;  // STORE_ACTS with uv: (N, 48) embedding
+  bf16* acts;     // FWD_ACTS: (N, DEPTH * 256) hidden layers' outputs
+                  // (written); DELTA: the same (read: the ReLU masks)
+  bf16* emb_out;  // FWD_ACTS with uv: (N, 48) embedding
+  bf16* deltas;   // DELTA: (N, DEPTH * 256) bf16 delta_0..delta_7
+  float* dbpart;  // DELTA: B_NUMEL floats a consumer warpgroup
   int n, x_is_uv, multires, tiles;  // tiles of CS * BM points
 };
 
-template <bool STORE_ACTS>
+template <int MODE>
 __global__ void __launch_bounds__(THREADS, 1)
     mlp_fwd_kernel(__grid_constant__ const CUtensorMap tw, const Params p) {
+  constexpr bool STORE_ACTS = MODE == FWD_ACTS;
+  constexpr int TILE_STEPS = MODE == DELTA ? DELTA_STEPS : STEPS;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   unsigned char* sbase = smem_raw + (base - smem_u32(smem_raw));
   float* bias_s = reinterpret_cast<float*>(sbase + OFF_BIAS);
   float4* wout_s = reinterpret_cast<float4*>(sbase + OFF_WOUT);
   uint32_t* emb_s = reinterpret_cast<uint32_t*>(sbase + OFF_EMB);
-  const uint32_t full = base + OFF_BAR, empty = full + 8 * STAGES;
+  const uint32_t full = base + (MODE == DELTA ? OFF_BAR_DELTA : OFF_BAR),
+                 empty = full + 8 * STAGES;
   const int rank = (int)cluster_rank();
   const int cluster = blockIdx.x / CS, clusters = gridDim.x / CS;
 
@@ -141,12 +180,18 @@ __global__ void __launch_bounds__(THREADS, 1)
     }
     fence_barrier_init();
   }
-  for (int i = threadIdx.x; i < mlp::DEPTH * N; i += THREADS)
-    bias_s[i] = p.bias[i];
-  for (int k = threadIdx.x; k < N; k += THREADS) {
-    const bf16* r = p.wout + k * mlp::OUT_PAD;
-    wout_s[k] = make_float4(__bfloat162float(r[0]), __bfloat162float(r[1]),
-                            __bfloat162float(r[2]), 0.f);
+  if constexpr (MODE == DELTA) {
+    float* dbacc = reinterpret_cast<float*>(sbase + OFF_DBACC);
+    for (int i = threadIdx.x; i < NC * mlp::B_NUMEL; i += THREADS)
+      dbacc[i] = 0.f;
+  } else {
+    for (int i = threadIdx.x; i < mlp::DEPTH * N; i += THREADS)
+      bias_s[i] = p.bias[i];
+    for (int k = threadIdx.x; k < N; k += THREADS) {
+      const bf16* r = p.wout + k * mlp::OUT_PAD;
+      wout_s[k] = make_float4(__bfloat162float(r[0]), __bfloat162float(r[1]),
+                              __bfloat162float(r[2]), 0.f);
+    }
   }
   __syncthreads();
   cluster_sync();  // every CTA's barriers exist before any multicast
@@ -157,7 +202,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     if (threadIdx.x == NC * 128) {
       uint32_t it = 0;
       for (int t = cluster; t < p.tiles; t += clusters) {
-        for (int s = 0; s < STEPS; ++s, ++it) {
+        for (int s = 0; s < TILE_STEPS; ++s, ++it) {
           const uint32_t st = it % STAGES, ph = (it / STAGES) & 1;
           mbar_wait(empty + 8 * st, ph ^ 1);  // the first round passes
           mbar_arrive_expect_tx(full + 8 * st, SLAB);
@@ -233,6 +278,108 @@ __global__ void __launch_bounds__(THREADS, 1)
       }
     };
 
+    if constexpr (MODE == DELTA) {
+      float* dbs = reinterpret_cast<float*>(sbase + OFF_DBS) + wg * 2 * 4 * N;
+      float* dbacc = reinterpret_cast<float*>(sbase + OFF_DBACC) +
+                     wg * mlp::B_NUMEL;
+      const float* g = reinterpret_cast<const float*>(p.x);
+      float gsum[2] = {0.f, 0.f};  // db_8 of columns 2 quad, 2 quad + 1
+      // delta_blk = acc * (act_blk > 0), the mask read at the fragment
+      // positions FWD_ACTS stored; bf16(delta) stored to the delta buffer
+      // and packed as the next A; the f32 column sums of the warpgroup's 64
+      // rows (lanes xor 4, 8, 16, then the 4 warps in order) added to its
+      // db partial; slab index l of the stack picks the sums' buffer
+      auto epilogue_delta = [&](int l, int blk) {
+        wgmma_wait<0>();
+        fence_operand(acc);
+        for (int d = min(issued, IN_FLIGHT); d > 0; --d)
+          release((it - d) % STAGES);
+        issued = 0;
+        const long off = (long)row0 * ACTS_LD + blk * N + 2 * quad;
+        const bf16* m = p.acts + off;
+        bf16* dst = p.deltas + off;
+        float* sums = dbs + (l & 1) * 4 * N + warp * N + 2 * quad;
+        const bool in0 = row0 < p.n, in1 = row0 + 8 < p.n;
+#pragma unroll
+        for (int j = 0; j < N / 8; ++j) {
+          uint32_t m0 = 0, m1 = 0;
+          if (in0) m0 = *reinterpret_cast<const uint32_t*>(m + 8 * j);
+          if (in1) m1 = *reinterpret_cast<const uint32_t*>(m + 8 * ACTS_LD + 8 * j);
+          const __nv_bfloat162 k0 = *reinterpret_cast<__nv_bfloat162*>(&m0);
+          const __nv_bfloat162 k1 = *reinterpret_cast<__nv_bfloat162*>(&m1);
+          const float d00 = __low2float(k0) > 0.f ? acc[4 * j] : 0.f;
+          const float d01 = __high2float(k0) > 0.f ? acc[4 * j + 1] : 0.f;
+          const float d10 = __low2float(k1) > 0.f ? acc[4 * j + 2] : 0.f;
+          const float d11 = __high2float(k1) > 0.f ? acc[4 * j + 3] : 0.f;
+          const uint32_t r0 = pack_bf16(d00, d01), r1 = pack_bf16(d10, d11);
+          a[j / 2][(j & 1) * 2] = r0;
+          a[j / 2][(j & 1) * 2 + 1] = r1;
+          if (in0) *reinterpret_cast<uint32_t*>(dst + 8 * j) = r0;
+          if (in1) *reinterpret_cast<uint32_t*>(dst + 8 * ACTS_LD + 8 * j) = r1;
+          float v0 = d00 + d10, v1 = d01 + d11;
+#pragma unroll
+          for (int x = 4; x < 32; x <<= 1) {
+            v0 += __shfl_xor_sync(0xffffffffu, v0, x);
+            v1 += __shfl_xor_sync(0xffffffffu, v1, x);
+          }
+          if (lane < 4) *reinterpret_cast<float2*>(sums + 8 * j) = make_float2(v0, v1);
+        }
+        named_sync(1 + wg, 128);
+        const float* s = dbs + (l & 1) * 4 * N;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int c = tid + 128 * h;
+          dbacc[blk * N + c] += ((s[c] + s[N + c]) + s[2 * N + c]) + s[3 * N + c];
+        }
+      };
+
+      for (int t = cluster; t < p.tiles; t += clusters) {
+        row0 = (t * CS + rank) * BM + wg * 64 + warp * 16 + lane / 4;
+        // stack layer 0: A = bf16(g) padded to 16 columns, one k16 step
+        uint32_t e[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int row = row0 + 8 * (q & 1), c = 2 * quad + 8 * (q >> 1);
+          float v0 = 0.f, v1 = 0.f;
+          if (row < p.n && c < 3) {
+            v0 = g[3 * (long)row + c];
+            if (c + 1 < 3) v1 = g[3 * (long)row + c + 1];
+          }
+          e[q] = pack_bf16(v0, v1);
+          gsum[0] += v0;
+          gsum[1] += v1;
+        }
+        fence_operand(acc);
+        wgmma_fence();
+        step(e);
+        epilogue_delta(0, mlp::DEPTH - 1);
+        for (int l = 1; l < mlp::DEPTH; ++l) {
+          fence_operand(acc);
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < N / 16; ++kk) step(a[kk]);
+          epilogue_delta(l, mlp::DEPTH - 1 - l);
+        }
+      }
+      // db_8 (columns 0..2) through the parity-0 sums buffer, whose last
+      // readers passed the final layer's barrier
+#pragma unroll
+      for (int x = 4; x < 32; x <<= 1) {
+        gsum[0] += __shfl_xor_sync(0xffffffffu, gsum[0], x);
+        gsum[1] += __shfl_xor_sync(0xffffffffu, gsum[1], x);
+      }
+      if (lane < 4)
+        *reinterpret_cast<float2*>(dbs + warp * N + 2 * quad) =
+            make_float2(gsum[0], gsum[1]);
+      named_sync(1 + wg, 128);
+      float* part = p.dbpart + (long)(blockIdx.x * NC + wg) * mlp::B_NUMEL;
+      for (int c = tid; c < mlp::DEPTH * N; c += 128) part[c] = dbacc[c];
+      if (tid < mlp::OUT_PAD)
+        part[mlp::DEPTH * N + tid] =
+            tid < 3 ? ((dbs[tid] + dbs[N + tid]) + dbs[2 * N + tid]) +
+                          dbs[3 * N + tid]
+                    : 0.f;
+    } else {
     for (int t = cluster; t < p.tiles; t += clusters) {
       row0 = (t * CS + rank) * BM + wg * 64 + warp * 16 + lane / 4;
       // the embedding's A fragments (rows row0, row0 + 8), kept in shared
@@ -333,18 +480,20 @@ __global__ void __launch_bounds__(THREADS, 1)
                 p.bias[mlp::b_offset(mlp::DEPTH) + c];
       }
     }
+    }
   }
   // no CTA leaves while the other may still multicast into it or arrive on
   // its barriers
   cluster_sync();
 }
 
-// the hidden layers' weights as a (1888, 256) bf16 matrix, boxes of 16 rows
-// x 64 columns with 128-byte swizzle
-int make_map(CUtensorMap* map, const void* w) {
+// a (rows, 256) bf16 weight matrix (the hidden layers' (1888, 256), or
+// DELTA's transposed stack (1808, 256)), boxes of 16 rows x 64 columns with
+// 128-byte swizzle
+int make_map(CUtensorMap* map, const void* w, int rows) {
   EncodeTiled fn = tensor_map_encoder();
   if (fn == nullptr) return 1000 + CUDA_ERROR_NOT_FOUND;
-  const cuuint64_t dims[2] = {(cuuint64_t)N, (cuuint64_t)HIDDEN_ROWS};
+  const cuuint64_t dims[2] = {(cuuint64_t)N, (cuuint64_t)rows};
   const cuuint64_t strides[1] = {(cuuint64_t)N * 2};
   const cuuint32_t box[2] = {64, 16};
   const cuuint32_t estr[2] = {1, 1};
@@ -357,19 +506,22 @@ int make_map(CUtensorMap* map, const void* w) {
   return r == CUDA_SUCCESS ? 0 : 1000 + (int)r;
 }
 
-template <bool STORE_ACTS>
-int launch(const void* x, int x_is_uv, int multires, const void* w,
-           const void* b, void* out, void* acts, void* emb_out, int n,
-           void* stream) {
-  if (n <= 0) return 0;
+// launches MODE's instantiation on a persistent grid of clusters, as many
+// as fit on the card at once (and no more than the tiles); *ctas gets the
+// CTA count
+template <int MODE>
+int launch(Params p, const void* w, int* ctas, void* stream) {
+  constexpr int smem = MODE == DELTA ? SMEM_DELTA : SMEM;
+  if (ctas) *ctas = 0;
+  if (p.n <= 0) return 0;
   static int max_clusters = -1;
   if (max_clusters < 0) {
-    cudaFuncSetAttribute(mlp_fwd_kernel<STORE_ACTS>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+    cudaFuncSetAttribute(mlp_fwd_kernel<MODE>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     cudaLaunchConfig_t cfg = {};
     cfg.gridDim = dim3(CS);
     cfg.blockDim = dim3(THREADS);
-    cfg.dynamicSmemBytes = SMEM;
+    cfg.dynamicSmemBytes = smem;
     cudaLaunchAttribute attr;
     attr.id = cudaLaunchAttributeClusterDimension;
     attr.val.clusterDim.x = CS;
@@ -377,30 +529,19 @@ int launch(const void* x, int x_is_uv, int multires, const void* w,
     attr.val.clusterDim.z = 1;
     cfg.attrs = &attr;
     cfg.numAttrs = 1;
-    if (cudaOccupancyMaxActiveClusters(&max_clusters,
-                                       mlp_fwd_kernel<STORE_ACTS>,
+    if (cudaOccupancyMaxActiveClusters(&max_clusters, mlp_fwd_kernel<MODE>,
                                        &cfg) != cudaSuccess)
       max_clusters = 0;
   }
   if (max_clusters <= 0) return 2000;
   CUtensorMap map;
-  const int err = make_map(&map, w);
+  const int err = make_map(&map, w, MODE == DELTA ? DELTA_ROWS : HIDDEN_ROWS);
   if (err) return err;
-  Params p;
-  p.x = x;
-  p.bias = reinterpret_cast<const float*>(b);
-  p.wout = reinterpret_cast<const bf16*>(w) + mlp::w_offset(mlp::DEPTH);
-  p.out = reinterpret_cast<float*>(out);
-  p.acts = reinterpret_cast<bf16*>(acts);
-  p.emb_out = reinterpret_cast<bf16*>(emb_out);
-  p.n = n;
-  p.x_is_uv = x_is_uv;
-  p.multires = multires;
-  p.tiles = (n + CS * BM - 1) / (CS * BM);
+  p.tiles = (p.n + CS * BM - 1) / (CS * BM);
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(CS * min(p.tiles, max_clusters));
   cfg.blockDim = dim3(THREADS);
-  cfg.dynamicSmemBytes = SMEM;
+  cfg.dynamicSmemBytes = smem;
   cfg.stream = (cudaStream_t)stream;
   cudaLaunchAttribute attr;
   attr.id = cudaLaunchAttributeClusterDimension;
@@ -409,10 +550,22 @@ int launch(const void* x, int x_is_uv, int multires, const void* w,
   attr.val.clusterDim.z = 1;
   cfg.attrs = &attr;
   cfg.numAttrs = 1;
-  const cudaError_t e =
-      cudaLaunchKernelEx(&cfg, mlp_fwd_kernel<STORE_ACTS>, map, p);
+  if (ctas) *ctas = (int)cfg.gridDim.x;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, mlp_fwd_kernel<MODE>, map, p);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
+}
+
+Params params(const void* x, int x_is_uv, int multires, const void* w,
+              const void* b, int n) {
+  Params p = {};
+  p.x = x;
+  p.bias = reinterpret_cast<const float*>(b);
+  p.wout = reinterpret_cast<const bf16*>(w) + mlp::w_offset(mlp::DEPTH);
+  p.n = n;
+  p.x_is_uv = x_is_uv;
+  p.multires = multires;
+  return p;
 }
 
 }  // namespace
@@ -420,13 +573,28 @@ int launch(const void* x, int x_is_uv, int multires, const void* w,
 extern "C" int mlp_fwd(const void* x, int x_is_uv, int multires,
                        const void* w, const void* b, void* out, int n,
                        void* stream) {
-  return launch<false>(x, x_is_uv, multires, w, b, out, nullptr, nullptr, n,
-                       stream);
+  Params p = params(x, x_is_uv, multires, w, b, n);
+  p.out = reinterpret_cast<float*>(out);
+  return launch<FWD>(p, w, nullptr, stream);
 }
 
 extern "C" int mlp_fwd_acts(const void* x, int x_is_uv, int multires,
                             const void* w, const void* b, void* acts,
                             void* emb_out, int n, void* stream) {
-  return launch<true>(x, x_is_uv, multires, w, b, nullptr, acts, emb_out, n,
-                      stream);
+  Params p = params(x, x_is_uv, multires, w, b, n);
+  p.acts = reinterpret_cast<bf16*>(acts);
+  p.emb_out = reinterpret_cast<bf16*>(emb_out);
+  return launch<FWD_ACTS>(p, w, nullptr, stream);
+}
+
+extern "C" int mlp_delta(const void* g, const void* wt, const void* acts,
+                         void* deltas, void* dbpart, int n, int* ctas,
+                         void* stream) {
+  Params p = {};
+  p.x = g;
+  p.acts = const_cast<bf16*>(reinterpret_cast<const bf16*>(acts));
+  p.deltas = reinterpret_cast<bf16*>(deltas);
+  p.dbpart = reinterpret_cast<float*>(dbpart);
+  p.n = n;
+  return launch<DELTA>(p, wt, ctas, stream);
 }

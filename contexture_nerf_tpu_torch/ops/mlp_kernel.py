@@ -117,6 +117,23 @@ def flatten_params(ws, bs, compute_dtype):
     return wflat.contiguous(), bflat.contiguous()
 
 
+def transposed_stack(wflat: torch.Tensor) -> torch.Tensor:
+    """K2's delta-pass weights from the flat packed weights: the rows
+    [W_8^T (16 x 256); W_7^T; W_6^T; W_5[EMB_PAD:]^T (h4's rows, the only
+    ones that carry delta back); W_4^T; W_3^T; W_2^T; W_1^T], (1808, 256)
+    row-major, so that B = W_l^T is N-major as K1's weights are."""
+    offs = [0]
+    for k, n in zip(LAYER_K, LAYER_N):
+        offs.append(offs[-1] + k * n)
+
+    def w(i):
+        return wflat[offs[i]:offs[i + 1]].view(LAYER_K[i], LAYER_N[i])
+
+    rows = [w(DEPTH).t()] + [(w(i)[EMB_PAD:] if i == SKIP + 1 else w(i)).t()
+                             for i in range(DEPTH - 1, 0, -1)]
+    return torch.cat(rows).contiguous()
+
+
 def split_flat(wflat: torch.Tensor, bflat: torch.Tensor):
     ws, bs, ow, ob = [], [], 0, 0
     for k, n in zip(LAYER_K, LAYER_N):
@@ -200,17 +217,18 @@ def _lib_fwd():
     lib.mlp_fwd.restype = _I
     lib.mlp_fwd_acts.argtypes = [_P, _I, _I, _P, _P, _P, _P, _I, _P]
     lib.mlp_fwd_acts.restype = _I
+    lib.mlp_delta.argtypes = [_P, _P, _P, _P, _P, _I,
+                              ctypes.POINTER(ctypes.c_int), _P]
+    lib.mlp_delta.restype = _I
     return lib
 
 
 def _lib_bwd():
     lib = _build.library("mlp_bwd")
-    lib.mlp_bwd_delta.argtypes = [_P, _P, _P, _P, _P, _I, _I, _P]
     lib.mlp_bwd_dw.argtypes = [_P, _P, _P, _P, _I, _I, _I, _P]
     lib.mlp_bwd_dw_out.argtypes = [_P, _P, _P, _I, _P]
     lib.mlp_bwd_reduce.argtypes = [_P, _P, _I, _I, _P]
-    for f in (lib.mlp_bwd_delta, lib.mlp_bwd_dw, lib.mlp_bwd_dw_out,
-              lib.mlp_bwd_reduce):
+    for f in (lib.mlp_bwd_dw, lib.mlp_bwd_dw_out, lib.mlp_bwd_reduce):
         f.restype = _I
     return lib
 
@@ -259,7 +277,7 @@ def mlp_fwd_kernel(wflat, bflat, x, multires):
 # input); phase B sums dW_l = A_l^T Delta_l over chunks of KSTEP-point steps
 ACTS_LD = DEPTH * W
 HIDDEN_NUMEL = sum(k * n for k, n in zip(LAYER_K[:DEPTH], LAYER_N[:DEPTH]))
-_BWD_BLOCK = 64  # points a phase-A block
+DELTA_ROWS = OUT_PAD + (DEPTH - 1) * W  # rows of the transposed stack
 KSTEP = 64       # points a phase-B k-step
 OUT_CHUNK = 1024  # points a dW_8 partial
 
@@ -295,13 +313,15 @@ def _aligned(t: torch.Tensor) -> bool:
     return t.data_ptr() % 16 == 0
 
 
-def mlp_bwd_kernel(wflat, bflat, x, g, multires):
+def mlp_bwd_kernel(wflat, bflat, x, g, multires, wt=None):
     """K2: padded (dws, dbs) f32 from the same inputs as K1 and g (N, 3)
     f32, in two phases (csrc/mlp_bwd.cu): phase A recomputes the forward
     through K1's STORE_ACTS instantiation into the bf16 activation buffer,
-    then writes the bf16 delta buffer and per-CTA db partials; phase B sums
-    dW per point chunk with wgmma and dW_8 per 1024 points; the partials are
-    added in chunk (CTA) order, so two runs are bit-identical."""
+    then K1's DELTA instantiation runs over `wt` (`transposed_stack(wflat)`,
+    packed here when not given) into the bf16 delta buffer and per-
+    warpgroup db partials; phase B sums dW per point chunk with wgmma and
+    dW_8 per 1024 points; the partials are added in chunk (warpgroup)
+    order, so two runs are bit-identical."""
     _check_kernel_inputs(x, multires, wflat.dtype)
     n = x.shape[0]
     if g.shape != (n, 3) or g.dtype != torch.float32 \
@@ -313,33 +333,40 @@ def mlp_bwd_kernel(wflat, bflat, x, g, multires):
         raise ValueError("no points")
     if not _aligned(x):
         raise ValueError("x must start on a 16-byte boundary (TMA)")
-    if not x.is_cuda or wflat.device != x.device or bflat.device != x.device:
+    if wt is None:
+        wt = transposed_stack(wflat)
+    if wt.shape != (DELTA_ROWS, W) or wt.dtype != torch.bfloat16 \
+            or not wt.is_contiguous():
+        raise ValueError("wt must be the contiguous (1808, 256) bf16 "
+                         "transposed stack")
+    if not x.is_cuda or any(t.device != x.device for t in (wflat, bflat, wt)):
         raise ValueError("x, g and the packed weights must lie on one card")
     dev = x.device
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    grid = max(1, min(sms, -(-n // _BWD_BLOCK)))
     plan = dw_plan(n, sms)
     bf, f32 = torch.bfloat16, torch.float32
     acts = torch.empty((n, ACTS_LD), dtype=bf, device=dev)
     deltas = torch.empty((n, ACTS_LD), dtype=bf, device=dev)
     emb = x if multires is None else torch.empty((n, EMB_PAD), dtype=bf,
                                                  device=dev)
-    dbpart = torch.empty((grid, B_NUMEL), dtype=f32, device=dev)
+    # one db partial a consumer warpgroup (2 a CTA, at most one CTA an SM)
+    dbpart = torch.empty((2 * sms, B_NUMEL), dtype=f32, device=dev)
     dwpart = torch.empty((plan["chunks"], HIDDEN_NUMEL), dtype=f32,
                          device=dev)
     outpart = torch.empty((-(-n // OUT_CHUNK), W * OUT_PAD), dtype=f32,
                           device=dev)
     total = torch.empty((W_NUMEL + B_NUMEL,), dtype=f32, device=dev)
-    lib = _lib_bwd()
+    lib, fwd = _lib_bwd(), _lib_fwd()
     stream = _build.stream_ptr(dev)
-    _build.check(_lib_fwd().mlp_fwd_acts(
+    _build.check(fwd.mlp_fwd_acts(
         x.data_ptr(), int(multires is not None), int(multires or 0),
         wflat.data_ptr(), bflat.data_ptr(), acts.data_ptr(),
         emb.data_ptr() if multires is not None else None, n, stream),
         "mlp_fwd_acts")
-    _build.check(lib.mlp_bwd_delta(
-        g.data_ptr(), wflat.data_ptr(), acts.data_ptr(), deltas.data_ptr(),
-        dbpart.data_ptr(), n, grid, stream), "mlp_bwd_delta")
+    ctas = ctypes.c_int(0)
+    _build.check(fwd.mlp_delta(
+        g.data_ptr(), wt.data_ptr(), acts.data_ptr(), deltas.data_ptr(),
+        dbpart.data_ptr(), n, ctypes.byref(ctas), stream), "mlp_delta")
     _build.check(lib.mlp_bwd_dw(
         acts.data_ptr(), deltas.data_ptr(), emb.data_ptr(), dwpart.data_ptr(),
         n, plan["chunks"], plan["steps"], stream), "mlp_bwd_dw")
@@ -348,7 +375,8 @@ def mlp_bwd_kernel(wflat, bflat, x, g, multires):
                  "mlp_bwd_dw_out")
     for part, lo, hi in ((dwpart, 0, HIDDEN_NUMEL),
                          (outpart, HIDDEN_NUMEL, W_NUMEL),
-                         (dbpart, W_NUMEL, W_NUMEL + B_NUMEL)):
+                         (dbpart[:2 * ctas.value], W_NUMEL,
+                          W_NUMEL + B_NUMEL)):
         _build.check(lib.mlp_bwd_reduce(part.data_ptr(),
                                         total[lo:].data_ptr(), hi - lo,
                                         part.shape[0], stream),
@@ -361,7 +389,7 @@ def mlp_bwd_kernel(wflat, bflat, x, g, multires):
 
 class _FusedNeRF2D(torch.autograd.Function):
     """Packs the parameters once in the forward; on the card the flattened
-    kernel buffers stay in ctx for K2."""
+    kernel buffers and K2's transposed stack stay in ctx for K2."""
 
     @staticmethod
     def forward(ctx, x, multires, emb_multires, cdt, *params):
@@ -370,6 +398,7 @@ class _FusedNeRF2D(torch.autograd.Function):
         ws, bs = pack_params(params, emb_multires)
         if x.is_cuda:
             ctx.flat = flatten_params(ws, bs, cdt)
+            ctx.wt = transposed_stack(ctx.flat[0])
             return mlp_fwd_kernel(*ctx.flat, x, multires)
         if x.device.type != "cpu":
             raise ValueError(f"unsupported device {x.device}")
@@ -381,7 +410,7 @@ class _FusedNeRF2D(torch.autograd.Function):
         x, *params = ctx.saved_tensors
         g = g.float().contiguous()
         if x.is_cuda:
-            dws, dbs = mlp_bwd_kernel(*ctx.flat, x, g, ctx.multires)
+            dws, dbs = mlp_bwd_kernel(*ctx.flat, x, g, ctx.multires, ctx.wt)
         else:
             dws, dbs = fused_nerf2d_bwd_plain(*ctx.packed, x, g, ctx.multires,
                                               ctx.cdt)

@@ -157,6 +157,10 @@ def test_kernel_wrappers_reject_what_the_kernels_do_not_take(models):
     shifted = flat[1:].view(N, mk.EMB_PAD)
     with pytest.raises(ValueError, match="16-byte"):
         mk.mlp_bwd_kernel(wflat, bflat, shifted, g, None)
+    with pytest.raises(ValueError, match="wt must be"):
+        mk.mlp_bwd_kernel(wflat, bflat, emb, g, None,
+                          torch.zeros((mk.DELTA_ROWS, mk.W - 1),
+                                      dtype=torch.bfloat16))
     with pytest.raises(ValueError, match="one card"):
         mk.mlp_bwd_kernel(wflat, bflat, emb, g, None)
     with pytest.raises(ValueError, match="bf16"):
@@ -232,9 +236,8 @@ def emulate_bwd_kernel(ws, bs, x, g, multires, sms=132):
     bf16 act buffer (act_1..act_8); delta_7 = bf16(g) W_8^T and delta_{i-1}
     = bf16(delta_i) W_i^T (h4's rows of W_5 at the skip) in f32, masked by
     act > 0, stored bf16 into the delta buffer; db from the f32 deltas, a
-    column sum per 64-point block, the blocks of each persistent CTA (c,
-    c + G, ...) added in order into its partial, the G partials added in
-    CTA order. Phase B: dW_l = A_l^T bf16(Delta_l) summed per 64-point k-step
+    column sum per 64-point warpgroup block, each warpgroup's blocks added
+    tile by tile into its partial, the partials added in order. Phase B: dW_l = A_l^T bf16(Delta_l) summed per 64-point k-step
     within each of the plan's chunks, the chunks' f32 partials added in
     chunk order; dW_8 = act_8^T bf16(g) per 1024-point chunk, in chunk
     order. ws, bs packed f32; returns padded (dws, dbs) f32."""
@@ -256,18 +259,23 @@ def emulate_bwd_kernel(ws, bs, x, g, multires, sms=132):
         wt = w[i][mk.EMB_PAD:] if i == mk.SKIP + 1 else w[i]
         d = (d.to(bf).float() @ wt.t()) * (acts[i - 1] > 0)
         deltas[i - 1] = d
-    blk = mk._BWD_BLOCK
-    nblocks = -(-n // blk)
-    grid = max(1, min(sms, nblocks))
+    # db: one partial a consumer warpgroup of the persistent grid (clusters
+    # of 4 CTAs of 2 warpgroups, 512-point tiles, cluster k taking tiles k,
+    # k + C, ...), its 64-row blocks' column sums added tile by tile; the
+    # partials added in warpgroup order
+    ntiles = -(-n // 512)
+    clusters = max(1, min(ntiles, sms // 4))
     cols = [gp] + [deltas[i] for i in range(mk.DEPTH - 1, -1, -1)]
     layers = [mk.DEPTH] + list(range(mk.DEPTH - 1, -1, -1))
     dbs = [torch.zeros(mk.LAYER_N[i]) for i in range(mk.DEPTH + 1)]
-    for c in range(grid):
-        part = [torch.zeros(mk.LAYER_N[i]) for i in range(mk.DEPTH + 1)]
-        for b in range(c, nblocks, grid):
-            for layer, col in zip(layers, cols):
-                part[layer] = part[layer] + col[b * blk:(b + 1) * blk].sum(0)
-        dbs = [a + p for a, p in zip(dbs, part)]
+    for k in range(clusters):
+        for r0 in range(0, 512, 64):  # rank, then warpgroup
+            part = [torch.zeros(mk.LAYER_N[i]) for i in range(mk.DEPTH + 1)]
+            for t in range(k, ntiles, clusters):
+                p0 = t * 512 + r0
+                for layer, col in zip(layers, cols):
+                    part[layer] = part[layer] + col[p0:p0 + 64].sum(0)
+            dbs = [a + p for a, p in zip(dbs, part)]
     plan = mk.dw_plan(n, sms)
     span = plan["steps"] * mk.KSTEP
     ins = [emb] + [torch.cat([emb, acts[i - 1]], -1) if i == mk.SKIP + 1
@@ -355,3 +363,29 @@ def test_dw_work_plan_covers_every_weight_row_and_point_once(n):
         pts[c * span:min((c + 1) * span, n)] += 1
     assert (pts == 1).all()
     assert plan["steps"] * plan["chunks"] >= plan["ksteps"] == -(-n // 64)
+
+
+def test_transposed_stack_matches_pack_params(models):
+    """K2's delta-pass weights: W_8^T (its 3 real rows, then zeros), then
+    W_7^T .. W_1^T with layer 5 cut to h4's rows, each the bf16 of the
+    torch layout's (out, in) weight, which is already W^T."""
+    _, _, mlp, _ = models
+    ps = [p.detach() for lin in mlp.linears() for p in (lin.weight,
+                                                         lin.bias)]
+    ws, bs = mk.pack_params(ps, 10)
+    wt = mk.transposed_stack(mk.flatten_params(ws, bs, torch.bfloat16)[0])
+    bf = torch.bfloat16
+    assert wt.shape == (mk.DELTA_ROWS, mk.W) == (1808, 256)
+    assert wt.dtype == bf and wt.is_contiguous()
+    assert torch.equal(wt[:3], ps[2 * mk.DEPTH].to(bf))
+    assert not wt[3:16].any()
+    r = 16
+    for i in range(mk.DEPTH - 1, 0, -1):
+        w = ps[2 * i]  # (256 out, in)
+        want = w[:, 42:] if i == mk.SKIP + 1 else w  # h4's inputs at the skip
+        assert torch.equal(wt[r:r + mk.W], want.to(bf)), i
+        assert torch.equal(wt[r:r + mk.W],
+                           (ws[i][mk.EMB_PAD:] if i == mk.SKIP + 1
+                            else ws[i]).t().to(bf)), i
+        r += mk.W
+    assert r == mk.DELTA_ROWS
