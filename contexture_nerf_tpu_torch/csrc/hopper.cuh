@@ -193,6 +193,11 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
+// bring the 128-byte line holding `ptr` into L2
+__device__ __forceinline__ void prefetch_l2(const void* ptr) {
+  asm volatile("prefetch.global.L2 [%0];\n" ::"l"(ptr));
+}
+
 // --- named barriers and registers --------------------------------------------
 
 __device__ __forceinline__ void named_sync(int id, int threads) {

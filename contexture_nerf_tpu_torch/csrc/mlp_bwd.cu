@@ -43,7 +43,7 @@
 //    whose out-of-bounds columns TMA fills with zeros; points past N read
 //    zeros. Each unit writes its f32 tile into its chunk's partial of
 //    dW_0..dW_7.
-//  - `mlp_bwd_dw_out` sums dW_8 (256 x 3) on the CUDA cores per 1024-point
+//  - `mlp_bwd_dw_out` sums dW_8 (256 x 3) on the CUDA cores per 256-point
 //    chunk, in point order.
 //  - `mlp_bwd_reduce` adds partials in chunk (or warpgroup) order.
 // No float atomics and fixed summation orders: two runs are bit-identical.
@@ -64,7 +64,7 @@ namespace {
 
 constexpr int ACTS_LD = DEPTH * W;  // columns of the act and delta buffers
 constexpr long HIDDEN_NUMEL = w_offset(DEPTH);  // dW_0..dW_7: 483,328 floats
-constexpr int OUT_CHUNK = 1024;                 // points a dW_8 partial
+constexpr int OUT_CHUNK = 256;                  // points a dW_8 partial
 
 // ---- phase B: dW_0..dW_7 -------------------------------------------------
 
@@ -227,6 +227,7 @@ __global__ void __launch_bounds__(W)
   const int f = threadIdx.x, p0 = blockIdx.x * OUT_CHUNK;
   const int p1 = min(p0 + OUT_CHUNK, n);
   float s[3] = {0.f, 0.f, 0.f};
+#pragma unroll 8
   for (int q = p0; q < p1; ++q) {
     const float h = __bfloat162float(acts[(long)q * ACTS_LD + (DEPTH - 1) * W + f]);
 #pragma unroll

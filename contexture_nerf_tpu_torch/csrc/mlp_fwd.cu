@@ -300,11 +300,30 @@ __global__ void __launch_bounds__(THREADS, 1)
         bf16* dst = p.deltas + off;
         float* sums = dbs + (l & 1) * 4 * N + warp * N + 2 * quad;
         const bool in0 = row0 < p.n, in1 = row0 + 8 < p.n;
+        // the mask words in groups of MG j's, the next group loaded while
+        // this one is used (no more in registers at once: acc and a hold
+        // 192 of the 240)
+        constexpr int MG = 4;
+        uint32_t mw[2][2 * MG];
+        auto load_masks = [&](int g, uint32_t(&w)[2 * MG]) {
+#pragma unroll
+          for (int i = 0; i < MG; ++i) {
+            const int j = g * MG + i;
+            w[2 * i] = in0 ? *reinterpret_cast<const uint32_t*>(m + 8 * j) : 0u;
+            w[2 * i + 1] = in1 ? *reinterpret_cast<const uint32_t*>(
+                                     m + 8 * ACTS_LD + 8 * j)
+                               : 0u;
+          }
+        };
+        load_masks(0, mw[0]);
 #pragma unroll
         for (int j = 0; j < N / 8; ++j) {
-          uint32_t m0 = 0, m1 = 0;
-          if (in0) m0 = *reinterpret_cast<const uint32_t*>(m + 8 * j);
-          if (in1) m1 = *reinterpret_cast<const uint32_t*>(m + 8 * ACTS_LD + 8 * j);
+          if (j % MG == 0) {
+            asm volatile("" ::: "memory");  // keep later groups' loads here
+            if (j + MG < N / 8) load_masks(j / MG + 1, mw[(j / MG + 1) & 1]);
+          }
+          uint32_t m0 = mw[(j / MG) & 1][2 * (j % MG)];
+          uint32_t m1 = mw[(j / MG) & 1][2 * (j % MG) + 1];
           const __nv_bfloat162 k0 = *reinterpret_cast<__nv_bfloat162*>(&m0);
           const __nv_bfloat162 k1 = *reinterpret_cast<__nv_bfloat162*>(&m1);
           const float d00 = __low2float(k0) > 0.f ? acc[4 * j] : 0.f;
@@ -349,11 +368,20 @@ __global__ void __launch_bounds__(THREADS, 1)
           gsum[0] += v0;
           gsum[1] += v1;
         }
+        // the mask rows of the coming epilogue into L2 while the layer's
+        // products run: this thread's quad shares its two rows, 4 lines each
+        auto prefetch_masks = [&](int blk) {
+          const bf16* m = p.acts + (long)row0 * ACTS_LD + blk * N + 64 * quad;
+          if (row0 < p.n) prefetch_l2(m);
+          if (row0 + 8 < p.n) prefetch_l2(m + 8 * ACTS_LD);
+        };
+        prefetch_masks(mlp::DEPTH - 1);
         fence_operand(acc);
         wgmma_fence();
         step(e);
         epilogue_delta(0, mlp::DEPTH - 1);
         for (int l = 1; l < mlp::DEPTH; ++l) {
+          prefetch_masks(mlp::DEPTH - 1 - l);
           fence_operand(acc);
           wgmma_fence();
 #pragma unroll

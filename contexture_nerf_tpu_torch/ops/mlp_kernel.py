@@ -279,7 +279,7 @@ ACTS_LD = DEPTH * W
 HIDDEN_NUMEL = sum(k * n for k, n in zip(LAYER_K[:DEPTH], LAYER_N[:DEPTH]))
 DELTA_ROWS = OUT_PAD + (DEPTH - 1) * W  # rows of the transposed stack
 KSTEP = 64       # points a phase-B k-step
-OUT_CHUNK = 1024  # points a dW_8 partial
+OUT_CHUNK = 256  # points a dW_8 partial
 
 
 def dw_row_blocks() -> List[Tuple[int, int, int, int]]:
@@ -320,7 +320,7 @@ def mlp_bwd_kernel(wflat, bflat, x, g, multires, wt=None):
     then K1's DELTA instantiation runs over `wt` (`transposed_stack(wflat)`,
     packed here when not given) into the bf16 delta buffer and per-
     warpgroup db partials; phase B sums dW per point chunk with wgmma and
-    dW_8 per 1024 points; the partials are added in chunk (warpgroup)
+    dW_8 per 256 points; the partials are added in chunk (warpgroup)
     order, so two runs are bit-identical."""
     _check_kernel_inputs(x, multires, wflat.dtype)
     n = x.shape[0]

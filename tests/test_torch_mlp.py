@@ -239,7 +239,7 @@ def emulate_bwd_kernel(ws, bs, x, g, multires, sms=132):
     column sum per 64-point warpgroup block, each warpgroup's blocks added
     tile by tile into its partial, the partials added in order. Phase B: dW_l = A_l^T bf16(Delta_l) summed per 64-point k-step
     within each of the plan's chunks, the chunks' f32 partials added in
-    chunk order; dW_8 = act_8^T bf16(g) per 1024-point chunk, in chunk
+    chunk order; dW_8 = act_8^T bf16(g) per OUT_CHUNK-point chunk, in chunk
     order. ws, bs packed f32; returns padded (dws, dbs) f32."""
     bf = torch.bfloat16
     n = x.shape[0]
