@@ -132,6 +132,38 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&p);
 }
 
+// 4 x 4 transpose of 32-bit words across the lanes of a quad (q = lane %
+// 4): afterwards word t of lane q is what word q of lane t was. Fragment
+// words of a column-step pair (j, j + 1), {row r: j, j + 1; row r + 8: j,
+// j + 1}, become this lane's 16 contiguous bytes of row r + 8 (q >> 1),
+// columns 8 (j + (q & 1)) .. + 7, and back. The whole warp calls it.
+__device__ __forceinline__ void quad_transpose(uint32_t (&w)[4], int q) {
+  {  // lanes q and q ^ 1 swap the words whose index differs from q in bit 0
+    const bool o = q & 1;
+    const uint32_t x = __shfl_xor_sync(0xffffffffu, o ? w[0] : w[1], 1);
+    const uint32_t y = __shfl_xor_sync(0xffffffffu, o ? w[2] : w[3], 1);
+    if (o) {
+      w[0] = x;
+      w[2] = y;
+    } else {
+      w[1] = x;
+      w[3] = y;
+    }
+  }
+  {  // lanes q and q ^ 2 swap the words whose index differs from q in bit 1
+    const bool o = q & 2;
+    const uint32_t x = __shfl_xor_sync(0xffffffffu, o ? w[0] : w[2], 2);
+    const uint32_t y = __shfl_xor_sync(0xffffffffu, o ? w[1] : w[3], 2);
+    if (o) {
+      w[0] = x;
+      w[1] = y;
+    } else {
+      w[2] = x;
+      w[3] = y;
+    }
+  }
+}
+
 // embedding column c of the point (u, v): [u, v, sin 1u, sin 1v, cos 1u,
 // cos 1v, sin 2u, ...], zero past 2 + 4 multires
 __device__ __forceinline__ float emb_col(float u, float v, int c,
@@ -269,11 +301,15 @@ __global__ void __launch_bounds__(THREADS, 1)
         a[j / 2][(j & 1) * 2] = r0;
         a[j / 2][(j & 1) * 2 + 1] = r1;
         if constexpr (STORE_ACTS) {
-          bf16* dst = p.acts + (long)row0 * (mlp::DEPTH * N) + l * N + 8 * j +
-                      2 * quad;
-          if (row0 < p.n) *reinterpret_cast<uint32_t*>(dst) = r0;
-          if (row0 + 8 < p.n)
-            *reinterpret_cast<uint32_t*>(dst + 8 * mlp::DEPTH * N) = r1;
+          if (j & 1) {  // the pair (j - 1, j) as 16 contiguous bytes a lane
+            uint32_t w[4] = {a[j / 2][0], a[j / 2][2], a[j / 2][1], a[j / 2][3]};
+            quad_transpose(w, quad);
+            const int row = row0 + 8 * (quad >> 1);
+            if (row < p.n)
+              *reinterpret_cast<uint4*>(p.acts + (long)row * ACTS_LD + l * N +
+                                        8 * (j - 1 + (quad & 1))) =
+                  make_uint4(w[0], w[1], w[2], w[3]);
+          }
         }
       }
     };
@@ -295,35 +331,49 @@ __global__ void __launch_bounds__(THREADS, 1)
         for (int d = min(issued, IN_FLIGHT); d > 0; --d)
           release((it - d) % STAGES);
         issued = 0;
-        const long off = (long)row0 * ACTS_LD + blk * N + 2 * quad;
-        const bf16* m = p.acts + off;
-        bf16* dst = p.deltas + off;
+        // this lane's 16 contiguous bytes of a column-step pair (j, j + 1):
+        // row r + 8 (quad >> 1), columns 8 (j + (quad & 1)) .. + 7
+        const int qrow = row0 + 8 * (quad >> 1);
+        const bool qin = qrow < p.n;
+        const long qoff = (long)qrow * ACTS_LD + blk * N + 8 * (quad & 1);
         float* sums = dbs + (l & 1) * 4 * N + warp * N + 2 * quad;
-        const bool in0 = row0 < p.n, in1 = row0 + 8 < p.n;
-        // the mask words in groups of MG j's, the next group loaded while
-        // this one is used (no more in registers at once: acc and a hold
-        // 192 of the 240)
+        // the masks in groups of MG column steps (MG / 2 16-byte loads a
+        // lane), the next group loaded while this one is used: no more in
+        // registers at once (acc and a hold 192 of the 240)
         constexpr int MG = 4;
         uint32_t mw[2][2 * MG];
-        auto load_masks = [&](int g, uint32_t(&w)[2 * MG]) {
+        auto load_masks = [&](int grp, uint32_t(&w)[2 * MG]) {
 #pragma unroll
-          for (int i = 0; i < MG; ++i) {
-            const int j = g * MG + i;
-            w[2 * i] = in0 ? *reinterpret_cast<const uint32_t*>(m + 8 * j) : 0u;
-            w[2 * i + 1] = in1 ? *reinterpret_cast<const uint32_t*>(
-                                     m + 8 * ACTS_LD + 8 * j)
-                               : 0u;
+          for (int i = 0; i < MG / 2; ++i) {
+            uint4 v = make_uint4(0u, 0u, 0u, 0u);
+            if (qin)
+              v = *reinterpret_cast<const uint4*>(p.acts + qoff +
+                                                  8 * (grp * MG + 2 * i));
+            w[4 * i] = v.x;
+            w[4 * i + 1] = v.y;
+            w[4 * i + 2] = v.z;
+            w[4 * i + 3] = v.w;
           }
         };
         load_masks(0, mw[0]);
 #pragma unroll
         for (int j = 0; j < N / 8; ++j) {
+          uint32_t(&cur)[2 * MG] = mw[(j / MG) & 1];
           if (j % MG == 0) {
+            // back to fragment words: per pair {r: j, j + 1; r + 8: j, j + 1}
+#pragma unroll
+            for (int i = 0; i < MG / 2; ++i) {
+              uint32_t w[4] = {cur[4 * i], cur[4 * i + 1], cur[4 * i + 2],
+                               cur[4 * i + 3]};
+              quad_transpose(w, quad);
+#pragma unroll
+              for (int k = 0; k < 4; ++k) cur[4 * i + k] = w[k];
+            }
             asm volatile("" ::: "memory");  // keep later groups' loads here
             if (j + MG < N / 8) load_masks(j / MG + 1, mw[(j / MG + 1) & 1]);
           }
-          uint32_t m0 = mw[(j / MG) & 1][2 * (j % MG)];
-          uint32_t m1 = mw[(j / MG) & 1][2 * (j % MG) + 1];
+          const int pw = 4 * ((j % MG) / 2) + (j & 1);
+          uint32_t m0 = cur[pw], m1 = cur[pw + 2];
           const __nv_bfloat162 k0 = *reinterpret_cast<__nv_bfloat162*>(&m0);
           const __nv_bfloat162 k1 = *reinterpret_cast<__nv_bfloat162*>(&m1);
           const float d00 = __low2float(k0) > 0.f ? acc[4 * j] : 0.f;
@@ -333,8 +383,13 @@ __global__ void __launch_bounds__(THREADS, 1)
           const uint32_t r0 = pack_bf16(d00, d01), r1 = pack_bf16(d10, d11);
           a[j / 2][(j & 1) * 2] = r0;
           a[j / 2][(j & 1) * 2 + 1] = r1;
-          if (in0) *reinterpret_cast<uint32_t*>(dst + 8 * j) = r0;
-          if (in1) *reinterpret_cast<uint32_t*>(dst + 8 * ACTS_LD + 8 * j) = r1;
+          if (j & 1) {  // the pair (j - 1, j) as 16 contiguous bytes a lane
+            uint32_t w[4] = {a[j / 2][0], a[j / 2][2], a[j / 2][1], a[j / 2][3]};
+            quad_transpose(w, quad);
+            if (qin)
+              *reinterpret_cast<uint4*>(p.deltas + qoff + 8 * (j - 1)) =
+                  make_uint4(w[0], w[1], w[2], w[3]);
+          }
           float v0 = d00 + d10, v1 = d01 + d11;
 #pragma unroll
           for (int x = 4; x < 32; x <<= 1) {
