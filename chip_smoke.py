@@ -74,14 +74,12 @@ def cuda_ms(fn, reps=10, warmup=2):
     return times[len(times) // 2]
 
 
-def device_ms(fn, reps=20, tries=3):
-    """Milliseconds of device time a call of fn() spends in kernels (the
-    profiler's self device time over reps calls, after a warm-up): the
-    card's own time, without the host work between launches that cuda_ms
-    also counts where a call is shorter than its host work. The profiler
-    now and then hands back no device events for a window of short calls;
-    such a window is taken again, up to `tries` times, and a reading that
-    stays empty is NaN ("not measured"), never 0."""
+def device_ms_by_kernel(fn, reps=20, tries=3):
+    """{kernel name: milliseconds of device time a call of fn() spends in
+    it}: the profiler's self device time over reps calls, after a warm-up.
+    The profiler now and then hands back no device events for a window of
+    short calls; such a window is taken again, up to `tries` times, and a
+    reading that stays empty is {} ("not measured")."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -92,27 +90,20 @@ def device_ms(fn, reps=20, tries=3):
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        total = sum(e.self_device_time_total for e in p.key_averages())
-        if total > 0:
-            return total / reps / 1e3
-    return float("nan")
+        times = {e.key: e.self_device_time_total / reps / 1e3
+                 for e in p.key_averages() if e.self_device_time_total > 0}
+        if times:
+            return times
+    return {}
 
 
-def device_ms_by_kernel(fn, reps=10):
-    """{kernel name: device milliseconds a call of fn() spends in it}, the
-    profiler's self device time over reps calls after a warm-up; empty when
-    the profiler hands back no device events ("not measured")."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as p:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    return {e.key: e.self_device_time_total / reps / 1e3
-            for e in p.key_averages() if e.self_device_time_total > 0}
+def device_ms(fn, reps=20, tries=3):
+    """Milliseconds of device time a call of fn() spends in kernels: the
+    card's own time, without the host work between launches that cuda_ms
+    also counts where a call is shorter than its host work. NaN ("not
+    measured"), never 0, when the profiler saw no device events."""
+    times = device_ms_by_kernel(fn, reps, tries)
+    return sum(times.values()) if times else float("nan")
 
 
 def bound(flops, nbytes, peak=H100_BF16_FLOPS):
@@ -298,18 +289,22 @@ def planted_attention(torch, fn, q, k, v, ek, ev, fault, tile):
     return flash_attention_plain(q, pad(k), pad(v), pad(ek), pad(ev))
 
 
-def mlp_bwd_breakdown(torch, mk, wflat, bflat, emb, g, n):
+def mlp_bwd_breakdown(torch, mk, wflat, bflat, wt, emb, g, n):
     """K2's device time by kernel (TFLOP/s where its operations are
     counted), the bytes of its buffers and the card's peak memory in a
     call."""
     sms = torch.cuda.get_device_properties(emb.device).multi_processor_count
     plan = mk.dw_plan(n, sms)
-    dw_flops = 2.0 * n * mk.W * sum(mk.LAYER_K[:mk.DEPTH])
+    hidden = 2.0 * n * mk.W * sum(mk.LAYER_K[:mk.DEPTH])
+    flops = {"mlp_fwd_kernel<1>": ("the recompute", hidden),
+             "mlp_fwd_kernel<2>": ("the delta loop",
+                                   2.0 * n * mk.W * mk.DELTA_ROWS),
+             "mlp_bwd_dw_kernel": ("dW_0..dW_7", hidden)}
     for name, t in sorted(device_ms_by_kernel(
-            lambda: mk.mlp_bwd_kernel(wflat, bflat, emb, g, None)).items(),
-            key=lambda kv: -kv[1]):
-        rate = (f" ({dw_flops / t / 1e9:.0f} TFLOP/s over dW_0..dW_7)"
-                if "mlp_bwd_dw_kernel" in name else "")
+            lambda: mk.mlp_bwd_kernel(wflat, bflat, emb, g, None, wt)
+            ).items(), key=lambda kv: -kv[1]):
+        rate = "".join(f" ({f / t / 1e9:.0f} TFLOP/s, {what})"
+                       for k, (what, f) in flops.items() if k in name)
         print(f"      {name[:70]}: device {t:.3f} ms{rate}")
     buffers = 2 * n * mk.ACTS_LD * 2
     partials = 4 * (plan["chunks"] * mk.HIDDEN_NUMEL
@@ -318,7 +313,7 @@ def mlp_bwd_breakdown(torch, mk, wflat, bflat, emb, g, n):
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    mk.mlp_bwd_kernel(wflat, bflat, emb, g, None)
+    mk.mlp_bwd_kernel(wflat, bflat, emb, g, None, wt)
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
     print(f"      buffers: act + delta {buffers / 1e9:.3f} GB, partials "
@@ -338,6 +333,7 @@ def mlp_phases(torch, rec_fwd, rec_bwd, seed, n_canvas, n_slice, failures):
     ws, bs = mk.pack_params(params, 10)
     bf = torch.bfloat16
     wflat, bflat = mk.flatten_params(ws, bs, bf)
+    wt = mk.transposed_stack(wflat)  # K2's delta weights, packed once
     macs = sum(l.in_features * l.out_features for l in mlp.linears())
     wbytes = wflat.numel() * 2 + bflat.numel() * 4
     f32 = torch.float32
@@ -416,7 +412,7 @@ def mlp_phases(torch, rec_fwd, rec_bwd, seed, n_canvas, n_slice, failures):
         uv = torch.rand((n, 2), generator=gen, device=dev)
         emb = mk.pad_embedding(uv, 10, dtype=bf)
         g = torch.randn((n, 3), generator=gen, device=dev) * 1e-2
-        dws, dbs = mk.mlp_bwd_kernel(wflat, bflat, emb, g, None)
+        dws, dbs = mk.mlp_bwd_kernel(wflat, bflat, emb, g, None, wt)
         rws, rbs = mk.fused_nerf2d_bwd_plain(ws, bs, emb, g, None, bf)
         fws, fbs = mk.fused_nerf2d_bwd_plain(ws, bs, emb, g, None, f32)
         err = 0.0
@@ -426,29 +422,32 @@ def mlp_phases(torch, rec_fwd, rec_bwd, seed, n_canvas, n_slice, failures):
                                  f"{tuple(b.shape)}", a, b, c))
         if label == "ragged":
             continue
-        dws2, dbs2 = mk.mlp_bwd_kernel(wflat, bflat, emb, g, None)
+        dws2, dbs2 = mk.mlp_bwd_kernel(wflat, bflat, emb, g, None, wt)
         same = all(torch.equal(a, b) for a, b in zip(dws + dbs, dws2 + dbs2))
         print(f"  K2 two runs bit-identical: {same}")
         if not same:
             failures.append("K2 determinism")
-        check("K2 mlp_bwd uv dW0", mk.mlp_bwd_kernel(wflat, bflat, uv, g, 10)
-              [0][0], rws[0], fws[0])
+        check("K2 mlp_bwd uv dW0",
+              mk.mlp_bwd_kernel(wflat, bflat, uv, g, 10, wt)[0][0], rws[0],
+              fws[0])
         for fault in ("relu6_mask", "skip_offset", "dropped_chunk"):
             _, pws, pbs = planted_mlp(torch, ws, bs, emb, g, fault)
             caught(f"K2 {fault}", pws + pbs, rws + rbs, fws + fbs)
-        ms = cuda_ms(lambda: mk.mlp_bwd_kernel(wflat, bflat, emb, g, None))
+        def k2():
+            return mk.mlp_bwd_kernel(wflat, bflat, emb, g, None, wt)
+
+        ms = cuda_ms(k2)
         flops = 2.0 * n * (3 * macs - 42 * 256)
-        dms = device_ms(lambda: mk.mlp_bwd_kernel(wflat, bflat, emb, g, None),
-                        reps=10)
+        dms = device_ms(k2, reps=10)
         pms = cuda_ms(
             lambda: mk.fused_nerf2d_bwd_plain(ws, bs, emb, g, None, bf),
             reps=5)
         nbytes = (n * 48 * 2 + n * 3 * 4 + wbytes
                   + (wflat.numel() + bflat.numel()) * 4)
-        print(f"    ms {ms:.3f} (device time {dms:.3f}, {flops / dms / 1e9:.0f}"
-              f" TFLOP/s) plain_ms {pms:.3f} bound_ms "
-              f"{bound(flops, nbytes)[0]:.3f}")
-        mlp_bwd_breakdown(torch, mk, wflat, bflat, emb, g, n)
+        print(f"    ms {ms:.3f} (device time {dms:.3f}, "
+              f"{flops / dms / 1e9:.0f} TFLOP/s) plain_ms {pms:.3f} "
+              f"bound_ms {bound(flops, nbytes)[0]:.3f}")
+        mlp_bwd_breakdown(torch, mk, wflat, bflat, wt, emb, g, n)
         rec_bwd.add(err, ms, pms, flops, nbytes)
 
     # K1 on the texture lattice that prepare_sds queries twice (the 7 views,

@@ -50,7 +50,8 @@
 //
 // C interface (each returns cudaGetLastError() after its launch, or 1000 +
 // the CUresult of a failed tensor-map encode):
-//   int mlp_bwd_dw(acts, deltas, emb, partial, n, chunks, steps, stream)
+//   int mlp_bwd_dw(acts, deltas, emb, partial, blocks, n, chunks, steps,
+//                  stream)   (blocks: the 16 row blocks, 4 ints each)
 //   int mlp_bwd_dw_out(acts, g, partial, n, stream)
 //   int mlp_bwd_reduce(partial, total, numel, count, stream)
 #include <cuda.h>
@@ -79,35 +80,31 @@ constexpr int ROW_BLOCKS = 16;
 static_assert(DW_SMEM <= 232448, "shared memory of a CTA");
 static_assert(2 * 32 * 240 + 32 * 24 <= 16384, "registers of a sub-partition");
 
-// row block rb of dW_0..dW_7: its layer, the act-buffer column of its first
-// feature (-1: the embedding), its first dW row and its row count
+// row block rb of dW_0..dW_7 (ops/mlp_kernel.dw_row_blocks): its layer,
+// the act-buffer column of its first feature (-1: the embedding), its
+// first dW row and its row count (at most 128; an embedding block's at most
+// 64, one warpgroup's rows)
 struct RowBlock {
   int layer, acol, row0, rows;
 };
-__device__ __forceinline__ RowBlock row_block(int rb) {
-  if (rb == 0) return {0, -1, 0, EMB_PAD};
-  if (rb == 9) return {SKIP + 1, -1, 0, EMB_PAD};
-  const int i = rb - 1 - (rb > 9), layer = i / 2 + 1, half = i % 2;
-  return {layer, (layer - 1) * W + 128 * half,
-          (layer == SKIP + 1 ? EMB_PAD : 0) + 128 * half, 128};
-}
 
 struct DwParams {
   float* partial;  // [chunks][HIDDEN_NUMEL]
   int steps;       // k-steps a chunk
   int ksteps;      // k-steps in all
+  RowBlock blocks[ROW_BLOCKS];
 };
 
 __global__ void __launch_bounds__(DW_THREADS, 1)
     mlp_bwd_dw_kernel(__grid_constant__ const CUtensorMap tm_act,
                       __grid_constant__ const CUtensorMap tm_delta,
                       __grid_constant__ const CUtensorMap tm_emb,
-                      const DwParams p) {
+                      __grid_constant__ const DwParams p) {
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (hopper::smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t full = base + STAGES * STAGE, empty = full + 8 * STAGES;
   const int rb = blockIdx.x % ROW_BLOCKS, chunk = blockIdx.x / ROW_BLOCKS;
-  const RowBlock b = row_block(rb);
+  const RowBlock b = p.blocks[rb];
   const bool emb = b.acol < 0;
   const int s0 = chunk * p.steps;
   const int nsteps = max(0, min(s0 + p.steps, p.ksteps) - s0);
@@ -254,8 +251,8 @@ __global__ void mlp_bwd_reduce_kernel(const float* __restrict__ partial,
 }  // namespace
 
 extern "C" int mlp_bwd_dw(const void* acts, const void* deltas,
-                          const void* emb, void* partial, int n, int chunks,
-                          int steps, void* stream) {
+                          const void* emb, void* partial, const int* blocks,
+                          int n, int chunks, int steps, void* stream) {
   CUtensorMap ma, md, me;
   int err = make_map(&ma, acts, ACTS_LD, n, ACTS_LD);
   if (!err) err = make_map(&md, deltas, ACTS_LD, n, ACTS_LD);
@@ -267,6 +264,9 @@ extern "C" int mlp_bwd_dw(const void* acts, const void* deltas,
   p.partial = reinterpret_cast<float*>(partial);
   p.steps = steps;
   p.ksteps = (n + KSTEP - 1) / KSTEP;
+  for (int rb = 0; rb < ROW_BLOCKS; ++rb)
+    p.blocks[rb] = {blocks[4 * rb], blocks[4 * rb + 1], blocks[4 * rb + 2],
+                    blocks[4 * rb + 3]};
   mlp_bwd_dw_kernel<<<ROW_BLOCKS * chunks, DW_THREADS, DW_SMEM,
                       (cudaStream_t)stream>>>(ma, md, me, p);
   return (int)cudaGetLastError();

@@ -225,7 +225,8 @@ def _lib_fwd():
 
 def _lib_bwd():
     lib = _build.library("mlp_bwd")
-    lib.mlp_bwd_dw.argtypes = [_P, _P, _P, _P, _I, _I, _I, _P]
+    lib.mlp_bwd_dw.argtypes = [_P, _P, _P, _P, ctypes.POINTER(ctypes.c_int),
+                               _I, _I, _I, _P]
     lib.mlp_bwd_dw_out.argtypes = [_P, _P, _P, _I, _P]
     lib.mlp_bwd_reduce.argtypes = [_P, _P, _I, _I, _P]
     for f in (lib.mlp_bwd_dw, lib.mlp_bwd_dw_out, lib.mlp_bwd_reduce):
@@ -283,10 +284,11 @@ OUT_CHUNK = 256  # points a dW_8 partial
 
 
 def dw_row_blocks() -> List[Tuple[int, int, int, int]]:
-    """Phase B's 16 row blocks of dW_0..dW_7, as mlp_bwd.cu's `row_block`:
-    (layer, act-buffer column of the first feature or -1 for the embedding,
-    first dW row, rows). Layers 0 and 5 have one 48-row embedding block;
-    each layer's hidden rows come in two 128-row blocks."""
+    """Phase B's 16 row blocks of dW_0..dW_7, the table mlp_bwd.cu's dW
+    pass takes: (layer, act-buffer column of the first feature or -1 for
+    the embedding, first dW row, rows). Layers 0 and 5 have one 48-row
+    embedding block; each layer's hidden rows come in two 128-row
+    blocks."""
     out = [(0, -1, 0, EMB_PAD)]
     for layer in range(1, DEPTH):
         if layer == SKIP + 1:
@@ -297,20 +299,19 @@ def dw_row_blocks() -> List[Tuple[int, int, int, int]]:
     return out
 
 
+_DW_BLOCKS = dw_row_blocks()
+
+
 def dw_plan(n: int, sms: int) -> dict:
     """Phase B's grid for n points on a card of `sms` SMs: 16 row blocks
     times `chunks` point chunks of `steps` k-steps each, the chunk count
     the least that makes the grid whole waves of `sms` (one CTA an SM)."""
-    rb = len(dw_row_blocks())
+    rb = len(_DW_BLOCKS)
     chunks = math.lcm(rb, sms) // rb
     ksteps = -(-n // KSTEP)
     steps = max(1, -(-ksteps // chunks))
     return {"chunks": chunks, "steps": steps, "ksteps": ksteps,
             "grid": rb * chunks}
-
-
-def _aligned(t: torch.Tensor) -> bool:
-    return t.data_ptr() % 16 == 0
 
 
 def mlp_bwd_kernel(wflat, bflat, x, g, multires, wt=None):
@@ -331,7 +332,7 @@ def mlp_bwd_kernel(wflat, bflat, x, g, multires, wt=None):
         raise ValueError("packed weights/biases do not match the kernel")
     if n == 0:
         raise ValueError("no points")
-    if not _aligned(x):
+    if x.data_ptr() % 16:
         raise ValueError("x must start on a 16-byte boundary (TMA)")
     if wt is None:
         wt = transposed_stack(wflat)
@@ -367,9 +368,11 @@ def mlp_bwd_kernel(wflat, bflat, x, g, multires, wt=None):
     _build.check(fwd.mlp_delta(
         g.data_ptr(), wt.data_ptr(), acts.data_ptr(), deltas.data_ptr(),
         dbpart.data_ptr(), n, ctypes.byref(ctas), stream), "mlp_delta")
+    blocks = (ctypes.c_int * (4 * len(_DW_BLOCKS)))(
+        *[v for b in _DW_BLOCKS for v in b])
     _build.check(lib.mlp_bwd_dw(
         acts.data_ptr(), deltas.data_ptr(), emb.data_ptr(), dwpart.data_ptr(),
-        n, plan["chunks"], plan["steps"], stream), "mlp_bwd_dw")
+        blocks, n, plan["chunks"], plan["steps"], stream), "mlp_bwd_dw")
     _build.check(lib.mlp_bwd_dw_out(acts.data_ptr(), g.data_ptr(),
                                     outpart.data_ptr(), n, stream),
                  "mlp_bwd_dw_out")

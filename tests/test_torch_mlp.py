@@ -231,16 +231,18 @@ def test_emulated_fwd_kernel_matches_reference_and_plain(models, variant):
 
 
 def emulate_bwd_kernel(ws, bs, x, g, multires, sms=132):
-    """csrc/mlp_bwd.cu's two-phase schedule in torch, on the card's plan.
+    """K2's two-phase schedule in torch, on the card's plan (csrc/mlp_fwd.cu's
+    FWD_ACTS and DELTA instantiations, then csrc/mlp_bwd.cu).
     Phase A: the forward recomputed with bf16 operands and f32 sums into a
     bf16 act buffer (act_1..act_8); delta_7 = bf16(g) W_8^T and delta_{i-1}
     = bf16(delta_i) W_i^T (h4's rows of W_5 at the skip) in f32, masked by
     act > 0, stored bf16 into the delta buffer; db from the f32 deltas, a
     column sum per 64-point warpgroup block, each warpgroup's blocks added
-    tile by tile into its partial, the partials added in order. Phase B: dW_l = A_l^T bf16(Delta_l) summed per 64-point k-step
-    within each of the plan's chunks, the chunks' f32 partials added in
-    chunk order; dW_8 = act_8^T bf16(g) per OUT_CHUNK-point chunk, in chunk
-    order. ws, bs packed f32; returns padded (dws, dbs) f32."""
+    tile by tile into its partial, the partials added in order. Phase B:
+    dW_l = A_l^T bf16(Delta_l) summed per 64-point k-step within each of
+    the plan's chunks, the chunks' f32 partials added in chunk order; dW_8
+    = act_8^T bf16(g) per OUT_CHUNK-point chunk, in chunk order. ws, bs
+    packed f32; returns padded (dws, dbs) f32."""
     bf = torch.bfloat16
     n = x.shape[0]
     emb = mk._input_embedding(x, multires).to(bf).float()
