@@ -4,6 +4,7 @@
 Run from the root of a checkout, on a machine with one NVIDIA GPU:
 
     python3 chip_smoke.py [--seed N] [--profile] [--sweep]
+                          [--mlp-only | --raster-only [--against DIR]]
 
 It builds the hand-written CUDA kernels from csrc/, holds each against its
 plain PyTorch version at the shapes the main path gives it (and checks that
@@ -26,6 +27,10 @@ them. Any failed phase exits non-zero. The last line is {"ok": true,
 "device": {...}}; the line before it is the JSON record of the kernels.
 --profile also writes a torch.profiler table of one step to chiprun_out/;
 --sweep also times K3/K4 at each query tile the kernel is built for.
+--mlp-only runs only the K1/K2 phases, --raster-only only the K5 phase (no
+main path, no result line); --against DIR then also times the K5 of the
+checkout at DIR (an earlier commit unpacked there) and of this one, in
+turns, each in a subprocess on the same card.
 """
 
 import argparse
@@ -801,15 +806,69 @@ def numpy_uv_sphere(n_lat, n_lon):
     return verts, np.concatenate([upper, lower]).astype(np.int64)
 
 
-def raster_phases(torch, rec, cfg, failures):
-    """K5 against its plain version: the torus's 7 views at 1200^2 (the
-    main path's launch), a 50,880-face sphere on one 1200^2 view, and the
-    torus at a ragged 777 x 1234. Planted faults run through the plain
-    version on the torus."""
+def binned_plain(torch, fvz, fvi, H, W, ranges, face_chunk=64):
+    """The plain rasterizer with each face tested only at the pixels of its
+    tile range (`ranges` (B, F, 4) int32 [tx0 tx1 ty0 ty1], inclusive):
+    what K5 computes from those ranges, in plain torch. With the setup's
+    own ranges it equals the plain version bit for bit."""
+    from contexture_nerf_tpu_torch.raster.raster_kernel import TILE
+    from contexture_nerf_tpu_torch.raster.rasterize import (
+        EPS, face_edge_setup, pixel_centers)
+
+    B, F = fvz.shape[:2]
+    dev = fvz.device
+    ca, cb, cc, den = face_edge_setup(fvi.float())
+    valid = den.abs() > EPS
+    den_safe = torch.where(den.abs() < EPS, torch.ones_like(den), den)
+    ys, xs = pixel_centers(H, W, dev)
+    px, py = xs.repeat(H)[:, None], ys.repeat_interleave(W)[:, None]
+    tx = (torch.arange(W, device=dev) // TILE).repeat(H)[:, None]
+    ty = (torch.arange(H, device=dev) // TILE).repeat_interleave(W)[:, None]
+    P = H * W
+    face_idx = torch.full((B, P), -1, dtype=torch.int32, device=dev)
+    bary = torch.zeros((B, P, 3), dtype=torch.float32, device=dev)
+    neg_inf = torch.tensor(float("-inf"), device=dev)
+    for b in range(B):
+        best_z = torch.full((P,), float("-inf"), device=dev)
+        for s in range(0, F, face_chunk):
+            e = min(s + face_chunk, F)
+            r = ranges[b, s:e]
+            w = [(px * ca[b, s:e, k] + py * cb[b, s:e, k] + cc[b, s:e, k])
+                 / den_safe[b, s:e] for k in range(3)]
+            inside = (w[0] >= 0) & (w[1] >= 0) & (w[2] >= 0) & \
+                valid[b, s:e] & (r[:, 0] <= tx) & (tx <= r[:, 1]) & \
+                (r[:, 2] <= ty) & (ty <= r[:, 3])
+            zz = fvz[b, s:e].float()
+            z = w[0] * zz[:, 0] + w[1] * zz[:, 1] + w[2] * zz[:, 2]
+            z = torch.where(inside, z, neg_inf)
+            arg = torch.argmax(z, dim=1)
+            cand_z = z.gather(1, arg[:, None])[:, 0]
+            better = cand_z > best_z
+            best_z = torch.where(better, cand_z, best_z)
+            face_idx[b] = torch.where(better, (s + arg).to(torch.int32),
+                                      face_idx[b])
+            cand = torch.stack([wk.gather(1, arg[:, None])[:, 0] for wk in w],
+                               dim=-1)
+            bary[b] = torch.where(better[:, None], cand, bary[b])
+    return face_idx.reshape(B, H, W), bary.reshape(B, H, W, 3)
+
+
+def shrunk_ranges(ranges):
+    """The planted binning fault: every tile range that spans two or more
+    tile columns loses its last one (an off-by-one at the upper edge)."""
+    out = ranges.clone()
+    out[..., 1] -= (out[..., 1] > out[..., 0]).to(out.dtype)
+    return out
+
+
+def raster_cases(torch, cfg):
+    """K5's cases: (name, fvz, fvi, H, W, checked at (views, H, W) or None
+    for the case's own size, timed). The torus's 7 views at 1200^2 (the
+    main path's launch), a 50,880-face sphere on one 1200^2 view, a
+    500,000-face sphere (checked on one view at 384^2, timed on 7 at
+    1200^2) and the torus at a ragged 777 x 1234."""
     from contexture_nerf_tpu_torch.models.textured_mesh import \
         TexturedMeshModel
-    from contexture_nerf_tpu_torch.raster import raster_kernel as rk
-    from contexture_nerf_tpu_torch.raster.rasterize import rasterize_geometry
     from contexture_nerf_tpu_torch.training.trainer import view_angles
 
     dev = torch.device("cuda")
@@ -818,39 +877,121 @@ def raster_phases(torch, rec, cfg, failures):
     th, ph, r = view_angles(cfg.render)
     _, fvc, torus_fvi, _ = mm.project(th, ph, r)
     torus_z = fvc[..., 2].contiguous()
-    v, f = numpy_uv_sphere(160, 160)
-    v = torch.from_numpy(v * 0.6).to(dev)
-    v[:, 1] += 0.25
-    _, fvc, sphere_fvi, _ = mm.renderer.project(
-        v, torch.from_numpy(f).to(dev), th[:1], ph[:1], r[:1], 0.25)
-    cases = [("torus 7 views", torus_z, torus_fvi, res, res),
-             (f"sphere {f.shape[0]} faces", fvc[..., 2].contiguous(),
-              sphere_fvi, res, res),
-             ("torus 2 views ragged", torus_z[:2], torus_fvi[:2], 777, 1234)]
-    for name, fvz, fvi, H, W in cases:
-        idx, bary = rk.rasterize_geometry_kernel(fvz, fvi, H, W)
-        idx2, bary2 = rk.rasterize_geometry_kernel(fvz, fvi, H, W)
-        p_idx, p_bary = rasterize_geometry(fvz, fvi, H, W)
-        a = rk.raster_agreement(idx, bary, p_idx, p_bary, fvz)
+
+    def sphere(n_lat, n_lon, views):
+        v, f = numpy_uv_sphere(n_lat, n_lon)
+        v = torch.from_numpy(v * 0.6).to(dev)
+        v[:, 1] += 0.25
+        _, fvc, fvi, _ = mm.renderer.project(
+            v, torch.from_numpy(f).to(dev), th[:views], ph[:views],
+            r[:views], 0.25)
+        return f"sphere {f.shape[0]} faces", fvc[..., 2].contiguous(), fvi
+
+    return [("torus 7 views", torus_z, torus_fvi, res, res, None, True),
+            sphere(160, 160, 1) + (res, res, None, True),
+            sphere(501, 500, 7) + (res, res, (1, 384, 384), True),
+            ("torus 2 views ragged", torus_z[:2], torus_fvi[:2], 777, 1234,
+             None, False)]
+
+
+def raster_times(torch, fn, fvz, fvi, H, W):
+    """(event ms of a call, {kernel: device ms a call})."""
+    return (cuda_ms(lambda: fn(fvz, fvi, H, W)),
+            device_ms_by_kernel(lambda: fn(fvz, fvi, H, W)))
+
+
+def times_line(ms, dev):
+    """Event ms and device ms of a K5 call: the raster kernels by name, the
+    other device work (PyTorch's kernels, copies) summed."""
+    total = sum(dev.values()) if dev else float("nan")
+    own = {k.replace("(anonymous namespace)::", "").split("(")[0]: v
+           for k, v in dev.items() if "raster" in k}
+    rest = [v for k, v in dev.items() if "raster" not in k]
+    parts = [f"{k} {v:.4f}" for k, v in own.items()]
+    if rest:
+        parts.append(f"{len(rest)} other kernels and copies {sum(rest):.4f}")
+    return f"event {ms:.4f} ms, device {total:.4f} ms ({', '.join(parts)})"
+
+
+def raster_phases(torch, rec, cfg, failures):
+    """K5 against its plain version in every case of `raster_cases`: the
+    setup's records and tile ranges against `face_records` and
+    `tile_ranges` (torch.equal), the outputs against the plain version
+    (`agreement_ok`) and across two runs (torch.equal). The timed cases
+    print event and device time by kernel. Three planted faults run
+    through plain emulations on the torus."""
+    from contexture_nerf_tpu_torch.raster import raster_kernel as rk
+    from contexture_nerf_tpu_torch.raster.rasterize import rasterize_geometry
+
+    for name, fvz, fvi, H, W, check_at, timed in raster_cases(torch, cfg):
+        cz, ci, cH, cW = fvz, fvi, H, W
+        if check_at is not None:
+            views, cH, cW = check_at
+            cz, ci = fvz[:views], fvi[:views]
+        B, F = cz.shape[:2]
+        rec_k, ranges_k, nt_k = rk.face_setup(cz, ci, cH, cW)
+        rec_p, box_p = rk.face_records(cz, ci)
+        ranges_p = rk.tile_ranges(box_p, cH, cW)
+        setup_same = torch.equal(rec_k, rec_p) and \
+            torch.equal(ranges_k, ranges_p) and \
+            torch.equal(nt_k, rk.range_tiles(ranges_p))
+        idx, bary = rk.rasterize_geometry_kernel(cz, ci, cH, cW)
+        idx2, bary2 = rk.rasterize_geometry_kernel(cz, ci, cH, cW)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p_idx, p_bary = rasterize_geometry(
+            cz, ci, cH, cW, face_chunk=64 if F < 100_000 else 1024)
+        torch.cuda.synchronize()
+        pms = (time.perf_counter() - t0) * 1e3
+        a = rk.raster_agreement(idx, bary, p_idx, p_bary, cz)
         same = torch.equal(idx, idx2) and torch.equal(bary, bary2)
-        ok = rk.agreement_ok(a) and same
-        label = f"K5 raster {name} ({fvz.shape[0]}x{H}x{W}, " \
-                f"F={fvz.shape[1]})"
+        exact = torch.equal(idx, p_idx) and torch.equal(bary, p_bary)
+        ok = rk.agreement_ok(a) and same and setup_same
+        label = f"K5 raster {name} ({B}x{cH}x{cW}, F={F})"
         print(f"  {label}: face_idx agree {a['agree']:.6f} on {a['covered']} "
               f"covered px, {a['mismatch']} mismatched ({a['unexplained']} "
               f"neither a z tie <= 1e-6 nor an edge <= 1e-5), bary max err "
               f"{a['bary_err']:.3e} (tol 1e-5), two runs bit-identical "
-              f"{same} {'ok' if ok else 'MISS'}")
+              f"{same}, bit-identical to plain {exact}; setup records and "
+              f"tile ranges equal face_records and tile_ranges {setup_same}; "
+              f"{int(nt_k.sum())} (tile, face) list entries; plain "
+              f"{pms:.1f} ms (one run) {'ok' if ok else 'MISS'}")
         if not ok:
             failures.append(label)
-        if name != "torus 7 views":
-            rec.add(a["bary_err"], 0.0, 0.0, 0.0, 0.0, times=0)
+        rec.add(a["bary_err"], 0.0, 0.0, 0.0, 0.0, times=0)
+        del rec_k, rec_p, idx, bary, idx2, bary2, p_idx, p_bary
+        if not timed:
             continue
-        for fault, (fz, fi) in {
-                "z test reversed (farthest face wins)": (-fvz, fvi),
-                "last 64-face chunk dropped": (fvz[:, :-64], fvi[:, :-64]),
+        B, F = fvz.shape[:2]
+        ms, dev = raster_times(torch, rk.rasterize_geometry_kernel, fvz, fvi,
+                               H, W)
+        pairs = pixel_face_pairs(torch, fvi, H, W)
+        entries = int(rk.face_setup(fvz, fvi, H, W)[2].sum())
+        # the function's bytes: 16 B a pixel out, fvz + fvi (36 B) a face a
+        # view in
+        nbytes = B * H * W * 16 + B * F * 36
+        b_ms, by = bound(20.0 * pairs, nbytes, H100_FP32_FLOPS)
+        print(f"    {name} at {B}x{H}x{W}: {times_line(ms, dev)}; bound "
+              f"{b_ms:.4f} ms ({by}); {pairs:.4g} (pixel, face) pairs in a "
+              f"face box ({pairs / (B * H * W):.2f} a pixel), {entries} "
+              f"(tile, face) list entries")
+        if name != "torus 7 views":
+            continue
+        pms = cuda_ms(lambda: rasterize_geometry(fvz, fvi, H, W), reps=2,
+                      warmup=1)
+        print(f"    plain_ms {pms:.3f} (median of 2 after a warm-up)")
+        rec.add(a["bary_err"], ms, pms, 20.0 * pairs, nbytes)
+        p_idx, p_bary = rasterize_geometry(fvz, fvi, H, W)
+        _, box = rk.face_records(fvz, fvi)
+        ranges = rk.tile_ranges(box, H, W)
+        for fault, (fz, fi, rg) in {
+                "z test reversed (farthest face wins)": (-fvz, fvi, ranges),
+                "last 64-face chunk dropped": (fvz[:, :-64], fvi[:, :-64],
+                                               ranges[:, :-64]),
+                "tile ranges one column short at the upper edge":
+                    (fvz, fvi, shrunk_ranges(ranges)),
         }.items():
-            b = rk.raster_agreement(*rasterize_geometry(fz, fi, H, W),
+            b = rk.raster_agreement(*binned_plain(torch, fz, fi, H, W, rg),
                                     p_idx, p_bary, fvz)
             caught = not rk.agreement_ok(b)
             print(f"    planted fault {fault}: agree {b['agree']:.6f}, "
@@ -858,16 +999,47 @@ def raster_phases(torch, rec, cfg, failures):
                   f"{'caught' if caught else 'NOT CAUGHT'}")
             if not caught:
                 failures.append(f"K5 limits pass planted fault {fault}")
-        ms = cuda_ms(lambda: rk.rasterize_geometry_kernel(fvz, fvi, H, W))
-        pms = cuda_ms(lambda: rasterize_geometry(fvz, fvi, H, W), reps=2,
-                      warmup=1)
-        pairs = pixel_face_pairs(torch, fvi, H, W)
-        B, F = fvz.shape[:2]
-        nbytes = B * H * W * 16 + B * F * (16 + 64) + (H + W) * 4
-        print(f"    ms {ms:.3f} (face setup + launch) plain_ms {pms:.3f}; "
-              f"{pairs:.4g} (pixel, face) pairs in a face box, "
-              f"{pairs / (B * H * W):.2f} a pixel")
-        rec.add(a["bary_err"], ms, pms, 20.0 * pairs, nbytes)
+
+
+def raster_times_of(torch, root):
+    """Event and device time by kernel of the K5 wrapper of the checkout
+    at `root` (imported from there) in the timed cases; one JSON line."""
+    from contexture_nerf_tpu_torch.core.config import config_from_dict
+    from contexture_nerf_tpu_torch.raster import raster_kernel as rk
+
+    cfg = config_from_dict({"guide": {
+        "shape_path": str(ROOT / "shapes" / "torus.obj")}})
+    out = {"root": str(root), "card": card_line()}
+    for name, fvz, fvi, H, W, _, timed in raster_cases(torch, cfg):
+        if timed:
+            ms, dev = raster_times(torch, rk.rasterize_geometry_kernel, fvz,
+                                   fvi, H, W)
+            out[name] = {"shape": [fvz.shape[0], H, W], "ms": ms,
+                         "device": dev}
+    print(json.dumps(out))
+
+
+def raster_against(other, failures):
+    """K5 of the checkout at `other` and of this one, timed in turns in
+    subprocesses on this card: other, this, this, other."""
+    runs = []
+    for root in (other, ROOT, ROOT, other):
+        r = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
+                            "--k5-times-of", str(root)], capture_output=True,
+                           text=True, timeout=900)
+        if r.returncode != 0:
+            failures.append(f"K5 timing of {root} failed: "
+                            f"{r.stdout[-2000:]}{r.stderr[-2000:]}")
+            return
+        runs.append(json.loads(r.stdout.strip().splitlines()[-1]))
+    print(f"K5 timed in turns (this checkout: {ROOT}; other: {other}) "
+          f"[{runs[0]['card']}]:")
+    for run in runs:
+        which = "this " if Path(run["root"]) == ROOT else "other"
+        for name, d in run.items():
+            if isinstance(d, dict):
+                print(f"  {which} {name} {'x'.join(map(str, d['shape']))}: "
+                      f"{times_line(d['ms'], d['device'])}")
 
 
 # (label, x shape, x dtype, out dtype, eps, act) of the K6 phase: the
@@ -1360,15 +1532,26 @@ def main():
     ap.add_argument("--mlp-only", action="store_true",
                     help="run only the K1/K2 kernel phases and stop (no "
                     "main path, no result line)")
+    ap.add_argument("--raster-only", action="store_true",
+                    help="run only the K5 phase and stop (no main path, no "
+                    "result line)")
+    ap.add_argument("--against", metavar="DIR",
+                    help="with --raster-only: also time the K5 of the "
+                    "checkout at DIR and of this one, in turns")
+    ap.add_argument("--k5-times-of", metavar="DIR", help=argparse.SUPPRESS)
     args = ap.parse_args()
     import torch
 
     if not torch.cuda.is_available():
         return fail("torch.cuda.is_available() is False; this needs a GPU")
-    if not (ROOT / "contexture_nerf_tpu_torch" / "csrc").is_dir():
+    root = Path(args.k5_times_of).resolve() if args.k5_times_of else ROOT
+    if not (root / "contexture_nerf_tpu_torch" / "csrc").is_dir():
         return fail("run from a checkout: contexture_nerf_tpu_torch/ "
-                    "is missing")
-    sys.path.insert(0, str(ROOT))
+                    f"is missing in {root}")
+    sys.path.insert(0, str(root))
+    if args.k5_times_of:
+        raster_times_of(torch, root)
+        return 0
     from contexture_nerf_tpu_torch.ops import _build
 
     print(card_line())
@@ -1410,6 +1593,15 @@ def main():
     }
     from contexture_nerf_tpu_torch.core.config import config_from_dict
 
+    if args.raster_only:
+        print("K5 phase (kernel vs plain, f32):")
+        raster_phases(torch, recs["raster"], config_from_dict({"guide": {
+            "shape_path": str(ROOT / "shapes" / "torus.obj")}}), failures)
+        if args.against:
+            raster_against(Path(args.against).resolve(), failures)
+        for f in failures:
+            print(f"FAIL: {f}")
+        return 1 if failures else 0
     print("kernel phases (kernel vs plain, main-path shapes, bf16):")
     mlp_phases(torch, recs["mlp_fwd"], recs["mlp_bwd"], args.seed,
                960 * 640, 448 * 448, failures)

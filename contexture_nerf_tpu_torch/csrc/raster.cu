@@ -15,26 +15,34 @@
 // the order of the plain version (raster/rasterize.py), so the two agree bit
 // for bit.
 //
-// What bounds it on an H100: the bytes it must write, 16 B a pixel (about
-// 0.05 ms for 7 x 1200^2 at 3.35 TB/s); the face input is under 1 MB. The
-// work is (pixel, face) pairs whose face box covers the pixel, ~20 FP32
+// What bounds it on an H100: the bytes it must move, 16 B a pixel out
+// (about 0.05 ms for 7 x 1200^2 at 3.35 TB/s) and 36 B a face a view in.
+// The work is (pixel, face) pairs whose face box covers the pixel, ~20 FP32
 // operations each, far below the 67 TFLOP/s non-tensor rate at these sizes.
 //
-// What the design does about it: a CTA owns a 16x16 pixel tile, one pixel
-// a thread. It streams the faces' boxes (16 B each) in chunks of 256, culls
-// each chunk against the tile's box of pixel centres, compacts the faces
-// that meet the tile in face order (warp ballots), loads only their setup
-// records (64 B each) into shared memory and tests its pixel against each,
-// keeping the best (z, face, barycentrics) in registers. The boxes come
-// widened from the wrapper, so culling never drops a face a pixel would
-// test inside; degenerate faces come with empty boxes. Every tile still
-// reads every face's box: binning faces to tiles (or sorting them, as the
-// TPU kernel's Morton order does) is later work.
+// What the design does about it: two stages.
+// 1. raster_setup, one thread per (view, face): reads the face's 36 bytes
+//    once and writes its record (a0 a1 a2 b0 b1 b2 c0 c1 c2 den z0 z1 z2,
+//    the arithmetic of `face_edge_setup`, bit-identical to the wrapper's
+//    `face_records`) and its conservative range of 16x16 tiles: the box
+//    padded by BOX_PAD mapped to pixel indices (floor at the low edge,
+//    ceil at the high one) and clamped to the frame, as `tile_ranges` in
+//    raster/raster_kernel.py computes it. A degenerate face (|den| <=
+//    1e-12) or one with a non-finite vertex or box covers no tile; the
+//    float coordinates are clamped before any conversion to int.
+// 2. raster_kernel: a CTA owns a 16x16 pixel tile, one pixel a thread. It
+//    streams the faces' tile ranges (16 B each) in chunks of 256, keeps the
+//    faces whose range holds the tile (warp ballots), loads only their
+//    records (64 B each) into shared memory and tests its pixel against
+//    each, keeping the best (z, face, barycentrics) in registers.
 //
-// C interface: int raster_fwd(box, rec, xs, ys, B, F, H, W, face_idx, bary,
-// stream); box (B,F,4) f32 [xmin xmax ymin ymax], rec (B,F,16) f32 [a0 a1 a2
-// b0 b1 b2 c0 c1 c2 den z0 z1 z2 - - -], xs (W,) and ys (H,) the pixel
-// centres in NDC. Returns cudaGetLastError().
+// C interface, each returning cudaGetLastError():
+//   raster_setup(fvz, fvi, BF, H, W, rec, range, ntiles, stream): fvz
+//     (B,F,3) f32, fvi (B,F,3,2) f32, contiguous; rec (B,F,16) f32, range
+//     (B,F,4) int32 [tx0 tx1 ty0 ty1] inclusive ((0,-1,0,-1) when empty),
+//     ntiles (B,F) int32 the tiles the range covers.
+//   raster_fwd(range, rec, xs, ys, B, F, H, W, face_idx, bary, stream): xs
+//     (W,) and ys (H,) the pixel centres in NDC.
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
@@ -43,6 +51,8 @@ namespace {
 constexpr int TILE = 16;
 constexpr int NTHREADS = TILE * TILE;  // one pixel a thread; also the chunk
 constexpr int NWARPS = NTHREADS / 32;
+constexpr float BOX_PAD = 1e-4f;  // raster/raster_kernel.py BOX_PAD
+constexpr float EPS = 1e-12f;     // raster/rasterize.py EPS
 
 __device__ __forceinline__ float edge(float px, float py, float a, float b,
                                       float c, float den) {
@@ -50,8 +60,74 @@ __device__ __forceinline__ float edge(float px, float py, float a, float b,
                    den);
 }
 
+// x1 * y2 - x2 * y1: two products, then the subtraction
+__device__ __forceinline__ float cross(float x1, float y2, float x2,
+                                       float y1) {
+  return __fsub_rn(__fmul_rn(x1, y2), __fmul_rn(x2, y1));
+}
+
+// the first pixel index whose centre can lie at or above NDC `lo`, as a
+// float: (lo + 1) * (n / 2) - 0.5, clamped to [-1, n] (finite input)
+__device__ __forceinline__ float pixel_coord(float lo, float half_n,
+                                             float n) {
+  const float t = __fsub_rn(__fmul_rn(__fadd_rn(lo, 1.f), half_n), 0.5f);
+  return fminf(fmaxf(t, -1.f), n);
+}
+
 __global__ void __launch_bounds__(NTHREADS)
-    raster_kernel(const float4* __restrict__ box, const float4* __restrict__ rec,
+    raster_setup_kernel(const float* __restrict__ fvz,
+                        const float* __restrict__ fvi, int BF, int H, int W,
+                        float4* __restrict__ rec, int4* __restrict__ range,
+                        int* __restrict__ ntiles) {
+  const int i = blockIdx.x * NTHREADS + threadIdx.x;
+  if (i >= BF) return;
+  const float* v = fvi + (size_t)6 * i;
+  const float x0 = v[0], y0 = v[1], x1 = v[2], y1 = v[3], x2 = v[4],
+              y2 = v[5];
+  const float* zz = fvz + (size_t)3 * i;
+  const float den = __fsub_rn(
+      __fmul_rn(__fsub_rn(x1, x0), __fsub_rn(y2, y0)),
+      __fmul_rn(__fsub_rn(x2, x0), __fsub_rn(y1, y0)));
+  float4* r = rec + (size_t)4 * i;
+  r[0] = make_float4(__fsub_rn(y1, y2), __fsub_rn(y2, y0), __fsub_rn(y0, y1),
+                     __fsub_rn(x2, x1));
+  r[1] = make_float4(__fsub_rn(x0, x2), __fsub_rn(x1, x0),
+                     cross(x1, y2, x2, y1), cross(x2, y0, x0, y2));
+  r[2] = make_float4(cross(x0, y1, x1, y0), den, zz[0], zz[1]);
+  r[3] = make_float4(zz[2], 0.f, 0.f, 0.f);
+
+  // the padded box, as face_records computes it
+  const float amax = fmaxf(fmaxf(fmaxf(fabsf(x0), fabsf(y0)),
+                                 fmaxf(fabsf(x1), fabsf(y1))),
+                           fmaxf(fabsf(x2), fabsf(y2)));
+  const float m = __fmul_rn(BOX_PAD, __fadd_rn(1.f, amax));
+  const float xmin = __fsub_rn(fminf(fminf(x0, x1), x2), m);
+  const float xmax = __fadd_rn(fmaxf(fmaxf(x0, x1), x2), m);
+  const float ymin = __fsub_rn(fminf(fminf(y0, y1), y2), m);
+  const float ymax = __fadd_rn(fmaxf(fmaxf(y0, y1), y2), m);
+  // fminf/fmaxf drop a NaN operand, so the vertices are tested themselves
+  bool ok = fabsf(den) > EPS && isfinite(x0) && isfinite(y0) &&
+            isfinite(x1) && isfinite(y1) && isfinite(x2) && isfinite(y2) &&
+            isfinite(xmin) && isfinite(xmax) && isfinite(ymin) &&
+            isfinite(ymax);
+  int4 tr = make_int4(0, -1, 0, -1);
+  if (ok) {
+    const float hw = 0.5f * (float)W, hh = 0.5f * (float)H;
+    // rows run down the frame: y = 1 - (iy + 0.5) / H * 2
+    const int ix0 = max((int)floorf(pixel_coord(xmin, hw, (float)W)), 0);
+    const int ix1 = min((int)ceilf(pixel_coord(xmax, hw, (float)W)), W - 1);
+    const int iy0 = max((int)floorf(pixel_coord(-ymax, hh, (float)H)), 0);
+    const int iy1 = min((int)ceilf(pixel_coord(-ymin, hh, (float)H)), H - 1);
+    if (ix0 <= ix1 && iy0 <= iy1)
+      tr = make_int4(ix0 / TILE, ix1 / TILE, iy0 / TILE, iy1 / TILE);
+  }
+  range[i] = tr;
+  ntiles[i] = (tr.y - tr.x + 1) * (tr.w - tr.z + 1);
+}
+
+__global__ void __launch_bounds__(NTHREADS)
+    raster_kernel(const int4* __restrict__ range,
+                  const float4* __restrict__ rec,
                   const float* __restrict__ xs, const float* __restrict__ ys,
                   int F, int H, int W, int* __restrict__ face_idx,
                   float* __restrict__ bary) {
@@ -60,15 +136,13 @@ __global__ void __launch_bounds__(NTHREADS)
   __shared__ int warp_cnt[NWARPS];
 
   const int b = blockIdx.z;
-  const int x0 = blockIdx.x * TILE, y0 = blockIdx.y * TILE;
-  const int ix = x0 + threadIdx.x % TILE, iy = y0 + threadIdx.x / TILE;
+  const int tx = blockIdx.x, ty = blockIdx.y;
+  const int ix = tx * TILE + threadIdx.x % TILE;
+  const int iy = ty * TILE + threadIdx.x / TILE;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const float px = xs[min(ix, W - 1)], py = ys[min(iy, H - 1)];
-  // the tile's box of pixel centres (y decreases with the row)
-  const float tx0 = xs[x0], tx1 = xs[min(x0 + TILE, W) - 1];
-  const float ty_top = ys[y0], ty_bot = ys[min(y0 + TILE, H) - 1];
 
-  const float4* fb = box + (size_t)b * F;
+  const int4* fb = range + (size_t)b * F;
   const float4* fr = rec + (size_t)b * F * 4;
   float best_z = -CUDART_INF_F, b0 = 0.f, b1 = 0.f, b2 = 0.f;
   int best_i = -1;
@@ -77,8 +151,8 @@ __global__ void __launch_bounds__(NTHREADS)
     const int f = s + threadIdx.x;
     bool meets = false;
     if (f < F) {
-      const float4 q = fb[f];  // xmin xmax ymin ymax
-      meets = q.x <= tx1 && q.y >= tx0 && q.z <= ty_top && q.w >= ty_bot;
+      const int4 q = fb[f];  // tx0 tx1 ty0 ty1
+      meets = q.x <= tx && tx <= q.y && q.z <= ty && ty <= q.w;
     }
     const unsigned m = __ballot_sync(0xffffffffu, meets);
     if (lane == 0) warp_cnt[warp] = __popc(m);
@@ -129,13 +203,26 @@ __global__ void __launch_bounds__(NTHREADS)
 
 }  // namespace
 
-extern "C" int raster_fwd(const void* box, const void* rec, const void* xs,
+extern "C" int raster_setup(const void* fvz, const void* fvi, int BF, int H,
+                            int W, void* rec, void* range, void* ntiles,
+                            void* stream) {
+  if (BF > 0)
+    raster_setup_kernel<<<(BF + NTHREADS - 1) / NTHREADS, NTHREADS, 0,
+                          (cudaStream_t)stream>>>(
+        reinterpret_cast<const float*>(fvz),
+        reinterpret_cast<const float*>(fvi), BF, H, W,
+        reinterpret_cast<float4*>(rec), reinterpret_cast<int4*>(range),
+        reinterpret_cast<int*>(ntiles));
+  return (int)cudaGetLastError();
+}
+
+extern "C" int raster_fwd(const void* range, const void* rec, const void* xs,
                           const void* ys, int B, int F, int H, int W,
                           void* face_idx, void* bary, void* stream) {
   dim3 grid((W + TILE - 1) / TILE, (H + TILE - 1) / TILE, B);
   if (B > 0 && F > 0 && H > 0 && W > 0)
     raster_kernel<<<grid, NTHREADS, 0, (cudaStream_t)stream>>>(
-        reinterpret_cast<const float4*>(box),
+        reinterpret_cast<const int4*>(range),
         reinterpret_cast<const float4*>(rec),
         reinterpret_cast<const float*>(xs), reinterpret_cast<const float*>(ys),
         F, H, W, reinterpret_cast<int*>(face_idx),

@@ -3,26 +3,29 @@
 Counterpart of contexture_nerf_tpu/raster/pallas_raster.py
 (`_raster_kernel`, `rasterize_geometry_pallas`). The TPU kernel Morton-sorts
 faces and sweeps 8x128 pixel tiles against 128-face lane chunks; this one
-needs neither: a CTA owns a 16x16 pixel tile, streams the faces' bounding
-boxes in chunks of 256, keeps the faces whose box meets the tile (in face
-order) and tests its pixels against their setup records in shared memory,
-keeping the best (z, face, barycentrics) in registers. Face setup, bounding
-boxes and the pixel-centre coordinates are plain torch ops around the
-launch, as the reference computes them in XLA outside its kernel.
+needs neither. A setup kernel (one thread per view and face) writes each
+face's record and its conservative range of 16x16 pixel tiles; then a CTA
+owns a tile, streams the faces' tile ranges in chunks of 256, keeps the
+faces whose range holds the tile (in face order) and tests its pixels
+against their records in shared memory, keeping the best (z, face,
+barycentrics) in registers.
 
-The kernel repeats the plain version's arithmetic (raster/rasterize.py)
-operation for operation without FMA contraction, and breaks z ties by the
+The kernels repeat the plain version's arithmetic (raster/rasterize.py)
+operation for operation without FMA contraction, and break z ties by the
 lowest face index, so the two agree bit for bit; `raster_agreement` states
 the tie- and edge-tolerant check that chip_smoke.py and the card tests hold
-them to all the same.
+them to all the same. `face_records` and `tile_ranges` are the setup's
+plain version: the kernel mirrors their arithmetic, and the CPU tests reach
+the tile-index arithmetic through them.
 
-A CUDA tensor launches the kernel or raises; a CPU tensor takes the plain
+A CUDA tensor launches the kernels or raises; a CPU tensor takes the plain
 version.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -33,10 +36,12 @@ from contexture_nerf_tpu_torch.raster.rasterize import \
     rasterize_geometry as rasterize_geometry_plain
 
 REC = 16  # floats per face record
+TILE = 16  # pixels a side of the kernels' tiles
 # the box a face is culled by is widened by this share of its largest NDC
 # coordinate (plus the same absolute amount): far above the rounding of the
 # edge functions, so culling never drops a face that a pixel tests inside
 BOX_PAD = 1e-4
+EMPTY_RANGE = (0, -1, 0, -1)  # [tx0 tx1 ty0 ty1] of a face that covers no tile
 
 _LIB = None
 
@@ -46,18 +51,20 @@ def _lib():
     if _LIB is None:
         lib = _build.library("raster")
         p, i = ctypes.c_void_p, ctypes.c_int
+        lib.raster_setup.argtypes = [p, p, i, i, i, p, p, p, p]
         lib.raster_fwd.argtypes = [p, p, p, p, i, i, i, i, p, p, p]
-        lib.raster_fwd.restype = i
+        for fn in (lib.raster_setup, lib.raster_fwd):
+            fn.restype = i
         _LIB = lib
     return _LIB
 
 
 def face_records(face_vertices_z: torch.Tensor,
                  face_vertices_image: torch.Tensor):
-    """The kernel's inputs: records (B, F, 16) f32 = [a0 a1 a2 b0 b1 b2
-    c0 c1 c2 den z0 z1 z2 0 0 0] and boxes (B, F, 4) f32 = [xmin xmax ymin
-    ymax], padded by BOX_PAD; a degenerate face (|den| <= 1e-12) gets an
-    empty box (+inf, -inf, +inf, -inf) and is never tested."""
+    """The setup's plain version: records (B, F, 16) f32 = [a0 a1 a2 b0 b1
+    b2 c0 c1 c2 den z0 z1 z2 0 0 0] and boxes (B, F, 4) f32 = [xmin xmax
+    ymin ymax], padded by BOX_PAD; a degenerate face (|den| <= 1e-12) gets
+    an empty box (+inf, -inf, +inf, -inf)."""
     fvi = face_vertices_image.float()
     ca, cb, cc, den = face_edge_setup(fvi)
     z = face_vertices_z.float()
@@ -73,15 +80,48 @@ def face_records(face_vertices_z: torch.Tensor,
     return rec.contiguous(), box.contiguous()
 
 
-def rasterize_geometry_kernel(face_vertices_z: torch.Tensor,
-                              face_vertices_image: torch.Tensor,
-                              height: int, width: int):
-    """K5 on the card: (face_idx (B,H,W) int32, -1 for background;
-    bary (B,H,W,3) f32). All B views in one launch."""
-    if not face_vertices_z.is_cuda or \
-            face_vertices_image.device != face_vertices_z.device:
-        raise ValueError("rasterize_geometry_kernel takes CUDA tensors on "
-                         "one device")
+def _pixel_coord(lo: torch.Tensor, n: int) -> torch.Tensor:
+    """(lo + 1) * (n / 2) - 0.5 in f32, clamped to [-1, n]: the pixel index
+    (as a float) whose centre sits at NDC lo, where centre i is at
+    (i + 0.5) / n * 2 - 1."""
+    return ((lo + 1.0) * (0.5 * n) - 0.5).clamp(-1.0, float(n))
+
+
+def tile_ranges(box: torch.Tensor, height: int, width: int):
+    """The conservative range of TILE x TILE tiles each face's padded box
+    (`face_records`) can reach: (B, F, 4) int32 [tx0 tx1 ty0 ty1],
+    inclusive; EMPTY_RANGE for a face off the frame, degenerate (its box is
+    empty) or with a non-finite box. Every pixel whose centre lies in the
+    box is in the range: the low edge is floored and the high edge ceiled
+    in pixel units (a margin of up to one pixel over the f32 rounding of
+    the centres), then clamped to the frame. The setup kernel repeats this
+    arithmetic operation for operation; no float is converted to an int
+    before it is clamped and known to be finite."""
+    ok = torch.isfinite(box).all(-1)
+    box = torch.where(ok[..., None], box, torch.zeros_like(box))
+    ix0 = _pixel_coord(box[..., 0], width).floor().to(torch.int32).clamp(
+        min=0)
+    ix1 = _pixel_coord(box[..., 1], width).ceil().to(torch.int32).clamp(
+        max=width - 1)
+    # rows run down the frame: y = 1 - (iy + 0.5) / H * 2
+    iy0 = _pixel_coord(-box[..., 3], height).floor().to(torch.int32).clamp(
+        min=0)
+    iy1 = _pixel_coord(-box[..., 2], height).ceil().to(torch.int32).clamp(
+        max=height - 1)
+    ok = ok & (ix0 <= ix1) & (iy0 <= iy1)
+    tr = torch.stack([ix0 // TILE, ix1 // TILE, iy0 // TILE, iy1 // TILE],
+                     dim=-1)
+    empty = torch.tensor(EMPTY_RANGE, dtype=torch.int32, device=box.device)
+    return torch.where(ok[..., None], tr, empty).contiguous()
+
+
+def range_tiles(ranges: torch.Tensor) -> torch.Tensor:
+    """How many tiles each range covers (0 for EMPTY_RANGE)."""
+    return ((ranges[..., 1] - ranges[..., 0] + 1)
+            * (ranges[..., 3] - ranges[..., 2] + 1)).to(torch.int32)
+
+
+def _check_faces(face_vertices_z, face_vertices_image, height, width):
     B, F = face_vertices_z.shape[:2]
     if face_vertices_z.shape != (B, F, 3) or \
             face_vertices_image.shape != (B, F, 3, 2):
@@ -92,13 +132,64 @@ def rasterize_geometry_kernel(face_vertices_z: torch.Tensor,
     if F == 0 or height <= 0 or width <= 0 or B > 65535:
         raise ValueError(f"nothing to rasterize: B={B} F={F} "
                          f"{height}x{width}")
+    if B * F >= 2 ** 31:
+        raise ValueError(f"{B} x {F} faces exceed the int32 face count")
+    return B, F
+
+
+def face_setup(face_vertices_z: torch.Tensor,
+               face_vertices_image: torch.Tensor, height: int, width: int):
+    """K5's setup for a height x width frame: (records (B, F, 16) f32,
+    tile ranges (B, F, 4) int32, tiles covered (B, F) int32). CUDA tensors
+    run the setup kernel, CPU tensors its plain version (`face_records`,
+    `tile_ranges`)."""
+    if not face_vertices_z.is_cuda:
+        if face_vertices_z.device.type != "cpu":
+            raise ValueError(f"unsupported device {face_vertices_z.device}")
+        rec, box = face_records(face_vertices_z, face_vertices_image)
+        ranges = tile_ranges(box, height, width)
+        return rec, ranges, range_tiles(ranges)
+    if face_vertices_image.device != face_vertices_z.device:
+        raise ValueError("face_setup takes tensors on one device")
+    B, F = _check_faces(face_vertices_z, face_vertices_image, height, width)
     dev = face_vertices_z.device
-    rec, box = face_records(face_vertices_z, face_vertices_image)
-    ys, xs = pixel_centers(height, width, dev)
+    fvz = face_vertices_z.float().contiguous()
+    fvi = face_vertices_image.float().contiguous()
+    rec = torch.empty((B, F, REC), dtype=torch.float32, device=dev)
+    ranges = torch.empty((B, F, 4), dtype=torch.int32, device=dev)
+    ntiles = torch.empty((B, F), dtype=torch.int32, device=dev)
+    err = _lib().raster_setup(fvz.data_ptr(), fvi.data_ptr(), B * F, height,
+                              width, rec.data_ptr(), ranges.data_ptr(),
+                              ntiles.data_ptr(), _build.stream_ptr(dev))
+    _build.check(err, "raster_setup")
+    return rec, ranges, ntiles
+
+
+@functools.lru_cache(maxsize=16)
+def _centres(height: int, width: int, device: torch.device):
+    """pixel_centers on the card, made once per frame size (read only)."""
+    return pixel_centers(height, width, device)
+
+
+def rasterize_geometry_kernel(face_vertices_z: torch.Tensor,
+                              face_vertices_image: torch.Tensor,
+                              height: int, width: int):
+    """K5 on the card: (face_idx (B,H,W) int32, -1 for background;
+    bary (B,H,W,3) f32). All B views in one call: the setup kernel, then
+    the tile kernel."""
+    if not face_vertices_z.is_cuda or \
+            face_vertices_image.device != face_vertices_z.device:
+        raise ValueError("rasterize_geometry_kernel takes CUDA tensors on "
+                         "one device")
+    B, F = _check_faces(face_vertices_z, face_vertices_image, height, width)
+    dev = face_vertices_z.device
+    rec, ranges, _ = face_setup(face_vertices_z, face_vertices_image, height,
+                                width)
+    ys, xs = _centres(height, width, dev)
     face_idx = torch.empty((B, height, width), dtype=torch.int32, device=dev)
     bary = torch.empty((B, height, width, 3), dtype=torch.float32,
                        device=dev)
-    err = _lib().raster_fwd(box.data_ptr(), rec.data_ptr(), xs.data_ptr(),
+    err = _lib().raster_fwd(ranges.data_ptr(), rec.data_ptr(), xs.data_ptr(),
                             ys.data_ptr(), B, F, height, width,
                             face_idx.data_ptr(), bary.data_ptr(),
                             _build.stream_ptr(dev))

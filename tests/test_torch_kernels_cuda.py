@@ -23,7 +23,9 @@ version's arithmetic without FMA contraction and breaks z ties by the lowest
 face index: face_idx must agree on at least 99.99% of covered pixels, every
 mismatch a z tie (|dz| <= 1e-6) or an edge pixel (min barycentric <= 1e-5),
 bary within 1e-5 where the faces agree, and two runs bit-identical; a
-reversed z test and a dropped last face chunk must miss those limits.
+reversed z test, a dropped last face chunk and tile ranges one column short
+must miss those limits. Its setup kernel's records and tile ranges must
+equal their plain versions (`face_records`, `tile_ranges`) exactly.
 GroupNorm (K6), one launch a call, repeats its plain version's elementwise
 arithmetic and sums the f32 statistics in another order: bf16 output within one bf16 ulp of the
 plain output plus a floor from the statistics' rounding, f32 output within
@@ -46,8 +48,9 @@ from contexture_nerf_tpu_torch.raster import raster_kernel as rk
 from contexture_nerf_tpu_torch.raster.rasterize import rasterize_geometry
 from contexture_nerf_tpu_torch.training.trainer import view_angles
 from chip_smoke import (ATTENTION_FAULTS, activations, attention_limit,
-                        attention_ratio, groupnorm_limit, groupnorm_ratio,
-                        planted_attention, planted_group_norm)
+                        attention_ratio, binned_plain, groupnorm_limit,
+                        groupnorm_ratio, numpy_uv_sphere, planted_attention,
+                        planted_group_norm, shrunk_ranges)
 from tools.make_shapes import uv_sphere
 
 pytestmark = pytest.mark.cuda
@@ -238,14 +241,15 @@ def test_flash_attention_rejects_what_it_does_not_take(cuda):
 def _faces(cuda, shape):
     """(fvz, fvi) of the 7 fixed views of the torus, or of a 50,880-face
     UV sphere (0.6 across, as the paint path normalizes) on the front
-    view."""
+    view, or of a 500,000-face one."""
     cfg = config_from_dict({"guide": {"shape_path": "shapes/torus.obj"}})
     mm = TexturedMeshModel(cfg.guide, device=cuda)
     th, ph, r = view_angles(cfg.render)
     if shape == "torus":
         _, fvc, fvi, _ = mm.project(th, ph, r)
     else:
-        v, f, _, _ = uv_sphere(160, 160)
+        v, f = (uv_sphere(160, 160)[:2] if shape == "sphere"
+                else numpy_uv_sphere(501, 500))
         v = torch.from_numpy(v * 0.6).to(cuda)
         v[:, 1] += 0.25
         _, fvc, fvi, _ = mm.renderer.project(
@@ -253,26 +257,86 @@ def _faces(cuda, shape):
     return fvc[..., 2].contiguous(), fvi.contiguous()
 
 
-@pytest.mark.parametrize("shape,views,H,W", [
-    ("torus", 7, 1200, 1200), ("sphere", 1, 1200, 1200),
-    ("torus", 2, 777, 1234)])
-def test_raster_kernel_matches_plain(cuda, shape, views, H, W):
-    fvz, fvi = _faces(cuda, shape)
-    fvz, fvi = fvz[:views], fvi[:views]
+def _raster_case(cuda, case):
+    """(fvz, fvi, H, W) of one K5 card case."""
+    fvz, fvi = _faces(cuda, "torus" if case.startswith("torus") else case)
+    views, H, W = {"torus7": (7, 1200, 1200), "sphere": (1, 1200, 1200),
+                   "torus2_ragged": (2, 777, 1234),
+                   "sphere500k": (1, 384, 384),
+                   "torus2_whole_frame": (2, 512, 512),
+                   "torus2_off_screen": (2, 512, 512),
+                   "torus2_degenerate": (2, 256, 256),
+                   "torus2_8x8": (2, 8, 8)}[case]
+    fvz, fvi = fvz[:views].clone(), fvi[:views].clone()
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    if case == "torus2_whole_frame":  # behind the torus, over every pixel
+        big = torch.tensor([[-3.0, -3.0], [3.0, -3.0], [0.0, 4.0]],
+                           device=cuda)
+        fvi = torch.cat([fvi, big.expand(views, 1, 3, 2)], 1)
+        fvz = torch.cat([fvz, torch.full((views, 1, 3), -50.0,
+                                         device=cuda)], 1)
+    elif case == "torus2_off_screen":  # every other face shifted by +-1.2
+        shift = (torch.randint(0, 2, fvi.shape[:2] + (1, 2), generator=gen,
+                               device=cuda) * 2 - 1) * 1.2
+        fvi[:, ::2] += shift[:, ::2]
+    elif case == "torus2_degenerate":  # a repeated vertex: den is 0
+        fvi[:, :, 2] = fvi[:, :, 0]
+    return fvz.contiguous(), fvi.contiguous(), H, W
+
+
+@pytest.mark.parametrize("case", [
+    "torus7", "sphere", "torus2_ragged", "sphere500k", "torus2_whole_frame",
+    "torus2_off_screen", "torus2_degenerate", "torus2_8x8"])
+def test_raster_kernel_matches_plain(cuda, case):
+    fvz, fvi, H, W = _raster_case(cuda, case)
+    views, F = fvz.shape[:2]
     before = _build.launch_counts["raster"]
     idx, bary = rk.rasterize_geometry(fvz, fvi, H, W)
     assert _build.launch_counts["raster"] == before + 1
     again = rk.rasterize_geometry_kernel(fvz, fvi, H, W)
     assert torch.equal(idx, again[0]) and torch.equal(bary, again[1])
-    p_idx, p_bary = rasterize_geometry(fvz, fvi, H, W)
+    p_idx, p_bary = rasterize_geometry(fvz, fvi, H, W,
+                                       face_chunk=64 if F < 100_000 else 1024)
     a = rk.raster_agreement(idx, bary, p_idx, p_bary, fvz)
     assert rk.agreement_ok(a), a
-    assert a["covered"] > 0.02 * views * H * W
-    if shape == "torus" and views == 7:
-        for fz, fi in ((-fvz, fvi), (fvz[:, :-64], fvi[:, :-64])):
-            b = rk.raster_agreement(*rasterize_geometry(fz, fi, H, W),
+    if case == "torus2_degenerate":
+        assert a["covered"] == 0 and bool((idx == -1).all())
+    elif case == "torus2_whole_frame":
+        assert bool((idx >= 0).all()) and bool((idx == F - 1).any())
+    elif case != "torus2_8x8":
+        assert a["covered"] > 0.02 * views * H * W
+    if case == "torus7":
+        _, ranges, _ = rk.face_setup(fvz, fvi, H, W)
+        for fz, fi, rg in ((-fvz, fvi, ranges),
+                           (fvz[:, :-64], fvi[:, :-64], ranges[:, :-64]),
+                           (fvz, fvi, shrunk_ranges(ranges))):
+            b = rk.raster_agreement(*binned_plain(torch, fz, fi, H, W, rg),
                                     p_idx, p_bary, fvz)
             assert not rk.agreement_ok(b), b
+
+
+@pytest.mark.parametrize("case", ["torus7", "torus2_off_screen",
+                                  "torus2_degenerate", "non_finite"])
+def test_raster_setup_matches_face_records(cuda, case):
+    """The setup kernel's records equal `face_records` and its tile ranges
+    `tile_ranges` (torch.equal; NaN records compared as equal where both
+    are NaN)."""
+    fvz, fvi, H, W = _raster_case(
+        cuda, "torus2_ragged" if case == "non_finite" else case)
+    if case == "non_finite":
+        fvi[0, 3, 1, 0] = float("inf")
+        fvi[1, 7, 2, 1] = float("nan")
+        fvi[0, 9, 0, 0] = 3e38  # finite, far off the frame
+    rec, ranges, ntiles = rk.face_setup(fvz, fvi, H, W)
+    rec_p, box = rk.face_records(fvz, fvi)
+    ranges_p = rk.tile_ranges(box, H, W)
+    torch.testing.assert_close(rec, rec_p, rtol=0, atol=0, equal_nan=True)
+    if case != "non_finite":
+        assert torch.equal(rec, rec_p)
+    assert torch.equal(ranges, ranges_p)
+    assert torch.equal(ntiles, rk.range_tiles(ranges_p))
+    if case == "non_finite":
+        assert int(ntiles[0, 3]) == int(ntiles[1, 7]) == 0
 
 
 def test_raster_kernel_rejects_what_it_does_not_take(cuda):

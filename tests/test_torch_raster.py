@@ -295,3 +295,203 @@ def test_render_geometry_matches_reference_renderer():
     # differ by ~1e-7
     np.testing.assert_allclose(_np(cache.face_normals),
                                np.asarray(jc.face_normals), atol=2e-5)
+
+
+# -- K5's binned schedule ------------------------------------------------------------
+
+def _bin(ranges, H, W, gen=None):
+    """A plain-torch emulation of K5's binning: (tiles_y, tiles_x, per-tile
+    counts, exclusive offsets, face lists) from the setup's tile ranges.
+    Counts are exact, the scan is exclusive over (view, row, column) order,
+    and each tile's slots are filled in an order that depends on the
+    kernel's atomics; with `gen`, each list is shuffled to stand for that."""
+    B, F = ranges.shape[:2]
+    TY, TX = -(-H // rk.TILE), -(-W // rk.TILE)
+    ty = torch.arange(TY)[:, None]
+    tx = torch.arange(TX)[None, :]
+    r = ranges[..., None, None]
+    member = (r[..., 0, :, :] <= tx) & (tx <= r[..., 1, :, :]) & \
+        (r[..., 2, :, :] <= ty) & (ty <= r[..., 3, :, :])  # (B, F, TY, TX)
+    counts = member.sum(1).reshape(-1)
+    offsets = torch.zeros(counts.numel() + 1, dtype=torch.int64)
+    offsets[1:] = torch.cumsum(counts, 0)
+    lists = torch.empty(int(offsets[-1]), dtype=torch.int64)
+    for t, m in enumerate(member.permute(0, 2, 3, 1).reshape(-1, F)):
+        faces = m.nonzero()[:, 0]
+        if gen is not None:
+            faces = faces[torch.randperm(len(faces), generator=gen)]
+        lists[offsets[t]:offsets[t + 1]] = faces
+    return TY, TX, counts, offsets, lists
+
+
+def _emulate_binned(fvz, fvi, H, W, seed=0):
+    """A plain-torch emulation of K5: the setup (`face_records`,
+    `tile_ranges`), the per-tile lists (`_bin`, in shuffled order), and the
+    tile pass, tile by tile: each tile tests its pixels against only its
+    list's faces, with the kernel's operation order ((x a + y b) + c) / den
+    and (w0 z0 + w1 z1) + w2 z2, and keeps the maximum of (z, -face) (NaN
+    z never wins)."""
+    B, F = fvz.shape[:2]
+    rec, box = rk.face_records(fvz, fvi)
+    ranges = rk.tile_ranges(box, H, W)
+    TY, TX, _, offsets, lists = _bin(ranges, H, W,
+                                     torch.Generator().manual_seed(seed))
+    ys, xs = trast.pixel_centers(H, W)
+    idx = torch.full((B, H, W), -1, dtype=torch.int32)
+    bary = torch.zeros((B, H, W, 3))
+    for t in range(B * TY * TX):
+        faces = lists[offsets[t]:offsets[t + 1]]
+        if len(faces) == 0:
+            continue
+        b, ty, tx = t // (TY * TX), t // TX % TY, t % TX
+        rows = slice(ty * rk.TILE, min(ty * rk.TILE + rk.TILE, H))
+        cols = slice(tx * rk.TILE, min(tx * rk.TILE + rk.TILE, W))
+        py, px = torch.meshgrid(ys[rows], xs[cols], indexing="ij")
+        py, px = py.reshape(-1, 1), px.reshape(-1, 1)
+        r = rec[b, faces]  # (n, 16)
+        den = r[:, 9]
+        w = [((px * r[:, k] + py * r[:, 3 + k]) + r[:, 6 + k]) / den
+             for k in range(3)]
+        inside = (w[0] >= 0) & (w[1] >= 0) & (w[2] >= 0)
+        z = (w[0] * r[:, 10] + w[1] * r[:, 11]) + w[2] * r[:, 12]
+        z = torch.where(inside & ~torch.isnan(z), z,
+                        torch.tensor(float("-inf")))
+        zmax = z.max(1, keepdim=True).values
+        pick = torch.where(z == zmax, faces, F).min(1).values  # lowest face
+        hit = zmax[:, 0] > float("-inf")
+        col = (faces[None, :] == pick[:, None]).int().argmax(1)
+        wb = torch.stack([wk.gather(1, col[:, None])[:, 0] for wk in w], -1)
+        hh, ww = rows.stop - rows.start, cols.stop - cols.start
+        idx[b, rows, cols] = torch.where(hit, pick, -1).int().reshape(hh, ww)
+        bary[b, rows, cols] = torch.where(hit[:, None], wb, 0.0).reshape(
+            hh, ww, 3)
+    return idx, bary
+
+
+def test_emulated_binned_schedule_matches_plain_and_pallas():
+    """K5's schedule, emulated in plain torch on the torus's 2 first views
+    at 48 x 40: bit-identical to the plain rasterizer, and within the
+    tie- and edge-tolerant limits of the JAX Pallas kernel (interpret
+    mode)."""
+    fvz, fvi, _, _ = _torus_faces(2)
+    H, W = 48, 40
+    idx, bary = _emulate_binned(fvz, fvi, H, W)
+    p_idx, p_bary = trast.rasterize_geometry(fvz, fvi, H, W)
+    assert torch.equal(idx, p_idx) and torch.equal(bary, p_bary)
+    assert int((idx >= 0).sum()) > 0.1 * idx.numel()
+    j_idx, j_bary = rasterize_geometry_pallas(
+        jnp.asarray(_np(fvz)), jnp.asarray(_np(fvi)), H, W, interpret=True)
+    a = rk.raster_agreement(idx, bary, _t(np.asarray(j_idx)),
+                            _t(np.asarray(j_bary)), fvz)
+    # the Pallas kernel multiplies by a rounded 1/den; on the torus's
+    # smallest faces (den ~1e-3) the edge functions' cancellation error,
+    # ~1e-7 of terms near 1, becomes ~1e-4 after the division (5e-5 here),
+    # as in test_render_geometry_matches_reference_renderer
+    assert rk.agreement_ok(a, bary_tol=1e-3), a
+
+
+def _coverage_faces(case):
+    """(fvz, fvi, H, W) of one coverage case, from a numpy seed: random
+    faces in the frame plus the case's own."""
+    rng = np.random.default_rng(11)
+    H, W = {"tiny_frame": (5, 7), "ragged": (777, 1234)}.get(case, (40, 52))
+    z, v = _random_faces(rng, 2, 12, spread=0.9)
+    if case == "whole_frame":
+        v[0, 3] = [[-3.0, -3.0], [3.0, -3.0], [0.0, 4.0]]
+        z[0, 3] = -1.9  # behind the others, so they stay visible
+    elif case == "off_screen":
+        v[:, :6] += rng.choice([-1.5, 1.5], (2, 6, 1, 2)).astype(np.float32)
+    elif case == "degenerate":
+        v[0, 2] = v[0, 2, :1]
+        v[1, 5, 2] = v[1, 5, 0] + (v[1, 5, 1] - v[1, 5, 0]) * 0.5  # collinear
+    elif case == "inf_nan":
+        v[0, 4, 1, 0] = np.inf
+        v[1, 7, 2, 1] = np.nan
+        v[1, 8, 0, 1] = -np.inf
+    return _t(z), _t(v), H, W
+
+
+@pytest.mark.parametrize("case", ["whole_frame", "off_screen", "degenerate",
+                                  "inf_nan", "tiny_frame", "ragged"])
+def test_tile_lists_cover_every_inside_pair(case):
+    """Every (pixel, face) pair the plain version finds inside has that
+    face in its pixel's tile list, whatever the face: covering the whole
+    frame, partly off-screen, degenerate, with an inf or a NaN vertex, in a
+    frame smaller than one tile or a ragged 777 x 1234 one. Faces that
+    cannot be hit (degenerate, non-finite) are in no list."""
+    fvz, fvi, H, W = _coverage_faces(case)
+    B, F = fvz.shape[:2]
+    rec, ranges, ntiles = rk.face_setup(fvz, fvi, H, W)
+    TY, TX, counts, offsets, lists = _bin(ranges, H, W)
+    assert torch.equal(ntiles, rk.range_tiles(ranges))
+    assert int(ntiles.sum()) == int(counts.sum()) == len(lists)
+    listed = torch.zeros((B, F, TY, TX), dtype=torch.bool)
+    for t in range(B * TY * TX):
+        b, ty, tx = t // (TY * TX), t // TX % TY, t % TX
+        listed[b, lists[offsets[t]:offsets[t + 1]], ty, tx] = True
+    ca, cb, cc, den = trast.face_edge_setup(fvi)
+    ys, xs = trast.pixel_centers(H, W)
+    px, py = xs.repeat(H)[:, None], ys.repeat_interleave(W)[:, None]
+    tile = (torch.arange(H) // rk.TILE).repeat_interleave(W) * TX + \
+        (torch.arange(W) // rk.TILE).repeat(H)
+    hits = 0
+    for b in range(B):
+        w = [(px * ca[b, :, k] + py * cb[b, :, k] + cc[b, :, k]) / den[b]
+             for k in range(3)]
+        inside = (w[0] >= 0) & (w[1] >= 0) & (w[2] >= 0) & \
+            (den[b].abs() > trast.EPS)  # (P, F)
+        hits += int(inside.sum())
+        ok = listed[b].reshape(F, -1)[:, tile].T  # (P, F)
+        assert not bool((inside & ~ok).any()), case
+    assert hits > 0
+    dead = ~(den.abs() > trast.EPS) | ~torch.isfinite(fvi).all(-1).all(-1)
+    assert bool((ntiles[dead] == 0).all())
+    if case in ("whole_frame", "tiny_frame"):
+        assert int(counts.max()) >= 1 and bool((counts[:TY * TX] >= 1).all())
+    idx, bary = _emulate_binned(fvz, fvi, H, W)
+    p_idx, p_bary = trast.rasterize_geometry(fvz, fvi, H, W)
+    assert torch.equal(idx, p_idx) and torch.equal(bary, p_bary)
+
+
+def test_tile_ranges_mirror_the_kernel_arithmetic():
+    """`tile_ranges` on hand-made boxes: a box inside one tile, one across
+    tiles, one past the frame on each side, an empty (degenerate) box, and
+    non-finite ones. The low edge is floored and the high edge ceiled in
+    pixel units before tiles are taken."""
+    inf, nan = float("inf"), float("nan")
+    H, W = 64, 48  # 4 x 3 tiles; pixel i's centre at (i + 0.5) / 24 - 1
+    px = lambda i: (i + 0.5) / 24 - 1  # noqa: E731
+    box = torch.tensor([[[px(2), px(3), 0.9, 0.95],  # inside tile (0, 0)
+                         [px(14.9), px(33), -1.0, 1.0],
+                         [-9.0, 9.0, -9.0, 9.0],
+                         [inf, -inf, inf, -inf],
+                         [0.0, inf, 0.0, 0.1],
+                         [nan, 0.1, 0.0, 0.1],
+                         [1.5, 2.0, 0.0, 0.1]]], dtype=torch.float32)
+    got = rk.tile_ranges(box, H, W)[0].tolist()
+    assert got[0] == [0, 0, 0, 0]
+    assert got[1] == [0, 2, 0, 3]
+    assert got[2] == [0, 2, 0, 3]
+    for row in got[3:]:
+        assert row == list(rk.EMPTY_RANGE)
+    assert rk.range_tiles(rk.tile_ranges(box, H, W))[0].tolist() == \
+        [1, 12, 12, 0, 0, 0, 0]
+
+
+def test_planted_binning_fault_is_caught():
+    """The binning fault chip_smoke.py plants on the card (every tile range
+    one column short at its upper edge), through the same plain emulation
+    here on the torus's 7 views at 96 x 96: the emulation with the setup's
+    own ranges equals the plain version bit for bit, the shrunk one misses
+    K5's limits."""
+    from chip_smoke import binned_plain, shrunk_ranges
+
+    fvz, fvi, _, _ = _torus_faces()
+    H = W = 96
+    p_idx, p_bary = trast.rasterize_geometry(fvz, fvi, H, W)
+    _, ranges, _ = rk.face_setup(fvz, fvi, H, W)
+    idx, bary = binned_plain(torch, fvz, fvi, H, W, ranges)
+    assert torch.equal(idx, p_idx) and torch.equal(bary, p_bary)
+    bad = binned_plain(torch, fvz, fvi, H, W, shrunk_ranges(ranges))
+    a = rk.raster_agreement(*bad, p_idx, p_bary, fvz)
+    assert not rk.agreement_ok(a) and a["unexplained"] > 0, a
