@@ -20,7 +20,9 @@
 // The work is (pixel, face) pairs whose face box covers the pixel, ~20 FP32
 // operations each, far below the 67 TFLOP/s non-tensor rate at these sizes.
 //
-// What the design does about it: two stages.
+// What the design does about it: every tile reads only the faces that can
+// reach it, so the work follows the (pixel, face) pairs and the output, not
+// tiles x faces. Five kernels a call:
 // 1. raster_setup, one thread per (view, face): reads the face's 36 bytes
 //    once and writes its record (a0 a1 a2 b0 b1 b2 c0 c1 c2 den z0 z1 z2,
 //    the arithmetic of `face_edge_setup`, bit-identical to the wrapper's
@@ -30,19 +32,39 @@
 //    raster/raster_kernel.py computes it. A degenerate face (|den| <=
 //    1e-12) or one with a non-finite vertex or box covers no tile; the
 //    float coordinates are clamped before any conversion to int.
-// 2. raster_kernel: a CTA owns a 16x16 pixel tile, one pixel a thread. It
-//    streams the faces' tile ranges (16 B each) in chunks of 256, keeps the
-//    faces whose range holds the tile (warp ballots), loads only their
-//    records (64 B each) into shared memory and tests its pixel against
-//    each, keeping the best (z, face, barycentrics) in registers.
+// 2. raster_count: per (view, face), one integer atomicAdd on each tile of
+//    its range (exact whatever the order).
+// 3. raster_scan: one CTA turns the counts into exclusive 64-bit offsets
+//    over (view, tile row, tile column); offsets[T] is the list total,
+//    which the wrapper reads once a call to size the list (the only host
+//    read; the pair total depends on the data).
+// 4. raster_scatter: per (view, face), each tile of its range takes a slot
+//    with an atomicSub on its count (so the counts end at 0) and gets the
+//    face index there.
+// 5. raster_tiles: a CTA owns one (view, tile), one pixel a thread. A tile
+//    with an empty list writes background at once; otherwise it stages its
+//    list's records (64 B each) in shared memory 256 faces at a time and
+//    tests its pixel against each, keeping the best (z, face,
+//    barycentrics) in registers.
+// The order inside a list does not matter: the scatter's atomics give a
+// different order on every run, but the winner is the maximum of
+// (z, -face index) under a total order (z > best_z, or z == best_z and a
+// lower index; starting from (-inf, -1); a NaN z never compares true), and
+// each face's barycentrics do not depend on the order, so two runs are
+// bit-identical. The per-face edge tests are scalar FP32 work with a
+// data-dependent gather of faces: no matrix product for the tensor cores,
+// and no fixed tile of memory for TMA to copy, so neither is used.
 //
 // C interface, each returning cudaGetLastError():
 //   raster_setup(fvz, fvi, BF, H, W, rec, range, ntiles, stream): fvz
 //     (B,F,3) f32, fvi (B,F,3,2) f32, contiguous; rec (B,F,16) f32, range
 //     (B,F,4) int32 [tx0 tx1 ty0 ty1] inclusive ((0,-1,0,-1) when empty),
 //     ntiles (B,F) int32 the tiles the range covers.
-//   raster_fwd(range, rec, xs, ys, B, F, H, W, face_idx, bary, stream): xs
-//     (W,) and ys (H,) the pixel centres in NDC.
+//   raster_bin(range, B, F, TX, TY, cnt, off, stream): cnt (B*TY*TX) int32
+//     scratch, off (B*TY*TX + 1) int64.
+//   raster_draw(range, rec, off, cnt, list, xs, ys, B, F, H, W, face_idx,
+//     bary, stream): list (off[T]) int32 scratch; xs (W,) and ys (H,) the
+//     pixel centres in NDC; cnt as raster_bin left it.
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
@@ -50,7 +72,6 @@ namespace {
 
 constexpr int TILE = 16;
 constexpr int NTHREADS = TILE * TILE;  // one pixel a thread; also the chunk
-constexpr int NWARPS = NTHREADS / 32;
 constexpr float BOX_PAD = 1e-4f;  // raster/raster_kernel.py BOX_PAD
 constexpr float EPS = 1e-12f;     // raster/rasterize.py EPS
 
@@ -126,50 +147,99 @@ __global__ void __launch_bounds__(NTHREADS)
 }
 
 __global__ void __launch_bounds__(NTHREADS)
-    raster_kernel(const int4* __restrict__ range,
-                  const float4* __restrict__ rec,
-                  const float* __restrict__ xs, const float* __restrict__ ys,
-                  int F, int H, int W, int* __restrict__ face_idx,
-                  float* __restrict__ bary) {
-  __shared__ int list[NTHREADS];
+    raster_count_kernel(const int4* __restrict__ range, int BF, int F,
+                        int tiles, int TX, int* __restrict__ cnt) {
+  const int i = blockIdx.x * NTHREADS + threadIdx.x;
+  if (i >= BF) return;
+  const int4 r = range[i];
+  int* c = cnt + (size_t)(i / F) * tiles;
+  for (int ty = r.z; ty <= r.w; ++ty)
+    for (int tx = r.x; tx <= r.y; ++tx) atomicAdd(c + ty * TX + tx, 1);
+}
+
+constexpr int SCAN_THREADS = 1024;
+
+__global__ void __launch_bounds__(SCAN_THREADS)
+    raster_scan_kernel(const int* __restrict__ cnt, int T,
+                       long long* __restrict__ off) {
+  __shared__ long long warp_sum[SCAN_THREADS / 32];
+  const int per = (T + SCAN_THREADS - 1) / SCAN_THREADS;
+  const int lo = min((int)threadIdx.x * per, T), hi = min(lo + per, T);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  long long own = 0;
+  for (int i = lo; i < hi; ++i) own += cnt[i];
+  long long x = own;  // inclusive scan within the warp
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const long long y = __shfl_up_sync(0xffffffffu, x, d);
+    if (lane >= d) x += y;
+  }
+  if (lane == 31) warp_sum[warp] = x;
+  __syncthreads();
+  if (warp == 0) {
+    long long w = warp_sum[lane];
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const long long y = __shfl_up_sync(0xffffffffu, w, d);
+      if (lane >= d) w += y;
+    }
+    warp_sum[lane] = w;
+  }
+  __syncthreads();
+  long long base = x - own + (warp > 0 ? warp_sum[warp - 1] : 0);
+  for (int i = lo; i < hi; ++i) {
+    off[i] = base;
+    base += cnt[i];
+  }
+  if (threadIdx.x == SCAN_THREADS - 1) off[T] = base;  // hi == T here
+}
+
+__global__ void __launch_bounds__(NTHREADS)
+    raster_scatter_kernel(const int4* __restrict__ range,
+                          const long long* __restrict__ off, int BF, int F,
+                          int tiles, int TX, int* __restrict__ cnt,
+                          int* __restrict__ list) {
+  const int i = blockIdx.x * NTHREADS + threadIdx.x;
+  if (i >= BF) return;
+  const int4 r = range[i];
+  const int b = i / F, f = i - b * F;
+  const size_t t0 = (size_t)b * tiles;
+  for (int ty = r.z; ty <= r.w; ++ty)
+    for (int tx = r.x; tx <= r.y; ++tx) {
+      const size_t t = t0 + ty * TX + tx;
+      list[off[t] + atomicSub(cnt + t, 1) - 1] = f;
+    }
+}
+
+__global__ void __launch_bounds__(NTHREADS)
+    raster_tiles_kernel(const float4* __restrict__ rec,
+                        const long long* __restrict__ off,
+                        const int* __restrict__ list,
+                        const float* __restrict__ xs,
+                        const float* __restrict__ ys, int F, int H, int W,
+                        int* __restrict__ face_idx, float* __restrict__ bary) {
+  __shared__ int ids[NTHREADS];
   __shared__ float4 recs[NTHREADS * 4];
-  __shared__ int warp_cnt[NWARPS];
 
   const int b = blockIdx.z;
-  const int tx = blockIdx.x, ty = blockIdx.y;
-  const int ix = tx * TILE + threadIdx.x % TILE;
-  const int iy = ty * TILE + threadIdx.x / TILE;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const size_t t = ((size_t)b * gridDim.y + blockIdx.y) * gridDim.x +
+                   blockIdx.x;
+  const int ix = blockIdx.x * TILE + threadIdx.x % TILE;
+  const int iy = blockIdx.y * TILE + threadIdx.x / TILE;
   const float px = xs[min(ix, W - 1)], py = ys[min(iy, H - 1)];
-
-  const int4* fb = range + (size_t)b * F;
   const float4* fr = rec + (size_t)b * F * 4;
+  const long long s = off[t], e = off[t + 1];
   float best_z = -CUDART_INF_F, b0 = 0.f, b1 = 0.f, b2 = 0.f;
   int best_i = -1;
 
-  for (int s = 0; s < F; s += NTHREADS) {
-    const int f = s + threadIdx.x;
-    bool meets = false;
-    if (f < F) {
-      const int4 q = fb[f];  // tx0 tx1 ty0 ty1
-      meets = q.x <= tx && tx <= q.y && q.z <= ty && ty <= q.w;
-    }
-    const unsigned m = __ballot_sync(0xffffffffu, meets);
-    if (lane == 0) warp_cnt[warp] = __popc(m);
+  for (long long c = s; c < e; c += NTHREADS) {
+    const int n = (int)min((long long)NTHREADS, e - c);
+    if (threadIdx.x < n) ids[threadIdx.x] = list[c + threadIdx.x];
     __syncthreads();
-    int base = 0, total = 0;
-#pragma unroll
-    for (int w = 0; w < NWARPS; ++w) {
-      const int c = warp_cnt[w];
-      base += w < warp ? c : 0;
-      total += c;
-    }
-    if (meets) list[base + __popc(m & ((1u << lane) - 1u))] = f;
+    for (int i = threadIdx.x; i < n * 4; i += NTHREADS)
+      recs[i] = fr[(size_t)ids[i >> 2] * 4 + (i & 3)];
     __syncthreads();
-    for (int i = threadIdx.x; i < total * 4; i += NTHREADS)
-      recs[i] = fr[(size_t)list[i >> 2] * 4 + (i & 3)];
-    __syncthreads();
-    for (int i = 0; i < total; ++i) {
+    for (int i = 0; i < n; ++i) {
       const float4 r0 = recs[4 * i], r1 = recs[4 * i + 1];
       const float4 r2 = recs[4 * i + 2], r3 = recs[4 * i + 3];
       // r0 = a0 a1 a2 b0, r1 = b1 b2 c0 c1, r2 = c2 den z0 z1, r3 = z2 - - -
@@ -180,7 +250,7 @@ __global__ void __launch_bounds__(NTHREADS)
         const float z = __fadd_rn(__fadd_rn(__fmul_rn(w0, r2.z),
                                             __fmul_rn(w1, r2.w)),
                                   __fmul_rn(w2, r3.x));
-        const int fi = list[i];
+        const int fi = ids[i];
         if (z > best_z || (z == best_z && fi < best_i)) {
           best_z = z;
           best_i = fi;
@@ -190,7 +260,7 @@ __global__ void __launch_bounds__(NTHREADS)
         }
       }
     }
-    __syncthreads();  // the next chunk overwrites list and recs
+    __syncthreads();  // the next chunk overwrites ids and recs
   }
   if (ix < W && iy < H) {
     const size_t p = ((size_t)b * H + iy) * W + ix;
@@ -216,14 +286,39 @@ extern "C" int raster_setup(const void* fvz, const void* fvi, int BF, int H,
   return (int)cudaGetLastError();
 }
 
-extern "C" int raster_fwd(const void* range, const void* rec, const void* xs,
-                          const void* ys, int B, int F, int H, int W,
-                          void* face_idx, void* bary, void* stream) {
-  dim3 grid((W + TILE - 1) / TILE, (H + TILE - 1) / TILE, B);
-  if (B > 0 && F > 0 && H > 0 && W > 0)
-    raster_kernel<<<grid, NTHREADS, 0, (cudaStream_t)stream>>>(
+extern "C" int raster_bin(const void* range, int B, int F, int TX, int TY,
+                          void* cnt, void* off, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  const int tiles = TX * TY, T = B * tiles, BF = B * F;
+  int* c = reinterpret_cast<int*>(cnt);
+  cudaMemsetAsync(c, 0, sizeof(int) * (size_t)T, st);
+  if (BF > 0)
+    raster_count_kernel<<<(BF + NTHREADS - 1) / NTHREADS, NTHREADS, 0, st>>>(
+        reinterpret_cast<const int4*>(range), BF, F, tiles, TX, c);
+  raster_scan_kernel<<<1, SCAN_THREADS, 0, st>>>(
+      c, T, reinterpret_cast<long long*>(off));
+  return (int)cudaGetLastError();
+}
+
+extern "C" int raster_draw(const void* range, const void* rec,
+                           const void* off, void* cnt, void* list,
+                           const void* xs, const void* ys, int B, int F, int H,
+                           int W, void* face_idx, void* bary, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  const int TX = (W + TILE - 1) / TILE, TY = (H + TILE - 1) / TILE;
+  const int BF = B * F;
+  if (BF > 0)
+    raster_scatter_kernel<<<(BF + NTHREADS - 1) / NTHREADS, NTHREADS, 0,
+                            st>>>(
         reinterpret_cast<const int4*>(range),
+        reinterpret_cast<const long long*>(off), BF, F, TX * TY, TX,
+        reinterpret_cast<int*>(cnt), reinterpret_cast<int*>(list));
+  dim3 grid(TX, TY, B);
+  if (B > 0 && H > 0 && W > 0)
+    raster_tiles_kernel<<<grid, NTHREADS, 0, st>>>(
         reinterpret_cast<const float4*>(rec),
+        reinterpret_cast<const long long*>(off),
+        reinterpret_cast<const int*>(list),
         reinterpret_cast<const float*>(xs), reinterpret_cast<const float*>(ys),
         F, H, W, reinterpret_cast<int*>(face_idx),
         reinterpret_cast<float*>(bary));

@@ -4,11 +4,11 @@ Counterpart of contexture_nerf_tpu/raster/pallas_raster.py
 (`_raster_kernel`, `rasterize_geometry_pallas`). The TPU kernel Morton-sorts
 faces and sweeps 8x128 pixel tiles against 128-face lane chunks; this one
 needs neither. A setup kernel (one thread per view and face) writes each
-face's record and its conservative range of 16x16 pixel tiles; then a CTA
-owns a tile, streams the faces' tile ranges in chunks of 256, keeps the
-faces whose range holds the tile (in face order) and tests its pixels
-against their records in shared memory, keeping the best (z, face,
-barycentrics) in registers.
+face's record and its conservative range of 16x16 pixel tiles; the faces
+are binned to tiles (a count per tile, an exclusive scan, a scatter into
+each tile's slots); then a CTA owns one tile, stages only its list's
+records in shared memory and tests its pixels against them, keeping the
+best (z, face, barycentrics) in registers.
 
 The kernels repeat the plain version's arithmetic (raster/rasterize.py)
 operation for operation without FMA contraction, and break z ties by the
@@ -52,8 +52,9 @@ def _lib():
         lib = _build.library("raster")
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.raster_setup.argtypes = [p, p, i, i, i, p, p, p, p]
-        lib.raster_fwd.argtypes = [p, p, p, p, i, i, i, i, p, p, p]
-        for fn in (lib.raster_setup, lib.raster_fwd):
+        lib.raster_bin.argtypes = [p, i, i, i, i, p, p, p]
+        lib.raster_draw.argtypes = [p, p, p, p, p, p, p, i, i, i, i, p, p, p]
+        for fn in (lib.raster_setup, lib.raster_bin, lib.raster_draw):
             fn.restype = i
         _LIB = lib
     return _LIB
@@ -175,8 +176,8 @@ def rasterize_geometry_kernel(face_vertices_z: torch.Tensor,
                               face_vertices_image: torch.Tensor,
                               height: int, width: int):
     """K5 on the card: (face_idx (B,H,W) int32, -1 for background;
-    bary (B,H,W,3) f32). All B views in one call: the setup kernel, then
-    the tile kernel."""
+    bary (B,H,W,3) f32). All B views in one call: setup, binning (count,
+    scan; one host read of the list total; scatter) and the tile pass."""
     if not face_vertices_z.is_cuda or \
             face_vertices_image.device != face_vertices_z.device:
         raise ValueError("rasterize_geometry_kernel takes CUDA tensors on "
@@ -185,15 +186,26 @@ def rasterize_geometry_kernel(face_vertices_z: torch.Tensor,
     dev = face_vertices_z.device
     rec, ranges, _ = face_setup(face_vertices_z, face_vertices_image, height,
                                 width)
+    tiles_y, tiles_x = -(-height // TILE), -(-width // TILE)
+    n_tiles = B * tiles_y * tiles_x
+    cnt = torch.empty(n_tiles, dtype=torch.int32, device=dev)
+    off = torch.empty(n_tiles + 1, dtype=torch.int64, device=dev)
+    stream = _build.stream_ptr(dev)
+    lib = _lib()
+    _build.check(lib.raster_bin(ranges.data_ptr(), B, F, tiles_x, tiles_y,
+                                cnt.data_ptr(), off.data_ptr(), stream),
+                 "raster_bin")
+    total = int(off[-1])  # the list total: the call's one host read
+    faces = torch.empty(max(total, 1), dtype=torch.int32, device=dev)
     ys, xs = _centres(height, width, dev)
     face_idx = torch.empty((B, height, width), dtype=torch.int32, device=dev)
     bary = torch.empty((B, height, width, 3), dtype=torch.float32,
                        device=dev)
-    err = _lib().raster_fwd(ranges.data_ptr(), rec.data_ptr(), xs.data_ptr(),
-                            ys.data_ptr(), B, F, height, width,
-                            face_idx.data_ptr(), bary.data_ptr(),
-                            _build.stream_ptr(dev))
-    _build.check(err, "raster_fwd")
+    err = lib.raster_draw(ranges.data_ptr(), rec.data_ptr(), off.data_ptr(),
+                          cnt.data_ptr(), faces.data_ptr(), xs.data_ptr(),
+                          ys.data_ptr(), B, F, height, width,
+                          face_idx.data_ptr(), bary.data_ptr(), stream)
+    _build.check(err, "raster_draw")
     _build.launch_counts["raster"] += 1
     return face_idx, bary
 
