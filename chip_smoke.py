@@ -915,14 +915,15 @@ def times_line(ms, dev):
 
 def raster_phases(torch, rec, cfg, failures):
     """K5 against its plain version in every case of `raster_cases`: the
-    setup's records and tile ranges against `face_records` and
-    `tile_ranges` (torch.equal), the outputs against the plain version
+    setup's records and pixel ranges against `face_records` and
+    `pixel_ranges` (torch.equal), the outputs against the plain version
     (`agreement_ok`) and across two runs (torch.equal). The timed cases
     print event and device time by kernel. Three planted faults run
     through plain emulations on the torus."""
     from contexture_nerf_tpu_torch.raster import raster_kernel as rk
     from contexture_nerf_tpu_torch.raster.rasterize import rasterize_geometry
 
+    t_phase = time.perf_counter()
     for name, fvz, fvi, H, W, check_at, timed in raster_cases(torch, cfg):
         cz, ci, cH, cW = fvz, fvi, H, W
         if check_at is not None:
@@ -931,10 +932,9 @@ def raster_phases(torch, rec, cfg, failures):
         B, F = cz.shape[:2]
         rec_k, ranges_k, nt_k = rk.face_setup(cz, ci, cH, cW)
         rec_p, box_p = rk.face_records(cz, ci)
-        ranges_p = rk.tile_ranges(box_p, cH, cW)
         setup_same = torch.equal(rec_k, rec_p) and \
-            torch.equal(ranges_k, ranges_p) and \
-            torch.equal(nt_k, rk.range_tiles(ranges_p))
+            torch.equal(ranges_k, rk.pixel_ranges(box_p, cH, cW)) and \
+            torch.equal(nt_k, rk.range_tiles(rk.tile_ranges(box_p, cH, cW)))
         idx, bary = rk.rasterize_geometry_kernel(cz, ci, cH, cW)
         idx2, bary2 = rk.rasterize_geometry_kernel(cz, ci, cH, cW)
         torch.cuda.synchronize()
@@ -953,7 +953,8 @@ def raster_phases(torch, rec, cfg, failures):
               f"neither a z tie <= 1e-6 nor an edge <= 1e-5), bary max err "
               f"{a['bary_err']:.3e} (tol 1e-5), two runs bit-identical "
               f"{same}, bit-identical to plain {exact}; setup records and "
-              f"tile ranges equal face_records and tile_ranges {setup_same}; "
+              f"pixel ranges equal face_records and pixel_ranges "
+              f"{setup_same}; "
               f"{int(nt_k.sum())} (tile, face) list entries; plain "
               f"{pms:.1f} ms (one run) {'ok' if ok else 'MISS'}")
         if not ok:
@@ -999,6 +1000,7 @@ def raster_phases(torch, rec, cfg, failures):
                   f"{'caught' if caught else 'NOT CAUGHT'}")
             if not caught:
                 failures.append(f"K5 limits pass planted fault {fault}")
+    print(f"  K5 phase {time.perf_counter() - t_phase:.1f} s")
 
 
 def raster_times_of(torch, root):

@@ -26,26 +26,37 @@
 // 1. raster_setup, one thread per (view, face): reads the face's 36 bytes
 //    once and writes its record (a0 a1 a2 b0 b1 b2 c0 c1 c2 den z0 z1 z2,
 //    the arithmetic of `face_edge_setup`, bit-identical to the wrapper's
-//    `face_records`) and its conservative range of 16x16 tiles: the box
-//    padded by BOX_PAD mapped to pixel indices (floor at the low edge,
-//    ceil at the high one) and clamped to the frame, as `tile_ranges` in
+//    `face_records`) and its conservative range of pixels: the box padded
+//    by BOX_PAD mapped to pixel indices (floor at the low edge, ceil at the
+//    high one) and clamped to the frame, as `pixel_ranges` in
 //    raster/raster_kernel.py computes it. A degenerate face (|den| <=
-//    1e-12) or one with a non-finite vertex or box covers no tile; the
-//    float coordinates are clamped before any conversion to int.
+//    1e-12) or one with a non-finite vertex or box gets the empty range;
+//    the float coordinates are clamped before any conversion to int. Its
+//    16x16 tiles are the pixel range divided by 16.
 // 2. raster_count: per (view, face), one integer atomicAdd on each tile of
 //    its range (exact whatever the order).
 // 3. raster_scan: one CTA turns the counts into exclusive 64-bit offsets
-//    over (view, tile row, tile column); offsets[T] is the list total,
-//    which the wrapper reads once a call to size the list (the only host
-//    read; the pair total depends on the data).
+//    over (view, tile row, tile column), reading four counts a thread as
+//    one int4 and writing their offsets as two longlong2 (coalesced), and
+//    lists the busy tiles (those with a face). offsets[T] is the list
+//    total and offsets[T + 1] the busy tiles; the wrapper reads both in one
+//    copy a call, to size the list and the tile pass's grid (the only host
+//    read; both depend on the data). Before it, the outputs are filled
+//    with background (cudaMemsetAsync: -1 is all ones, 0.0f all zeros), so
+//    the card writes them while the host waits.
 // 4. raster_scatter: per (view, face), each tile of its range takes a slot
 //    with an atomicSub on its count (so the counts end at 0) and gets the
 //    face index there.
-// 5. raster_tiles: a CTA owns one (view, tile), one pixel a thread. A tile
-//    with an empty list writes background at once; otherwise it stages its
-//    list's records (64 B each) in shared memory 256 faces at a time and
-//    tests its pixel against each, keeping the best (z, face,
-//    barycentrics) in registers.
+// 5. raster_tiles: a CTA owns one busy (view, tile), one pixel a thread,
+//    each warp an 8x4 block. It stages its list's records and pixel ranges
+//    in shared memory 256 faces at a time; each warp tests 32 of them at a
+//    time against its block (a ballot: exact, since a pixel inside a face
+//    is inside its pixel range) and runs its pixels' edge tests only on the
+//    faces that meet the block. Only covered pixels are written; the rest
+//    keep the background.
+// A sign test on the numerators that skips the divisions (exact where
+// |n| >= 2^-100 and |den| <= 2^40) was measured slower once the warps cull
+// by range, and is not used.
 // The order inside a list does not matter: the scatter's atomics give a
 // different order on every run, but the winner is the maximum of
 // (z, -face index) under a total order (z > best_z, or z == best_z and a
@@ -58,13 +69,16 @@
 // C interface, each returning cudaGetLastError():
 //   raster_setup(fvz, fvi, BF, H, W, rec, range, ntiles, stream): fvz
 //     (B,F,3) f32, fvi (B,F,3,2) f32, contiguous; rec (B,F,16) f32, range
-//     (B,F,4) int32 [tx0 tx1 ty0 ty1] inclusive ((0,-1,0,-1) when empty),
-//     ntiles (B,F) int32 the tiles the range covers.
-//   raster_bin(range, B, F, TX, TY, cnt, off, stream): cnt (B*TY*TX) int32
-//     scratch, off (B*TY*TX + 1) int64.
-//   raster_draw(range, rec, off, cnt, list, xs, ys, B, F, H, W, face_idx,
-//     bary, stream): list (off[T]) int32 scratch; xs (W,) and ys (H,) the
-//     pixel centres in NDC; cnt as raster_bin left it.
+//     (B,F,4) int32 pixel range [ix0 ix1 iy0 iy1] inclusive ((0,-1,0,-1)
+//     when empty), ntiles (B,F) int32 the tiles the range covers.
+//   raster_bin(range, B, F, H, W, cnt, off, busy, face_idx, bary, stream):
+//     cnt (B*TY*TX rounded up to 4) int32 scratch, off (B*TY*TX + 2) int64,
+//     busy (B*TY*TX) int32 scratch; face_idx (B,H,W) int32 and bary
+//     (B,H,W,3) f32 the outputs, filled with background here.
+//   raster_draw(range, rec, off, cnt, list, busy, n_busy, xs, ys, B, F, H,
+//     W, face_idx, bary, stream): list (off[T]) int32 scratch, n_busy =
+//     off[T + 1]; xs (W,) and ys (H,) the pixel centres in NDC; cnt as
+//     raster_bin left it.
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
@@ -131,7 +145,7 @@ __global__ void __launch_bounds__(NTHREADS)
             isfinite(x1) && isfinite(y1) && isfinite(x2) && isfinite(y2) &&
             isfinite(xmin) && isfinite(xmax) && isfinite(ymin) &&
             isfinite(ymax);
-  int4 tr = make_int4(0, -1, 0, -1);
+  int4 tr = make_int4(0, -1, 0, -1);  // pixel range, empty
   if (ok) {
     const float hw = 0.5f * (float)W, hh = 0.5f * (float)H;
     // rows run down the frame: y = 1 - (iy + 0.5) / H * 2
@@ -139,11 +153,12 @@ __global__ void __launch_bounds__(NTHREADS)
     const int ix1 = min((int)ceilf(pixel_coord(xmax, hw, (float)W)), W - 1);
     const int iy0 = max((int)floorf(pixel_coord(-ymax, hh, (float)H)), 0);
     const int iy1 = min((int)ceilf(pixel_coord(-ymin, hh, (float)H)), H - 1);
-    if (ix0 <= ix1 && iy0 <= iy1)
-      tr = make_int4(ix0 / TILE, ix1 / TILE, iy0 / TILE, iy1 / TILE);
+    if (ix0 <= ix1 && iy0 <= iy1) tr = make_int4(ix0, ix1, iy0, iy1);
   }
   range[i] = tr;
-  ntiles[i] = (tr.y - tr.x + 1) * (tr.w - tr.z + 1);
+  ntiles[i] = tr.x <= tr.y ? (tr.y / TILE - tr.x / TILE + 1) *
+                                 (tr.w / TILE - tr.z / TILE + 1)
+                           : 0;
 }
 
 __global__ void __launch_bounds__(NTHREADS)
@@ -152,46 +167,94 @@ __global__ void __launch_bounds__(NTHREADS)
   const int i = blockIdx.x * NTHREADS + threadIdx.x;
   if (i >= BF) return;
   const int4 r = range[i];
+  if (r.x > r.y) return;  // empty
   int* c = cnt + (size_t)(i / F) * tiles;
-  for (int ty = r.z; ty <= r.w; ++ty)
-    for (int tx = r.x; tx <= r.y; ++tx) atomicAdd(c + ty * TX + tx, 1);
+  for (int ty = r.z / TILE; ty <= r.w / TILE; ++ty)
+    for (int tx = r.x / TILE; tx <= r.y / TILE; ++tx)
+      atomicAdd(c + ty * TX + tx, 1);
 }
 
 constexpr int SCAN_THREADS = 1024;
+constexpr int SCAN_STEP = SCAN_THREADS * 4;  // counts a pass
 
+__device__ __forceinline__ int4 counts4(const int* cnt, int i, int T) {
+  return i < T ? *reinterpret_cast<const int4*>(cnt + i)
+               : make_int4(0, 0, 0, 0);
+}
+
+// cnt is zero-padded to a multiple of 4, so an int4 at i < T stays inside it
 __global__ void __launch_bounds__(SCAN_THREADS)
     raster_scan_kernel(const int* __restrict__ cnt, int T,
-                       long long* __restrict__ off) {
+                       long long* __restrict__ off, int* __restrict__ busy) {
   __shared__ long long warp_sum[SCAN_THREADS / 32];
-  const int per = (T + SCAN_THREADS - 1) / SCAN_THREADS;
-  const int lo = min((int)threadIdx.x * per, T), hi = min(lo + per, T);
+  __shared__ int warp_busy[SCAN_THREADS / 32];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  long long own = 0;
-  for (int i = lo; i < hi; ++i) own += cnt[i];
-  long long x = own;  // inclusive scan within the warp
-#pragma unroll
-  for (int d = 1; d < 32; d <<= 1) {
-    const long long y = __shfl_up_sync(0xffffffffu, x, d);
-    if (lane >= d) x += y;
-  }
-  if (lane == 31) warp_sum[warp] = x;
-  __syncthreads();
-  if (warp == 0) {
-    long long w = warp_sum[lane];
+  long long carry = 0;
+  int busy_carry = 0;
+  int4 next = counts4(cnt, 4 * (int)threadIdx.x, T);
+  for (int base = 0; base < T; base += SCAN_STEP) {
+    const int i0 = base + 4 * (int)threadIdx.x;
+    const int v[4] = {next.x, next.y, next.z, next.w};
+    next = counts4(cnt, i0 + SCAN_STEP, T);  // the next pass's, in flight
+    const long long own = (long long)v[0] + v[1] + v[2] + v[3];
+    const int own_busy = (v[0] > 0) + (v[1] > 0) + (v[2] > 0) + (v[3] > 0);
+    long long x = own;  // inclusive scans within the warp
+    int y = own_busy;
 #pragma unroll
     for (int d = 1; d < 32; d <<= 1) {
-      const long long y = __shfl_up_sync(0xffffffffu, w, d);
-      if (lane >= d) w += y;
+      const long long xu = __shfl_up_sync(0xffffffffu, x, d);
+      const int yu = __shfl_up_sync(0xffffffffu, y, d);
+      if (lane >= d) {
+        x += xu;
+        y += yu;
+      }
     }
-    warp_sum[lane] = w;
+    if (lane == 31) {
+      warp_sum[warp] = x;
+      warp_busy[warp] = y;
+    }
+    __syncthreads();
+    if (warp == 0) {
+      long long w = warp_sum[lane];
+      int u = warp_busy[lane];
+#pragma unroll
+      for (int d = 1; d < 32; d <<= 1) {
+        const long long wu = __shfl_up_sync(0xffffffffu, w, d);
+        const int uu = __shfl_up_sync(0xffffffffu, u, d);
+        if (lane >= d) {
+          w += wu;
+          u += uu;
+        }
+      }
+      warp_sum[lane] = w;
+      warp_busy[lane] = u;
+    }
+    __syncthreads();
+    long long r[4];
+    r[0] = carry + x - own + (warp > 0 ? warp_sum[warp - 1] : 0);
+    int b = busy_carry + y - own_busy + (warp > 0 ? warp_busy[warp - 1] : 0);
+#pragma unroll
+    for (int k = 1; k < 4; ++k) r[k] = r[k - 1] + v[k - 1];
+    if (i0 + 3 < T) {
+      longlong2* o = reinterpret_cast<longlong2*>(off + i0);
+      o[0] = make_longlong2(r[0], r[1]);
+      o[1] = make_longlong2(r[2], r[3]);
+    } else {
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        if (i0 + k < T) off[i0 + k] = r[k];
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      if (v[k] > 0) busy[b++] = i0 + k;
+    carry += warp_sum[SCAN_THREADS / 32 - 1];
+    busy_carry += warp_busy[SCAN_THREADS / 32 - 1];
+    __syncthreads();  // warp_sum and warp_busy are written again next pass
   }
-  __syncthreads();
-  long long base = x - own + (warp > 0 ? warp_sum[warp - 1] : 0);
-  for (int i = lo; i < hi; ++i) {
-    off[i] = base;
-    base += cnt[i];
+  if (threadIdx.x == 0) {
+    off[T] = carry;
+    off[T + 1] = busy_carry;
   }
-  if (threadIdx.x == SCAN_THREADS - 1) off[T] = base;  // hi == T here
 }
 
 __global__ void __launch_bounds__(NTHREADS)
@@ -202,10 +265,11 @@ __global__ void __launch_bounds__(NTHREADS)
   const int i = blockIdx.x * NTHREADS + threadIdx.x;
   if (i >= BF) return;
   const int4 r = range[i];
+  if (r.x > r.y) return;  // empty
   const int b = i / F, f = i - b * F;
   const size_t t0 = (size_t)b * tiles;
-  for (int ty = r.z; ty <= r.w; ++ty)
-    for (int tx = r.x; tx <= r.y; ++tx) {
+  for (int ty = r.z / TILE; ty <= r.w / TILE; ++ty)
+    for (int tx = r.x / TILE; tx <= r.y / TILE; ++tx) {
       const size_t t = t0 + ty * TX + tx;
       list[off[t] + atomicSub(cnt + t, 1) - 1] = f;
     }
@@ -213,56 +277,75 @@ __global__ void __launch_bounds__(NTHREADS)
 
 __global__ void __launch_bounds__(NTHREADS)
     raster_tiles_kernel(const float4* __restrict__ rec,
+                        const int4* __restrict__ range,
                         const long long* __restrict__ off,
                         const int* __restrict__ list,
+                        const int* __restrict__ busy,
                         const float* __restrict__ xs,
                         const float* __restrict__ ys, int F, int H, int W,
-                        int* __restrict__ face_idx, float* __restrict__ bary) {
+                        int TX, int TY, int* __restrict__ face_idx,
+                        float* __restrict__ bary) {
   __shared__ int ids[NTHREADS];
+  __shared__ int4 prs[NTHREADS];
   __shared__ float4 recs[NTHREADS * 4];
 
-  const int b = blockIdx.z;
-  const size_t t = ((size_t)b * gridDim.y + blockIdx.y) * gridDim.x +
-                   blockIdx.x;
-  const int ix = blockIdx.x * TILE + threadIdx.x % TILE;
-  const int iy = blockIdx.y * TILE + threadIdx.x / TILE;
+  const int t = busy[blockIdx.x];
+  const int b = t / (TX * TY), tx = t % TX, ty = t / TX % TY;
+  // warp w owns the 8x4 block (w % 2, w / 2) of the tile
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wx = tx * TILE + (warp & 1) * 8;
+  const int wy = ty * TILE + (warp >> 1) * 4;
+  const int ix = wx + (lane & 7), iy = wy + (lane >> 3);
   const float px = xs[min(ix, W - 1)], py = ys[min(iy, H - 1)];
   const float4* fr = rec + (size_t)b * F * 4;
+  const int4* fp = range + (size_t)b * F;
   const long long s = off[t], e = off[t + 1];
   float best_z = -CUDART_INF_F, b0 = 0.f, b1 = 0.f, b2 = 0.f;
   int best_i = -1;
 
   for (long long c = s; c < e; c += NTHREADS) {
     const int n = (int)min((long long)NTHREADS, e - c);
-    if (threadIdx.x < n) ids[threadIdx.x] = list[c + threadIdx.x];
+    if (threadIdx.x < n) {
+      const int f = list[c + threadIdx.x];
+      ids[threadIdx.x] = f;
+      prs[threadIdx.x] = fp[f];
+    }
     __syncthreads();
     for (int i = threadIdx.x; i < n * 4; i += NTHREADS)
       recs[i] = fr[(size_t)ids[i >> 2] * 4 + (i & 3)];
     __syncthreads();
-    for (int i = 0; i < n; ++i) {
-      const float4 r0 = recs[4 * i], r1 = recs[4 * i + 1];
-      const float4 r2 = recs[4 * i + 2], r3 = recs[4 * i + 3];
-      // r0 = a0 a1 a2 b0, r1 = b1 b2 c0 c1, r2 = c2 den z0 z1, r3 = z2 - - -
-      const float w0 = edge(px, py, r0.x, r0.w, r1.z, r2.y);
-      const float w1 = edge(px, py, r0.y, r1.x, r1.w, r2.y);
-      const float w2 = edge(px, py, r0.z, r1.y, r2.x, r2.y);
-      if (w0 >= 0.f && w1 >= 0.f && w2 >= 0.f) {
-        const float z = __fadd_rn(__fadd_rn(__fmul_rn(w0, r2.z),
-                                            __fmul_rn(w1, r2.w)),
-                                  __fmul_rn(w2, r3.x));
-        const int fi = ids[i];
-        if (z > best_z || (z == best_z && fi < best_i)) {
-          best_z = z;
-          best_i = fi;
-          b0 = w0;
-          b1 = w1;
-          b2 = w2;
+    for (int j = 0; j < n; j += 32) {
+      bool meets = false;
+      if (j + lane < n) {
+        const int4 q = prs[j + lane];  // ix0 ix1 iy0 iy1
+        meets = q.x <= wx + 7 && q.y >= wx && q.z <= wy + 3 && q.w >= wy;
+      }
+      for (unsigned m = __ballot_sync(0xffffffffu, meets); m; m &= m - 1) {
+        const int i = j + __ffs(m) - 1;
+        const float4 r0 = recs[4 * i], r1 = recs[4 * i + 1];
+        const float4 r2 = recs[4 * i + 2], r3 = recs[4 * i + 3];
+        // r0 = a0 a1 a2 b0, r1 = b1 b2 c0 c1, r2 = c2 den z0 z1, r3 = z2
+        const float w0 = edge(px, py, r0.x, r0.w, r1.z, r2.y);
+        const float w1 = edge(px, py, r0.y, r1.x, r1.w, r2.y);
+        const float w2 = edge(px, py, r0.z, r1.y, r2.x, r2.y);
+        if (w0 >= 0.f && w1 >= 0.f && w2 >= 0.f) {
+          const float z = __fadd_rn(__fadd_rn(__fmul_rn(w0, r2.z),
+                                              __fmul_rn(w1, r2.w)),
+                                    __fmul_rn(w2, r3.x));
+          const int fi = ids[i];
+          if (z > best_z || (z == best_z && fi < best_i)) {
+            best_z = z;
+            best_i = fi;
+            b0 = w0;
+            b1 = w1;
+            b2 = w2;
+          }
         }
       }
     }
-    __syncthreads();  // the next chunk overwrites ids and recs
+    __syncthreads();  // the next chunk overwrites ids, prs and recs
   }
-  if (ix < W && iy < H) {
+  if (best_i >= 0 && ix < W && iy < H) {  // the rest stays background
     const size_t p = ((size_t)b * H + iy) * W + ix;
     face_idx[p] = best_i;
     bary[3 * p] = b0;
@@ -286,24 +369,30 @@ extern "C" int raster_setup(const void* fvz, const void* fvi, int BF, int H,
   return (int)cudaGetLastError();
 }
 
-extern "C" int raster_bin(const void* range, int B, int F, int TX, int TY,
-                          void* cnt, void* off, void* stream) {
+extern "C" int raster_bin(const void* range, int B, int F, int H, int W,
+                          void* cnt, void* off, void* busy, void* face_idx,
+                          void* bary, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
+  const int TX = (W + TILE - 1) / TILE, TY = (H + TILE - 1) / TILE;
   const int tiles = TX * TY, T = B * tiles, BF = B * F;
+  const size_t P = (size_t)B * H * W;
+  cudaMemsetAsync(face_idx, 0xff, sizeof(int) * P, st);  // -1
+  cudaMemsetAsync(bary, 0, sizeof(float) * 3 * P, st);
   int* c = reinterpret_cast<int*>(cnt);
-  cudaMemsetAsync(c, 0, sizeof(int) * (size_t)T, st);
+  cudaMemsetAsync(c, 0, sizeof(int) * (size_t)((T + 3) / 4 * 4), st);
   if (BF > 0)
     raster_count_kernel<<<(BF + NTHREADS - 1) / NTHREADS, NTHREADS, 0, st>>>(
         reinterpret_cast<const int4*>(range), BF, F, tiles, TX, c);
   raster_scan_kernel<<<1, SCAN_THREADS, 0, st>>>(
-      c, T, reinterpret_cast<long long*>(off));
+      c, T, reinterpret_cast<long long*>(off), reinterpret_cast<int*>(busy));
   return (int)cudaGetLastError();
 }
 
 extern "C" int raster_draw(const void* range, const void* rec,
                            const void* off, void* cnt, void* list,
-                           const void* xs, const void* ys, int B, int F, int H,
-                           int W, void* face_idx, void* bary, void* stream) {
+                           const void* busy, int n_busy, const void* xs,
+                           const void* ys, int B, int F, int H, int W,
+                           void* face_idx, void* bary, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
   const int TX = (W + TILE - 1) / TILE, TY = (H + TILE - 1) / TILE;
   const int BF = B * F;
@@ -313,14 +402,14 @@ extern "C" int raster_draw(const void* range, const void* rec,
         reinterpret_cast<const int4*>(range),
         reinterpret_cast<const long long*>(off), BF, F, TX * TY, TX,
         reinterpret_cast<int*>(cnt), reinterpret_cast<int*>(list));
-  dim3 grid(TX, TY, B);
-  if (B > 0 && H > 0 && W > 0)
-    raster_tiles_kernel<<<grid, NTHREADS, 0, st>>>(
+  if (n_busy > 0)
+    raster_tiles_kernel<<<n_busy, NTHREADS, 0, st>>>(
         reinterpret_cast<const float4*>(rec),
+        reinterpret_cast<const int4*>(range),
         reinterpret_cast<const long long*>(off),
-        reinterpret_cast<const int*>(list),
+        reinterpret_cast<const int*>(list), reinterpret_cast<const int*>(busy),
         reinterpret_cast<const float*>(xs), reinterpret_cast<const float*>(ys),
-        F, H, W, reinterpret_cast<int*>(face_idx),
+        F, H, W, TX, TY, reinterpret_cast<int*>(face_idx),
         reinterpret_cast<float*>(bary));
   return (int)cudaGetLastError();
 }

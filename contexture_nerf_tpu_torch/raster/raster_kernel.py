@@ -4,19 +4,21 @@ Counterpart of contexture_nerf_tpu/raster/pallas_raster.py
 (`_raster_kernel`, `rasterize_geometry_pallas`). The TPU kernel Morton-sorts
 faces and sweeps 8x128 pixel tiles against 128-face lane chunks; this one
 needs neither. A setup kernel (one thread per view and face) writes each
-face's record and its conservative range of 16x16 pixel tiles; the faces
-are binned to tiles (a count per tile, an exclusive scan, a scatter into
-each tile's slots); then a CTA owns one tile, stages only its list's
-records in shared memory and tests its pixels against them, keeping the
-best (z, face, barycentrics) in registers.
+face's record and its conservative range of pixels; the faces are binned
+to 16x16 tiles (a count per tile, an exclusive scan, a scatter into each
+tile's slots); then a CTA owns one tile, stages only its list's records
+and pixel ranges in shared memory and tests its pixels against them,
+keeping the best (z, face, barycentrics) in registers. Each warp tests
+only the faces whose pixel range meets its 8x4 block. Only tiles with a
+face run; the outputs are filled with background beforehand.
 
 The kernels repeat the plain version's arithmetic (raster/rasterize.py)
 operation for operation without FMA contraction, and break z ties by the
 lowest face index, so the two agree bit for bit; `raster_agreement` states
 the tie- and edge-tolerant check that chip_smoke.py and the card tests hold
-them to all the same. `face_records` and `tile_ranges` are the setup's
-plain version: the kernel mirrors their arithmetic, and the CPU tests reach
-the tile-index arithmetic through them.
+them to all the same. `face_records` is the setup's plain version (with
+`pixel_ranges` and `tile_ranges`): the kernels mirror their arithmetic,
+and the CPU tests reach it through them.
 
 A CUDA tensor launches the kernels or raises; a CPU tensor takes the plain
 version.
@@ -41,7 +43,7 @@ TILE = 16  # pixels a side of the kernels' tiles
 # coordinate (plus the same absolute amount): far above the rounding of the
 # edge functions, so culling never drops a face that a pixel tests inside
 BOX_PAD = 1e-4
-EMPTY_RANGE = (0, -1, 0, -1)  # [tx0 tx1 ty0 ty1] of a face that covers no tile
+EMPTY_RANGE = (0, -1, 0, -1)  # the pixel or tile range of a face with none
 
 _LIB = None
 
@@ -52,8 +54,9 @@ def _lib():
         lib = _build.library("raster")
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.raster_setup.argtypes = [p, p, i, i, i, p, p, p, p]
-        lib.raster_bin.argtypes = [p, i, i, i, i, p, p, p]
-        lib.raster_draw.argtypes = [p, p, p, p, p, p, p, i, i, i, i, p, p, p]
+        lib.raster_bin.argtypes = [p, i, i, i, i, p, p, p, p, p, p]
+        lib.raster_draw.argtypes = [p, p, p, p, p, p, i, p, p, i, i, i, i, p,
+                                    p, p]
         for fn in (lib.raster_setup, lib.raster_bin, lib.raster_draw):
             fn.restype = i
         _LIB = lib
@@ -88,9 +91,9 @@ def _pixel_coord(lo: torch.Tensor, n: int) -> torch.Tensor:
     return ((lo + 1.0) * (0.5 * n) - 0.5).clamp(-1.0, float(n))
 
 
-def tile_ranges(box: torch.Tensor, height: int, width: int):
-    """The conservative range of TILE x TILE tiles each face's padded box
-    (`face_records`) can reach: (B, F, 4) int32 [tx0 tx1 ty0 ty1],
+def pixel_ranges(box: torch.Tensor, height: int, width: int):
+    """The conservative range of pixels each face's padded box
+    (`face_records`) can reach: (B, F, 4) int32 [ix0 ix1 iy0 iy1],
     inclusive; EMPTY_RANGE for a face off the frame, degenerate (its box is
     empty) or with a non-finite box. Every pixel whose centre lies in the
     box is in the range: the low edge is floored and the high edge ceiled
@@ -110,10 +113,16 @@ def tile_ranges(box: torch.Tensor, height: int, width: int):
     iy1 = _pixel_coord(-box[..., 2], height).ceil().to(torch.int32).clamp(
         max=height - 1)
     ok = ok & (ix0 <= ix1) & (iy0 <= iy1)
-    tr = torch.stack([ix0 // TILE, ix1 // TILE, iy0 // TILE, iy1 // TILE],
-                     dim=-1)
     empty = torch.tensor(EMPTY_RANGE, dtype=torch.int32, device=box.device)
-    return torch.where(ok[..., None], tr, empty).contiguous()
+    return torch.where(ok[..., None], torch.stack([ix0, ix1, iy0, iy1], -1),
+                       empty).contiguous()
+
+
+def tile_ranges(box: torch.Tensor, height: int, width: int):
+    """The TILE x TILE tiles of each face's pixel range: (B, F, 4) int32
+    [tx0 tx1 ty0 ty1], inclusive (EMPTY_RANGE stays empty)."""
+    return torch.div(pixel_ranges(box, height, width), TILE,
+                     rounding_mode="floor")
 
 
 def range_tiles(ranges: torch.Tensor) -> torch.Tensor:
@@ -141,15 +150,16 @@ def _check_faces(face_vertices_z, face_vertices_image, height, width):
 def face_setup(face_vertices_z: torch.Tensor,
                face_vertices_image: torch.Tensor, height: int, width: int):
     """K5's setup for a height x width frame: (records (B, F, 16) f32,
-    tile ranges (B, F, 4) int32, tiles covered (B, F) int32). CUDA tensors
+    pixel ranges (B, F, 4) int32, tiles covered (B, F) int32). CUDA tensors
     run the setup kernel, CPU tensors its plain version (`face_records`,
-    `tile_ranges`)."""
+    `pixel_ranges`)."""
     if not face_vertices_z.is_cuda:
         if face_vertices_z.device.type != "cpu":
             raise ValueError(f"unsupported device {face_vertices_z.device}")
         rec, box = face_records(face_vertices_z, face_vertices_image)
-        ranges = tile_ranges(box, height, width)
-        return rec, ranges, range_tiles(ranges)
+        ranges = pixel_ranges(box, height, width)
+        return rec, ranges, range_tiles(
+            torch.div(ranges, TILE, rounding_mode="floor"))
     if face_vertices_image.device != face_vertices_z.device:
         raise ValueError("face_setup takes tensors on one device")
     B, F = _check_faces(face_vertices_z, face_vertices_image, height, width)
@@ -176,8 +186,10 @@ def rasterize_geometry_kernel(face_vertices_z: torch.Tensor,
                               face_vertices_image: torch.Tensor,
                               height: int, width: int):
     """K5 on the card: (face_idx (B,H,W) int32, -1 for background;
-    bary (B,H,W,3) f32). All B views in one call: setup, binning (count,
-    scan; one host read of the list total; scatter) and the tile pass."""
+    bary (B,H,W,3) f32). All B views in one call: setup, the outputs
+    filled with background, binning (count, scan; one host read of the
+    list total and the busy tiles; scatter) and the tile pass over the
+    busy tiles."""
     if not face_vertices_z.is_cuda or \
             face_vertices_image.device != face_vertices_z.device:
         raise ValueError("rasterize_geometry_kernel takes CUDA tensors on "
@@ -186,25 +198,27 @@ def rasterize_geometry_kernel(face_vertices_z: torch.Tensor,
     dev = face_vertices_z.device
     rec, ranges, _ = face_setup(face_vertices_z, face_vertices_image, height,
                                 width)
-    tiles_y, tiles_x = -(-height // TILE), -(-width // TILE)
-    n_tiles = B * tiles_y * tiles_x
-    cnt = torch.empty(n_tiles, dtype=torch.int32, device=dev)
-    off = torch.empty(n_tiles + 1, dtype=torch.int64, device=dev)
-    stream = _build.stream_ptr(dev)
-    lib = _lib()
-    _build.check(lib.raster_bin(ranges.data_ptr(), B, F, tiles_x, tiles_y,
-                                cnt.data_ptr(), off.data_ptr(), stream),
-                 "raster_bin")
-    total = int(off[-1])  # the list total: the call's one host read
-    faces = torch.empty(max(total, 1), dtype=torch.int32, device=dev)
+    n_tiles = B * -(-height // TILE) * -(-width // TILE)
+    cnt = torch.empty(-(-n_tiles // 4) * 4, dtype=torch.int32, device=dev)
+    off = torch.empty(n_tiles + 2, dtype=torch.int64, device=dev)
+    busy = torch.empty(n_tiles, dtype=torch.int32, device=dev)
     ys, xs = _centres(height, width, dev)
     face_idx = torch.empty((B, height, width), dtype=torch.int32, device=dev)
     bary = torch.empty((B, height, width, 3), dtype=torch.float32,
                        device=dev)
+    stream = _build.stream_ptr(dev)
+    lib = _lib()
+    _build.check(lib.raster_bin(ranges.data_ptr(), B, F, height, width,
+                                cnt.data_ptr(), off.data_ptr(),
+                                busy.data_ptr(), face_idx.data_ptr(),
+                                bary.data_ptr(), stream), "raster_bin")
+    # the list total and the busy tiles: the call's one host read
+    total, n_busy = off[-2:].tolist()
+    faces = torch.empty(max(total, 1), dtype=torch.int32, device=dev)
     err = lib.raster_draw(ranges.data_ptr(), rec.data_ptr(), off.data_ptr(),
-                          cnt.data_ptr(), faces.data_ptr(), xs.data_ptr(),
-                          ys.data_ptr(), B, F, height, width,
-                          face_idx.data_ptr(), bary.data_ptr(), stream)
+                          cnt.data_ptr(), faces.data_ptr(), busy.data_ptr(),
+                          n_busy, xs.data_ptr(), ys.data_ptr(), B, F, height,
+                          width, face_idx.data_ptr(), bary.data_ptr(), stream)
     _build.check(err, "raster_draw")
     _build.launch_counts["raster"] += 1
     return face_idx, bary

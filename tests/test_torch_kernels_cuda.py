@@ -24,8 +24,8 @@ face index: face_idx must agree on at least 99.99% of covered pixels, every
 mismatch a z tie (|dz| <= 1e-6) or an edge pixel (min barycentric <= 1e-5),
 bary within 1e-5 where the faces agree, and two runs bit-identical; a
 reversed z test, a dropped last face chunk and tile ranges one column short
-must miss those limits. Its setup kernel's records and tile ranges must
-equal their plain versions (`face_records`, `tile_ranges`) exactly.
+must miss those limits. Its setup kernel's records and pixel ranges must
+equal their plain versions (`face_records`, `pixel_ranges`) exactly.
 GroupNorm (K6), one launch a call, repeats its plain version's elementwise
 arithmetic and sums the f32 statistics in another order: bf16 output within one bf16 ulp of the
 plain output plus a floor from the statistics' rounding, f32 output within
@@ -306,7 +306,7 @@ def test_raster_kernel_matches_plain(cuda, case):
     elif case != "torus2_8x8":
         assert a["covered"] > 0.02 * views * H * W
     if case == "torus7":
-        _, ranges, _ = rk.face_setup(fvz, fvi, H, W)
+        ranges = rk.tile_ranges(rk.face_records(fvz, fvi)[1], H, W)
         for fz, fi, rg in ((-fvz, fvi, ranges),
                            (fvz[:, :-64], fvi[:, :-64], ranges[:, :-64]),
                            (fvz, fvi, shrunk_ranges(ranges))):
@@ -318,9 +318,9 @@ def test_raster_kernel_matches_plain(cuda, case):
 @pytest.mark.parametrize("case", ["torus7", "torus2_off_screen",
                                   "torus2_degenerate", "non_finite"])
 def test_raster_setup_matches_face_records(cuda, case):
-    """The setup kernel's records equal `face_records` and its tile ranges
-    `tile_ranges` (torch.equal; NaN records compared as equal where both
-    are NaN)."""
+    """The setup kernel's records equal `face_records` and its pixel
+    ranges `pixel_ranges` (torch.equal; NaN records compared as equal where
+    both are NaN)."""
     fvz, fvi, H, W = _raster_case(
         cuda, "torus2_ragged" if case == "non_finite" else case)
     if case == "non_finite":
@@ -329,12 +329,11 @@ def test_raster_setup_matches_face_records(cuda, case):
         fvi[0, 9, 0, 0] = 3e38  # finite, far off the frame
     rec, ranges, ntiles = rk.face_setup(fvz, fvi, H, W)
     rec_p, box = rk.face_records(fvz, fvi)
-    ranges_p = rk.tile_ranges(box, H, W)
     torch.testing.assert_close(rec, rec_p, rtol=0, atol=0, equal_nan=True)
     if case != "non_finite":
         assert torch.equal(rec, rec_p)
-    assert torch.equal(ranges, ranges_p)
-    assert torch.equal(ntiles, rk.range_tiles(ranges_p))
+    assert torch.equal(ranges, rk.pixel_ranges(box, H, W))
+    assert torch.equal(ntiles, rk.range_tiles(rk.tile_ranges(box, H, W)))
     if case == "non_finite":
         assert int(ntiles[0, 3]) == int(ntiles[1, 7]) == 0
 

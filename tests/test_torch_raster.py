@@ -326,15 +326,17 @@ def _bin(ranges, H, W, gen=None):
 
 def _emulate_binned(fvz, fvi, H, W, seed=0):
     """A plain-torch emulation of K5: the setup (`face_records`,
-    `tile_ranges`), the per-tile lists (`_bin`, in shuffled order), and the
-    tile pass, tile by tile: each tile tests its pixels against only its
-    list's faces, with the kernel's operation order ((x a + y b) + c) / den
-    and (w0 z0 + w1 z1) + w2 z2, and keeps the maximum of (z, -face) (NaN
-    z never wins)."""
+    `pixel_ranges`, `tile_ranges`), the per-tile lists (`_bin`, in
+    shuffled order), and the tile pass, tile by tile: each tile tests its
+    pixels against only its list's faces, and each 8x4 block of a tile
+    only those whose pixel range meets the block, with the kernel's
+    operation order ((x a + y b) + c) / den and (w0 z0 + w1 z1) + w2 z2,
+    and keeps the maximum of (z, -face) (NaN z never wins); pixels no face
+    covers keep the background."""
     B, F = fvz.shape[:2]
     rec, box = rk.face_records(fvz, fvi)
-    ranges = rk.tile_ranges(box, H, W)
-    TY, TX, _, offsets, lists = _bin(ranges, H, W,
+    pr = rk.pixel_ranges(box, H, W)
+    TY, TX, _, offsets, lists = _bin(rk.tile_ranges(box, H, W), H, W,
                                      torch.Generator().manual_seed(seed))
     ys, xs = trast.pixel_centers(H, W)
     idx = torch.full((B, H, W), -1, dtype=torch.int32)
@@ -348,11 +350,17 @@ def _emulate_binned(fvz, fvi, H, W, seed=0):
         cols = slice(tx * rk.TILE, min(tx * rk.TILE + rk.TILE, W))
         py, px = torch.meshgrid(ys[rows], xs[cols], indexing="ij")
         py, px = py.reshape(-1, 1), px.reshape(-1, 1)
+        iy, ix = torch.meshgrid(torch.arange(H)[rows], torch.arange(W)[cols],
+                                indexing="ij")
+        bx, by = ix.reshape(-1, 1) // 8 * 8, iy.reshape(-1, 1) // 4 * 4
+        q = pr[b, faces]  # (n, 4)
+        meets = (q[:, 0] <= bx + 7) & (q[:, 1] >= bx) & \
+            (q[:, 2] <= by + 3) & (q[:, 3] >= by)  # the pixel's 8x4 block
         r = rec[b, faces]  # (n, 16)
         den = r[:, 9]
         w = [((px * r[:, k] + py * r[:, 3 + k]) + r[:, 6 + k]) / den
              for k in range(3)]
-        inside = (w[0] >= 0) & (w[1] >= 0) & (w[2] >= 0)
+        inside = meets & (w[0] >= 0) & (w[1] >= 0) & (w[2] >= 0)
         z = (w[0] * r[:, 10] + w[1] * r[:, 11]) + w[2] * r[:, 12]
         z = torch.where(inside & ~torch.isnan(z), z,
                         torch.tensor(float("-inf")))
@@ -422,8 +430,11 @@ def test_tile_lists_cover_every_inside_pair(case):
     fvz, fvi, H, W = _coverage_faces(case)
     B, F = fvz.shape[:2]
     rec, ranges, ntiles = rk.face_setup(fvz, fvi, H, W)
-    TY, TX, counts, offsets, lists = _bin(ranges, H, W)
-    assert torch.equal(ntiles, rk.range_tiles(ranges))
+    tiles = torch.div(ranges, rk.TILE, rounding_mode="floor")
+    assert torch.equal(tiles, rk.tile_ranges(rk.face_records(fvz, fvi)[1],
+                                             H, W))
+    TY, TX, counts, offsets, lists = _bin(tiles, H, W)
+    assert torch.equal(ntiles, rk.range_tiles(tiles))
     assert int(ntiles.sum()) == int(counts.sum()) == len(lists)
     listed = torch.zeros((B, F, TY, TX), dtype=torch.bool)
     for t in range(B * TY * TX):
@@ -454,7 +465,7 @@ def test_tile_lists_cover_every_inside_pair(case):
 
 
 def test_tile_ranges_mirror_the_kernel_arithmetic():
-    """`tile_ranges` on hand-made boxes: a box inside one tile, one across
+    """`pixel_ranges` and `tile_ranges` on hand-made boxes: a box inside one tile, one across
     tiles, one past the frame on each side, an empty (degenerate) box, and
     non-finite ones. The low edge is floored and the high edge ceiled in
     pixel units before tiles are taken."""
@@ -468,6 +479,9 @@ def test_tile_ranges_mirror_the_kernel_arithmetic():
                          [0.0, inf, 0.0, 0.1],
                          [nan, 0.1, 0.0, 0.1],
                          [1.5, 2.0, 0.0, 0.1]]], dtype=torch.float32)
+    px_got = rk.pixel_ranges(box, H, W)[0].tolist()
+    assert px_got[0][0] <= 2 and px_got[0][1] >= 3  # the box's centres
+    assert px_got[2] == [0, W - 1, 0, H - 1]
     got = rk.tile_ranges(box, H, W)[0].tolist()
     assert got[0] == [0, 0, 0, 0]
     assert got[1] == [0, 2, 0, 3]
@@ -489,7 +503,7 @@ def test_planted_binning_fault_is_caught():
     fvz, fvi, _, _ = _torus_faces()
     H = W = 96
     p_idx, p_bary = trast.rasterize_geometry(fvz, fvi, H, W)
-    _, ranges, _ = rk.face_setup(fvz, fvi, H, W)
+    ranges = rk.tile_ranges(rk.face_records(fvz, fvi)[1], H, W)
     idx, bary = binned_plain(torch, fvz, fvi, H, W, ranges)
     assert torch.equal(idx, p_idx) and torch.equal(bary, p_bary)
     bad = binned_plain(torch, fvz, fvi, H, W, shrunk_ranges(ranges))
