@@ -22,7 +22,7 @@
 //
 // What the design does about it: every tile reads only the faces that can
 // reach it, so the work follows the (pixel, face) pairs and the output, not
-// tiles x faces. Five kernels a call:
+// tiles x faces. Six kernels a call:
 // 1. raster_setup, one thread per (view, face): reads the face's 36 bytes
 //    once and writes its record (a0 a1 a2 b0 b1 b2 c0 c1 c2 den z0 z1 z2,
 //    the arithmetic of `face_edge_setup`, bit-identical to the wrapper's
@@ -35,15 +35,16 @@
 //    16x16 tiles are the pixel range divided by 16.
 // 2. raster_count: per (view, face), one integer atomicAdd on each tile of
 //    its range (exact whatever the order).
-// 3. raster_scan: one CTA turns the counts into exclusive 64-bit offsets
-//    over (view, tile row, tile column), reading four counts a thread as
-//    one int4 and writing their offsets as two longlong2 (coalesced), and
-//    lists the busy tiles (those with a face). offsets[T] is the list
-//    total and offsets[T + 1] the busy tiles; the wrapper reads both in one
-//    copy a call, to size the list and the tile pass's grid (the only host
-//    read; both depend on the data). Before it, the outputs are filled
-//    with background (cudaMemsetAsync: -1 is all ones, 0.0f all zeros), so
-//    the card writes them while the host waits.
+// 3. raster_scan_sums, raster_scan: an exclusive 64-bit scan of the
+//    counts over (view, tile row, tile column) in two passes of CTAs of
+//    4096 counts (four a thread, read as one int4): each CTA's sum, then
+//    each CTA's offsets (written as longlong2) after the earlier CTAs'
+//    sums, with the list of busy tiles (those with a face). offsets[T] is
+//    the list total and offsets[T + 1] the busy tiles; the wrapper reads
+//    both in one copy a call, to size the list and the tile pass's grid
+//    (the only host read; both depend on the data). Before it, the outputs
+//    are filled with background (cudaMemsetAsync: -1 is all ones, 0.0f
+//    all zeros), so the card writes them while the host waits.
 // 4. raster_scatter: per (view, face), each tile of its range takes a slot
 //    with an atomicSub on its count (so the counts end at 0) and gets the
 //    face index there.
@@ -51,12 +52,14 @@
 //    each warp an 8x4 block. It stages its list's records and pixel ranges
 //    in shared memory 256 faces at a time; each warp tests 32 of them at a
 //    time against its block (a ballot: exact, since a pixel inside a face
-//    is inside its pixel range) and runs its pixels' edge tests only on the
-//    faces that meet the block. Only covered pixels are written; the rest
-//    keep the background.
-// A sign test on the numerators that skips the divisions (exact where
-// |n| >= 2^-100 and |den| <= 2^40) was measured slower once the warps cull
-// by range, and is not used.
+//    is inside its pixel range) and runs its pixels' edge tests only on
+//    the faces that meet the block. Only covered pixels are written; the
+//    rest keep the background.
+// Two variants were measured slower and are not used: 128-thread CTAs of
+// two pixels a thread in 8x8 warp blocks (twice the tiles in flight, but
+// coarser culling), and a sign test on the numerators that skips the
+// divisions (exact where |n| >= 2^-100 and |den| <= 2^40) once the warps
+// cull by range.
 // The order inside a list does not matter: the scatter's atomics give a
 // different order on every run, but the winner is the maximum of
 // (z, -face index) under a total order (z > best_z, or z == best_z and a
@@ -71,9 +74,10 @@
 //     (B,F,3) f32, fvi (B,F,3,2) f32, contiguous; rec (B,F,16) f32, range
 //     (B,F,4) int32 pixel range [ix0 ix1 iy0 iy1] inclusive ((0,-1,0,-1)
 //     when empty), ntiles (B,F) int32 the tiles the range covers.
-//   raster_bin(range, B, F, H, W, cnt, off, busy, face_idx, bary, stream):
-//     cnt (B*TY*TX rounded up to 4) int32 scratch, off (B*TY*TX + 2) int64,
-//     busy (B*TY*TX) int32 scratch; face_idx (B,H,W) int32 and bary
+//   raster_bin(range, B, F, H, W, cnt, part, off, busy, face_idx, bary,
+//     stream): the binning up to the scan. cnt (B*TY*TX rounded up to 4)
+//     int32, part (2 x the scan's CTAs) int64, busy (B*TY*TX) int32
+//     scratch; off (B*TY*TX + 2) int64; face_idx (B,H,W) int32 and bary
 //     (B,H,W,3) f32 the outputs, filled with background here.
 //   raster_draw(range, rec, off, cnt, list, busy, n_busy, xs, ys, B, F, H,
 //     W, face_idx, bary, stream): list (off[T]) int32 scratch, n_busy =
@@ -85,7 +89,7 @@
 namespace {
 
 constexpr int TILE = 16;
-constexpr int NTHREADS = TILE * TILE;  // one pixel a thread; also the chunk
+constexpr int NTHREADS = TILE * TILE;  // a tile-pass CTA: a pixel a thread
 constexpr float BOX_PAD = 1e-4f;  // raster/raster_kernel.py BOX_PAD
 constexpr float EPS = 1e-12f;     // raster/rasterize.py EPS
 
@@ -175,85 +179,123 @@ __global__ void __launch_bounds__(NTHREADS)
 }
 
 constexpr int SCAN_THREADS = 1024;
-constexpr int SCAN_STEP = SCAN_THREADS * 4;  // counts a pass
+constexpr int SCAN_STEP = SCAN_THREADS * 4;  // counts a CTA of the scan
 
+// Exclusive scan over a CTA of SCAN_THREADS of (sum, busy count) pairs:
+// returns each thread's exclusive prefixes and the CTA's totals.
+__device__ __forceinline__ void block_scan(long long own, int own_busy,
+                                           long long& excl, int& excl_busy,
+                                           long long& total,
+                                           int& total_busy) {
+  __shared__ long long warp_sum[SCAN_THREADS / 32];
+  __shared__ int warp_busy[SCAN_THREADS / 32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  long long x = own;  // inclusive scans within the warp
+  int y = own_busy;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const long long xu = __shfl_up_sync(0xffffffffu, x, d);
+    const int yu = __shfl_up_sync(0xffffffffu, y, d);
+    if (lane >= d) {
+      x += xu;
+      y += yu;
+    }
+  }
+  if (lane == 31) {
+    warp_sum[warp] = x;
+    warp_busy[warp] = y;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    long long w = warp_sum[lane];
+    int u = warp_busy[lane];
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const long long wu = __shfl_up_sync(0xffffffffu, w, d);
+      const int uu = __shfl_up_sync(0xffffffffu, u, d);
+      if (lane >= d) {
+        w += wu;
+        u += uu;
+      }
+    }
+    warp_sum[lane] = w;
+    warp_busy[lane] = u;
+  }
+  __syncthreads();
+  excl = x - own + (warp > 0 ? warp_sum[warp - 1] : 0);
+  excl_busy = y - own_busy + (warp > 0 ? warp_busy[warp - 1] : 0);
+  total = warp_sum[SCAN_THREADS / 32 - 1];
+  total_busy = warp_busy[SCAN_THREADS / 32 - 1];
+}
+
+// four counts from i on, as one int4: cnt is zero-padded to a multiple of
+// 4, so an int4 at i < T stays inside it
 __device__ __forceinline__ int4 counts4(const int* cnt, int i, int T) {
   return i < T ? *reinterpret_cast<const int4*>(cnt + i)
                : make_int4(0, 0, 0, 0);
 }
 
-// cnt is zero-padded to a multiple of 4, so an int4 at i < T stays inside it
+__device__ __forceinline__ int busy4(int4 v) {
+  return (v.x > 0) + (v.y > 0) + (v.z > 0) + (v.w > 0);
+}
+
+// pass 1: each CTA's sum and busy count into part[2 * CTA], part[2 * CTA + 1]
+__global__ void __launch_bounds__(SCAN_THREADS)
+    raster_scan_sums_kernel(const int* __restrict__ cnt, int T,
+                            long long* __restrict__ part) {
+  const int4 v = counts4(cnt, blockIdx.x * SCAN_STEP + 4 * threadIdx.x, T);
+  long long excl, total;
+  int excl_busy, total_busy;
+  block_scan((long long)v.x + v.y + v.z + v.w, busy4(v), excl, excl_busy,
+             total, total_busy);
+  if (threadIdx.x == 0) {
+    part[2 * blockIdx.x] = total;
+    part[2 * blockIdx.x + 1] = total_busy;
+  }
+}
+
+// pass 2: each CTA adds the earlier CTAs' sums (in order) and scans its own
+// counts into off, listing its busy tiles; the last CTA writes off[T] (the
+// list total) and off[T + 1] (the busy tiles)
 __global__ void __launch_bounds__(SCAN_THREADS)
     raster_scan_kernel(const int* __restrict__ cnt, int T,
+                       const long long* __restrict__ part,
                        long long* __restrict__ off, int* __restrict__ busy) {
-  __shared__ long long warp_sum[SCAN_THREADS / 32];
-  __shared__ int warp_busy[SCAN_THREADS / 32];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  long long carry = 0;
-  int busy_carry = 0;
-  int4 next = counts4(cnt, 4 * (int)threadIdx.x, T);
-  for (int base = 0; base < T; base += SCAN_STEP) {
-    const int i0 = base + 4 * (int)threadIdx.x;
-    const int v[4] = {next.x, next.y, next.z, next.w};
-    next = counts4(cnt, i0 + SCAN_STEP, T);  // the next pass's, in flight
-    const long long own = (long long)v[0] + v[1] + v[2] + v[3];
-    const int own_busy = (v[0] > 0) + (v[1] > 0) + (v[2] > 0) + (v[3] > 0);
-    long long x = own;  // inclusive scans within the warp
-    int y = own_busy;
+  const int i0 = blockIdx.x * SCAN_STEP + 4 * threadIdx.x;
+  const int4 c = counts4(cnt, i0, T);  // in flight during the first scan
+  long long ps = 0;
+  int pb = 0;
+  for (int k = threadIdx.x; k < (int)blockIdx.x; k += SCAN_THREADS) {
+    ps += part[2 * k];
+    pb += (int)part[2 * k + 1];
+  }
+  long long excl, total, base_sum;
+  int excl_busy, total_busy, base_busy;
+  block_scan(ps, pb, excl, excl_busy, base_sum, base_busy);
+  __syncthreads();  // block_scan's shared sums are written again below
+  const int v[4] = {c.x, c.y, c.z, c.w};
+  block_scan((long long)c.x + c.y + c.z + c.w, busy4(c), excl, excl_busy,
+             total, total_busy);
+  long long r[4];
+  r[0] = base_sum + excl;
+  int b = base_busy + excl_busy;
 #pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-      const long long xu = __shfl_up_sync(0xffffffffu, x, d);
-      const int yu = __shfl_up_sync(0xffffffffu, y, d);
-      if (lane >= d) {
-        x += xu;
-        y += yu;
-      }
-    }
-    if (lane == 31) {
-      warp_sum[warp] = x;
-      warp_busy[warp] = y;
-    }
-    __syncthreads();
-    if (warp == 0) {
-      long long w = warp_sum[lane];
-      int u = warp_busy[lane];
-#pragma unroll
-      for (int d = 1; d < 32; d <<= 1) {
-        const long long wu = __shfl_up_sync(0xffffffffu, w, d);
-        const int uu = __shfl_up_sync(0xffffffffu, u, d);
-        if (lane >= d) {
-          w += wu;
-          u += uu;
-        }
-      }
-      warp_sum[lane] = w;
-      warp_busy[lane] = u;
-    }
-    __syncthreads();
-    long long r[4];
-    r[0] = carry + x - own + (warp > 0 ? warp_sum[warp - 1] : 0);
-    int b = busy_carry + y - own_busy + (warp > 0 ? warp_busy[warp - 1] : 0);
-#pragma unroll
-    for (int k = 1; k < 4; ++k) r[k] = r[k - 1] + v[k - 1];
-    if (i0 + 3 < T) {
-      longlong2* o = reinterpret_cast<longlong2*>(off + i0);
-      o[0] = make_longlong2(r[0], r[1]);
-      o[1] = make_longlong2(r[2], r[3]);
-    } else {
-#pragma unroll
-      for (int k = 0; k < 4; ++k)
-        if (i0 + k < T) off[i0 + k] = r[k];
-    }
+  for (int k = 1; k < 4; ++k) r[k] = r[k - 1] + v[k - 1];
+  if (i0 + 3 < T) {
+    longlong2* o = reinterpret_cast<longlong2*>(off + i0);
+    o[0] = make_longlong2(r[0], r[1]);
+    o[1] = make_longlong2(r[2], r[3]);
+  } else {
 #pragma unroll
     for (int k = 0; k < 4; ++k)
-      if (v[k] > 0) busy[b++] = i0 + k;
-    carry += warp_sum[SCAN_THREADS / 32 - 1];
-    busy_carry += warp_busy[SCAN_THREADS / 32 - 1];
-    __syncthreads();  // warp_sum and warp_busy are written again next pass
+      if (i0 + k < T) off[i0 + k] = r[k];
   }
-  if (threadIdx.x == 0) {
-    off[T] = carry;
-    off[T + 1] = busy_carry;
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    if (v[k] > 0) busy[b++] = i0 + k;
+  if (blockIdx.x == gridDim.x - 1 && threadIdx.x == 0) {
+    off[T] = base_sum + total;
+    off[T + 1] = base_busy + total_busy;
   }
 }
 
@@ -370,11 +412,12 @@ extern "C" int raster_setup(const void* fvz, const void* fvi, int BF, int H,
 }
 
 extern "C" int raster_bin(const void* range, int B, int F, int H, int W,
-                          void* cnt, void* off, void* busy, void* face_idx,
-                          void* bary, void* stream) {
+                          void* cnt, void* part, void* off, void* busy,
+                          void* face_idx, void* bary, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
   const int TX = (W + TILE - 1) / TILE, TY = (H + TILE - 1) / TILE;
   const int tiles = TX * TY, T = B * tiles, BF = B * F;
+  const int scan_ctas = (T + SCAN_STEP - 1) / SCAN_STEP;
   const size_t P = (size_t)B * H * W;
   cudaMemsetAsync(face_idx, 0xff, sizeof(int) * P, st);  // -1
   cudaMemsetAsync(bary, 0, sizeof(float) * 3 * P, st);
@@ -383,8 +426,11 @@ extern "C" int raster_bin(const void* range, int B, int F, int H, int W,
   if (BF > 0)
     raster_count_kernel<<<(BF + NTHREADS - 1) / NTHREADS, NTHREADS, 0, st>>>(
         reinterpret_cast<const int4*>(range), BF, F, tiles, TX, c);
-  raster_scan_kernel<<<1, SCAN_THREADS, 0, st>>>(
-      c, T, reinterpret_cast<long long*>(off), reinterpret_cast<int*>(busy));
+  long long* pt = reinterpret_cast<long long*>(part);
+  raster_scan_sums_kernel<<<scan_ctas, SCAN_THREADS, 0, st>>>(c, T, pt);
+  raster_scan_kernel<<<scan_ctas, SCAN_THREADS, 0, st>>>(
+      c, T, pt, reinterpret_cast<long long*>(off),
+      reinterpret_cast<int*>(busy));
   return (int)cudaGetLastError();
 }
 

@@ -43,6 +43,7 @@ TILE = 16  # pixels a side of the kernels' tiles
 # coordinate (plus the same absolute amount): far above the rounding of the
 # edge functions, so culling never drops a face that a pixel tests inside
 BOX_PAD = 1e-4
+SCAN_STEP = 4096  # tile counts a CTA of the scan (csrc/raster.cu)
 EMPTY_RANGE = (0, -1, 0, -1)  # the pixel or tile range of a face with none
 
 _LIB = None
@@ -54,7 +55,7 @@ def _lib():
         lib = _build.library("raster")
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.raster_setup.argtypes = [p, p, i, i, i, p, p, p, p]
-        lib.raster_bin.argtypes = [p, i, i, i, i, p, p, p, p, p, p]
+        lib.raster_bin.argtypes = [p, i, i, i, i, p, p, p, p, p, p, p]
         lib.raster_draw.argtypes = [p, p, p, p, p, p, i, p, p, i, i, i, i, p,
                                     p, p]
         for fn in (lib.raster_setup, lib.raster_bin, lib.raster_draw):
@@ -200,18 +201,20 @@ def rasterize_geometry_kernel(face_vertices_z: torch.Tensor,
                                 width)
     n_tiles = B * -(-height // TILE) * -(-width // TILE)
     cnt = torch.empty(-(-n_tiles // 4) * 4, dtype=torch.int32, device=dev)
-    off = torch.empty(n_tiles + 2, dtype=torch.int64, device=dev)
     busy = torch.empty(n_tiles, dtype=torch.int32, device=dev)
+    off = torch.empty(n_tiles + 2, dtype=torch.int64, device=dev)
+    part = torch.empty(2 * -(-n_tiles // SCAN_STEP), dtype=torch.int64,
+                       device=dev)  # the scan's CTA sums
     ys, xs = _centres(height, width, dev)
     face_idx = torch.empty((B, height, width), dtype=torch.int32, device=dev)
     bary = torch.empty((B, height, width, 3), dtype=torch.float32,
                        device=dev)
     stream = _build.stream_ptr(dev)
     lib = _lib()
-    _build.check(lib.raster_bin(ranges.data_ptr(), B, F, height, width,
-                                cnt.data_ptr(), off.data_ptr(),
-                                busy.data_ptr(), face_idx.data_ptr(),
-                                bary.data_ptr(), stream), "raster_bin")
+    _build.check(lib.raster_bin(
+        ranges.data_ptr(), B, F, height, width, cnt.data_ptr(),
+        part.data_ptr(), off.data_ptr(), busy.data_ptr(),
+        face_idx.data_ptr(), bary.data_ptr(), stream), "raster_bin")
     # the list total and the busy tiles: the call's one host read
     total, n_busy = off[-2:].tolist()
     faces = torch.empty(max(total, 1), dtype=torch.int32, device=dev)
