@@ -2,14 +2,17 @@
 
 The dataclasses, their field names and defaults are the JAX package's
 (tests/test_torch_diffusion.py asserts they are equal), so one config dict
-drives both. The YAML/CLI loader waits for the slice that ports the CLI.
+drives both. `load_config` reads a YAML file and `--section.key value` or
+`--section.key=value` overrides, as contexture_nerf_tpu/core/config.py's
+does; `dump_config` writes the config back as YAML.
 """
 
 from __future__ import annotations
 
+import argparse
 from dataclasses import dataclass, field, fields, is_dataclass
 from pathlib import Path
-from typing import Any, List, Optional, Tuple
+from typing import Any, List, Optional, Tuple, get_type_hints
 
 
 @dataclass
@@ -209,10 +212,14 @@ def _build_dataclass(cls, data: dict, section: str = "",
     names = {f.name for f in fields(cls)}
     if unknown is not None:
         unknown.extend(f"{section}.{k}" for k in data if k not in names)
+    # the annotations resolved: under `from __future__ import annotations`
+    # f.type is a string, and a value like "1e-05" (which PyYAML reads as a
+    # string: YAML 1.1 floats need a dot) would reach the config uncoerced
+    hints = get_type_hints(cls)
     for f in fields(cls):
         if f.name in data:
             v = data[f.name]
-            ftype = f.type
+            ftype = hints[f.name]
             # Optional[X] -> X
             args = getattr(ftype, "__args__", None)
             if args and type(None) in args:
@@ -264,3 +271,54 @@ def config_to_dict(cfg: TrainConfig) -> dict:
 
     return enc(cfg)
 
+
+
+def dump_config(cfg: TrainConfig, path: Path) -> None:
+    import yaml
+
+    Path(path).write_text(yaml.safe_dump(config_to_dict(cfg), sort_keys=False))
+
+
+def _parse_cli_value(raw: str) -> Any:
+    import yaml
+
+    try:
+        return yaml.safe_load(raw)
+    except yaml.YAMLError:
+        return raw
+
+
+def load_config(argv: Optional[List[str]] = None) -> TrainConfig:
+    """pyrallis-style entry: --config_path=... plus --section.key overrides."""
+    import yaml
+
+    parser = argparse.ArgumentParser(add_help=False)
+    parser.add_argument("--config_path", type=str, default=None)
+    known, rest = parser.parse_known_args(argv)
+
+    data: dict = {}
+    if known.config_path:
+        data = yaml.safe_load(Path(known.config_path).read_text()) or {}
+
+    # CLI overrides: --log.exp_name value  |  --log.exp_name=value
+    i = 0
+    while i < len(rest):
+        tok = rest[i]
+        if not tok.startswith("--"):
+            i += 1
+            continue
+        tok = tok[2:]
+        if "=" in tok:
+            key, val = tok.split("=", 1)
+            i += 1
+        else:
+            key = tok
+            val = rest[i + 1] if i + 1 < len(rest) else "true"
+            i += 2
+        parts = key.split(".")
+        node = data
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = _parse_cli_value(val)
+
+    return config_from_dict(data)

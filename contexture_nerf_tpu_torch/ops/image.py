@@ -1,8 +1,10 @@
 """Image-space utilities: the port's counterparts of
 contexture_nerf_tpu/ops/image.py `get_view_direction`,
-`get_nonzero_region_tuple`, `resize_bilinear` and `crop_and_resize`, and
-the `jax.image.resize` methods the SD2-depth bootstrap uses (linear,
-bicubic, nearest).
+`get_nonzero_region_tuple`, `resize_bilinear`, `crop_and_resize`,
+`color_with_shade`, `save_colormap` and `tensor2numpy`, the
+`jax.image.resize` methods the SD2-depth bootstrap uses (linear, bicubic,
+nearest), and `save_image`, which writes an image file with Pillow or,
+where Pillow is missing, as PNG through the port's own encoder.
 
 Bounding boxes are host-side integer math on fixed masks, computed once at
 setup; the crops they give are static slices.
@@ -10,7 +12,10 @@ setup; the crops they give are static slices.
 
 from __future__ import annotations
 
-from typing import Tuple
+import struct
+import zlib
+from pathlib import Path
+from typing import List, Tuple
 
 import numpy as np
 import torch
@@ -83,3 +88,81 @@ def crop_and_resize(x: torch.Tensor, bbox: Tuple[int, int, int, int],
     """Crop (B, C, H, W) to the integer bbox and resize to (out_h, out_w)."""
     min_h, min_w, max_h, max_w = bbox
     return resize_linear(x[:, :, min_h:max_h, min_w:max_w], (out_h, out_w))
+
+
+def color_with_shade(color: List[float], z_normals: torch.Tensor,
+                     light_coef: float = 0.7) -> torch.Tensor:
+    """A flat colour shaded by the z normal: color * (light_coef +
+    (1 - light_coef) * z_normals), no gradient through the normals."""
+    normals_with_light = light_coef + (1 - light_coef) * z_normals.detach()
+    return torch.tensor(color, dtype=z_normals.dtype,
+                        device=z_normals.device).reshape(1, 3, 1, 1) * \
+        normals_with_light
+
+
+def tensor2numpy(x) -> np.ndarray:
+    """An image in [0, 1] -> uint8 by truncation, raising on NaN or Inf."""
+    arr = x.detach().cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
+    if np.any(np.isnan(arr)) or np.any(np.isinf(arr)):
+        raise ValueError(
+            "Tensor contains NaNs or infinite values, which cannot be "
+            "converted to np.uint8.")
+    return (arr * 255).astype(np.uint8)
+
+
+def encode_png(arr: np.ndarray) -> bytes:
+    """A (H, W, 3|4) or (H, W) uint8 array as PNG bytes: 8-bit RGB, RGBA
+    or gray, filter 0 on every row, zlib-compressed."""
+    arr = np.ascontiguousarray(arr, dtype=np.uint8)
+    h, w = arr.shape[:2]
+    ctype = {1: 0, 3: 2, 4: 6}[arr.shape[2] if arr.ndim == 3 else 1]
+    rows = arr.reshape(h, -1)
+    raw = np.concatenate([np.zeros((h, 1), np.uint8), rows], axis=1)
+
+    def chunk(tag: bytes, data: bytes) -> bytes:
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+    return (b"\x89PNG\r\n\x1a\n"
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, ctype, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(raw.tobytes(), 6))
+            + chunk(b"IEND", b""))
+
+
+def save_image(arr: np.ndarray, path) -> Path:
+    """Write a (H, W, 3) or (H, W) uint8 image. With Pillow, in the format
+    of the file's suffix; without it, as PNG through `encode_png`, the
+    suffix changed to .png (a JPEG cannot be written without Pillow).
+    Returns the path written."""
+    path = Path(path)
+    try:
+        from PIL import Image
+    except ImportError:
+        path = path.with_suffix(".png")
+        path.write_bytes(encode_png(arr))
+        return path
+    Image.fromarray(np.ascontiguousarray(arr)).save(path)
+    return path
+
+
+def save_gif(frames: np.ndarray, path, fps: int = 25) -> None:
+    """Frames (T, H, W, 3) uint8 as a looping GIF, with Pillow."""
+    from PIL import Image
+
+    ims = [Image.fromarray(f) for f in frames]
+    ims[0].save(path, save_all=True, append_images=ims[1:],
+                duration=int(round(1000 / fps)), loop=0)
+
+
+def save_colormap(arr: np.ndarray, path) -> None:
+    """Save a (H,W) scalar map through the seismic colormap; a grayscale
+    image where matplotlib is unavailable."""
+    arr = np.asarray(arr, np.float32)
+    try:
+        from matplotlib import cm
+
+        rgb = (cm.seismic(arr)[:, :, :3] * 255).astype(np.uint8)
+    except ImportError:
+        g = np.clip(arr, 0.0, 1.0)
+        rgb = np.stack([(g * 255).astype(np.uint8)] * 3, axis=-1)
+    save_image(rgb, path)

@@ -99,14 +99,28 @@ class Renderer:
             face_vertices_image=fvi, bary=bary, mask=mask[:, None])
 
     def render_texture_with_cache(self, cache: RenderCache,
-                                  texture_map: torch.Tensor):
+                                  texture_map: torch.Tensor,
+                                  background_type: str = "none",
+                                  background_noise: Optional[
+                                      torch.Tensor] = None):
         """Sample texture_map (B|1, 3, TH, TW) at the cached UVs. Returns
-        (image (B,3,H,W), zero on background; mask (B,1,H,W); depth
-        (B,1,H,W); normals (B,3,H,W))."""
+        (image (B,3,H,W); mask (B,1,H,W); depth (B,1,H,W); normals
+        (B,3,H,W)). The image's background is zero ("none"), one
+        ("white") or `background_noise` (B|1,1,1,3) ("random"; zero when
+        not given)."""
         image = sample_texture(cache.uv_features, texture_map,
                                self.interpolation_mode)  # (B,H,W,3)
         mask_hw1 = cache.mask.permute(0, 2, 3, 1)
         image = image * mask_hw1
+        if background_type == "white":
+            image = image + 1.0 * (1 - mask_hw1)
+        elif background_type == "random":
+            noise = (background_noise if background_noise is not None
+                     else torch.zeros((1, 1, 1, 3), dtype=image.dtype,
+                                      device=image.device))
+            image = image + noise * (1 - mask_hw1)
+        elif background_type != "none":
+            raise ValueError(f"no background type {background_type!r}")
         B, H, W = cache.face_idx.shape
         safe = cache.face_idx.clamp(min=0).reshape(B, -1).long()
         normals = torch.gather(cache.face_normals, 1,

@@ -8,7 +8,7 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "contexture_nerf_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "contexture_nerf_tpu")
 PORT_FILES = sorted((ROOT / "contexture_nerf_tpu_torch").rglob("*.py")) + \
     [ROOT / "chip_smoke.py"]
 
