@@ -1,8 +1,9 @@
-"""The SDS paint step and loop, and the setup that feeds them: counterparts
-of contexture_nerf_tpu/training/trainer.py `ConTEXTure.define_view_weights`,
-`ConTEXTure._calc_text_embeddings`, `ConTEXTure.paint_viewpoint`,
-`ConTEXTure.prepare_sds`, `_build_sds_step` (render_grid_latent,
-render_grid_latent_local, sds_step) and the loop of `paint_zero123plus`.
+"""The paint run: counterparts of contexture_nerf_tpu/training/trainer.py
+`ConTEXTure` (setup, `paint`, `paint_zero123plus` with its metrics, images,
+checkpoints and resume, the view-consistency metric, `evaluate`,
+`full_eval`), of `define_view_weights`, `_calc_text_embeddings`,
+`paint_viewpoint`, `prepare_sds` and `_build_sds_step` (render_grid_latent,
+render_grid_latent_local, sds_step).
 
 `prepare_sds` renders the mesh's 7 fixed views once (K5 rasterizes them in
 one launch on the card; K1 queries the MLP on the texture lattice), then
@@ -22,11 +23,19 @@ card), composite with the mask, VAE-encode and DDPM-noise, run the Zero123++
 teacher (write pass, depth ControlNet, read pass, CFG), form the SDS target
 and the 1/2-sum-square loss on one sampled latent tile, back-propagate
 (through a margin-padded slice with local_sds_grad) and take an Adam step.
+
+The eval renders the turntable (K5 once a frame) with one texture map (K1
+once an `evaluate` call: the map depends on the parameters only), filled
+with the painted texels' median after painting.
 """
 
 from __future__ import annotations
 
+import json
 import logging
+import os
+import time
+from collections import deque
 from pathlib import Path
 from typing import Dict, List, Optional, Tuple
 
@@ -34,30 +43,40 @@ import numpy as np
 import torch
 
 from contexture_nerf_tpu_torch import phase, resolve_device
+from contexture_nerf_tpu_torch.core import checkpoint as ckpt
+from contexture_nerf_tpu_torch.core import profiler
 from contexture_nerf_tpu_torch.core.config import (GuideConfig, RenderConfig,
-                                                   TrainConfig)
+                                                   TrainConfig, dump_config)
+from contexture_nerf_tpu_torch.core.imagewriter import (AsyncImageWriter,
+                                                        start_host_copy,
+                                                        sync_writer)
 from contexture_nerf_tpu_torch.diffusion import schedulers as sch
 from contexture_nerf_tpu_torch.diffusion.sd_depth import StableDiffusionDepth
 from contexture_nerf_tpu_torch.diffusion.unet import UNetConfig
 from contexture_nerf_tpu_torch.diffusion.vae import VAEConfig, encode_moments
 from contexture_nerf_tpu_torch.diffusion.zero123plus import (
-    Zero123PlusTeacher, scale_image, scale_latents)
+    Zero123PlusTeacher, scale_image, scale_latents, unscale_image)
 from contexture_nerf_tpu_torch.models.fields import NeRF2D
 from contexture_nerf_tpu_torch.models.textured_mesh import TexturedMeshModel
 from contexture_nerf_tpu_torch.ops import _build
 from contexture_nerf_tpu_torch.ops import groupnorm
 from contexture_nerf_tpu_torch.ops.attention import routes_to_kernel
 from contexture_nerf_tpu_torch.ops.grid import merge_6_to_grid, split_grid_to_6
-from contexture_nerf_tpu_torch.ops.image import (crop_and_resize,
+from contexture_nerf_tpu_torch.ops.image import (color_with_shade,
+                                                 crop_and_resize,
                                                  get_nonzero_region_tuple,
-                                                 resize_linear)
+                                                 resize_linear, save_colormap,
+                                                 save_gif, save_image,
+                                                 tensor2numpy)
 from contexture_nerf_tpu_torch.ops.mlp_kernel import (fused_nerf2d,
                                                       fused_nerf2d_emb,
                                                       pad_embedding)
+from contexture_nerf_tpu_torch.ops.view_consistency import \
+    compute_view_consistency
 from contexture_nerf_tpu_torch.ops.view_weights import compute_view_weights
 from contexture_nerf_tpu_torch.raster.render import RenderCache
-from contexture_nerf_tpu_torch.training.views_dataset import \
-    Zero123PlusDataset
+from contexture_nerf_tpu_torch.training.views_dataset import (
+    MultiviewDataset, ViewsDataset, Zero123PlusDataset)
 
 logger = logging.getLogger("contexture_nerf_tpu_torch")
 
@@ -299,7 +318,7 @@ class SDSTrainer:
         metrics = []
         for i in range(n):
             _, loss, grad_norm, fisher, _ = self.step(ts[i])
-            if i % LOG_EVERY == 0 or i == n - 1:
+            if logs_metrics(i, n):
                 metrics.append({"iter": i, "t": ts[i],
                                 "sds_loss": float(loss),
                                 "grad_norm": float(grad_norm),
@@ -653,22 +672,16 @@ def prepare_sds(cfg: TrainConfig, mesh_model: TexturedMeshModel, mlp: NeRF2D,
             "front_rgb": rgb_front}
 
 
-def build_sds_trainer(cfg: TrainConfig, tiny: bool = False, device="cuda",
-                      teacher: Optional[Zero123PlusTeacher] = None,
-                      mlp: Optional[NeRF2D] = None,
-                      eps: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-                      timings: Optional[Dict[str, float]] = None,
-                      skip_bootstrap: bool = False,
-                      diffusion: Optional[StableDiffusionDepth] = None,
-                      bootstrap_draws: Optional[Dict[str, torch.Tensor]] = None
-                      ) -> Tuple[SDSTrainer, Dict]:
-    """From a config to a ready SDS loop: the mesh model of
-    guide.shape_path, the texture MLP, the teacher and (unless
-    skip_bootstrap) the SD2-depth stack, each with seeded random weights
-    from optim.seed unless given; `prepare_sds` with the front-view
-    bootstrap, as the reference's paint loop runs it; then the trainer,
-    whose draws continue the same generator. The SD2-depth stack is not
-    kept: the loop does not use it. Returns (trainer, setup)."""
+def build_models(cfg: TrainConfig, tiny: bool = False, device="cuda",
+                 teacher: Optional[Zero123PlusTeacher] = None,
+                 mlp: Optional[NeRF2D] = None,
+                 diffusion: Optional[StableDiffusionDepth] = None,
+                 skip_bootstrap: bool = False):
+    """The models of a paint run: (generator, teacher, mlp, diffusion,
+    mesh_model). The generator is seeded with optim.seed and fills, in
+    this order, the teacher, the texture MLP and (unless skip_bootstrap)
+    the SD2-depth stack, each unless given; the mesh model is
+    guide.shape_path's."""
     if cfg.guide.initial_texture is not None:
         raise NotImplementedError(
             "guide.initial_texture (fitting the MLP to an image) comes with "
@@ -685,6 +698,26 @@ def build_sds_trainer(cfg: TrainConfig, tiny: bool = False, device="cuda",
         cfg.guide, render_grid_size=cfg.render.train_grid_size,
         texture_resolution=cfg.guide.texture_resolution,
         compute_dtype=teacher.dtype, device=dev)
+    return generator, teacher, mlp, diffusion, mesh_model
+
+
+def build_sds_trainer(cfg: TrainConfig, tiny: bool = False, device="cuda",
+                      teacher: Optional[Zero123PlusTeacher] = None,
+                      mlp: Optional[NeRF2D] = None,
+                      eps: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                      timings: Optional[Dict[str, float]] = None,
+                      skip_bootstrap: bool = False,
+                      diffusion: Optional[StableDiffusionDepth] = None,
+                      bootstrap_draws: Optional[Dict[str, torch.Tensor]] = None
+                      ) -> Tuple[SDSTrainer, Dict]:
+    """From a config to a ready SDS loop: `build_models` (seeded random
+    weights from optim.seed unless given); `prepare_sds` with the
+    front-view bootstrap, as the reference's paint loop runs it; then the
+    trainer, whose draws continue the same generator. The SD2-depth stack
+    is not kept: the loop does not use it. Returns (trainer, setup)."""
+    dev = resolve_device(device)
+    generator, teacher, mlp, diffusion, mesh_model = build_models(
+        cfg, tiny, dev, teacher, mlp, diffusion, skip_bootstrap)
     setup = prepare_sds(cfg, mesh_model, mlp, teacher, eps=eps,
                         skip_bootstrap=skip_bootstrap, generator=generator,
                         timings=timings, diffusion=diffusion,
@@ -692,3 +725,487 @@ def build_sds_trainer(cfg: TrainConfig, tiny: bool = False, device="cuda",
     trainer = SDSTrainer(cfg, setup, teacher=teacher, mlp=mlp, tiny=tiny,
                          device=dev, generator=generator)
     return trainer, setup
+
+
+# -- the eval render -----------------------------------------------------------------
+
+def eval_frame(mesh_model: TexturedMeshModel, texture: torch.Tensor, theta,
+               phi, radius, dim: int):
+    """One eval render of `texture` (1,3,R,R) at (theta, phi, radius) on
+    white: the pixels left at the default colour are shaded grey by their
+    z normal, the image clipped to [0, 1]. Returns (rgb (B,dim,dim,3),
+    depth (B,dim,dim,1), z_normals (B,1,dim,dim))."""
+    outputs = mesh_model.render_texture(texture, theta=theta, phi=phi,
+                                        radius=radius, dims=(dim, dim),
+                                        background="white")
+    z_normals = outputs["normals"][:, -1:].clamp(0, 1)
+    rgb_render = outputs["image"]
+    default = torch.tensor(mesh_model.default_color, dtype=rgb_render.dtype,
+                           device=rgb_render.device).reshape(1, 3, 1, 1)
+    diff = (rgb_render - default).abs().sum(dim=1)
+    uncolored = (diff < 0.1).to(rgb_render.dtype)[:, None]
+    shade = color_with_shade([0.85, 0.85, 0.85], z_normals, light_coef=0.3)
+    rgb_render = rgb_render * (1 - uncolored) + shade * uncolored
+    rgb = rgb_render.permute(0, 2, 3, 1).clamp(0, 1)
+    depth = outputs["depth"].permute(0, 2, 3, 1)
+    return rgb, depth, z_normals
+
+
+def full_eval_kernel_launches(cfg: TrainConfig) -> Dict[str, int]:
+    """Kernel launches of `ConTEXTure.full_eval` on the card: K5 once a
+    turntable frame; K1 once for the texture map, which `evaluate` computes
+    once for all its frames (it depends on the parameters only), and once
+    more for export_mesh's albedo with log.save_mesh."""
+    counts = {k: 0 for k in _build.launch_counts}
+    counts["raster"] = cfg.log.full_eval_size
+    counts["mlp_fwd"] = 1 + (1 if cfg.log.save_mesh else 0)
+    return counts
+
+
+# -- the paint run -------------------------------------------------------------------
+
+def logs_metrics(i: int, iterations: int) -> bool:
+    """A metric entry (and a sync-to-sync window) at iteration i."""
+    return i % LOG_EVERY == 0 or i == iterations - 1
+
+
+def logs_view_consistency(i: int, iterations: int) -> bool:
+    """The view-consistency metric in iteration i's entry."""
+    return i % 250 == 0 or i == iterations - 1
+
+
+def logs_images(i: int) -> bool:
+    """The texture map and the rendered grid written at iteration i (with
+    log.log_images)."""
+    return (i % 10 == 0 and i < 1000) or i % 100 == 0
+
+
+def saves_checkpoint(i: int, iterations: int, interval: int) -> bool:
+    """A checkpoint (iteration i + 1) and metrics.json after iteration i;
+    the last iteration's checkpoint is written after the loop."""
+    return interval > 0 and (i + 1) % interval == 0 and (i + 1) < iterations
+
+
+def make_path(p: Path) -> Path:
+    p.mkdir(exist_ok=True, parents=True)
+    return p
+
+
+def _quantize_u8(tensor: torch.Tensor):
+    """The device half of image logging: clip and scale to uint8 before the
+    copy to the host, and a NaN/Inf flag (uint8 cannot carry them)."""
+    t = tensor.float()
+    bad = ~torch.isfinite(t).all()
+    q = (t.clamp(0.0, 1.0) * 255.0).to(torch.uint8)
+    return q, bad.to(torch.uint8)
+
+
+def _write_chw_image(path: Path):
+    """The writer-thread half of image logging: guard, encode, save a
+    (uint8 CHW image, NaN flag) pair from _quantize_u8."""
+    def write(packed):
+        arr, bad = packed
+        if int(bad):
+            raise ValueError(
+                f"Tensor contains NaNs or infinite values ({path})")
+        arr = np.asarray(arr).transpose(1, 2, 0)
+        if arr.shape[-1] == 4:
+            arr = arr[..., :3]
+        save_image(arr, path)
+    return write
+
+
+class ConTEXTure:
+    """Text -> textured mesh: the port's counterpart of
+    contexture_nerf_tpu/training/trainer.py `ConTEXTure`. The models come
+    from `build_models` (random towers from optim.seed unless given);
+    `paint` runs `paint_zero123plus`: prepare_sds, the SDS loop with its
+    metrics, images and checkpoints, then `full_eval` (the turntable and
+    the exported mesh). Outputs go to log.exp_root/log.exp_name."""
+
+    # eval frames holding device buffers at once in evaluate()
+    _EVAL_INFLIGHT = 3
+
+    def __init__(self, cfg: TrainConfig, tiny_models: bool = False,
+                 device="cuda", teacher: Optional[Zero123PlusTeacher] = None,
+                 mlp: Optional[NeRF2D] = None,
+                 diffusion: Optional[StableDiffusionDepth] = None):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.paint_step = 0
+        self.tiny = tiny_models
+
+        self.exp_path = make_path(Path(cfg.log.exp_dir))
+        self.ckpt_path = make_path(self.exp_path / "checkpoints")
+        self.train_renders_path = make_path(self.exp_path / "vis" / "train")
+        self.eval_renders_path = make_path(self.exp_path / "vis" / "eval")
+        self.final_renders_path = make_path(self.exp_path / "results")
+        self._init_logger()
+        dump_config(cfg, self.exp_path / "config.yaml")
+
+        (self.generator, self.teacher, self.mlp, self.diffusion,
+         self.mesh_model) = build_models(cfg, tiny_models, self.device,
+                                         teacher, mlp, diffusion)
+        n = sum(p.numel() for p in self.mlp.parameters())
+        logger.info(f"Loaded Mesh, #parameters: {n}")
+        self.dataloaders = self._init_dataloaders()
+        self.sds: Optional[SDSTrainer] = None
+        self._consistency = None
+        self._median_eval = False
+        self._img_writer = (AsyncImageWriter() if cfg.log.async_image_writer
+                            else sync_writer())
+        # optional wandb: metrics.json is always written, wandb is opt-in
+        self._wandb = None
+        if os.environ.get("WANDB_ENABLED"):
+            try:
+                import wandb
+
+                self._wandb = wandb.init(project="ConTEXTure-NeRF-TPU",
+                                         config=dict(exp=cfg.log.exp_name))
+            except Exception as e:  # a logging sink must not stop the run
+                logger.warning(f"wandb disabled: {e!r}")
+
+    # -- setup ----------------------------------------------------------------
+
+    def _init_logger(self):
+        logging.basicConfig(level=logging.INFO,
+                            format="%(asctime)s %(message)s")
+        # the module logger is shared: drop the file handlers of earlier
+        # runs in this process, or their log.txt would get this run's lines
+        for h in list(logger.handlers):
+            if isinstance(h, logging.FileHandler):
+                logger.removeHandler(h)
+                h.close()
+        logger.addHandler(logging.FileHandler(self.exp_path / "log.txt"))
+        # log.txt gets the run's INFO lines whatever the root logger's level
+        logger.setLevel(logging.INFO)
+
+    def _init_dataloaders(self) -> Dict:
+        render = self.cfg.render
+        train = (Zero123PlusDataset(render) if self.cfg.guide.use_zero123plus
+                 else MultiviewDataset(render))
+        return {"train": train,
+                "val": ViewsDataset(render, size=self.cfg.log.eval_size),
+                "val_large": ViewsDataset(render,
+                                          size=self.cfg.log.full_eval_size)}
+
+    # -- main -----------------------------------------------------------------
+
+    def paint(self):
+        if not self.cfg.guide.use_zero123plus:
+            raise ValueError(
+                "guide.use_zero123plus=False has no live paint path (the "
+                "reference's paint() also runs the Zero123++ SDS loop "
+                "unconditionally, reference trainer.py:367); set it to "
+                "true, or use StableDiffusionDepth.img2img_step/sds_grad "
+                "directly for single-view guidance")
+        self.paint_zero123plus()
+
+    def paint_zero123plus(self):
+        """prepare_sds, then optim.sds_iterations SDS steps over the
+        DreamTime t schedule: a metric entry every 50 iterations and at the
+        last (view_consistency every 250 and at the last), images at the
+        reference's cadence, a checkpoint and metrics.json every
+        optim.checkpoint_interval; then metrics.json, the final checkpoint,
+        full_eval with the median fill, and timings.json. optim.resume
+        continues from the newest checkpoint."""
+        logger.info("Starting SDS Texture Generation ^_^")
+        cfg = self.cfg
+        setup = prepare_sds(cfg, self.mesh_model, self.mlp, self.teacher,
+                            generator=self.generator,
+                            diffusion=self.diffusion)
+        sds = self.sds = SDSTrainer(cfg, setup, teacher=self.teacher,
+                                    mlp=self.mlp, tiny=self.tiny,
+                                    device=self.device,
+                                    generator=self.generator)
+        iterations = cfg.optim.sds_iterations
+        ts = [int(t) for t in sds.t_schedule(iterations).tolist()]
+
+        # params, Adam state, generator state and iteration
+        start_iter = 0
+        if cfg.optim.resume:
+            latest = ckpt.latest_iteration(self.ckpt_path)
+            if latest is not None:
+                restored = self._restore_checkpoint(latest, sds.optimizer)
+                start_iter = int(restored["iteration"])
+                logger.info(f"Resumed from checkpoint iter {start_iter}")
+
+        metrics_log: List[Dict] = []
+        metrics_path = self.exp_path / "metrics.json"
+        if start_iter > 0 and metrics_path.exists():
+            # keep the metric history from before the interruption
+            try:
+                prev = json.loads(metrics_path.read_text())
+                metrics_log = [m for m in prev if m["iter"] < start_iter]
+            except (json.JSONDecodeError, KeyError):
+                pass
+        ikl_running_avg = None
+        t0 = time.time()
+        win_t0, win_i0 = None, start_iter
+        for i in range(start_iter, iterations):
+            with profiler.phase("sds_step"):
+                _, loss, grad_norm, fisher, grid = sds.step(ts[i])
+            if logs_metrics(i, iterations):
+                loss_f = float(loss)
+                # float(loss) waited for the card: note the sync-to-sync
+                # window, so timings.json has the device-inclusive rate
+                if win_t0 is not None and i > win_i0:
+                    profiler.GLOBAL_TIMINGS.note_window(
+                        "sds_step", i - win_i0, time.time() - win_t0)
+                fisher_f = float(fisher)
+                ikl_running_avg = (fisher_f if ikl_running_avg is None
+                                   else 0.99 * ikl_running_avg
+                                   + 0.01 * fisher_f)
+                entry = {"iter": i, "sds_loss": loss_f,
+                         "grad_norm": float(grad_norm),
+                         "fisher_divergence_t": fisher_f,
+                         "ikl_running_avg": ikl_running_avg,
+                         "t": ts[i], "elapsed_s": time.time() - t0}
+                if logs_view_consistency(i, iterations):
+                    with profiler.phase("view_consistency_metric"):
+                        entry["view_consistency"] = float(
+                            self._view_consistency_metric())
+                metrics_log.append(entry)
+                logger.info(f"iter {i}: sds_loss={loss_f:.4f} t={ts[i]} "
+                            f"grad_norm={float(grad_norm):.4g}")
+                if self._wandb is not None:
+                    self._wandb.log(metrics_log[-1])
+                # the window restarts after the metric work, so
+                # window_iter_ms counts loop iterations only
+                win_t0, win_i0 = time.time(), i
+            if cfg.log.log_images and logs_images(i):
+                self.log_texture_map(i)
+                self.log_train_image((unscale_image(grid) + 1) / 2,
+                                     f"rendered_grid_clean_{i}")
+            if saves_checkpoint(i, iterations,
+                                cfg.optim.checkpoint_interval):
+                self.save_checkpoint(i + 1, sds.optimizer)
+                # metrics survive a real interruption too
+                metrics_path.write_text(json.dumps(metrics_log, indent=1))
+
+        metrics_path.write_text(json.dumps(metrics_log, indent=1))
+        self.save_checkpoint(iterations, sds.optimizer)
+        self._median_eval = True
+        logger.info("Finished SDS Painting ^_^")
+        self.full_eval()
+        self._img_writer.flush()  # raise any failed or pending log write
+        profiler.GLOBAL_TIMINGS.dump(self.exp_path / "timings.json")
+
+    def paint_kernel_launches(self, start_iter: int = 0) -> Dict[str, int]:
+        """Kernel launches of a `paint_zero123plus` run on the card that
+        began at start_iter (after it ran: the step's derivation needs its
+        SDSTrainer): prepare_sds's, each step's, the view-consistency
+        metric's (K5 once for its cached geometry, K1 once a call), K1 once
+        for each texture map logged, and full_eval's."""
+        cfg, n = self.cfg, self.cfg.optim.sds_iterations
+        its = range(start_iter, n)
+        counts = prepare_sds_kernel_launches(cfg, self.teacher,
+                                             self.diffusion)
+        for k, v in self.sds.expected_kernel_launches().items():
+            counts[k] += len(its) * v
+        vc = sum(1 for i in its if logs_metrics(i, n)
+                 and logs_view_consistency(i, n))
+        counts["raster"] += 1 if vc else 0
+        counts["mlp_fwd"] += vc
+        if cfg.log.log_images:
+            counts["mlp_fwd"] += sum(1 for i in its if logs_images(i))
+        for k, v in full_eval_kernel_launches(cfg).items():
+            counts[k] += v
+        return counts
+
+    @torch.no_grad()
+    def _view_consistency_metric(self) -> torch.Tensor:
+        """The cross-view consistency of the current texture: the 6 target
+        views' geometry at min(192, train_grid_size)^2, rendered once and
+        cached (K5 on the card), the MLP queried at their UVs (K1),
+        composited on 0.5 grey, then `compute_view_consistency`."""
+        model = self.mesh_model
+        if self._consistency is None:
+            dims = min(192, self.cfg.render.train_grid_size)
+            thetas, phis, radii = view_angles(self.cfg.render)
+            cache = model.render_geometry(thetas[1:], phis[1:], radii[1:],
+                                          dims=(dims, dims))
+            self._consistency = (cache, int(model.faces.max()) + 1)
+        cache, n_verts = self._consistency
+        V, H, W = cache.face_idx.shape
+        rgb = model.query_texture_at_uv(self.mlp,
+                                        cache.uv_features.reshape(-1, 2))
+        imgs = rgb.reshape(V, H, W, 3).permute(0, 3, 1, 2)
+        imgs = imgs * cache.mask + 0.5 * (1 - cache.mask)
+        return compute_view_consistency(imgs, model.faces, cache.face_idx,
+                                        cache.face_vertices_image,
+                                        n_vertices=n_verts)
+
+    # -- eval ---------------------------------------------------------------------
+
+    def _adjust_phi(self, phi) -> float:
+        phi = phi - np.deg2rad(self.cfg.render.front_offset)
+        return float(phi + 2 * np.pi if phi < 0 else phi)
+
+    def _eval_texture(self) -> torch.Tensor:
+        """The texture map of the eval renders (1,3,R,R) (K1 on the card),
+        median-filled after painting. It depends on the parameters only, so
+        `evaluate` computes it once for all its frames."""
+        texture, _ = self.mesh_model.get_texture_map(self.mlp)
+        if self._median_eval:
+            texture = self.mesh_model.apply_median_fill(texture)
+        return texture
+
+    @torch.no_grad()
+    def eval_render(self, data):
+        """One eval render of a pose dict: (rgb, texture, depth, z_normals)
+        as the reference's eval graph returns them."""
+        texture = self._eval_texture()
+        rgb, depth, z = eval_frame(
+            self.mesh_model, texture, [data["theta"]],
+            [self._adjust_phi(data["phi"])], [data["radius"]],
+            self.cfg.render.eval_grid_size)
+        return rgb, texture.permute(0, 2, 3, 1).clamp(0, 1), depth, z
+
+    @torch.no_grad()
+    def evaluate(self, dataloader, save_path: Path,
+                 save_as_video: bool = False):
+        """Render every pose of `dataloader` at render.eval_grid_size and
+        write the frames (a turntable video with save_as_video, else one JPG
+        each) and eval_texture_atlas.png. Each frame is quantised on the
+        card and copied to the host while the next renders, with at most
+        _EVAL_INFLIGHT frames holding device buffers; a non-finite frame
+        raises. Notes the "eval" window (frames after the first)."""
+        logger.info(f"Evaluating and saving model, painting iteration "
+                    f"#{self.paint_step}...")
+        save_path.mkdir(exist_ok=True, parents=True)
+        dim = self.cfg.render.eval_grid_size
+        poses = list(dataloader)
+        texture = self._eval_texture()
+        all_preds = []
+        pending = deque()
+        win = {"t_first": None, "frames": 0}
+
+        def drain_one():
+            i, get_q, get_bad = pending.popleft()
+            if int(get_bad()):
+                raise ValueError("Tensor contains NaNs or infinite values "
+                                 f"(eval frame {i})")
+            arr = get_q()
+            if win["t_first"] is None:
+                win["t_first"] = time.perf_counter()
+            else:
+                win["frames"] += 1
+            if save_as_video:
+                all_preds.append(arr[0])
+            else:
+                save_image(arr[0], save_path / f"eval_rendered_{i:04d}_rgb.jpg")
+
+        for i, p in enumerate(poses):
+            rgb, _, _ = eval_frame(self.mesh_model, texture, [p["theta"]],
+                                   [self._adjust_phi(p["phi"])],
+                                   [p["radius"]], dim)
+            q, bad = _quantize_u8(rgb)
+            pending.append((i, start_host_copy(q), start_host_copy(bad)))
+            if len(pending) >= self._EVAL_INFLIGHT:
+                drain_one()
+        while pending:
+            drain_one()
+        if win["t_first"] is not None and win["frames"] > 0:
+            profiler.GLOBAL_TIMINGS.note_window(
+                "eval", win["frames"], time.perf_counter() - win["t_first"])
+        atlas = texture.permute(0, 2, 3, 1).clamp(0, 1)[0]
+        save_image(tensor2numpy(atlas), save_path / "eval_texture_atlas.png")
+        if save_as_video and all_preds:
+            stacked = np.stack(all_preds, axis=0)
+            base = save_path / \
+                f"eval_video_all_rendered_rgb_{self.cfg.optim.seed}"
+            try:
+                import imageio
+
+                imageio.mimsave(base.with_suffix(".mp4"), stacked, fps=25,
+                                quality=8, macro_block_size=1)
+            except (ImportError, ValueError):
+                # no imageio or no ffmpeg backend: a GIF
+                save_gif(stacked, base.with_suffix(".gif"), fps=25)
+        logger.info("Eval Done!")
+
+    def full_eval(self, output_dir: Optional[Path] = None):
+        output_dir = output_dir or self.final_renders_path
+        self._img_writer.flush()  # the loop's log writes land before eval's
+        with profiler.phase("eval"):
+            self.evaluate(self.dataloaders["val_large"], output_dir,
+                          save_as_video=True)
+        if self.cfg.log.save_mesh:
+            save_path = make_path(self.exp_path / "mesh")
+            logger.info(f"Saving mesh to {save_path}")
+            with profiler.phase("export"):
+                self.mesh_model.export_mesh(save_path, self.mlp)
+            logger.info("\t Full Eval Done!")
+
+    # -- checkpoints ----------------------------------------------------------------
+
+    def save_checkpoint(self, iteration: int,
+                        optimizer: Optional[torch.optim.Optimizer] = None):
+        """The MLP's parameters, the optimizer's state, the generator's
+        state and the iteration, so that a resumed run is bit-identical to
+        an uninterrupted one."""
+        ckpt.save(self.ckpt_path / f"iter_{iteration:06d}",
+                  self.mlp.state_dict(),
+                  opt_state=(optimizer.state_dict() if optimizer is not None
+                             else None),
+                  iteration=iteration,
+                  generator_state=self.generator.get_state())
+
+    def _restore_checkpoint(self, iteration: int,
+                            optimizer: Optional[torch.optim.Optimizer] = None
+                            ) -> Dict:
+        """Load a checkpoint into the MLP, the optimizer and the generator.
+        One of the older format (params and iteration only) restores the
+        parameters alone."""
+        raw = ckpt.restore(self.ckpt_path / f"iter_{iteration:06d}")
+        self.mlp.load_state_dict(raw["params"])
+        if optimizer is not None and raw.get("opt_state") is not None:
+            optimizer.load_state_dict(raw["opt_state"])
+        if raw.get("generator") is not None:
+            self.generator.set_state(raw["generator"])
+        return raw
+
+    def load_checkpoint(self, iteration: int) -> Dict:
+        raw = ckpt.restore(self.ckpt_path / f"iter_{iteration:06d}")
+        self.mlp.load_state_dict(raw["params"])
+        return raw
+
+    # -- logging ----------------------------------------------------------------------
+
+    def log_train_image(self, tensor: torch.Tensor, name: str,
+                        file_type: str = "jpg", colormap: bool = False):
+        """vis/train/debug_<name>.<file_type> from the first image of a
+        batch; colormap routes a (H,W) scalar map through the seismic
+        colormap. Quantised here, written on the writer thread."""
+        if not self.cfg.log.log_images:
+            return
+        path = self.train_renders_path / f"debug_{name}.{file_type}"
+        if colormap:
+            self._img_writer.submit(tensor,
+                                    lambda arr: save_colormap(arr, path))
+            return
+        self._img_writer.submit(_quantize_u8(tensor[0]),
+                                _write_chw_image(path))
+
+    def log_diffusion_steps(self, intermediate_vis):
+        """The intermediate denoise frames, in a folder per paint step."""
+        if not intermediate_vis:
+            return
+        folder = (self.train_renders_path
+                  / f"{self.paint_step:04d}_diffusion_steps")
+        folder.mkdir(exist_ok=True, parents=True)
+        for k, frame in enumerate(intermediate_vis):
+            self._img_writer.submit(
+                _quantize_u8(frame[0]),
+                _write_chw_image(folder / f"{k:02d}_diffusion_step.jpg"))
+
+    @torch.no_grad()
+    def log_texture_map(self, iteration: int):
+        """vis/train/texture_map_iter_<iteration>.png: the texture lattice
+        (K1 on the card), quantised on the card."""
+        texture, _ = self.mesh_model.get_texture_map(self.mlp)
+        self._img_writer.submit(
+            _quantize_u8(texture[0]), _write_chw_image(
+                self.train_renders_path
+                / f"texture_map_iter_{iteration:06d}.png"))

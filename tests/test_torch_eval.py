@@ -1,10 +1,12 @@
 """The port's eval and export path (models.textured_mesh `apply_median_fill`,
 `render_texture`, `get_texture_map_only_valid_areas`, `export_mesh`;
-training.views_dataset; ops.view_consistency;
+training.trainer `eval_frame`; training.views_dataset; ops.view_consistency;
 ops.image's eval helpers; raster.render's background types) against the JAX
 reference's functions, on the CPU, at small sizes, with inputs made from a
 numpy seed and the same MLP weights (through weights.py).
 """
+
+import types
 
 import jax
 import jax.numpy as jnp
@@ -20,6 +22,7 @@ from contexture_nerf_tpu.ops.view_consistency import \
     compute_view_consistency as j_consistency
 from contexture_nerf_tpu.raster import render as jrender
 from contexture_nerf_tpu.training import views_dataset as jviews
+from contexture_nerf_tpu.training.trainer import ConTEXTure as JConTEXTure
 from contexture_nerf_tpu_torch import weights
 from contexture_nerf_tpu_torch.core.config import GuideConfig, RenderConfig
 from contexture_nerf_tpu_torch.models.fields import NeRF2D
@@ -29,6 +32,7 @@ from contexture_nerf_tpu_torch.ops.view_consistency import \
     compute_view_consistency
 from contexture_nerf_tpu_torch.raster import render as trender
 from contexture_nerf_tpu_torch.training import views_dataset as tviews
+from contexture_nerf_tpu_torch.training.trainer import eval_frame
 from tools.make_shapes import uv_sphere, write_obj
 
 TEX = 16  # texture lattice of the models below
@@ -114,6 +118,55 @@ def test_median_fill_matches_reference_exactly(models, painted):
 # -- the eval render -----------------------------------------------------------------
 
 POSES = [(np.deg2rad(60.0), np.deg2rad(a), 1.5 * 1.2) for a in (0, 137)]
+
+
+@pytest.mark.parametrize("use_median", [False, True],
+                         ids=["lattice", "median"])
+def test_eval_render_matches_reference(models, use_median):
+    """The eval render body (white background, the default colour shaded
+    by the z normal, clipped) at 48^2 on two turntable poses. Pixels are
+    compared where both rasterizers picked the same face: there the UVs
+    differ by the camera rounding that tests/test_torch_raster.py bounds
+    (up to ~3e-4 on faces seen edge-on, 5e-4 with margin), and a bilinear
+    sample of the 16^2 texture moves by at most |dUV| x 16 texels x the
+    texture's largest step between neighbours, on top of the lattice's
+    own f32 MLP noise (5e-5, as tests/test_torch_mlp.py holds
+    texture_from_mlp)."""
+    jm, params, tm, mlp, _ = models
+    j_body = JConTEXTure._build_eval_render(
+        types.SimpleNamespace(mesh_model=jm), DIM, use_median)
+    with torch.no_grad():
+        tex, _ = tm.get_texture_map(mlp)
+    if use_median:
+        tex = tm.apply_median_fill(tex)
+    step = float(torch.maximum(tex.diff(dim=2).abs().amax(),
+                               tex.diff(dim=3).abs().amax()))
+    tol = 5e-4 * TEX * step + 5e-5
+    for th, ph, r in POSES:
+        rgb, depth, zn = eval_frame(tm, tex, [th], [ph], [r], DIM)
+        j_rgb, j_tex, j_depth, j_zn = j_body(
+            params, jnp.asarray([th], jnp.float32),
+            jnp.asarray([ph], jnp.float32), jnp.asarray([r], jnp.float32))
+        j_idx = np.asarray(jm.render_geometry(th, ph, r,
+                                              dims=(DIM, DIM)).face_idx)
+        t_idx = _np(tm.render_geometry([th], [ph], [r],
+                                       dims=(DIM, DIM)).face_idx)
+        same = t_idx == j_idx
+        assert same.mean() > 0.99
+        np.testing.assert_allclose(
+            np.where(same[..., None], _np(rgb), 0),
+            np.where(same[..., None], np.asarray(j_rgb), 0), atol=tol,
+            rtol=0)
+        np.testing.assert_allclose(
+            np.where(same[:, None], _np(zn), 0),
+            np.where(same[:, None], np.asarray(j_zn), 0), atol=2e-5)
+        np.testing.assert_allclose(
+            np.where(same[..., None], _np(depth), 0),
+            np.where(same[..., None], np.asarray(j_depth), 0), atol=1e-3)
+        # the texture of the eval graph: the lattice through the MLP (f32
+        # in both; the frameworks sum the matmuls in other orders)
+        np.testing.assert_allclose(_np(tex.permute(0, 2, 3, 1).clamp(0, 1)),
+                                   np.asarray(j_tex), atol=5e-5)
 
 
 def test_render_with_white_background_matches_render_texture(models):
