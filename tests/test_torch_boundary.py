@@ -33,6 +33,7 @@ def test_port_file_imports_nothing_of_jax(path):
 
 def test_importing_the_trainer_loads_no_jax():
     code = ("import sys, contexture_nerf_tpu_torch.training.trainer, "
+            "contexture_nerf_tpu_torch.run_contexture, "
             "contexture_nerf_tpu_torch.weights; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; "
