@@ -36,6 +36,7 @@ turns, each in a subprocess on the same card.
 import argparse
 import contextlib
 import json
+import math
 import subprocess
 import sys
 import time
@@ -1522,6 +1523,428 @@ def main_path(torch, seed, profile, recs, failures):
                                        row_limit=60)
         (out / "sds_step_profile.txt").write_text(table)
         print("  profile written to chiprun_out/sds_step_profile.txt")
+    return launches, trainer
+
+
+@contextlib.contextmanager
+def plain_paths(torch, k5=True, k1=True):
+    """Route the eval path's rasterizer (K5) and MLP queries (K1) through
+    their plain PyTorch versions on the card, for the plain side of a
+    comparison. The plain versions count no launches."""
+    from contexture_nerf_tpu_torch.models import fields
+    from contexture_nerf_tpu_torch.models import textured_mesh as tmm
+    from contexture_nerf_tpu_torch.ops import mlp_kernel as mk
+    from contexture_nerf_tpu_torch.raster import render as rnd
+    from contexture_nerf_tpu_torch.raster.rasterize import \
+        rasterize_geometry as raster_plain
+
+    def plain_raster(fvz, fvi, h, w):
+        return raster_plain(fvz, fvi, h, w, face_chunk=64)
+
+    def plain_mlp(mlp, uv, multires=10, compute_dtype=torch.float32):
+        params = [p for lin in mlp.linears() for p in (lin.weight, lin.bias)]
+        ws, bs = mk.pack_params(params, multires)
+        return mk.fused_nerf2d_plain(ws, bs, uv, multires, compute_dtype)
+
+    swaps = []
+    if k5:
+        swaps += [(rnd, "rasterize_geometry", plain_raster),
+                  (tmm, "rasterize_geometry", plain_raster)]
+    if k1:
+        swaps += [(tmm, "fused_nerf2d", plain_mlp),
+                  (fields, "fused_nerf2d", plain_mlp)]
+    saved = [(m, n, getattr(m, n)) for m, n, _ in swaps]
+    for m, n, f in swaps:
+        setattr(m, n, f)
+    try:
+        yield
+    finally:
+        for m, n, f in saved:
+            setattr(m, n, f)
+
+
+def check_launches(got, want, label, failures):
+    ok = got == want
+    print(f"  {label}: launches {json.dumps(got)} "
+          f"{'= derived' if ok else '!= derived ' + json.dumps(want)}")
+    if not ok:
+        failures.append(f"{label} launches {got} != {want}")
+
+
+def cli_paint_run(torch, argv, start, launches, failures, label):
+    """One run of the CLI entry in this process (the card's kernels are
+    built already), with the launch counts set to 0 just before and read
+    just after, held to the run's derived counts. Returns the run and its
+    seconds."""
+    from contexture_nerf_tpu_torch import run_contexture
+    from contexture_nerf_tpu_torch.core import profiler
+    from contexture_nerf_tpu_torch.ops import _build
+
+    profiler.GLOBAL_TIMINGS = profiler.Timings()  # this run's timings.json
+    _build.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run = run_contexture.main(argv)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    got = dict(_build.launch_counts)
+    check_launches(got, run.paint_kernel_launches(start), label, failures)
+    for k in launches:
+        launches[k] += got[k]
+    return run, secs
+
+
+def check_paint_outputs(torch, exp, seed, n_frames, failures):
+    """What a finished paint run must have written, every value finite.
+    Returns (metrics, timings)."""
+    import numpy as np
+    from PIL import Image, ImageSequence
+
+    from contexture_nerf_tpu_torch.core.config import load_config
+
+    bad = [n for n in ("config.yaml", "metrics.json", "timings.json",
+                       "checkpoints/iter_000005", "checkpoints/iter_000010",
+                       "results/eval_texture_atlas.png", "mesh/mesh.obj",
+                       "mesh/mesh.mtl", "mesh/albedo.png")
+           if not (exp / n).is_file()]
+    vids = sorted((exp / "results").glob(
+        f"eval_video_all_rendered_rgb_{seed}.*"))
+    if not vids:
+        bad.append("results/eval_video_all_rendered_rgb_*")
+    if bad:
+        failures.append(f"paint run: missing {bad}")
+        return None, None
+    metrics = json.loads((exp / "metrics.json").read_text())
+    timings = json.loads((exp / "timings.json").read_text())
+    keys = {"iter", "sds_loss", "grad_norm", "fisher_divergence_t",
+            "ikl_running_avg", "t", "elapsed_s"}
+    ok = [e["iter"] for e in metrics] == [0, 9] and all(
+        set(e) == keys | {"view_consistency"} and all(
+            math.isfinite(v) for v in e.values()) for e in metrics)
+    win = timings.get("sds_step", {}).get("window_iter_ms")
+    ok_t = win is not None and math.isfinite(win)
+    frames = n_frames
+    if vids[0].suffix == ".gif":  # equal neighbours merge: count the time
+        with Image.open(vids[0]) as im:
+            frames = sum(f.info["duration"]
+                         for f in ImageSequence.Iterator(im)) // 40
+    atlas = np.asarray(Image.open(exp / "results" / "eval_texture_atlas.png"))
+    albedo = np.asarray(Image.open(exp / "mesh" / "albedo.png"))
+    obj = (exp / "mesh" / "mesh.obj").read_text().splitlines()
+    cfg_back = load_config([f"--config_path={exp / 'config.yaml'}"])
+    print(f"  outputs: metrics at iterations {[e['iter'] for e in metrics]} "
+          f"with keys {sorted(metrics[0])}, finite {ok}; sds_step "
+          f"window_iter_ms {win}; turntable {vids[0].name} ({frames} "
+          f"frames of 40 ms); atlas {atlas.shape}, albedo {albedo.shape}; mesh.obj "
+          f"{len(obj)} lines; config.yaml loads back as "
+          f"{cfg_back.log.exp_name}")
+    if not ok:
+        failures.append("paint run: metrics.json entries")
+    if not ok_t:
+        failures.append("paint run: timings.json has no sds_step window")
+    if frames != n_frames or atlas.shape[-1] != 3 or albedo.shape[-1] != 3:
+        failures.append("paint run: turntable or images malformed")
+    return metrics, timings
+
+
+def eval_shapes_vs_plain(torch, ct, atlas, recs, failures, card):
+    """The default-size eval's new K5 and K1 shapes against the plain
+    versions: two turntable frames (K5 bit for bit, and the frame through
+    plain K5 bit for bit), the metric's views (K5 bit for bit, the metric
+    within the bound K1's error gives), the UV-space raster (K5 bit for
+    bit, the atlas through plain K5 bit for bit), K1 at the metric's UVs and
+    on the texture lattice within mlp_tol."""
+    from contexture_nerf_tpu_torch.models.fields import uv_lattice
+    from contexture_nerf_tpu_torch.ops import mlp_kernel as mk
+    from contexture_nerf_tpu_torch.raster import raster_kernel as rk
+    from contexture_nerf_tpu_torch.raster.rasterize import rasterize_geometry
+    from contexture_nerf_tpu_torch.training import trainer as tr
+
+    cfg, mm, mlp = ct.cfg, ct.mesh_model, ct.mlp
+    res = cfg.render.eval_grid_size
+    texture = ct._eval_texture()
+    poses = ct.dataloaders["val_large"].poses()
+    k5_err = []  # max |bary - plain bary| of each new K5 shape
+    for k in (0, len(poses) // 3):
+        p = poses[k]
+        pose = ([p["theta"]], [ct._adjust_phi(p["phi"])], [p["radius"]])
+        _, fvc, fvi, _ = mm.project(*pose)
+        fvz = fvc[..., 2].contiguous()
+        idx, bary = rk.rasterize_geometry_kernel(fvz, fvi, res, res)
+        p_idx, p_bary = rasterize_geometry(fvz, fvi, res, res)
+        same = torch.equal(idx, p_idx) and torch.equal(bary, p_bary)
+        rgb = tr.eval_frame(mm, texture, *pose, res)
+        with plain_paths(torch, k1=False):
+            rgb_p = tr.eval_frame(mm, texture, *pose, res)
+        frame_same = all(torch.equal(a, b) for a, b in zip(rgb, rgb_p))
+        k5_err.append(float((bary - p_bary).abs().max()))
+        label = f"K5 turntable frame {k} (1x{res}x{res}, F={fvz.shape[1]})"
+        print(f"  {label}: bit-identical to plain {same}; the eval frame "
+              f"(rgb, depth, z normals) through plain K5 bit-identical "
+              f"{frame_same}")
+        if not (same and frame_same):
+            failures.append(label)
+    ms, dev = raster_times(torch, rk.rasterize_geometry_kernel, fvz, fvi,
+                           res, res)
+    pms = cuda_ms(lambda: rasterize_geometry(fvz, fvi, res, res), reps=2,
+                  warmup=1)
+    pairs = pixel_face_pairs(torch, fvi, res, res)
+    b_ms, by = bound(20.0 * pairs, res * res * 16 + fvz.shape[1] * 36,
+                     H100_FP32_FLOPS)
+    print(f"    K5 frame: {times_line(ms, dev)}; plain_ms {pms:.3f}; bound "
+          f"{b_ms:.4f} ms ({by}) [{card}]")
+
+    cache, _ = ct._consistency
+    th, ph, r = tr.view_angles(cfg.render)
+    _, fvc, fvi6, _ = mm.project(th[1:], ph[1:], r[1:])
+    fvz6 = fvc[..., 2].contiguous()
+    dims = cache.face_idx.shape[1]
+    idx, bary = rk.rasterize_geometry_kernel(fvz6, fvi6, dims, dims)
+    p_idx, p_bary = rasterize_geometry(fvz6, fvi6, dims, dims)
+    same6 = torch.equal(idx, p_idx) and torch.equal(bary, p_bary) and \
+        torch.equal(idx, cache.face_idx)
+    k5_err.append(float((bary - p_bary).abs().max()))
+    uv = cache.uv_features.reshape(-1, 2).contiguous()
+    params = [p for lin in mlp.linears() for p in (lin.weight, lin.bias)]
+    ws, bs = mk.pack_params(params, 10)
+    wflat, bflat = mk.flatten_params(ws, bs, torch.bfloat16)
+
+    def k1_check(name, pts):
+        got = mk.mlp_fwd_kernel(wflat, bflat, pts, 10)
+        ref = mk.fused_nerf2d_plain(ws, bs, pts, 10, torch.bfloat16)
+        ref32 = mk.fused_nerf2d_plain(ws, bs, pts, 10, torch.float32)
+        err = float((got - ref).abs().max())
+        tol, noise = mlp_tol(ref, ref32)
+        ok = err <= tol and bool(torch.isfinite(got).all())
+        print(f"  K1 {name} ({pts.shape[0]} points): max_abs_err {err:.3e} "
+              f"(tol {tol:.3e}, bf16-vs-f32 noise {noise:.3e}) "
+              f"{'ok' if ok else 'MISS'}")
+        if not ok:
+            failures.append(f"K1 {name}")
+        recs["mlp_fwd"].d["max_abs_err"] = max(
+            recs["mlp_fwd"].d["max_abs_err"], err)
+        return err
+
+    e6 = k1_check(f"at the metric's {cache.face_idx.shape[0]}x{dims}^2 UVs",
+                  uv)
+    k1_check("on the eval's texture lattice",
+             uv_lattice(cfg.guide.texture_resolution, device="cuda"))
+    vc = float(ct._view_consistency_metric())
+    saved = ct._consistency
+    ct._consistency = None
+    with plain_paths(torch):
+        vc_p = float(ct._view_consistency_metric())
+    ct._consistency = saved
+    # the geometry is the same; a pair's similarity moves by at most twice
+    # the largest colour change, and |d colour| <= |d raw| / 2
+    vc_tol = e6 + 1e-5
+    print(f"  K5 metric views ({cache.face_idx.shape[0]}x{dims}x{dims}): "
+          f"bit-identical to plain {same6}; metric {vc:.6f} vs plain "
+          f"(plain K5 and K1) {vc_p:.6f}, |diff| {abs(vc - vc_p):.3e} "
+          f"(bound {vc_tol:.3e} = 2 max|d colour| + 1e-5)")
+    if not same6:
+        failures.append("K5 metric views")
+    if not abs(vc - vc_p) <= vc_tol:
+        failures.append("view-consistency metric vs plain")
+
+    tres = cfg.guide.texture_resolution
+    fvi_uv = mm.face_attributes * 2.0 - 1.0
+    fvz_uv = torch.ones(fvi_uv.shape[:-1], device=fvi_uv.device)
+    idx, bary = rk.rasterize_geometry_kernel(fvz_uv, fvi_uv, tres, tres)
+    p_idx, p_bary = rasterize_geometry(fvz_uv, fvi_uv, tres, tres)
+    same_uv = torch.equal(idx, p_idx) and torch.equal(bary, p_bary)
+    k5_err.append(float((bary - p_bary).abs().max()))
+    with plain_paths(torch, k1=False):
+        atlas_k5p = mm.get_texture_map_only_valid_areas(mlp)
+    atlas_same = torch.equal(atlas, atlas_k5p)
+    print(f"  K5 UV-space raster (1x{tres}x{tres}, every z 1, "
+          f"F={fvz_uv.shape[1]}): bit-identical to plain {same_uv}; "
+          f"{float((idx >= 0).float().mean()):.4f} of texels covered; the "
+          f"atlas through plain K5 bit-identical {atlas_same}")
+    if not (same_uv and atlas_same):
+        failures.append("K5 UV-space raster")
+    recs["raster"].d["max_abs_err"] = max(recs["raster"].d["max_abs_err"],
+                                          *k5_err)
+
+
+def paint_path(torch, seed, trainer, recs, failures):
+    """The CLI on spot_quick_test.yaml at full width (10 iterations,
+    checkpoints every 5), its outputs; the run resumed from iteration 5
+    against the uninterrupted one (final parameters and iteration 9's
+    metrics at the reference's rtol 1e-6, atol 1e-7); then, on main_path's
+    teacher and trained MLP (the SD2-depth stack, which main_path frees
+    before its steps, is made anew: 0.4 s of random init), full_eval, the
+    view-consistency metric and the
+    UV-space atlas at the default config's sizes on the torus, each with
+    its launches held to the derived counts, and their new K5 and K1
+    shapes held to the plain versions (K5 bit for bit, K1 within mlp_tol).
+    Returns the launches of these runs."""
+    import gc
+    import shutil
+
+    from contexture_nerf_tpu_torch.core import checkpoint as ckpt
+    from contexture_nerf_tpu_torch.core import profiler
+    from contexture_nerf_tpu_torch.core.config import config_from_dict
+    from contexture_nerf_tpu_torch.ops import _build
+    from contexture_nerf_tpu_torch.training import trainer as tr
+
+    card = card_line()
+    t_phase = time.perf_counter()
+    launches = {k: 0 for k in _build.launch_counts}
+    exp_root = ROOT / "build" / "paint_path"
+    shutil.rmtree(exp_root, ignore_errors=True)
+    argv = [f"--config_path={ROOT / 'configs/text_guided/spot_quick_test.yaml'}",
+            f"--guide.shape_path={ROOT / 'shapes' / 'sphere.obj'}",
+            f"--log.exp_root={exp_root}", "--optim.checkpoint_interval=5",
+            f"--optim.seed={seed}"]
+    exp = exp_root / "spot_quick"
+    torch.cuda.reset_peak_memory_stats()
+    run, secs = cli_paint_run(torch, argv, 0, launches, failures,
+                              "CLI paint run")
+    n_frames = run.cfg.log.full_eval_size
+    metrics, timings = check_paint_outputs(torch, exp, seed, n_frames,
+                                           failures)
+    first = {k: v.detach().clone() for k, v in run.mlp.state_dict().items()}
+    finite = all(bool(torch.isfinite(v).all()) for v in first.values())
+    if not finite:
+        failures.append("paint run: non-finite parameters")
+    if timings is not None:
+        t = timings
+        print(f"  CLI run {secs:.1f} s: sds_step window_iter_ms "
+              f"{t['sds_step'].get('window_iter_ms')} over "
+              f"{t['sds_step'].get('windows')} window(s) (dispatch "
+              f"steady_mean_ms {t['sds_step']['steady_mean_ms']}), "
+              f"view_consistency_metric first "
+              f"{t['view_consistency_metric']['first_call_s']} s, "
+              f"eval {t['eval']['total_s']} s for {n_frames} frames at "
+              f"{run.cfg.render.eval_grid_size}^2 (window_iter_ms "
+              f"{t['eval'].get('window_iter_ms')}), export "
+              f"{t['export']['total_s']} s [{card}]")
+    del run
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the resume: iteration 10's checkpoint deleted, the run started again
+    (exp / "checkpoints" / "iter_000010").unlink()
+    run, secs = cli_paint_run(torch, argv + ["--optim.resume=true"], 5,
+                              launches, failures, "CLI resumed run")
+    second = run.mlp.state_dict()
+    resumed = json.loads((exp / "metrics.json").read_text())
+    exact = all(torch.equal(first[k], second[k]) for k in first)
+    close = all(torch.allclose(second[k], first[k], rtol=1e-6, atol=1e-7)
+                for k in first)
+    last_a = [e for e in (metrics or []) if e["iter"] == 9]
+    last_b = [e for e in resumed if e["iter"] == 9]
+    m_ok = bool(last_a) and bool(last_b) and all(
+        math.isclose(last_b[0][k], last_a[0][k], rel_tol=1e-6, abs_tol=0.0)
+        for k in ("sds_loss", "grad_norm", "fisher_divergence_t", "t",
+                  "view_consistency"))
+    m_exact = bool(last_a) and bool(last_b) and all(
+        last_b[0][k] == last_a[0][k] for k in ("sds_loss", "grad_norm",
+                                               "fisher_divergence_t", "t",
+                                               "view_consistency"))
+    print(f"  resumed from iteration 5 ({secs:.1f} s): final parameters "
+          f"within rtol 1e-6 atol 1e-7 {close} (bit-identical {exact}); "
+          f"iteration 9's metrics within rtol 1e-6 {m_ok} (bit-identical "
+          f"{m_exact})")
+    if not (close and m_ok):
+        failures.append("resumed run differs from the uninterrupted one")
+    if last_a and last_b and not m_exact:
+        print(f"    iteration 9 uninterrupted {last_a[0]}\n"
+              f"    iteration 9 resumed       {last_b[0]}")
+    del run, second, first
+    gc.collect()
+    torch.cuda.empty_cache()
+    paint_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    # the default config's eval sizes on the torus, on main_path's towers
+    cfg = config_from_dict({"optim": {"seed": seed}, "guide": {
+        "text": "a photo of a dairy cow",
+        "shape_path": str(ROOT / "shapes" / "torus.obj")},
+        "log": {"exp_root": str(exp_root), "exp_name": "torus_default"}})
+    ct = tr.ConTEXTure(cfg, device="cuda", teacher=trainer.teacher,
+                       mlp=trainer.mlp)
+    ct._median_eval = True  # as after painting
+    mm, mlp = ct.mesh_model, ct.mlp
+    torch.cuda.reset_peak_memory_stats()
+
+    _build.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    vc = float(ct._view_consistency_metric())
+    torch.cuda.synchronize()
+    vc_first = (time.perf_counter() - t0) * 1e3
+    got = dict(_build.launch_counts)
+    want = {k: 0 for k in got}
+    want.update(raster=1, mlp_fwd=1)
+    check_launches(got, want, "view-consistency metric (first call)",
+                   failures)
+    for k in launches:
+        launches[k] += got[k]
+    vc_ms = cuda_ms(lambda: ct._view_consistency_metric(), reps=5)
+
+    profiler.GLOBAL_TIMINGS = profiler.Timings()
+    _build.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ct.full_eval()
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    got = dict(_build.launch_counts)
+    check_launches(got, tr.full_eval_kernel_launches(cfg),
+                   f"full_eval ({cfg.log.full_eval_size} frames at "
+                   f"{cfg.render.eval_grid_size}^2, texture "
+                   f"{cfg.guide.texture_resolution}^2)", failures)
+    for k in launches:
+        launches[k] += got[k]
+    summ = profiler.GLOBAL_TIMINGS.summary()
+
+    _build.reset_launch_counts()
+    atlas = mm.get_texture_map_only_valid_areas(mlp)
+    torch.cuda.synchronize()
+    got = dict(_build.launch_counts)
+    want = {k: 0 for k in got}
+    want.update(raster=1, mlp_fwd=1)
+    check_launches(got, want, "UV-space atlas", failures)
+    for k in launches:
+        launches[k] += got[k]
+    eval_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ct.save_checkpoint(1, trainer.optimizer)
+    save_ms = (time.perf_counter() - t0) * 1e3
+    path = ct.ckpt_path / "iter_000001"
+    size = path.stat().st_size
+    t0 = time.perf_counter()
+    raw = ckpt.restore(path)
+    mlp.load_state_dict(raw["params"])
+    trainer.optimizer.load_state_dict(raw["opt_state"])
+    torch.cuda.synchronize()
+    restore_ms = (time.perf_counter() - t0) * 1e3
+
+    with torch.no_grad():
+        eval_shapes_vs_plain(torch, ct, atlas, recs, failures, card)
+    res = cfg.render.eval_grid_size
+
+    ev = summ.get("eval", {})
+    print(f"  default-size eval: view-consistency metric {vc:.6f}, first "
+          f"call {vc_first:.1f} ms (geometry + query), then {vc_ms:.2f} ms "
+          f"a call (query + metric) [{card}]")
+    print(f"  default-size eval: full_eval {eval_s:.1f} s; eval "
+          f"window_iter_ms {ev.get('window_iter_ms')} a frame over "
+          f"{cfg.log.full_eval_size} frames at {res}^2 (the first frame "
+          f"out of the window); eval phase {ev.get('total_s')} s with the "
+          f"turntable file; export_mesh "
+          f"{1e3 * summ.get('export', {}).get('total_s', float('nan')):.1f} "
+          f"ms [{card}]")
+    print(f"  checkpoint {size / 2 ** 20:.2f} MiB (MLP, Adam state, "
+          f"generator, iteration): save {save_ms:.1f} ms, restore "
+          f"{restore_ms:.1f} ms [{card}]")
+    print(f"  paint path peak memory: CLI runs {paint_peak:.2f} GiB (with "
+          f"main_path's teacher and MLP resident), default-size eval "
+          f"{eval_peak:.2f} GiB [{card}]")
+    print(f"  paint path {time.perf_counter() - t_phase:.1f} s")
     return launches
 
 
@@ -1621,7 +2044,15 @@ def main():
     groupnorm_phase(torch, args.seed, failures)
     print("main path: shapes/torus.obj -> prepare_sds (SD2-depth bootstrap) "
           "-> full-width SDS steps")
-    launches = main_path(torch, args.seed, args.profile, recs, failures)
+    launches, trainer = main_path(torch, args.seed, args.profile, recs,
+                                  failures)
+    print("paint path: the CLI on configs/text_guided/spot_quick_test.yaml "
+          "(10 iterations, full-width towers), its resume, then full_eval, "
+          "the view-consistency metric and the UV-space atlas at the "
+          "default config's sizes on the torus")
+    painted = paint_path(torch, args.seed, trainer, recs, failures)
+    launches = {k: launches[k] + painted[k] for k in launches}
+    del trainer
     for name, rec in recs.items():
         rec.d["launches"] = launches.get(name, 0)
         if rec.d["launches"] == 0:

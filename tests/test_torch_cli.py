@@ -2,8 +2,8 @@
 .config `load_config`, `dump_config`; contexture_nerf_tpu_torch
 .run_contexture) against the JAX package's loader: every shipped YAML with
 overrides in both forms gives the same config, a dumped config loads back
-equal, and the CLI paints (and evaluates only, with log.eval_only) a shipped
-config with tiny models on the CPU.
+equal, and the CLI evaluates (log.eval_only) or paints a shipped config
+with tiny models on the CPU.
 """
 
 from pathlib import Path
@@ -76,34 +76,34 @@ def test_dump_then_load_round_trips(tmp_path):
     assert back.optim.sds_eps == 1e-15
 
 
-def test_cli_paints_and_evaluates_a_shipped_config(tmp_path):
-    """spot_quick_test.yaml (shapes/sphere.obj, which carries UVs) cut to 2
-    iterations at 48^2 with tiny models: the run writes its outputs; then
-    log.eval_only renders the turntable and exports without painting."""
+def test_cli_evaluates_and_paints_a_shipped_config(tmp_path, monkeypatch):
+    """spot_quick_test.yaml (shapes/sphere.obj, which carries UVs) at 48^2
+    with tiny models: with log.eval_only the entry renders the turntable
+    and exports without painting; without it, the entry paints (the paint
+    run itself is tests/test_torch_paint_loop.py's)."""
     argv = [f"--config_path={ROOT / 'configs/text_guided/spot_quick_test.yaml'}",
-            f"--log.exp_root={tmp_path}", "--optim.sds_iterations=2",
-            "--render.train_grid_size=48", "--render.eval_grid_size=48",
-            "--guide.texture_resolution=16", "--log.full_eval_size=2",
-            "--optim.checkpoint_interval=1"]
-    run = run_contexture.main(argv, device="cpu", tiny_models=True)
+            f"--log.exp_root={tmp_path}", "--render.train_grid_size=48",
+            "--render.eval_grid_size=48", "--guide.texture_resolution=16",
+            "--log.full_eval_size=2"]
+    run = run_contexture.main(argv + ["--log.eval_only=true"], device="cpu",
+                              tiny_models=True)
     exp = tmp_path / "spot_quick"
-    assert run.exp_path == exp
-    for name in ("config.yaml", "metrics.json", "timings.json",
-                 "checkpoints/iter_000001", "checkpoints/iter_000002",
-                 "results/eval_texture_atlas.png", "mesh/mesh.obj",
-                 "mesh/mesh.mtl", "mesh/albedo.png"):
+    assert run.exp_path == exp and run.cfg.log.eval_only
+    for name in ("config.yaml", "log.txt", "results/eval_texture_atlas.png",
+                 "mesh/mesh.obj", "mesh/mesh.mtl", "mesh/albedo.png"):
         assert (exp / name).exists(), name
+    assert list((exp / "results").glob("eval_video_all_rendered_rgb_0.*"))
+    assert not (exp / "metrics.json").exists()  # nothing was painted
     assert config_to_dict(load_config([f"--config_path={exp / 'config.yaml'}"]
                                       )) == config_to_dict(run.cfg)
 
-    for p in (exp / "results").iterdir():
-        p.unlink()
-    (exp / "metrics.json").unlink()
-    run_contexture.main(argv + ["--log.eval_only=true"], device="cpu",
-                        tiny_models=True)
-    assert (exp / "results" / "eval_texture_atlas.png").exists()
-    assert list((exp / "results").glob("eval_video_all_rendered_rgb_0.*"))
-    assert not (exp / "metrics.json").exists()  # nothing was painted
+    painted = []
+    monkeypatch.setattr(run_contexture.ConTEXTure, "paint",
+                        lambda self: painted.append(self.cfg.log.exp_name))
+    monkeypatch.setattr(run_contexture.ConTEXTure, "full_eval",
+                        lambda self: painted.append("eval"))
+    run_contexture.main(argv, device="cpu", tiny_models=True)
+    assert painted == ["spot_quick"]
 
 
 def test_cli_names_a_missing_shape(tmp_path):

@@ -408,3 +408,27 @@ def test_save_image_without_pillow_writes_png(tmp_path, monkeypatch):
     monkeypatch.setattr(builtins, "__import__", real)
     assert out == tmp_path / "a.png"
     assert np.array_equal(np.asarray(Image.open(out)), arr)
+
+
+def test_gif_frames_land_on_the_nearest_palette_colour(tmp_path):
+    """The turntable GIF: every frame on the fixed 6 x 7 x 6 palette, each
+    channel at its nearest level (within half a level step: 25.5 for 6
+    levels, 21.25 for 7). Pillow merges a frame equal to the one before
+    into it and adds the durations, so the playing time stays 40 ms a
+    frame at 25 fps."""
+    from PIL import Image, ImageSequence
+
+    rng = np.random.default_rng(6)
+    frames = rng.integers(0, 256, (3, 20, 24, 3), dtype=np.uint8)
+    frames[1] = frames[0]
+    timage.save_gif(frames, tmp_path / "t.gif", fps=25)
+    with Image.open(tmp_path / "t.gif") as im:
+        seq = [(np.asarray(f.convert("RGB"), np.int32), f.info["duration"])
+               for f in ImageSequence.Iterator(im)]
+    assert [d for _, d in seq] == [80, 40]
+    step = np.array([255 / 5, 255 / 6, 255 / 5])
+    pal = np.array(timage.gif_palette()).reshape(-1, 3)
+    assert len(pal) == 252
+    for (g, _), f in zip(seq, frames[[0, 2]]):
+        assert (np.abs(g - f.astype(np.int32)) <= step / 2 + 0.5).all()
+        assert (pal[timage.gif_palette_indices(f[None])[0]] == g).all()

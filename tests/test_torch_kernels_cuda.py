@@ -25,7 +25,10 @@ mismatch a z tie (|dz| <= 1e-6) or an edge pixel (min barycentric <= 1e-5),
 bary within 1e-5 where the faces agree, and two runs bit-identical; a
 reversed z test, a dropped last face chunk and tile ranges one column short
 must miss those limits. Its setup kernel's records and pixel ranges must
-equal their plain versions (`face_records`, `pixel_ranges`) exactly.
+equal their plain versions (`face_records`, `pixel_ranges`) exactly. At
+the eval path's shapes (a 1024^2 turntable frame, the metric's 6 x 192^2
+views, the UV-space raster with every z equal) K5 must be bit-identical to
+its plain version.
 GroupNorm (K6), one launch a call, repeats its plain version's elementwise
 arithmetic and sums the f32 statistics in another order: bf16 output within one bf16 ulp of the
 plain output plus a floor from the statistics' rounding, f32 output within
@@ -313,6 +316,57 @@ def test_raster_kernel_matches_plain(cuda, case):
             b = rk.raster_agreement(*binned_plain(torch, fz, fi, H, W, rg),
                                     p_idx, p_bary, fvz)
             assert not rk.agreement_ok(b), b
+
+
+def _eval_faces(cuda, case):
+    """(fvz, fvi, H, W) of the eval path's K5 calls on the torus at the
+    default config: one turntable frame (radius x 1.2, base_theta), the
+    view-consistency metric's 6 target views at 192^2, and the UV charts
+    rasterized at the 1024^2 texture with every z 1."""
+    from contexture_nerf_tpu_torch.training.views_dataset import ViewsDataset
+
+    cfg = config_from_dict({"guide": {"shape_path": "shapes/torus.obj"}})
+    mm = TexturedMeshModel(cfg.guide, device=cuda)
+    if case == "turntable":
+        p = ViewsDataset(cfg.render, size=100).poses()[37]
+        _, fvc, fvi, _ = mm.project([p["theta"]], [p["phi"]], [p["radius"]])
+        return fvc[..., 2].contiguous(), fvi.contiguous(), 1024, 1024
+    if case == "metric_views":
+        th, ph, r = view_angles(cfg.render)
+        _, fvc, fvi, _ = mm.project(th[1:], ph[1:], r[1:])
+        return fvc[..., 2].contiguous(), fvi.contiguous(), 192, 192
+    fvi = (mm.face_attributes * 2.0 - 1.0).contiguous()
+    return torch.ones(fvi.shape[:-1], device=cuda), fvi, 1024, 1024
+
+
+@pytest.mark.parametrize("case", ["turntable", "metric_views", "uv_space"])
+def test_raster_kernel_at_the_eval_shapes_is_bit_identical(cuda, case):
+    """The eval path's new K5 shapes: bit for bit the plain version (the
+    UV-space raster's z ties included: both take the lowest face index)."""
+    fvz, fvi, H, W = _eval_faces(cuda, case)
+    idx, bary = rk.rasterize_geometry_kernel(fvz, fvi, H, W)
+    p_idx, p_bary = rasterize_geometry(fvz, fvi, H, W)
+    assert torch.equal(idx, p_idx) and torch.equal(bary, p_bary)
+    assert int((idx >= 0).sum()) > 0.02 * idx.numel()
+
+
+def test_mlp_fwd_kernel_at_the_metric_views(cuda):
+    """The view-consistency metric queries the MLP at the UVs of its 6
+    views at 192^2 (background pixels included)."""
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    mlp = NeRF2D(generator=gen, device=cuda).requires_grad_(False)
+    params = [p for lin in mlp.linears() for p in (lin.weight, lin.bias)]
+    ws, bs = mk.pack_params(params, 10)
+    wflat, bflat = mk.flatten_params(ws, bs, torch.bfloat16)
+    cfg = config_from_dict({"guide": {"shape_path": "shapes/torus.obj"}})
+    mm = TexturedMeshModel(cfg.guide, device=cuda)
+    th, ph, r = view_angles(cfg.render)
+    uv = mm.render_geometry(th[1:], ph[1:], r[1:], dims=(192, 192)
+                            ).uv_features.reshape(-1, 2).contiguous()
+    assert uv.shape[0] == 6 * 192 * 192
+    assert _agrees(mk.mlp_fwd_kernel(wflat, bflat, uv, 10),
+                   mk.fused_nerf2d_plain(ws, bs, uv, 10, torch.bfloat16),
+                   mk.fused_nerf2d_plain(ws, bs, uv, 10, torch.float32))
 
 
 @pytest.mark.parametrize("case", ["torus7", "torus2_off_screen",
