@@ -1563,35 +1563,30 @@ def plain_paths(torch, k5=True, k1=True):
             setattr(m, n, f)
 
 
-def check_launches(got, want, label, failures):
-    ok = got == want
-    print(f"  {label}: launches {json.dumps(got)} "
-          f"{'= derived' if ok else '!= derived ' + json.dumps(want)}")
-    if not ok:
-        failures.append(f"{label} launches {got} != {want}")
-
-
-def cli_paint_run(torch, argv, start, launches, failures, label):
-    """One run of the CLI entry in this process (the card's kernels are
-    built already), with the launch counts set to 0 just before and read
-    just after, held to the run's derived counts. Returns the run and its
-    seconds."""
-    from contexture_nerf_tpu_torch import run_contexture
+def counted(torch, fn, want, label, launches, failures):
+    """Run fn() with the launch counts set to 0 just before and read just
+    after, timed on the host clock with the card synchronised; hold the
+    counts to want(result) (the derived launches) and add them to
+    `launches`. Returns (result, seconds)."""
     from contexture_nerf_tpu_torch.core import profiler
     from contexture_nerf_tpu_torch.ops import _build
 
-    profiler.GLOBAL_TIMINGS = profiler.Timings()  # this run's timings.json
+    profiler.GLOBAL_TIMINGS = profiler.Timings()  # this run's timings
     _build.reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    run = run_contexture.main(argv)
+    out = fn()
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    got = dict(_build.launch_counts)
-    check_launches(got, run.paint_kernel_launches(start), label, failures)
+    got, exp = dict(_build.launch_counts), want(out)
+    ok = got == exp
+    print(f"  {label}: launches {json.dumps(got)} "
+          f"{'= derived' if ok else '!= derived ' + json.dumps(exp)}")
+    if not ok:
+        failures.append(f"{label} launches {got} != {exp}")
     for k in launches:
         launches[k] += got[k]
-    return run, secs
+    return out, secs
 
 
 def check_paint_outputs(torch, exp, seed, n_frames, failures):
@@ -1782,6 +1777,7 @@ def paint_path(torch, seed, trainer, recs, failures):
     import gc
     import shutil
 
+    from contexture_nerf_tpu_torch import run_contexture
     from contexture_nerf_tpu_torch.core import checkpoint as ckpt
     from contexture_nerf_tpu_torch.core import profiler
     from contexture_nerf_tpu_torch.core.config import config_from_dict
@@ -1799,8 +1795,9 @@ def paint_path(torch, seed, trainer, recs, failures):
             f"--optim.seed={seed}"]
     exp = exp_root / "spot_quick"
     torch.cuda.reset_peak_memory_stats()
-    run, secs = cli_paint_run(torch, argv, 0, launches, failures,
-                              "CLI paint run")
+    run, secs = counted(torch, lambda: run_contexture.main(argv),
+                        lambda r: r.paint_kernel_launches(0),
+                        "CLI paint run", launches, failures)
     n_frames = run.cfg.log.full_eval_size
     metrics, timings = check_paint_outputs(torch, exp, seed, n_frames,
                                            failures)
@@ -1826,8 +1823,10 @@ def paint_path(torch, seed, trainer, recs, failures):
 
     # the resume: iteration 10's checkpoint deleted, the run started again
     (exp / "checkpoints" / "iter_000010").unlink()
-    run, secs = cli_paint_run(torch, argv + ["--optim.resume=true"], 5,
-                              launches, failures, "CLI resumed run")
+    run, secs = counted(
+        torch, lambda: run_contexture.main(argv + ["--optim.resume=true"]),
+        lambda r: r.paint_kernel_launches(5), "CLI resumed run", launches,
+        failures)
     second = run.mlp.state_dict()
     resumed = json.loads((exp / "metrics.json").read_text())
     exact = all(torch.equal(first[k], second[k]) for k in first)
@@ -1868,46 +1867,21 @@ def paint_path(torch, seed, trainer, recs, failures):
     mm, mlp = ct.mesh_model, ct.mlp
     torch.cuda.reset_peak_memory_stats()
 
-    _build.reset_launch_counts()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    vc = float(ct._view_consistency_metric())
-    torch.cuda.synchronize()
-    vc_first = (time.perf_counter() - t0) * 1e3
-    got = dict(_build.launch_counts)
-    want = {k: 0 for k in got}
-    want.update(raster=1, mlp_fwd=1)
-    check_launches(got, want, "view-consistency metric (first call)",
-                   failures)
-    for k in launches:
-        launches[k] += got[k]
+    one_each = {k: int(k in ("raster", "mlp_fwd")) for k in launches}
+    vc, vc_s = counted(torch, lambda: float(ct._view_consistency_metric()),
+                       lambda _: one_each,
+                       "view-consistency metric (first call)", launches,
+                       failures)
     vc_ms = cuda_ms(lambda: ct._view_consistency_metric(), reps=5)
-
-    profiler.GLOBAL_TIMINGS = profiler.Timings()
-    _build.reset_launch_counts()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    ct.full_eval()
-    torch.cuda.synchronize()
-    eval_s = time.perf_counter() - t0
-    got = dict(_build.launch_counts)
-    check_launches(got, tr.full_eval_kernel_launches(cfg),
-                   f"full_eval ({cfg.log.full_eval_size} frames at "
-                   f"{cfg.render.eval_grid_size}^2, texture "
-                   f"{cfg.guide.texture_resolution}^2)", failures)
-    for k in launches:
-        launches[k] += got[k]
+    _, eval_s = counted(torch, ct.full_eval,
+                        lambda _: tr.full_eval_kernel_launches(cfg),
+                        f"full_eval ({cfg.log.full_eval_size} frames at "
+                        f"{cfg.render.eval_grid_size}^2, texture "
+                        f"{cfg.guide.texture_resolution}^2)", launches,
+                        failures)
     summ = profiler.GLOBAL_TIMINGS.summary()
-
-    _build.reset_launch_counts()
-    atlas = mm.get_texture_map_only_valid_areas(mlp)
-    torch.cuda.synchronize()
-    got = dict(_build.launch_counts)
-    want = {k: 0 for k in got}
-    want.update(raster=1, mlp_fwd=1)
-    check_launches(got, want, "UV-space atlas", failures)
-    for k in launches:
-        launches[k] += got[k]
+    atlas, _ = counted(torch, lambda: mm.get_texture_map_only_valid_areas(
+        mlp), lambda _: one_each, "UV-space atlas", launches, failures)
     eval_peak = torch.cuda.max_memory_allocated() / 2 ** 30
 
     torch.cuda.synchronize()
@@ -1929,7 +1903,7 @@ def paint_path(torch, seed, trainer, recs, failures):
 
     ev = summ.get("eval", {})
     print(f"  default-size eval: view-consistency metric {vc:.6f}, first "
-          f"call {vc_first:.1f} ms (geometry + query), then {vc_ms:.2f} ms "
+          f"call {1e3 * vc_s:.1f} ms (geometry + query), then {vc_ms:.2f} ms "
           f"a call (query + metric) [{card}]")
     print(f"  default-size eval: full_eval {eval_s:.1f} s; eval "
           f"window_iter_ms {ev.get('window_iter_ms')} a frame over "
