@@ -11,8 +11,9 @@ vision tower's self-attention goes through `ops.attention.attention` (at
 
 The tokenizer loads a CLIP vocab.json / merges.txt pair when given local
 paths; otherwise a deterministic hash tokenizer with the same id range and
-special-token layout stands in. Textual-inversion tokens (the reference's
-`add_token`) come with the SD2-depth slice that loads concepts.
+special-token layout stands in. Textual-inversion tokens (`add_token`) map
+a literal token to a row appended to the text tower's table
+(`CLIPTextModel.grow_tokens`), as the reference's `load_concept` does.
 """
 
 from __future__ import annotations
@@ -140,6 +141,21 @@ class CLIPTextModel(nn.Module):
                 causal=True, dtype=dtype))
         self.final_layer_norm = LayerNormF32(cfg.hidden_size)
 
+    @torch.no_grad()
+    def grow_tokens(self, rows: torch.Tensor) -> int:
+        """Append rows (k, hidden) to the token table (transformers'
+        resize_token_embeddings plus the new rows); the config's vocab_size
+        follows. Returns the first new row's id."""
+        old = self.token_embedding.weight
+        first = old.shape[0]
+        table = nn.Embedding(first + rows.shape[0], old.shape[1],
+                             device=old.device, dtype=old.dtype)
+        table.weight.copy_(torch.cat([old, rows.to(old)]))
+        table.requires_grad_(old.requires_grad)
+        self.token_embedding = table
+        self.config.vocab_size = table.num_embeddings
+        return first
+
     def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
         x = self.token_embedding(input_ids).to(self.dtype)
         x = x + self.position_embedding[None, :input_ids.shape[1]].to(
@@ -189,7 +205,9 @@ class CLIPVisionModelWithProjection(nn.Module):
 class CLIPTokenizer:
     """CLIP BPE tokenizer (local vocab.json + merges.txt) with a hash
     fallback. `__call__` pads to max_length with eos: [bos, ids..., eos,
-    eos, ...] as int32 (N, max_length)."""
+    eos, ...] as int32 (N, max_length). `vocab_size` (and with it bos, eos
+    and the hash fallback's range) stays what it was built with when
+    tokens are added."""
 
     def __init__(self, vocab_path: Optional[str] = None,
                  merges_path: Optional[str] = None,
@@ -198,9 +216,15 @@ class CLIPTokenizer:
         self.model_max_length = max_length
         self.bos_token_id = vocab_size - 2
         self.eos_token_id = vocab_size - 1
+        self.added_tokens: dict = {}
         self._bpe = False
         if vocab_path and os.path.exists(vocab_path):
             self._load_bpe(vocab_path, merges_path)
+
+    def add_token(self, token: str, token_id: int) -> None:
+        """Map a literal token (a textual-inversion concept's) to a fixed
+        id."""
+        self.added_tokens[token.lower()] = token_id
 
     def _load_bpe(self, vocab_path, merges_path):
         with open(vocab_path) as f:
@@ -233,8 +257,16 @@ class CLIPTokenizer:
 
     def encode(self, text: str) -> List[int]:
         text = html.unescape(text.strip().lower())
+        # an added token stands apart even next to punctuation ("<sks>.");
+        # the longest first, where one added token prefixes another
+        for tok in sorted(self.added_tokens, key=len, reverse=True):
+            if tok in text:
+                text = text.replace(tok, f" {tok} ")
         ids: List[int] = []
         for chunk in text.split():
+            if chunk in self.added_tokens:
+                ids.append(self.added_tokens[chunk])
+                continue
             for w in re.findall(r"[\w]+|[^\s\w]", chunk):
                 if self._bpe:
                     unk = self.encoder.get("<|endoftext|>", 0)

@@ -13,13 +13,16 @@ the reference's `jax.random` draws. Encodes whose result the path discards
 (the ground-truth latent without blending or noised_gt_init, the masked
 latent without the inpaint branch) are skipped, as XLA drops them.
 
-Not ported yet: `img2img_single_step`, `produce_latents`, `prompt_to_img`,
-`sds_grad`, `load_concept` and the diffusers weight loader (the towers start
-from seeded random weights).
+Towers with a local diffusers checkpoint (`SDWeightPaths`) load it through
+diffusion/weights.py; the others keep seeded random weights.
+`load_concept` adds a textual-inversion concept. Not ported yet:
+`img2img_single_step`, `produce_latents`, `prompt_to_img` and `sds_grad`.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+from pathlib import Path
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -28,6 +31,7 @@ import torch.nn as nn
 
 from contexture_nerf_tpu_torch import phase, resolve_device
 from contexture_nerf_tpu_torch.diffusion import schedulers as sch
+from contexture_nerf_tpu_torch.diffusion import weights as W
 from contexture_nerf_tpu_torch.diffusion.clip import (CLIPTextConfig,
                                                       CLIPTextModel,
                                                       CLIPTokenizer)
@@ -46,16 +50,52 @@ SD_VAE_SCALE = 0.18215
 DRAWS = ("eps_enc", "eps_enc2", "latents", "noise")  # the reference's order
 
 
+@dataclass
+class SDWeightPaths:
+    """Local checkpoint directories (diffusers layout); all optional."""
+
+    unet: Optional[str] = None
+    inpaint_unet: Optional[str] = None
+    vae: Optional[str] = None
+    text_encoder: Optional[str] = None
+    tokenizer_vocab: Optional[str] = None
+    tokenizer_merges: Optional[str] = None
+
+    @staticmethod
+    def from_snapshot(root: Optional[str] = None,
+                      inpaint_root: Optional[str] = None) -> "SDWeightPaths":
+        """`root`, an SD2-depth snapshot (guide.diffusion_name when it is a
+        local directory): its unet/, vae/, text_encoder/ and tokenizer/.
+        `inpaint_root`, an SD2-inpaint snapshot (guide.inpaint_model_path):
+        its unet/, or the directory itself when it has none. A subfolder
+        that is missing stays None (random weights)."""
+        wp = SDWeightPaths()
+        if root is not None:
+            root = Path(root)
+            for attr in ("unet", "vae", "text_encoder"):
+                if (root / attr).exists():
+                    setattr(wp, attr, str(root / attr))
+            wp.tokenizer_vocab, wp.tokenizer_merges = W.snapshot_tokenizer(root)
+        if inpaint_root is not None:
+            ip = Path(inpaint_root)
+            wp.inpaint_unet = str(ip / "unet" if (ip / "unet").exists()
+                                  else ip)
+        return wp
+
+
 class StableDiffusionDepth(nn.Module):
     """SD2-depth UNet (5 channels), SD2-inpaint UNet (9 channels), the SD
     VAE (encoder and decoder), the SD2 CLIP text tower and its tokenizer,
     and the PNDM scheduler. bf16 at full size, f32 at tiny size, as the
     reference's trainer chooses. `generator` fills the towers with seeded
     random weights; without it they keep torch's init (for a bridged
-    load)."""
+    load). Then each tower with a path in `weight_paths` loads it, and the
+    tokenizer reads the snapshot's vocab; `loaded` holds each loaded
+    tower's path, bytes and seconds."""
 
     def __init__(self, tiny: bool = False, device="cuda",
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 weight_paths: Optional[SDWeightPaths] = None):
         super().__init__()
         dev = self.device = resolve_device(device)
         self.num_train_timesteps = 1000
@@ -77,13 +117,25 @@ class StableDiffusionDepth(nn.Module):
             self.vae_encoder = Encoder(self.vae_config, self.dtype)
             self.vae_decoder = Decoder(self.vae_config, self.dtype)
             self.text_encoder = CLIPTextModel(self.text_config, self.dtype)
+        wp = weight_paths or SDWeightPaths()
         self.tokenizer = CLIPTokenizer(
+            vocab_path=wp.tokenizer_vocab, merges_path=wp.tokenizer_merges,
             vocab_size=self.text_config.vocab_size,
             max_length=self.text_config.max_positions)
         if generator is not None:
             random_init_(self, generator)
         self.to(self.dtype)
         self.requires_grad_(False)
+        self.loaded = W.load_towers_([
+            ("unet", self.unet, wp.unet, W.convert_unet, self.unet_config),
+            ("inpaint_unet", self.inpaint_unet, wp.inpaint_unet,
+             W.convert_unet, self.inpaint_config),
+            ("vae_encoder", self.vae_encoder, wp.vae, W.convert_vae,
+             self.vae_config, "encoder"),
+            ("vae_decoder", self.vae_decoder, wp.vae, W.convert_vae,
+             self.vae_config, "decoder"),
+            ("text_encoder", self.text_encoder, wp.text_encoder,
+             W.convert_clip_text, self.text_config)])
         self.scheduler = sch.PNDM.create(self.num_train_timesteps, device=dev)
         self.alphas = self.scheduler.alphas_cumprod
 
@@ -108,6 +160,17 @@ class StableDiffusionDepth(nn.Module):
             return self.text_encoder(ids)
 
         return torch.cat([embed(negative_prompts), embed(prompts)])
+
+    def load_concept(self, concept_path: str) -> None:
+        """A textual-inversion concept: a torch-saved dict of token ->
+        embedding. Each embedding becomes a new row of the text tower's
+        token table, and the token's id is that row (transformers'
+        add_tokens + resize_token_embeddings)."""
+        learned = torch.load(concept_path, map_location="cpu",
+                             weights_only=True)
+        for token, emb in learned.items():
+            row = self.text_encoder.grow_tokens(emb.float().reshape(1, -1))
+            self.tokenizer.add_token(token, row)
 
     # -- VAE -------------------------------------------------------------------
 

@@ -7,11 +7,17 @@ Counterpart of contexture_nerf_tpu/diffusion/zero123plus.py
 `Zero123PlusPipeline`'s `encode_condition_image`, `prepare_conditioning`,
 `embed_control_cond`, `_cfg_core`, `_cfg_v_pred`, `_cfg_v_pred_individual`).
 The conditioning takes its two VAE posterior draws as tensors, so a test
-can feed the reference's.
+can feed the reference's. Towers with a local diffusers checkpoint
+(`Zero123PlusWeightPaths`) load it through diffusion/weights.py, and the
+ramping coefficients come from the snapshot's model_index.json.
 """
 
 from __future__ import annotations
 
+import json
+import warnings
+from dataclasses import dataclass
+from pathlib import Path
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -20,6 +26,7 @@ import torch.nn as nn
 
 from contexture_nerf_tpu_torch import resolve_device
 from contexture_nerf_tpu_torch.diffusion import schedulers as sch
+from contexture_nerf_tpu_torch.diffusion import weights as W
 from contexture_nerf_tpu_torch.diffusion.clip import (
     CLIPTextConfig, CLIPTextModel, CLIPTokenizer, CLIPVisionConfig,
     CLIPVisionModelWithProjection)
@@ -60,6 +67,68 @@ def default_ramping_coefficients(n_tokens: int = 77) -> np.ndarray:
     return np.linspace(0.0, 1.0, n_tokens, dtype=np.float32)
 
 
+def load_ramping(path: Optional[str], n_tokens: int) -> np.ndarray:
+    """The ramping coefficients of a json file: a plain list, or a dict
+    with a "ramping_coefficients" key (a Zero123++ snapshot's
+    model_index.json). A dict without the key, or no file, gives the
+    default ramp (with a warning for the dict); a length other than
+    n_tokens raises."""
+    data = None
+    if path:
+        with open(path) as f:
+            data = json.load(f)
+        if isinstance(data, dict):
+            data = data.get("ramping_coefficients")
+            if data is None:
+                warnings.warn(f"{path} has no 'ramping_coefficients' key; "
+                              "using the default linear ramp")
+    if data is None:
+        return default_ramping_coefficients(n_tokens)
+    ramping = np.asarray(data, np.float32)
+    if ramping.shape[0] != n_tokens:
+        raise ValueError(f"ramping_coefficients length {ramping.shape[0]} "
+                         f"!= max_positions {n_tokens}")
+    return ramping
+
+
+@dataclass
+class Zero123PlusWeightPaths:
+    """Local checkpoint directories (diffusers layout) of the teacher; all
+    optional. `ramping_coefficients` is a json file (see load_ramping)."""
+
+    unet: Optional[str] = None
+    vae: Optional[str] = None
+    controlnet: Optional[str] = None
+    text_encoder: Optional[str] = None
+    vision_encoder: Optional[str] = None
+    tokenizer_vocab: Optional[str] = None
+    tokenizer_merges: Optional[str] = None
+    ramping_coefficients: Optional[str] = None
+
+    @staticmethod
+    def from_snapshot(root: Optional[str] = None,
+                      controlnet_root: Optional[str] = None
+                      ) -> "Zero123PlusWeightPaths":
+        """`root`, a Zero123++ snapshot (guide.zero123plus_path): its
+        unet/, vae/, text_encoder/, vision_encoder/, tokenizer/,
+        controlnet/ and model_index.json (the ramp); `controlnet_root`, a
+        standalone ControlNet (guide.controlnet_path), which takes the
+        place of root's controlnet/. What is missing stays None."""
+        wp = Zero123PlusWeightPaths()
+        if root is not None:
+            root = Path(root)
+            for attr in ("unet", "vae", "text_encoder", "vision_encoder",
+                         "controlnet"):
+                if (root / attr).exists():
+                    setattr(wp, attr, str(root / attr))
+            wp.tokenizer_vocab, wp.tokenizer_merges = W.snapshot_tokenizer(root)
+            if (root / "model_index.json").exists():
+                wp.ramping_coefficients = str(root / "model_index.json")
+        if controlnet_root is not None:
+            wp.controlnet = str(controlnet_root)
+        return wp
+
+
 @torch.no_grad()
 def random_init_(module: nn.Module, generator: torch.Generator) -> None:
     """Seeded random weights for towers without a checkpoint: weights
@@ -85,12 +154,16 @@ class Zero123PlusTeacher(nn.Module):
     Zero123++ teacher, in one dtype: bf16 at full size, f32 at tiny size
     (as the reference's trainer chooses). `generator` fills the towers with
     seeded random weights; without it they keep torch's init (for a bridged
-    load). `tile_px` is the side of one of the 3x2 grid's tiles."""
+    load). Then each tower with a path in `weight_paths` loads it, and the
+    tokenizer and the ramp come from the snapshot; `loaded` holds each
+    loaded tower's path, bytes and seconds. `tile_px` is the side of one of
+    the 3x2 grid's tiles."""
 
     CONDITIONING_SCALE = 2.0  # the depth ControlNet's, reference trainer
 
     def __init__(self, tiny: bool = False, device="cuda",
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 weight_paths: Optional[Zero123PlusWeightPaths] = None):
         super().__init__()
         dev = resolve_device(device)
         self.dtype = torch.float32 if tiny else torch.bfloat16
@@ -113,15 +186,27 @@ class Zero123PlusTeacher(nn.Module):
             self.text_encoder = CLIPTextModel(self.text_config, self.dtype)
             self.vision_encoder = CLIPVisionModelWithProjection(
                 self.vision_config, self.dtype)
+        wp = weight_paths or Zero123PlusWeightPaths()
         self.tokenizer = CLIPTokenizer(
+            vocab_path=wp.tokenizer_vocab, merges_path=wp.tokenizer_merges,
             vocab_size=self.text_config.vocab_size,
             max_length=self.text_config.max_positions)
-        self.ramping = torch.from_numpy(default_ramping_coefficients(
-            self.text_config.max_positions)).to(dev)
+        self.ramping = torch.from_numpy(load_ramping(
+            wp.ramping_coefficients, self.text_config.max_positions)).to(dev)
         if generator is not None:
             random_init_(self, generator)
         self.to(self.dtype)
         self.requires_grad_(False)
+        self.loaded = W.load_towers_([
+            ("unet", self.unet, wp.unet, W.convert_unet, self.unet_config),
+            ("controlnet", self.controlnet, wp.controlnet,
+             W.convert_controlnet, self.unet_config),
+            ("vae_encoder", self.vae_encoder, wp.vae, W.convert_vae,
+             self.vae_config, "encoder"),
+            ("text_encoder", self.text_encoder, wp.text_encoder,
+             W.convert_clip_text, self.text_config),
+            ("vision_encoder", self.vision_encoder, wp.vision_encoder,
+             W.convert_clip_vision, self.vision_config)])
         self.alphas_cumprod = sch.make_alphas_cumprod(device=dev)
 
     # -- conditioning ------------------------------------------------------------

@@ -7,7 +7,10 @@
 Paints the config's mesh on the card (`ConTEXTure.paint`: prepare_sds, the
 SDS loop, the turntable eval and the exported mesh, under
 log.exp_root/log.exp_name), or with --log.eval_only=true runs only
-`full_eval`. Random towers from optim.seed.
+`full_eval`. Random towers from optim.seed; the towers of local diffusers
+snapshots named by the config (guide.zero123plus_path, controlnet_path,
+diffusion_name, inpaint_model_path; guide.concept_path for a
+textual-inversion concept) load from disk instead.
 """
 
 from __future__ import annotations

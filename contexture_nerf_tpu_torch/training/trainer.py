@@ -51,11 +51,13 @@ from contexture_nerf_tpu_torch.core.imagewriter import (AsyncImageWriter,
                                                         start_host_copy,
                                                         sync_writer)
 from contexture_nerf_tpu_torch.diffusion import schedulers as sch
-from contexture_nerf_tpu_torch.diffusion.sd_depth import StableDiffusionDepth
+from contexture_nerf_tpu_torch.diffusion.sd_depth import (SDWeightPaths,
+                                                          StableDiffusionDepth)
 from contexture_nerf_tpu_torch.diffusion.unet import UNetConfig
 from contexture_nerf_tpu_torch.diffusion.vae import VAEConfig, encode_moments
 from contexture_nerf_tpu_torch.diffusion.zero123plus import (
-    Zero123PlusTeacher, scale_image, scale_latents, unscale_image)
+    Zero123PlusTeacher, Zero123PlusWeightPaths, scale_image, scale_latents,
+    unscale_image)
 from contexture_nerf_tpu_torch.models.fields import NeRF2D
 from contexture_nerf_tpu_torch.models.textured_mesh import TexturedMeshModel
 from contexture_nerf_tpu_torch.ops import _build
@@ -87,6 +89,16 @@ LOG_EVERY = 50  # iterations between logged metrics, as the reference
 BOOTSTRAP_STEPS = 50  # img2img_step's num_inference_steps, as the reference
 
 
+def check_int8(cfg: TrainConfig) -> None:
+    """The reference paints another (W8A8) result with optim.int8_*; the
+    port must not paint the bf16 one in its place."""
+    for knob in ("int8_controlnet", "int8_teacher"):
+        if getattr(cfg.optim, knob):
+            raise NotImplementedError(
+                f"optim.{knob} quantizes the teacher to W8A8 in the "
+                "reference (ops/quant.py); the port has no int8 path yet")
+
+
 def _to(x, device, dtype=None):
     if x is None:
         return None
@@ -105,6 +117,7 @@ class SDSTrainer:
                  mlp: Optional[NeRF2D] = None, tiny: bool = False,
                  device="cuda", generator: Optional[torch.Generator] = None):
         dev = self.device = resolve_device(device)
+        check_int8(cfg)
         if cfg.optim.exact_lattice_render:
             raise NotImplementedError(
                 "optim.exact_lattice_render samples the texture lattice "
@@ -672,6 +685,45 @@ def prepare_sds(cfg: TrainConfig, mesh_model: TexturedMeshModel, mlp: NeRF2D,
             "front_rgb": rgb_front}
 
 
+def _config_path(guide: GuideConfig, key: str) -> Optional[str]:
+    """guide.<key> when set; a path that does not exist raises."""
+    path = getattr(guide, key)
+    if path and not os.path.exists(str(path)):
+        raise FileNotFoundError(f"guide.{key}: {path} does not exist")
+    return str(path) if path else None
+
+
+def sd_weight_paths(guide: GuideConfig) -> Optional[SDWeightPaths]:
+    """The SD2-depth stack's snapshot paths, as the reference's
+    _init_diffusion resolves them: guide.diffusion_name when it is a local
+    directory (otherwise it names a hub model: random towers), and
+    guide.inpaint_model_path. None when neither is given."""
+    name = str(guide.diffusion_name)
+    sd_root = name if os.path.isdir(name) else None
+    inpaint_root = _config_path(guide, "inpaint_model_path")
+    if sd_root or inpaint_root:
+        return SDWeightPaths.from_snapshot(sd_root, inpaint_root)
+    return None
+
+
+def zero123plus_weight_paths(guide: GuideConfig
+                             ) -> Optional[Zero123PlusWeightPaths]:
+    """The teacher's snapshot paths from guide.zero123plus_path and
+    guide.controlnet_path, as the reference's _init_zero123plus resolves
+    them. None when neither is given."""
+    root = _config_path(guide, "zero123plus_path")
+    controlnet_root = _config_path(guide, "controlnet_path")
+    if root or controlnet_root:
+        return Zero123PlusWeightPaths.from_snapshot(root, controlnet_root)
+    return None
+
+
+def _loaded_line(what: str, wp, loaded: Dict[str, dict]) -> str:
+    towers = ", ".join(f"{k} {v['bytes'] / 1e9:.3f} GB in {v['seconds']:.2f} s"
+                       for k, v in loaded.items())
+    return f"{what} weights from snapshot: {wp}; loaded {towers or 'none'}"
+
+
 def build_models(cfg: TrainConfig, tiny: bool = False, device="cuda",
                  teacher: Optional[Zero123PlusTeacher] = None,
                  mlp: Optional[NeRF2D] = None,
@@ -681,19 +733,37 @@ def build_models(cfg: TrainConfig, tiny: bool = False, device="cuda",
     mesh_model). The generator is seeded with optim.seed and fills, in
     this order, the teacher, the texture MLP and (unless skip_bootstrap)
     the SD2-depth stack, each unless given; the mesh model is
-    guide.shape_path's."""
+    guide.shape_path's. Towers with a snapshot in the config
+    (guide.zero123plus_path, controlnet_path, diffusion_name,
+    inpaint_model_path) then load it, so the generator's stream, and with
+    it the MLP and every later draw, does not depend on what loads; a
+    guide.concept_path that exists adds its concept to the SD2 text
+    tower."""
     if cfg.guide.initial_texture is not None:
         raise NotImplementedError(
             "guide.initial_texture (fitting the MLP to an image) comes with "
             "a later slice")
+    check_int8(cfg)
     dev = resolve_device(device)
+    z_wp = zero123plus_weight_paths(cfg.guide)
+    sd_wp = sd_weight_paths(cfg.guide)
     generator = torch.Generator(device=dev).manual_seed(cfg.optim.seed)
-    teacher = teacher or Zero123PlusTeacher(tiny=tiny, device=dev,
-                                            generator=generator)
+    if teacher is None:
+        teacher = Zero123PlusTeacher(tiny=tiny, device=dev,
+                                     generator=generator, weight_paths=z_wp)
+        if z_wp is not None:
+            logger.info(_loaded_line("Zero123++", z_wp, teacher.loaded))
     mlp = mlp or NeRF2D(generator=generator, device=dev)
     if not skip_bootstrap and diffusion is None:
         diffusion = StableDiffusionDepth(tiny=tiny, device=dev,
-                                         generator=generator)
+                                         generator=generator,
+                                         weight_paths=sd_wp)
+        if sd_wp is not None:
+            logger.info(_loaded_line("SD2", sd_wp, diffusion.loaded))
+        cp = cfg.guide.concept_path
+        if cp is not None and Path(cp).exists():
+            diffusion.load_concept(str(cp))
+            logger.info(f"Loaded textual-inversion concept from {cp}")
     mesh_model = TexturedMeshModel(
         cfg.guide, render_grid_size=cfg.render.train_grid_size,
         texture_resolution=cfg.guide.texture_resolution,
@@ -818,7 +888,8 @@ def _write_chw_image(path: Path):
 class ConTEXTure:
     """Text -> textured mesh: the port's counterpart of
     contexture_nerf_tpu/training/trainer.py `ConTEXTure`. The models come
-    from `build_models` (random towers from optim.seed unless given);
+    from `build_models` (random towers from optim.seed unless given,
+    overwritten by the config's local snapshots);
     `paint` runs `paint_zero123plus`: prepare_sds, the SDS loop with its
     metrics, images and checkpoints, then `full_eval` (the turntable and
     the exported mesh). Outputs go to log.exp_root/log.exp_name."""

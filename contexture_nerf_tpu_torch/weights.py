@@ -11,8 +11,8 @@ nor flax. Port modules keep the flax names, so the mapping is mechanical:
   - raw parameters (CLIP's `position_embedding`, `class_embedding`) keep
     their names and layout.
 Values come out f32; `load_state_dict` casts them to the module's dtype.
-A loader for diffusers checkpoints waits until such checkpoint files are in
-the repository.
+Diffusers and transformers checkpoints on disk load through
+`diffusion/weights.py`.
 """
 
 from __future__ import annotations
