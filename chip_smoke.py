@@ -1789,10 +1789,7 @@ def paint_path(torch, seed, trainer, recs, failures):
     launches = {k: 0 for k in _build.launch_counts}
     exp_root = ROOT / "build" / "paint_path"
     shutil.rmtree(exp_root, ignore_errors=True)
-    argv = [f"--config_path={ROOT / 'configs/text_guided/spot_quick_test.yaml'}",
-            f"--guide.shape_path={ROOT / 'shapes' / 'sphere.obj'}",
-            f"--log.exp_root={exp_root}", "--optim.checkpoint_interval=5",
-            f"--optim.seed={seed}"]
+    argv = paint_argv(seed, exp_root)
     exp = exp_root / "spot_quick"
     torch.cuda.reset_peak_memory_stats()
     run, secs = counted(torch, lambda: run_contexture.main(argv),
@@ -1802,6 +1799,8 @@ def paint_path(torch, seed, trainer, recs, failures):
     metrics, timings = check_paint_outputs(torch, exp, seed, n_frames,
                                            failures)
     first = {k: v.detach().clone() for k, v in run.mlp.state_dict().items()}
+    reference = {"mlp": {k: v.cpu() for k, v in first.items()},
+                 "metrics": (metrics or [None])[-1]}
     finite = all(bool(torch.isfinite(v).all()) for v in first.values())
     if not finite:
         failures.append("paint run: non-finite parameters")
@@ -1919,6 +1918,245 @@ def paint_path(torch, seed, trainer, recs, failures):
           f"main_path's teacher and MLP resident), default-size eval "
           f"{eval_peak:.2f} GiB [{card}]")
     print(f"  paint path {time.perf_counter() - t_phase:.1f} s")
+    return launches, reference
+
+
+def paint_argv(seed, exp_root):
+    """The paint path's CLI arguments: spot_quick_test.yaml on
+    shapes/sphere.obj, checkpoints every 5 iterations."""
+    return [f"--config_path={ROOT / 'configs/text_guided/spot_quick_test.yaml'}",
+            f"--guide.shape_path={ROOT / 'shapes' / 'sphere.obj'}",
+            f"--log.exp_root={exp_root}", "--optim.checkpoint_interval=5",
+            f"--optim.seed={seed}"]
+
+
+def peak_rss_since_reset():
+    """Reset the process's peak resident set (VmHWM, through
+    /proc/self/clear_refs) and return a reader of it in GiB; the reader
+    gives None where the reset is not allowed."""
+    try:
+        Path("/proc/self/clear_refs").write_text("5")
+    except OSError:
+        return lambda: None
+
+    def read():
+        for line in Path("/proc/self/status").read_text().splitlines():
+            if line.startswith("VmHWM:"):
+                return int(line.split()[1]) / 2 ** 20
+        return None
+    return read
+
+
+def drop_from_page_cache(root):
+    """fsync every file under root and ask the kernel to drop its pages
+    from the page cache (posix_fadvise DONTNEED, no privileges needed), so
+    that a load reads the disk and not what the write left in memory."""
+    import os
+
+    for path in sorted(Path(root).rglob("*")):
+        if path.is_file():
+            fd = os.open(path, os.O_RDONLY)
+            try:
+                os.fsync(fd)
+                os.posix_fadvise(fd, 0, 0, os.POSIX_FADV_DONTNEED)
+            finally:
+                os.close(fd)
+
+
+def snapshot_path(torch, seed, reference, failures):
+    """The paint path's first CLI run again, from towers on disk: the
+    full-width seeded towers that `build_models` draws for that run (same
+    seed) are written under build/snapshots/ in the diffusers layout
+    (contexture_nerf_tpu_torch/tools/synth_snapshot.py: a Zero123++
+    snapshot, a standalone ControlNet, an SD2-depth snapshot and an
+    inpaint snapshot, F32, no tokenizer/), dropped from the page cache, and
+    the CLI runs with guide.diffusion_name, inpaint_model_path,
+    zero123plus_path and controlnet_path pointing there. Every loaded
+    tower must equal the written one bit for bit, the launches the derived
+    ones, the final MLP parameters and the last metrics entry (less its
+    wall time) the random-tower run's (`reference`, from paint_path; run
+    here first when None) bit for bit, and the outputs must pass
+    check_paint_outputs. The directory is deleted at the end. Returns the
+    launches of the runs made here."""
+    import gc
+    import resource
+    import shutil
+
+    from contexture_nerf_tpu_torch import run_contexture
+    from contexture_nerf_tpu_torch.core.config import load_config
+    from contexture_nerf_tpu_torch.ops import _build
+    from contexture_nerf_tpu_torch.tools import synth_snapshot as synth
+    from contexture_nerf_tpu_torch.training import trainer as tr
+
+    card = card_line()
+    t_phase = time.perf_counter()
+    launches = {k: 0 for k in _build.launch_counts}
+    exp_root = ROOT / "build" / "snapshot_path"
+    shutil.rmtree(exp_root, ignore_errors=True)
+    argv = paint_argv(seed, exp_root)
+    if reference is None:
+        run, secs = counted(torch, lambda: run_contexture.main(argv),
+                            lambda r: r.paint_kernel_launches(0),
+                            "CLI paint run (random towers)", launches,
+                            failures)
+        metrics = json.loads((exp_root / "spot_quick" / "metrics.json")
+                             .read_text())
+        reference = {"mlp": {k: v.detach().cpu() for k, v in
+                             run.mlp.state_dict().items()},
+                     "metrics": metrics[-1]}
+        print(f"  random-tower CLI run {secs:.1f} s")
+        del run
+        gc.collect()
+        torch.cuda.empty_cache()
+        shutil.rmtree(exp_root, ignore_errors=True)
+
+    snap = ROOT / "build" / "snapshots"
+    shutil.rmtree(snap, ignore_errors=True)
+    t0 = time.perf_counter()
+    _, teacher, mlp, diffusion, _ = tr.build_models(load_config(argv),
+                                                    device="cuda")
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
+    del mlp
+    towers = {"zero123plus/unet": teacher.unet,
+              "zero123plus/vae (encoder)": teacher.vae_encoder,
+              "zero123plus/text_encoder": teacher.text_encoder,
+              "zero123plus/vision_encoder": teacher.vision_encoder,
+              "controlnet": teacher.controlnet,
+              "sd2-depth/unet": diffusion.unet,
+              "sd2-depth/vae (encoder)": diffusion.vae_encoder,
+              "sd2-depth/vae (decoder)": diffusion.vae_decoder,
+              "sd2-depth/text_encoder": diffusion.text_encoder,
+              "sd2-inpaint/unet": diffusion.inpaint_unet}
+    counts = {k: sum(p.numel() for p in m.parameters())
+              for k, m in towers.items()}
+    need = 4 * sum(counts.values())
+    snap.parent.mkdir(parents=True, exist_ok=True)
+    free = shutil.disk_usage(snap.parent).free
+    print(f"  towers drawn in {draw_s:.1f} s: "
+          + ", ".join(f"{k} {v / 1e6:.1f} M" for k, v in counts.items())
+          + f"; {sum(counts.values()) / 1e6:.1f} M parameters, "
+          f"{need / 1e9:.2f} GB at F32; {free / 1e9:.1f} GB free under "
+          f"{snap.parent}")
+    if free < need + 2 ** 30:
+        failures.append(f"snapshot path: {free / 1e9:.1f} GB free under "
+                        f"{snap.parent}, the snapshots need "
+                        f"{need / 1e9:.2f} GB (+1 GiB)")
+        return launches
+    try:
+        rss_before = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+        written, write_s = {}, {}
+        for name, fn, model in (
+                ("zero123plus", synth.write_zero123plus_snapshot, teacher),
+                ("controlnet", synth.write_controlnet_snapshot, teacher),
+                ("sd2-depth", synth.write_sd_snapshot, diffusion),
+                ("sd2-inpaint", synth.write_inpaint_snapshot, diffusion)):
+            t0 = time.perf_counter()
+            written[name] = fn(snap / name, model)
+            write_s[name] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        drop_from_page_cache(snap)
+        sync_s = time.perf_counter() - t0
+        total = sum(written.values())
+        print(f"  written {total / 1e9:.3f} GB in {sum(write_s.values()):.1f}"
+              f" s ({total / 1e9 / sum(write_s.values()):.2f} GB/s; "
+              + ", ".join(f"{k} {written[k] / 1e9:.3f} GB {write_s[k]:.1f} s"
+                          for k in written)
+              + f"), then fsync and page-cache drop {sync_s:.1f} s [{card}]")
+        written_sd = {k: m.state_dict() for k, m in towers.items()}
+        towers_written = list(towers)
+        del teacher, diffusion, towers
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        args = argv + [f"--guide.diffusion_name={snap / 'sd2-depth'}",
+                       f"--guide.inpaint_model_path={snap / 'sd2-inpaint'}",
+                       f"--guide.zero123plus_path={snap / 'zero123plus'}",
+                       f"--guide.controlnet_path={snap / 'controlnet'}"]
+        torch.cuda.reset_peak_memory_stats()
+        read_rss = peak_rss_since_reset()
+        run, secs = counted(torch, lambda: run_contexture.main(args),
+                            lambda r: r.paint_kernel_launches(0),
+                            "CLI paint run from snapshots", launches,
+                            failures)
+        card_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        rss_run = read_rss()
+        rss_max = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+        loaded = {f"sd2/{k}": v for k, v in run.diffusion.loaded.items()}
+        loaded.update({f"zero123plus/{k}": v
+                       for k, v in run.teacher.loaded.items()})
+        for k, v in loaded.items():
+            print(f"    load {k}: {v['bytes'] / 1e9:.3f} GB in "
+                  f"{v['seconds']:.2f} s, {v['bytes'] / 1e9 / v['seconds']:.2f}"
+                  f" GB/s [{card}]")
+        n_bytes = sum(v["bytes"] for v in loaded.values())
+        n_secs = sum(v["seconds"] for v in loaded.values())
+        print(f"  loaded {len(loaded)} towers, {n_bytes / 1e9:.3f} GB in "
+              f"{n_secs:.1f} s ({n_bytes / 1e9 / n_secs:.2f} GB/s); CLI run "
+              f"{secs:.1f} s; card peak memory {card_peak:.2f} GiB; host "
+              f"peak RSS over the run "
+              f"{'not measured' if rss_run is None else f'{rss_run:.2f} GiB'}"
+              f" (the process's lifetime peak {rss_max / 2 ** 20:.2f} GiB, "
+              f"{rss_before / 2 ** 20:.2f} before the phase) [{card}]")
+        if len(loaded) != len(towers_written) or n_bytes != need:
+            failures.append(f"snapshot path: {len(loaded)} towers and "
+                            f"{n_bytes} bytes loaded, not "
+                            f"{len(towers_written)} and {need}")
+
+        mods = {"zero123plus/unet": run.teacher.unet,
+                "zero123plus/vae (encoder)": run.teacher.vae_encoder,
+                "zero123plus/text_encoder": run.teacher.text_encoder,
+                "zero123plus/vision_encoder": run.teacher.vision_encoder,
+                "controlnet": run.teacher.controlnet,
+                "sd2-depth/unet": run.diffusion.unet,
+                "sd2-depth/vae (encoder)": run.diffusion.vae_encoder,
+                "sd2-depth/vae (decoder)": run.diffusion.vae_decoder,
+                "sd2-depth/text_encoder": run.diffusion.text_encoder,
+                "sd2-inpaint/unet": run.diffusion.inpaint_unet}
+        differ = []
+        for k, m in mods.items():
+            got = m.state_dict()
+            if set(got) != set(written_sd[k]) or not all(
+                    torch.equal(got[n], t) for n, t in written_sd[k].items()):
+                differ.append(k)
+        print(f"  loaded towers equal the written ones bit for bit: "
+              f"{not differ}{' (' + ', '.join(differ) + ' differ)' if differ else ''}")
+        if differ:
+            failures.append(f"snapshot path: loaded towers differ: {differ}")
+        del written_sd
+
+        exp = exp_root / "spot_quick"
+        metrics, _ = check_paint_outputs(torch, exp, seed,
+                                         run.cfg.log.full_eval_size, failures)
+        got = {k: v.detach().cpu() for k, v in run.mlp.state_dict().items()}
+        ref = reference["mlp"]
+        mlp_same = set(got) == set(ref) and all(torch.equal(got[k], ref[k])
+                                                for k in ref)
+        last, ref_last = (metrics or [None])[-1], reference["metrics"]
+        keys = sorted(set(ref_last or {}) - {"elapsed_s"})
+        m_same = bool(last) and bool(ref_last) and all(
+            last[k] == ref_last[k] for k in keys)
+        print(f"  against the random-tower run: final MLP parameters "
+              f"bit-identical {mlp_same}; last metrics entry "
+              f"({', '.join(keys)}) bit-identical {m_same}")
+        if not mlp_same:
+            worst = max((float((got[k].float() - ref[k].float()).abs().max()),
+                         k) for k in ref if k in got)
+            print(f"    first differing MLP parameter by size: {worst[1]} "
+                  f"max |diff| {worst[0]:.3e}")
+            failures.append("snapshot path: final MLP parameters differ "
+                            "from the random-tower run")
+        if not m_same:
+            print(f"    random towers {ref_last}\n    from disk     {last}")
+            failures.append("snapshot path: last metrics entry differs "
+                            "from the random-tower run")
+        del run
+    finally:
+        shutil.rmtree(snap, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"  snapshot path {time.perf_counter() - t_phase:.1f} s "
+          f"(build/snapshots/ deleted)")
     return launches
 
 
@@ -1937,6 +2175,10 @@ def main():
     ap.add_argument("--against", metavar="DIR",
                     help="with --raster-only: also time the K5 of the "
                     "checkout at DIR and of this one, in turns")
+    ap.add_argument("--snapshot-only", action="store_true",
+                    help="run only the snapshot phase (a random-tower CLI "
+                    "run, then the same run from its towers written to "
+                    "disk) and stop (no kernel phases, no result line)")
     ap.add_argument("--k5-times-of", metavar="DIR", help=argparse.SUPPRESS)
     args = ap.parse_args()
     import torch
@@ -1992,6 +2234,13 @@ def main():
     }
     from contexture_nerf_tpu_torch.core.config import config_from_dict
 
+    if args.snapshot_only:
+        print("snapshot path: the CLI on spot_quick_test.yaml with random "
+              "towers, then from the same towers written to disk")
+        snapshot_path(torch, args.seed, None, failures)
+        for f in failures:
+            print(f"FAIL: {f}")
+        return 1 if failures else 0
     if args.raster_only:
         print("K5 phase (kernel vs plain, f32):")
         raster_phases(torch, recs["raster"], config_from_dict({"guide": {
@@ -2024,9 +2273,14 @@ def main():
           "(10 iterations, full-width towers), its resume, then full_eval, "
           "the view-consistency metric and the UV-space atlas at the "
           "default config's sizes on the torus")
-    painted = paint_path(torch, args.seed, trainer, recs, failures)
+    painted, reference = paint_path(torch, args.seed, trainer, recs,
+                                    failures)
     launches = {k: launches[k] + painted[k] for k in launches}
     del trainer
+    print("snapshot path: the paint path's first CLI run from its towers "
+          "written to disk as diffusers snapshots")
+    from_disk = snapshot_path(torch, args.seed, reference, failures)
+    launches = {k: launches[k] + from_disk[k] for k in launches}
     for name, rec in recs.items():
         rec.d["launches"] = launches.get(name, 0)
         if rec.d["launches"] == 0:
