@@ -4,7 +4,8 @@
 Run from the root of a checkout, on a machine with one NVIDIA GPU:
 
     python3 chip_smoke.py [--seed N] [--profile] [--sweep]
-                          [--mlp-only | --raster-only [--against DIR]]
+                          [--mlp-only | --raster-only [--against DIR] |
+                           --snapshot-only]
 
 It builds the hand-written CUDA kernels from csrc/, holds each against its
 plain PyTorch version at the shapes the main path gives it (and checks that
@@ -23,14 +24,20 @@ step with the GroupNorms and the attention layers hooked (K6's calls, bytes
 and per-shape times; K3/K4 held to their limit on every kernel-routed call,
 as on one bootstrap UNet call) and one with the plain GroupNorm path.
 prepare_sds's launches and each step's must equal the counts derived for
-them. Any failed phase exits non-zero. The last line is {"ok": true,
+them. Then the paint path (the CLI on spot_quick_test.yaml, its resume, the
+default-size eval) and the snapshot path: the paint path's first CLI run
+again from its seeded towers written to disk as diffusers snapshots (17.6 GB
+at F32 under build/snapshots/, deleted after), which must equal the
+random-tower run bit for bit. Any failed phase exits non-zero. The last line is {"ok": true,
 "device": {...}}; the line before it is the JSON record of the kernels.
 --profile also writes a torch.profiler table of one step to chiprun_out/;
 --sweep also times K3/K4 at each query tile the kernel is built for.
 --mlp-only runs only the K1/K2 phases, --raster-only only the K5 phase (no
 main path, no result line); --against DIR then also times the K5 of the
 checkout at DIR (an earlier commit unpacked there) and of this one, in
-turns, each in a subprocess on the same card.
+turns, each in a subprocess on the same card. --snapshot-only runs only the
+snapshot path, with its own random-tower run to hold the loaded run to (no
+result line).
 """
 
 import argparse
@@ -1930,21 +1937,37 @@ def paint_argv(seed, exp_root):
             f"--optim.seed={seed}"]
 
 
-def peak_rss_since_reset():
-    """Reset the process's peak resident set (VmHWM, through
-    /proc/self/clear_refs) and return a reader of it in GiB; the reader
-    gives None where the reset is not allowed."""
-    try:
-        Path("/proc/self/clear_refs").write_text("5")
-    except OSError:
-        return lambda: None
+class HostPeakRSS:
+    """The process's peak resident set (GiB) while the block runs,
+    sampled from /proc/self/statm every `every` seconds on a thread."""
 
-    def read():
-        for line in Path("/proc/self/status").read_text().splitlines():
-            if line.startswith("VmHWM:"):
-                return int(line.split()[1]) / 2 ** 20
-        return None
-    return read
+    def __init__(self, every=0.002):
+        import os
+        import threading
+
+        self.every, self.peak = every, 0.0
+        self._page = os.sysconf("SC_PAGE_SIZE")
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    def _read(self):
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * self._page / 2 ** 30
+
+    def _run(self):
+        while not self._stop.is_set():
+            self.peak = max(self.peak, self._read())
+            self._stop.wait(self.every)
+
+    def __enter__(self):
+        self.start = self._read()
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join(timeout=5)
+        self.peak = max(self.peak, self._read())
 
 
 def drop_from_page_cache(root):
@@ -2074,13 +2097,12 @@ def snapshot_path(torch, seed, reference, failures):
                        f"--guide.zero123plus_path={snap / 'zero123plus'}",
                        f"--guide.controlnet_path={snap / 'controlnet'}"]
         torch.cuda.reset_peak_memory_stats()
-        read_rss = peak_rss_since_reset()
-        run, secs = counted(torch, lambda: run_contexture.main(args),
-                            lambda r: r.paint_kernel_launches(0),
-                            "CLI paint run from snapshots", launches,
-                            failures)
+        with HostPeakRSS() as rss:
+            run, secs = counted(torch, lambda: run_contexture.main(args),
+                                lambda r: r.paint_kernel_launches(0),
+                                "CLI paint run from snapshots", launches,
+                                failures)
         card_peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        rss_run = read_rss()
         rss_max = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
         loaded = {f"sd2/{k}": v for k, v in run.diffusion.loaded.items()}
         loaded.update({f"zero123plus/{k}": v
@@ -2094,9 +2116,9 @@ def snapshot_path(torch, seed, reference, failures):
         print(f"  loaded {len(loaded)} towers, {n_bytes / 1e9:.3f} GB in "
               f"{n_secs:.1f} s ({n_bytes / 1e9 / n_secs:.2f} GB/s); CLI run "
               f"{secs:.1f} s; card peak memory {card_peak:.2f} GiB; host "
-              f"peak RSS over the run "
-              f"{'not measured' if rss_run is None else f'{rss_run:.2f} GiB'}"
-              f" (the process's lifetime peak {rss_max / 2 ** 20:.2f} GiB, "
+              f"RSS {rss.start:.2f} GiB at the run's start, peak "
+              f"{rss.peak:.2f} GiB over it (sampled every 2 ms; the "
+              f"process's lifetime peak {rss_max / 2 ** 20:.2f} GiB, "
               f"{rss_before / 2 ** 20:.2f} before the phase) [{card}]")
         if len(loaded) != len(towers_written) or n_bytes != need:
             failures.append(f"snapshot path: {len(loaded)} towers and "
@@ -2150,7 +2172,23 @@ def snapshot_path(torch, seed, reference, failures):
             print(f"    random towers {ref_last}\n    from disk     {last}")
             failures.append("snapshot path: last metrics entry differs "
                             "from the random-tower run")
-        del run
+        # one tower loaded again, from the disk and from the page cache
+        from contexture_nerf_tpu_torch.diffusion import weights as W
+
+        unet, path = run.diffusion.unet, snap / "sd2-depth" / "unet"
+        for label in ("page cache dropped", "page cache warm"):
+            if label == "page cache dropped":
+                drop_from_page_cache(path)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            n = W.load_checkpoint_(unet, str(path), W.convert_unet,
+                                   unet.config)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            print(f"    sd2-depth/unet loaded again, {label}: "
+                  f"{n / 1e9:.3f} GB in {dt:.2f} s, {n / 1e9 / dt:.2f} GB/s "
+                  f"[{card}]")
+        del run, unet
     finally:
         shutil.rmtree(snap, ignore_errors=True)
         gc.collect()
