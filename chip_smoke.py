@@ -1986,6 +1986,20 @@ def drop_from_page_cache(root):
                 os.close(fd)
 
 
+def snapshot_towers(teacher, diffusion):
+    """The ten towers the snapshot path writes, by where they go."""
+    return {"zero123plus/unet": teacher.unet,
+            "zero123plus/vae (encoder)": teacher.vae_encoder,
+            "zero123plus/text_encoder": teacher.text_encoder,
+            "zero123plus/vision_encoder": teacher.vision_encoder,
+            "controlnet": teacher.controlnet,
+            "sd2-depth/unet": diffusion.unet,
+            "sd2-depth/vae (encoder)": diffusion.vae_encoder,
+            "sd2-depth/vae (decoder)": diffusion.vae_decoder,
+            "sd2-depth/text_encoder": diffusion.text_encoder,
+            "sd2-inpaint/unet": diffusion.inpaint_unet}
+
+
 def snapshot_path(torch, seed, reference, failures):
     """The paint path's first CLI run again, from towers on disk: the
     full-width seeded towers that `build_models` draws for that run (same
@@ -2041,16 +2055,7 @@ def snapshot_path(torch, seed, reference, failures):
     torch.cuda.synchronize()
     draw_s = time.perf_counter() - t0
     del mlp
-    towers = {"zero123plus/unet": teacher.unet,
-              "zero123plus/vae (encoder)": teacher.vae_encoder,
-              "zero123plus/text_encoder": teacher.text_encoder,
-              "zero123plus/vision_encoder": teacher.vision_encoder,
-              "controlnet": teacher.controlnet,
-              "sd2-depth/unet": diffusion.unet,
-              "sd2-depth/vae (encoder)": diffusion.vae_encoder,
-              "sd2-depth/vae (decoder)": diffusion.vae_decoder,
-              "sd2-depth/text_encoder": diffusion.text_encoder,
-              "sd2-inpaint/unet": diffusion.inpaint_unet}
+    towers = snapshot_towers(teacher, diffusion)
     counts = {k: sum(p.numel() for p in m.parameters())
               for k, m in towers.items()}
     need = 4 * sum(counts.values())
@@ -2087,7 +2092,6 @@ def snapshot_path(torch, seed, reference, failures):
                           for k in written)
               + f"), then fsync and page-cache drop {sync_s:.1f} s [{card}]")
         written_sd = {k: m.state_dict() for k, m in towers.items()}
-        towers_written = list(towers)
         del teacher, diffusion, towers
         gc.collect()
         torch.cuda.empty_cache()
@@ -2120,23 +2124,13 @@ def snapshot_path(torch, seed, reference, failures):
               f"{rss.peak:.2f} GiB over it (sampled every 2 ms; the "
               f"process's lifetime peak {rss_max / 2 ** 20:.2f} GiB, "
               f"{rss_before / 2 ** 20:.2f} before the phase) [{card}]")
-        if len(loaded) != len(towers_written) or n_bytes != need:
+        if len(loaded) != len(written_sd) or n_bytes != need:
             failures.append(f"snapshot path: {len(loaded)} towers and "
                             f"{n_bytes} bytes loaded, not "
-                            f"{len(towers_written)} and {need}")
+                            f"{len(written_sd)} and {need}")
 
-        mods = {"zero123plus/unet": run.teacher.unet,
-                "zero123plus/vae (encoder)": run.teacher.vae_encoder,
-                "zero123plus/text_encoder": run.teacher.text_encoder,
-                "zero123plus/vision_encoder": run.teacher.vision_encoder,
-                "controlnet": run.teacher.controlnet,
-                "sd2-depth/unet": run.diffusion.unet,
-                "sd2-depth/vae (encoder)": run.diffusion.vae_encoder,
-                "sd2-depth/vae (decoder)": run.diffusion.vae_decoder,
-                "sd2-depth/text_encoder": run.diffusion.text_encoder,
-                "sd2-inpaint/unet": run.diffusion.inpaint_unet}
         differ = []
-        for k, m in mods.items():
+        for k, m in snapshot_towers(run.teacher, run.diffusion).items():
             got = m.state_dict()
             if set(got) != set(written_sd[k]) or not all(
                     torch.equal(got[n], t) for n, t in written_sd[k].items()):

@@ -67,13 +67,6 @@ def read_safetensor(path: str, entry: dict, data_start: int) -> np.ndarray:
                      shape=shape)
 
 
-def load_safetensors(path: str) -> Dict[str, np.ndarray]:
-    """Every tensor of a safetensors file, by name."""
-    header, start = safetensors_header(path)
-    return {k: np.array(read_safetensor(path, e, start))
-            for k, e in header.items()}
-
-
 # -- checkpoints -------------------------------------------------------------------
 
 def resolve_checkpoint(path: str) -> str:
@@ -114,13 +107,6 @@ class Checkpoint(Mapping):
         if self._tensors is not None:
             return tuple(self._tensors[name].shape)
         return tuple(self._header[name]["shape"])
-
-    def nbytes(self, name: str) -> int:
-        if self._tensors is not None:
-            t = self._tensors[name]
-            return t.numel() * t.element_size()
-        begin, end = self._header[name]["data_offsets"]
-        return end - begin
 
     def __getitem__(self, name: str) -> torch.Tensor:
         if self._tensors is not None:
@@ -242,30 +228,17 @@ class NameMap:
 
 
 class Converted(Mapping):
-    """A checkpoint seen under the port's names: port name -> the
+    """A Checkpoint seen under the port's names: port name -> the
     checkpoint's tensor, still read lazily."""
 
-    def __init__(self, sd: Mapping, names: Dict[str, str]):
+    def __init__(self, sd: Checkpoint, names: Dict[str, str]):
         self.sd, self.names = sd, names  # port name -> checkpoint name
 
-    def source(self, name: str) -> str:
-        return self.names[name]
-
     def shape(self, name: str) -> Tuple[int, ...]:
-        src = self.names[name]
-        return (self.sd.shape(src) if hasattr(self.sd, "shape")
-                else tuple(self.sd[src].shape))
-
-    def nbytes(self, name: str) -> int:
-        src = self.names[name]
-        if hasattr(self.sd, "nbytes"):
-            return self.sd.nbytes(src)
-        t = self.sd[src]
-        return t.numel() * t.element_size()
+        return self.sd.shape(self.names[name])
 
     def __getitem__(self, name: str) -> torch.Tensor:
-        t = self.sd[self.names[name]]
-        return t if torch.is_tensor(t) else torch.from_numpy(np.asarray(t))
+        return self.sd[self.names[name]]
 
     def __iter__(self):
         return iter(self.names)
@@ -274,28 +247,28 @@ class Converted(Mapping):
         return len(self.names)
 
 
-def _convert(sd: Mapping, name_map, keys=None, strip: str = "") -> Converted:
+def _convert(sd: Checkpoint, name_map, keys=None) -> Converted:
     names = {}
     for k in (sd if keys is None else keys):
-        port = name_map(k[len(strip):])
+        port = name_map(k)
         if port in names:
             raise ValueError(f"{k} and {names[port]} both map to {port}")
         names[port] = k
     return Converted(sd, names)
 
 
-def convert_unet(sd: Mapping, config) -> Converted:
+def convert_unet(sd: Checkpoint, config) -> Converted:
     """diffusers UNet2DConditionModel -> diffusion.unet.UNet2DCondition."""
     return _convert(sd, NameMap(UNET_NAMES, len(config.block_out_channels)))
 
 
-def convert_controlnet(sd: Mapping, config) -> Converted:
+def convert_controlnet(sd: Checkpoint, config) -> Converted:
     """diffusers ControlNetModel -> diffusion.controlnet.ControlNet."""
     return _convert(sd, NameMap(CONTROLNET_NAMES,
                                 len(config.block_out_channels)))
 
 
-def convert_vae(sd: Mapping, config) -> Dict[str, Converted]:
+def convert_vae(sd: Checkpoint, config) -> Dict[str, Converted]:
     """diffusers AutoencoderKL -> {"encoder": diffusion.vae.Encoder's,
     "decoder": diffusion.vae.Decoder's}. `quant_conv` belongs to the
     encoder and `post_quant_conv` to the decoder, as in the port's modules;
@@ -316,13 +289,13 @@ def convert_vae(sd: Mapping, config) -> Dict[str, Converted]:
         for part, keys in parts.items()}
 
 
-def convert_clip_text(sd: Mapping, config=None) -> Converted:
+def convert_clip_text(sd: Checkpoint, config=None) -> Converted:
     """transformers CLIPTextModel -> diffusion.clip.CLIPTextModel."""
     return _convert(sd, NameMap(CLIP_TEXT_NAMES),
                     [k for k in sd if k not in CLIP_DROPPED])
 
 
-def convert_clip_vision(sd: Mapping, config=None) -> Converted:
+def convert_clip_vision(sd: Checkpoint, config=None) -> Converted:
     """transformers CLIPVisionModelWithProjection ->
     diffusion.clip.CLIPVisionModelWithProjection."""
     return _convert(sd, NameMap(CLIP_VISION_NAMES),
@@ -332,7 +305,7 @@ def convert_clip_vision(sd: Mapping, config=None) -> Converted:
 # -- loading into a module -------------------------------------------------------------
 
 @torch.no_grad()
-def load_tower_(module: nn.Module, converted: Mapping) -> int:
+def load_tower_(module: nn.Module, converted: Converted) -> int:
     """Copy `converted` (port name -> tensor) into `module`'s parameters and
     buffers, cast to each one's dtype on its device, one tensor at a time.
     Strict: a key missing or left over, or a shape that differs, raises
@@ -340,10 +313,9 @@ def load_tower_(module: nn.Module, converted: Mapping) -> int:
     own = module.state_dict(keep_vars=True)
     missing = sorted(set(own) - set(converted))
     unexpected = sorted(set(converted) - set(own))
-    shape = getattr(converted, "shape", lambda k: tuple(converted[k].shape))
-    wrong = [f"{k}: checkpoint {list(shape(k))}, module "
+    wrong = [f"{k}: checkpoint {list(converted.shape(k))}, module "
              f"{list(own[k].shape)}" for k in own
-             if k in converted and tuple(shape(k)) != tuple(own[k].shape)]
+             if k in converted and converted.shape(k) != tuple(own[k].shape)]
     if missing or unexpected or wrong:
         lines: List[str] = []
         if missing:

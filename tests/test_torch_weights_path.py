@@ -137,13 +137,12 @@ def test_reader_matches_the_safetensors_package(snaps, snap):
     for path in files:
         want = load_file(str(path))
         ckpt = W.load_state_dict(str(path))
-        got = W.load_safetensors(str(path))
-        assert set(got) == set(want) == set(ckpt)
+        assert set(ckpt) == set(want)
         for k, v in want.items():
-            assert got[k].dtype == v.dtype and got[k].shape == v.shape
-            assert np.array_equal(got[k], v), k
+            got = ckpt[k].numpy()
+            assert got.dtype == v.dtype and got.shape == v.shape
             assert ckpt.shape(k) == v.shape
-            assert np.array_equal(ckpt[k].numpy(), v), k
+            assert np.array_equal(got, v), k
 
 
 def test_reader_reads_f16(tmp_path):
@@ -161,7 +160,6 @@ def test_reader_reads_f16(tmp_path):
         assert t.dtype == torch.from_numpy(v).dtype and tuple(t.shape) == \
             v.shape, k
         assert np.array_equal(t.numpy(), v), k
-    assert ckpt.nbytes("a.weight") == 30
 
 
 def test_reader_refuses_other_dtypes(tmp_path):
