@@ -1,18 +1,23 @@
 """Textured mesh model: mesh + renderer + the texture MLP's lattice; the
 port's counterpart of contexture_nerf_tpu/models/textured_mesh.py
-`TexturedMeshModel` (`render_geometry`, `render`, `get_texture_map`,
-`apply_median_fill`, `query_texture_at_uv`,
-`get_texture_map_only_valid_areas`, `export_mesh`) for meshes that carry
-UVs.
+`TexturedMeshModel` (`_init_texture_map`, `render_geometry`, `render`,
+`get_texture_map`, `apply_median_fill`, `query_texture_at_uv`,
+`get_texture_map_only_valid_areas`, `fit_texture_to_image`,
+`export_mesh`) and of its UV atlas, `atlas_unwrap`.
 
 As in the reference, the MLP's parameters are outside the model: every
-texture call takes the NeRF2D module. A mesh without UVs needs the
-reference's `atlas_unwrap`, which a later slice ports.
+texture call takes the NeRF2D module. A mesh without UVs is unwrapped once
+on the host (`atlas_unwrap`, the reference's numpy path; the JAX package's
+C++ unwrap in `native/objio` is not ported) and the atlas is cached on disk
+under the reference's file names, so a cache written by either package
+serves the other.
 """
 
 from __future__ import annotations
 
+import hashlib
 import math
+from collections import deque
 from pathlib import Path
 from typing import Dict, Optional, Tuple, Union
 
@@ -24,29 +29,295 @@ from contexture_nerf_tpu_torch.models.fields import NeRF2D, texture_from_mlp
 from contexture_nerf_tpu_torch.models.mesh import Mesh
 from contexture_nerf_tpu_torch.ops.image import save_image
 from contexture_nerf_tpu_torch.ops.mlp_kernel import fused_nerf2d
+from contexture_nerf_tpu_torch.ops.texture import sample_texture
 from contexture_nerf_tpu_torch.raster.raster_kernel import rasterize_geometry
 from contexture_nerf_tpu_torch.raster.rasterize import interpolate_attributes
 from contexture_nerf_tpu_torch.raster.render import RenderCache, Renderer
 
 
+# -- the UV atlas of a mesh without UVs (host, numpy, once a mesh) ------------
+
+def _face_normals(vertices: np.ndarray, faces: np.ndarray) -> np.ndarray:
+    e1 = vertices[faces[:, 1]] - vertices[faces[:, 0]]
+    e2 = vertices[faces[:, 2]] - vertices[faces[:, 0]]
+    n = np.cross(e1, e2)
+    return n / np.maximum(np.linalg.norm(n, axis=1, keepdims=True), 1e-12)
+
+
+def _grow_charts(vertices: np.ndarray, faces: np.ndarray,
+                 angle_thr_deg: float) -> np.ndarray:
+    """Breadth-first chart growing over the face-adjacency graph: a
+    neighbour joins a chart while its normal stays within angle_thr of the
+    chart's seed normal. Returns the chart id of each face."""
+    F = faces.shape[0]
+    normals = _face_normals(vertices, faces)
+    edge_to_faces: Dict[Tuple[int, int], list] = {}
+    for f in range(F):
+        a, b, c = faces[f]
+        for e in ((a, b), (b, c), (c, a)):
+            edge_to_faces.setdefault(tuple(sorted(e)), []).append(f)
+    neighbors = [[] for _ in range(F)]
+    for fs in edge_to_faces.values():
+        for i in fs:
+            for j in fs:
+                if i != j:
+                    neighbors[i].append(j)
+
+    cos_thr = np.cos(np.deg2rad(angle_thr_deg))
+    chart = np.full(F, -1, np.int64)
+    n_charts = 0
+    for seed in range(F):
+        if chart[seed] >= 0:
+            continue
+        cid = n_charts
+        n_charts += 1
+        chart[seed] = cid
+        seed_n = normals[seed]
+        q = deque([seed])
+        while q:
+            f = q.popleft()
+            for g in neighbors[f]:
+                if chart[g] < 0 and float(normals[g] @ seed_n) >= cos_thr:
+                    chart[g] = cid
+                    q.append(g)
+    return chart
+
+
+def _per_face_unwrap(faces: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """The fallback packer: every triangle gets its own right-triangle cell
+    in a ceil(sqrt(F))-column grid (no UV continuity; only used when the
+    shelves cannot hold the charts)."""
+    F = faces.shape[0]
+    cols = int(np.ceil(np.sqrt(F)))
+    rows = int(np.ceil(F / cols))
+    cw, ch = 1.0 / cols, 1.0 / rows
+    gut = 0.1
+    vt = np.zeros((3 * F, 2), np.float32)
+    ft = np.arange(3 * F, dtype=np.int64).reshape(F, 3)
+    idx = np.arange(F)
+    cx = (idx % cols) * cw
+    cy = (idx // cols) * ch
+    vt[0::3] = np.stack([cx + gut * cw, cy + gut * ch], -1)
+    vt[1::3] = np.stack([cx + (1 - gut) * cw, cy + gut * ch], -1)
+    vt[2::3] = np.stack([cx + gut * cw, cy + (1 - gut) * ch], -1)
+    return vt, ft
+
+
+def _coverage_count(uv: np.ndarray, ft: np.ndarray, G: int = 128
+                    ) -> np.ndarray:
+    """How many of the triangles `ft` over `uv` cover each texel centre of a
+    G^2 grid spanning the box of the vertices `ft` uses. A centre counts
+    only strictly inside a triangle, so shared edges do not count twice."""
+    used = uv[np.unique(ft)]
+    lo = used.min(axis=0)
+    span = np.maximum(used.max(axis=0) - lo, 1e-12)
+    uvn = (uv - lo) / span * G
+    cover = np.zeros((G, G), np.int32)
+    for tri in ft:
+        p = uvn[tri]  # (3,2)
+        x0, y0 = np.floor(p.min(axis=0)).astype(int)
+        x1, y1 = np.ceil(p.max(axis=0)).astype(int)
+        x0, y0 = max(x0, 0), max(y0, 0)
+        x1, y1 = min(x1, G), min(y1, G)
+        if x1 <= x0 or y1 <= y0:
+            continue
+        xs = np.arange(x0, x1) + 0.5
+        ys = np.arange(y0, y1) + 0.5
+        gx, gy = np.meshgrid(xs, ys, indexing="xy")
+        d = np.stack([gx - p[0, 0], gy - p[0, 1]], axis=-1)
+        e1 = p[1] - p[0]
+        e2 = p[2] - p[0]
+        det = e1[0] * e2[1] - e1[1] * e2[0]
+        if abs(det) < 1e-12:
+            continue
+        a = (d[..., 0] * e2[1] - d[..., 1] * e2[0]) / det
+        b = (e1[0] * d[..., 1] - e1[1] * d[..., 0]) / det
+        eps = 1e-6
+        inside = (a > eps) & (b > eps) & (a + b < 1 - eps)
+        cover[y0:y1, x0:x1] += inside.astype(np.int32)
+    return cover
+
+
+def _overlap_frac(uv: np.ndarray, ft: np.ndarray, G: int = 128) -> float:
+    """The share of covered texels that two or more triangles cover."""
+    cover = _coverage_count(uv, ft, G)
+    covered = int((cover > 0).sum())
+    return float((cover > 1).sum()) / max(covered, 1)
+
+
+def _charts_from_ft(ft: np.ndarray) -> np.ndarray:
+    """The chart of each face, by union-find over shared UV vertices (a
+    welded chart shares them; two charts never do)."""
+    n = int(ft.max()) + 1
+    parent = np.arange(n)
+
+    def find(a):
+        while parent[a] != a:
+            parent[a] = parent[parent[a]]
+            a = parent[a]
+        return a
+
+    for tri in ft:
+        r = find(tri[0])
+        for b in tri[1:]:
+            rb = find(b)
+            if rb != r:
+                parent[rb] = r
+    roots = np.array([find(v) for v in ft[:, 0]])
+    _, labels = np.unique(roots, return_inverse=True)
+    return labels
+
+
+def _chart_overlaps(vt: np.ndarray, ft: np.ndarray,
+                    thr: float = 0.05) -> bool:
+    """True if a welded chart of two or more faces overlaps itself in UV
+    space by more than `thr` of its texels."""
+    labels = _charts_from_ft(ft)
+    for cid in range(labels.max() + 1):
+        fids = np.nonzero(labels == cid)[0]
+        if len(fids) < 2:
+            continue
+        if _overlap_frac(vt, ft[fids]) > thr:
+            return True
+    return False
+
+
+def atlas_unwrap(vertices: np.ndarray, faces: np.ndarray,
+                 angle_thr_deg: float = 75.0,
+                 gutter: float = 4.0 / 1024.0
+                 ) -> Tuple[np.ndarray, np.ndarray]:
+    """Connected-chart UV unwrap: charts grown over face adjacency within
+    an angle of their seed's normal, each projected orthographically (in
+    float64) onto its seed's tangent plane with its vertices welded, a
+    chart whose projection overlaps itself (> 0.05 of its texels) demoted
+    to one chart a face, and the chart boxes shelf-packed tallest first
+    (stable) at one texel density, the scale searched down by x0.85 up to
+    40 times; when no scale fits, `_per_face_unwrap`. Returns (vt (n, 2)
+    float32 clipped to [0, 1], ft (F, 3) int64): the reference's numpy
+    path, which the reference takes when its C++ unwrap is not built."""
+    F = faces.shape[0]
+    chart = _grow_charts(vertices, faces, angle_thr_deg)
+    n_charts = int(chart.max()) + 1
+    normals = _face_normals(vertices, faces)
+
+    def project_chart(fids, seed_n):
+        """(welded uvs (k,2) float64, ft_local (m,3)): the chart's faces
+        projected onto the plane with normal seed_n."""
+        up = np.array([0.0, 1.0, 0.0])
+        if abs(float(seed_n @ up)) > 0.9:
+            up = np.array([1.0, 0.0, 0.0])
+        u = np.cross(up, seed_n)
+        u /= max(np.linalg.norm(u), 1e-12)
+        v = np.cross(seed_n, u)
+        verts_used = np.unique(faces[fids].reshape(-1))
+        local = {int(g): i for i, g in enumerate(verts_used)}
+        p = vertices[verts_used]
+        uv = np.stack([p @ u, p @ v], axis=-1)
+        uv -= uv.min(axis=0)
+        ft_local = np.vectorize(local.get)(faces[fids])
+        return uv.astype(np.float64), ft_local
+
+    charts = []  # (face ids, welded uvs (k,2), ft_local (m,3)) a chart
+    for cid in range(n_charts):
+        fids = np.nonzero(chart == cid)[0]
+        uv, ft_local = project_chart(fids, normals[fids[0]])
+        if len(fids) > 1 and _overlap_frac(uv, ft_local) > 0.05:
+            # a projection that overlaps itself: one chart a face, each on
+            # its own face's plane
+            for f in fids:
+                fi = np.asarray([f])
+                charts.append((fi, *project_chart(fi, normals[f])))
+        else:
+            charts.append((fids, uv, ft_local))
+    n_charts = len(charts)
+
+    sizes = np.array([c[1].max(axis=0) if len(c[1]) else (0, 0)
+                      for c in charts])  # (n_charts, 2) chart w, h
+    order = np.argsort(-sizes[:, 1], kind="stable")  # tallest first
+
+    def pack(scale):
+        """Chart offsets (n_charts, 2) on shelves, or None on overflow."""
+        offsets = np.zeros((n_charts, 2))
+        x = y = shelf_h = 0.0
+        for ci in order:
+            w, h = sizes[ci] * scale
+            if w > 1.0 - 2 * gutter or h > 1.0 - 2 * gutter:
+                return None
+            if x + w + 2 * gutter > 1.0:
+                y += shelf_h
+                x = shelf_h = 0.0
+            if y + h + 2 * gutter > 1.0:
+                return None
+            offsets[ci] = (x + gutter, y + gutter)
+            x += w + 2 * gutter
+            shelf_h = max(shelf_h, h + 2 * gutter)
+        return offsets
+
+    total_area = float(np.prod(sizes + 1e-9, axis=1).sum())
+    scale = np.sqrt(0.5 / max(total_area, 1e-12))
+    offsets = None
+    for _ in range(40):
+        offsets = pack(scale)
+        if offsets is not None:
+            break
+        scale *= 0.85
+    if offsets is None:
+        # the gutter caps the shelves at about (1/2g)^2 charts; a mesh that
+        # welds nothing (a triangle soup) can have more
+        return _per_face_unwrap(faces)
+
+    vt_parts, ft = [], np.zeros((F, 3), np.int64)
+    base = 0
+    for ci, (fids, uv, ft_local) in enumerate(charts):
+        vt_parts.append(uv * scale + offsets[ci])
+        ft[fids] = ft_local + base
+        base += uv.shape[0]
+    vt = np.concatenate(vt_parts, axis=0).astype(np.float32)
+    return np.clip(vt, 0.0, 1.0), ft
+
+
+def atlas_cache_files(cache: Path, mesh: Mesh) -> Tuple[Path, Path]:
+    """(vt_<tag>.npy, ft_<tag>.npy) in `cache`: the tag is the first 10 hex
+    digits of the SHA-1 of the normalised vertices' bytes (float32) and
+    then the faces' (int64), so a re-made mesh under the same name never
+    reads a stale atlas."""
+    h = hashlib.sha1()
+    h.update(np.ascontiguousarray(mesh.vertices).tobytes())
+    h.update(np.ascontiguousarray(mesh.faces).tobytes())
+    tag = h.hexdigest()[:10]
+    return cache / f"vt_{tag}.npy", cache / f"ft_{tag}.npy"
+
+
+def has_uvs(mesh: Mesh) -> bool:
+    return (mesh.vt is not None and mesh.ft is not None
+            and mesh.vt.shape[0] > 0 and mesh.ft.min() > -1)
+
+
 class TexturedMeshModel:
     """Mesh geometry, renderer and the texture lattice size. `opt` is the
     guide config (shape_path, shape_scale, dy, texture_interpolation_mode).
-    `compute_dtype` is the MLP's matmul dtype for the texture lattice: the
-    card's fused kernel (K1) computes in bf16."""
+    `cache_path` is the directory of the mesh's unwrapped atlas (None: no
+    cache). `compute_dtype` is the MLP's matmul dtype for the texture
+    lattice: the card's fused kernels (K1, K2) compute in bf16.
+    `edit_change_mask` ((1, res, res) f32, or None) marks the texels that
+    guide.reference_texture says were edited (training/trainer.py
+    `seed_texture_field`)."""
 
     def __init__(self, opt, render_grid_size: int = 1024,
-                 texture_resolution: int = 1024, multires: int = 10,
+                 texture_resolution: int = 1024,
+                 cache_path: Optional[Path] = None, multires: int = 10,
                  fovyangle: float = math.pi / 3,
                  compute_dtype=torch.float32, device="cuda"):
         self.device = resolve_device(device)
         self.opt = opt
         self.dy = opt.dy
         self.texture_resolution = texture_resolution
+        self.cache_path = Path(cache_path) if cache_path is not None else None
         self.multires = multires
         self.compute_dtype = compute_dtype
         self.default_color = [0.8, 0.1, 0.8]  # magenta
         self.dim = (render_grid_size, render_grid_size)
+        self.edit_change_mask: Optional[torch.Tensor] = None
         self.renderer = Renderer(dim=self.dim,
                                  interpolation_mode=opt.texture_interpolation_mode,
                                  fovyangle=fovyangle, device=self.device)
@@ -57,19 +328,31 @@ class TexturedMeshModel:
         mesh.normalize_mesh(inplace=True, target_scale=opt.shape_scale,
                             dy=self.dy)
         self.mesh = mesh
-        if not (mesh.vt is not None and mesh.ft is not None
-                and mesh.vt.shape[0] > 0 and mesh.ft.min() > -1):
-            raise NotImplementedError(
-                f"{opt.shape_path} has no UVs: a mesh without them needs "
-                "atlas_unwrap (models/textured_mesh.py of the JAX package), "
-                "which a later slice ports")
-        self.vt = mesh.vt.astype(np.float32)
-        self.ft = mesh.ft.astype(np.int64)
+        self.vt, self.ft = self._init_texture_map()
         dev = self.device
         # (1, F, 3, 2) face UV attributes
         self.face_attributes = torch.from_numpy(self.vt[self.ft])[None].to(dev)
         self.verts = torch.from_numpy(mesh.vertices).float().to(dev)
         self.faces = torch.from_numpy(mesh.faces).long().to(dev)
+
+    def _init_texture_map(self) -> Tuple[np.ndarray, np.ndarray]:
+        """(vt float32, ft int64), the first of: the mesh's own UVs; the
+        atlas cached in cache_path for this geometry; `atlas_unwrap`, then
+        written to the cache."""
+        if has_uvs(self.mesh):
+            return (self.mesh.vt.astype(np.float32),
+                    self.mesh.ft.astype(np.int64))
+        files = (atlas_cache_files(self.cache_path, self.mesh)
+                 if self.cache_path is not None else None)
+        if files is not None and all(f.exists() for f in files):
+            vt, ft = (np.load(f) for f in files)
+            return vt.astype(np.float32), ft.astype(np.int64)
+        vt, ft = atlas_unwrap(self.mesh.vertices, self.mesh.faces)
+        if files is not None:
+            self.cache_path.mkdir(parents=True, exist_ok=True)
+            np.save(files[0], vt)
+            np.save(files[1], ft)
+        return vt, ft
 
     def get_texture_map(self, mlp: NeRF2D
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -108,6 +391,39 @@ class TexturedMeshModel:
         out = fused_nerf2d(mlp, uv.contiguous(), self.multires,
                            compute_dtype=compute_dtype or self.compute_dtype)
         return (torch.tanh(out) + 1.0) / 2.0
+
+    def fit_texture_to_image(self, mlp: NeRF2D, image: torch.Tensor,
+                             steps: int = 300, lr: float = 1e-3,
+                             batch: int = 4096,
+                             uv_draws: Optional[torch.Tensor] = None,
+                             generator: Optional[torch.Generator] = None
+                             ) -> torch.Tensor:
+        """Fit the MLP in place to an image (3, R, R) in [0, 1]
+        (guide.initial_texture): `steps` Adam steps (lr, betas (0.9, 0.999),
+        eps 1e-8) on mean((colour(uv) - sample_texture(image, uv))^2) over
+        batches of `batch` uniform UVs, through the fused MLP (K1 forward
+        and K2 backward on the card). The UVs are `uv_draws` (steps, batch,
+        2) when given, else drawn from `generator` one batch a step.
+        Returns the loss of each step (steps,)."""
+        dev = mlp.output_linear.weight.device
+        img = image.to(dev, torch.float32)[None]  # (1, 3, R, R)
+        opt = torch.optim.Adam(mlp.parameters(), lr=lr, betas=(0.9, 0.999),
+                               eps=1e-8)
+        losses = torch.empty(steps, device=dev)
+        for i in range(steps):
+            if uv_draws is not None:
+                uv = torch.as_tensor(uv_draws[i]).to(dev, torch.float32)
+            else:
+                uv = torch.rand((batch, 2), generator=generator, device=dev)
+            opt.zero_grad(set_to_none=True)
+            pred = self.query_texture_at_uv(mlp, uv)
+            tgt = sample_texture(uv[None, None], img)[0, 0]  # (N, 3)
+            loss = torch.mean((pred - tgt) ** 2)
+            loss.backward()
+            opt.step()
+            losses[i] = loss.detach()
+        mlp.zero_grad(set_to_none=True)
+        return losses
 
     @torch.no_grad()
     def get_texture_map_only_valid_areas(self, mlp: NeRF2D) -> torch.Tensor:

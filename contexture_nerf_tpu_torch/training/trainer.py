@@ -13,16 +13,21 @@ again), and the SD2-depth UNet repaints its crop in a 50-step PNDM img2img
 crops and resizes that front view into the condition image and the 6
 target views into the depth, mask and UV grids, and computes the CLIP and
 VAE conditioning. `build_sds_trainer` goes from a config to a ready
-`SDSTrainer`: mesh model, MLP, teacher, SD2-depth stack, `prepare_sds`,
-trainer. `edit_mask_pts` (guide.reference_texture), `optim.exact_lattice_render`
-and the repaint passes of `paint_viewpoint` (paint_step > 1: median fill,
-the inpaint UNet) come with later slices.
+`SDSTrainer`: mesh model (its UV atlas unwrapped and cached for a mesh
+without UVs), MLP (fitted to guide.initial_texture, and the change mask of
+guide.reference_texture taken, by `seed_texture_field`), teacher, SD2-depth
+stack, `prepare_sds`, trainer. The repaint passes of `paint_viewpoint`
+(paint_step > 1: median fill, the inpaint UNet) come with a later slice.
 
 One step: query the texture MLP at the grid's UVs (the fused kernel on the
 card), composite with the mask, VAE-encode and DDPM-noise, run the Zero123++
 teacher (write pass, depth ControlNet, read pass, CFG), form the SDS target
 and the 1/2-sum-square loss on one sampled latent tile, back-propagate
 (through a margin-padded slice with local_sds_grad) and take an Adam step.
+With guide.reference_texture, the texels it marks as unedited carry no
+gradient. optim.exact_lattice_render instead renders the whole texture
+lattice through the rasterizer's cache of the 6 target views (K1 forward and
+K2 backward over every texel) and takes the full-canvas backward.
 
 The eval renders the turntable (K5 once a frame) with one texture map (K1
 once an `evaluate` call: the map depends on the parameters only), filled
@@ -31,6 +36,7 @@ with the painted texels' median after painting.
 
 from __future__ import annotations
 
+import itertools
 import json
 import logging
 import os
@@ -87,6 +93,7 @@ GRAD_SCALE = 0.2  # reference trainer.py:830
 MULTIRES = 10
 LOG_EVERY = 50  # iterations between logged metrics, as the reference
 BOOTSTRAP_STEPS = 50  # img2img_step's num_inference_steps, as the reference
+FIT_STEPS = 300  # fit_texture_to_image's steps for guide.initial_texture
 
 
 def check_int8(cfg: TrainConfig) -> None:
@@ -97,6 +104,23 @@ def check_int8(cfg: TrainConfig) -> None:
             raise NotImplementedError(
                 f"optim.{knob} quantizes the teacher to W8A8 in the "
                 "reference (ops/quant.py); the port has no int8 path yet")
+
+
+def check_parallel(cfg: TrainConfig) -> None:
+    """The reference builds a (views x tp) or (views x sp) device mesh for
+    optim.tensor_parallel / optim.sequence_parallel, refuses both at once,
+    and refuses either when no mesh can be built, as on one device. The
+    port runs on one device, so it refuses both knobs likewise."""
+    tp = max(1, int(cfg.optim.tensor_parallel))
+    sp = max(1, int(cfg.optim.sequence_parallel))
+    if tp > 1 and sp > 1:
+        raise ValueError("optim.tensor_parallel and "
+                         "optim.sequence_parallel are mutually exclusive")
+    if tp > 1 or sp > 1:
+        raise ValueError(
+            f"optim.tensor_parallel={tp}/sequence_parallel={sp} requested "
+            "but the port runs on one device and builds no device mesh; an "
+            "explicit TP/SP request must not be silently ignored")
 
 
 def _to(x, device, dtype=None):
@@ -110,23 +134,27 @@ class SDSTrainer:
     """The SDS texture loop of the Zero123++ teacher on one device. `setup`
     is what `prepare_sds` returns. The step's random draws come from
     `generator` (a new one seeded with optim.seed if None), which also
-    fills a teacher or MLP made here."""
+    fills a teacher or MLP made here. optim.exact_lattice_render renders
+    the texture map of `mesh_model` through setup's cache6 and turns
+    local_sds_grad off, as the reference does."""
 
     def __init__(self, cfg: TrainConfig, setup: Dict, teacher:
                  Optional[Zero123PlusTeacher] = None,
                  mlp: Optional[NeRF2D] = None, tiny: bool = False,
-                 device="cuda", generator: Optional[torch.Generator] = None):
+                 device="cuda", generator: Optional[torch.Generator] = None,
+                 mesh_model: Optional[TexturedMeshModel] = None):
         dev = self.device = resolve_device(device)
         check_int8(cfg)
-        if cfg.optim.exact_lattice_render:
-            raise NotImplementedError(
-                "optim.exact_lattice_render samples the texture lattice "
-                "through the rasterizer's cache of the 6 target views "
-                "(prepare_sds's cache6); a later slice ports it")
-        if setup.get("edit_mask_pts") is not None:
-            raise NotImplementedError(
-                "edit_mask_pts (guide.reference_texture) comes with a later "
-                "slice")
+        check_parallel(cfg)
+        self.exact = bool(cfg.optim.exact_lattice_render)
+        if self.exact and (mesh_model is None
+                           or setup.get("cache6") is None):
+            raise ValueError(
+                "optim.exact_lattice_render renders the mesh model's "
+                "texture map through the rasterizer's cache of the 6 target "
+                "views: pass mesh_model and a setup from prepare_sds with "
+                "exact_lattice_render on (its cache6)")
+        self.mesh_model = mesh_model
         self.cfg = cfg
         self.generator = generator or torch.Generator(
             device=dev).manual_seed(cfg.optim.seed)
@@ -142,6 +170,13 @@ class SDSTrainer:
         self.acp = self.teacher.alphas_cumprod
         opt = cfg.optim
         self.local_grad = bool(opt.local_sds_grad)
+        if self.local_grad and self.exact:
+            logger.warning(
+                "optim.exact_lattice_render is on: disabling "
+                "optim.local_sds_grad (it requires the fused-query render "
+                "path); gradients follow the reference-exact full-canvas "
+                "backward")
+            self.local_grad = False
         margin = int(opt.local_sds_margin_px)
         if margin % self.vae_down:
             raise ValueError(
@@ -157,14 +192,25 @@ class SDSTrainer:
         self.gs_t = float(g.guidance_scale_t or 0.0)
 
         self.depth_grid = _to(setup["depth_grid"], dev, torch.float32)
-        self.mask_grid = _to(setup["mask_grid"], dev, torch.float32)
-        self.uv_pts = _to(setup["uv_grid_pts"], dev,
-                          torch.float32).contiguous()
         self.cond_lat_pair = _to(setup["cond_lat_pair"], dev, self.dtype)
         self.ehs = _to(setup["encoder_hidden_states"], dev, self.dtype)
         self.tile_probs = _to(setup["tile_probs"], dev, torch.float32)
-        self.emb_pts = (pad_embedding(self.uv_pts, MULTIRES, dtype=self.dtype)
-                        if opt.precompute_uv_embedding else None)
+        if self.exact:
+            self.cache6 = RenderCache(*(_to(x, dev) for x in setup["cache6"]))
+            self.bboxes6 = [tuple(int(v) for v in b)
+                            for b in setup["bboxes6"]]
+            self.mask_grid = self.uv_pts = self.emb_pts = None
+            self.edit_mask = None
+        else:
+            self.mask_grid = _to(setup["mask_grid"], dev, torch.float32)
+            self.uv_pts = _to(setup["uv_grid_pts"], dev,
+                              torch.float32).contiguous()
+            self.emb_pts = (pad_embedding(self.uv_pts, MULTIRES,
+                                          dtype=self.dtype)
+                            if opt.precompute_uv_embedding else None)
+            # guide.reference_texture: the change mask at the grid's UVs
+            self.edit_mask = _to(setup.get("edit_mask_pts"), dev,
+                                 torch.float32)
         lat_hw = (self.depth_grid.shape[2] // self.vae_down,
                   self.depth_grid.shape[3] // self.vae_down)
         with torch.no_grad():
@@ -179,16 +225,27 @@ class SDSTrainer:
 
     def _query(self, window=None):
         """Texture colours in [0,1] at the grid's UVs, or at the window
-        (oy, ox, h, w) of the grid, through the fused MLP."""
+        (oy, ox, h, w) of the grid, through the fused MLP. With an edit
+        mask m (guide.reference_texture), m rgb + (1 - m) rgb.detach():
+        the unedited texels carry no gradient."""
         H, W = self.grid_hw
         src = self.emb_pts if self.emb_pts is not None else self.uv_pts
+        m = self.edit_mask
         if window is not None:
             oy, ox, h, w = window
-            src = src.reshape(H, W, -1)[oy:oy + h, ox:ox + w].reshape(
-                h * w, -1).contiguous()
+
+            def cut(x):
+                return x.reshape(H, W, -1)[oy:oy + h, ox:ox + w].reshape(
+                    h * w, -1).contiguous()
+
+            src = cut(src)
+            m = cut(m) if m is not None else None
         fn = fused_nerf2d_emb if self.emb_pts is not None else fused_nerf2d
         out = fn(self.mlp, src, MULTIRES, compute_dtype=self.dtype)
-        return (torch.tanh(out) + 1.0) / 2.0
+        rgb = (torch.tanh(out) + 1.0) / 2.0
+        if m is not None:
+            rgb = m * rgb + (1 - m) * rgb.detach()
+        return rgb
 
     def _composite(self, rgb, h, w, mask):
         # contiguous NCHW: a permuted view would carry its channels-last
@@ -205,10 +262,24 @@ class SDSTrainer:
 
     def render_grid_latent(self, eps):
         """Full canvas: MLP -> composite -> VAE encode. Returns (z, grid,
-        rgb)."""
-        rgb = self._query()
-        grid = self._composite(rgb, *self.grid_hw, self.mask_grid)
-        return self._encode(grid, eps), grid, rgb
+        rgb). With exact_lattice_render the canvas is the texture map
+        (the MLP over the whole lattice) sampled at the 6 views' cached
+        UVs, composited on grey, each view cropped to its box and resized
+        to the tile; rgb is then the texture map."""
+        if not self.exact:
+            rgb = self._query()
+            grid = self._composite(rgb, *self.grid_hw, self.mask_grid)
+            return self._encode(grid, eps), grid, rgb
+        texture, _ = self.mesh_model.get_texture_map(self.mlp)
+        image, mask, _, _ = self.mesh_model.renderer.render_texture_with_cache(
+            self.cache6, texture, "none")
+        image = torch.clamp(image * mask + 0.5 * (1 - mask), 0.0, 1.0)
+        tiles = [crop_and_resize(image[i:i + 1], self.bboxes6[i],
+                                 self.tile_px, self.tile_px)
+                 for i in range(len(self.bboxes6))]
+        grid = merge_6_to_grid(torch.cat(tiles)).contiguous()
+        grid = scale_image(grid * 2 - 1)
+        return self._encode(grid, eps), grid, texture
 
     def slice_origin(self, tile_idx: int):
         """(oy, ox) of the backward slice around a tile (column-major tile
@@ -343,8 +414,8 @@ class SDSTrainer:
     def expected_kernel_launches(self) -> Dict[str, int]:
         """Kernel launches of one step on the card, derived from the
         configs and the attention routing rule: the MLP forward once for the
-        canvas (plus once for the backward slice with local_sds_grad), its
-        backward once, every teacher self-attention the rule routes to the
+        canvas, or for the texture lattice with exact_lattice_render (plus
+        once for the backward slice with local_sds_grad), its backward once, every teacher self-attention the rule routes to the
         flash kernel (cross-attention's 77 tokens never are), and K6 (one
         launch) for every GroupNorm of the two UNet passes, the ControlNet
         and the VAE encodes (the canvas, and the slice with local_sds_grad);
@@ -609,21 +680,19 @@ def prepare_sds(cfg: TrainConfig, mesh_model: TexturedMeshModel, mlp: NeRF2D,
     bootstrap_unet, bootstrap_decode, bootstrap_paste), crops, vae and clip.
 
     Returns depth_grid (1,3,3t,2t), mask_grid (1,1,3t,2t), uv_grid_pts
-    (6t^2, 2), cond_image (1,3,t,t), cond_lat_pair (2,4,t/8,t/8),
-    encoder_hidden_states (2,77,ctx), tile_probs (6,), bboxes6 (the 6
-    target views' crop boxes) and front_rgb (1,3,H,W), the front view the
-    condition image is cut from."""
+    (6t^2, 2), edit_mask_pts (6t^2, 1) (the mesh model's edit_change_mask
+    at the grid's UVs, or None), cond_image (1,3,t,t), cond_lat_pair
+    (2,4,t/8,t/8), encoder_hidden_states (2,77,ctx), tile_probs (6,),
+    bboxes6 (the 6 target views' crop boxes), cache6 (None) and front_rgb
+    (1,3,H,W), the front view the condition image is cut from. With
+    optim.exact_lattice_render, as in the reference, cache6 is the 6 target
+    views' `RenderCache` and mask_grid, uv_grid_pts and edit_mask_pts are
+    None: the step renders the texture lattice through the cache."""
     if not skip_bootstrap and diffusion is None:
         raise ValueError("the bootstrap (skip_bootstrap=False) needs the "
                          "SD2-depth stack: pass diffusion=StableDiffusionDepth"
                          "(...)")
-    if cfg.optim.exact_lattice_render:
-        raise NotImplementedError(
-            "optim.exact_lattice_render keeps the rasterizer's cache of the "
-            "6 target views (cache6); a later slice ports it")
-    if cfg.guide.reference_texture is not None:
-        raise NotImplementedError(
-            "guide.reference_texture (edit_mask_pts) comes with a later slice")
+    exact = bool(cfg.optim.exact_lattice_render)
     dev = mesh_model.device
     tp = teacher.tile_px
     if eps is None:
@@ -662,15 +731,27 @@ def prepare_sds(cfg: TrainConfig, mesh_model: TexturedMeshModel, mlp: NeRF2D,
             a = crop_and_resize(object_masks[i:i + 1], bboxes[i], tp, tp)
             d = crop_and_resize(depth_maps[i:i + 1], bboxes[i], tp, tp)
             depth_tiles.append(torch.cat([d, d, d], dim=1) * a + 0.5 * (1 - a))
+            if exact:
+                continue
             m = cache.mask[i:i + 1]
             m_t = crop_and_resize(m, bboxes[i], tp, tp)
             uvm = crop_and_resize(uv_maps[i:i + 1] * m, bboxes[i], tp, tp)
             uv_tiles.append(uvm / m_t.clamp(min=1e-6))
             m_tiles.append(m_t)
         depth_grid = merge_6_to_grid(torch.cat(depth_tiles))
-        uv_grid = merge_6_to_grid(torch.cat(uv_tiles))
-        mask_grid = merge_6_to_grid(torch.cat(m_tiles))
-        uv_pts = uv_grid[0].permute(1, 2, 0).reshape(-1, 2).clamp(0.0, 1.0)
+        mask_grid = uv_pts = edit_pts = None
+        if not exact:
+            uv_grid = merge_6_to_grid(torch.cat(uv_tiles))
+            mask_grid = merge_6_to_grid(torch.cat(m_tiles))
+            uv_pts = uv_grid[0].permute(1, 2, 0).reshape(-1, 2).clamp(
+                0.0, 1.0).contiguous()
+            change = mesh_model.edit_change_mask
+            if change is not None:
+                # the lattice's row is v (res - 1), its column u (res - 1)
+                res = change.shape[-1]
+                edit_pts = map_coordinates_linear(
+                    change[0].to(dev), uv_pts[:, 1] * (res - 1),
+                    uv_pts[:, 0] * (res - 1))[:, None]
     with phase(timings, "vae", dev):
         cond_lat_pair = teacher.encode_condition_pair(cond_image * 2 - 1,
                                                       eps_cond, eps_neg)
@@ -679,10 +760,35 @@ def prepare_sds(cfg: TrainConfig, mesh_model: TexturedMeshModel, mlp: NeRF2D,
     tile_probs = tile_probabilities(object_masks, view_weights,
                                     cfg.optim.tile_weighting)
     return {"depth_grid": depth_grid, "mask_grid": mask_grid,
-            "uv_grid_pts": uv_pts.contiguous(), "cond_image": cond_image,
+            "uv_grid_pts": uv_pts, "edit_mask_pts": edit_pts,
+            "cond_image": cond_image,
             "cond_lat_pair": cond_lat_pair, "encoder_hidden_states": ehs,
             "tile_probs": tile_probs.to(dev), "bboxes6": bboxes[1:],
+            "cache6": (RenderCache(*(x[1:] for x in cache)) if exact
+                       else None),
             "front_rgb": rgb_front}
+
+
+def map_coordinates_linear(img: torch.Tensor, rows: torch.Tensor,
+                           cols: torch.Tensor) -> torch.Tensor:
+    """`img` (H, W) at the points (rows, cols) by bilinear interpolation,
+    0 outside: jax.scipy.ndimage.map_coordinates(img, [rows, cols],
+    order=1) (mode "constant", cval 0), its terms in its order."""
+    nodes = []
+    for c in (rows, cols):
+        lower = torch.floor(c)
+        upper_w = c - lower
+        i = lower.long()
+        nodes.append(((i, 1 - upper_w), (i + 1, upper_w)))
+    H, W = img.shape
+    out = None
+    for (iy, wy), (ix, wx) in itertools.product(*nodes):
+        valid = (iy >= 0) & (iy < H) & (ix >= 0) & (ix < W)
+        v = img[iy.clamp(0, H - 1), ix.clamp(0, W - 1)]
+        term = wy * wx * torch.where(valid, v, torch.zeros((), dtype=v.dtype,
+                                                           device=v.device))
+        out = term if out is None else out + term
+    return out
 
 
 def _config_path(guide: GuideConfig, key: str) -> Optional[str]:
@@ -724,6 +830,64 @@ def _loaded_line(what: str, wp, loaded: Dict[str, dict]) -> str:
     return f"{what} weights from snapshot: {wp}; loaded {towers or 'none'}"
 
 
+def load_texture_image(path, res: int) -> Optional[torch.Tensor]:
+    """The image at `path` as (3, res, res) f32 in [0, 1] on the host, read
+    and resized by Pillow as the reference's _load_texture_image does; None
+    (with a warning) when the file does not exist."""
+    from PIL import Image
+
+    p = Path(path)
+    if not p.exists():
+        logger.warning(f"texture image {p} not found; skipping")
+        return None
+    im = np.asarray(Image.open(p).convert("RGB").resize((res, res)),
+                    np.float32) / 255.0
+    return torch.from_numpy(np.ascontiguousarray(im.transpose(2, 0, 1)))
+
+
+def seed_texture_field(cfg: TrainConfig, mesh_model: TexturedMeshModel,
+                       mlp: NeRF2D, generator: torch.Generator) -> None:
+    """guide.initial_texture: fit the MLP to the image
+    (`fit_texture_to_image`, its UVs drawn from `generator`).
+    guide.reference_texture: the texels where the image and the current
+    texture map differ by more than 0.1 (summed over channels) become the
+    mesh model's edit_change_mask (1, res, res); `prepare_sds` samples it
+    at the grid's UVs. A file that does not exist is skipped with a
+    warning, as in the reference."""
+    res = mesh_model.texture_resolution
+    init = cfg.guide.initial_texture
+    if init is not None:
+        img = load_texture_image(init, res)
+        if img is not None:
+            mesh_model.fit_texture_to_image(mlp, img, steps=FIT_STEPS,
+                                            generator=generator)
+            logger.info(f"Seeded texture field from {init}")
+    mesh_model.edit_change_mask = None
+    ref = cfg.guide.reference_texture
+    if ref is not None:
+        base = load_texture_image(ref, res)
+        if base is not None:
+            with torch.no_grad():
+                current, _ = mesh_model.get_texture_map(mlp)
+            diff = (base.to(current)[None] - current).abs().sum(dim=1)
+            mesh_model.edit_change_mask = (diff > 0.1).float()
+
+
+def seed_texture_kernel_launches(cfg: TrainConfig) -> Dict[str, int]:
+    """Kernel launches of `seed_texture_field` on the card: the fit's K1
+    and K2 once a step, K1 once for the texture map the change mask is
+    taken against; none for a file that does not exist."""
+    counts = {k: 0 for k in _build.launch_counts}
+    g = cfg.guide
+    if g.initial_texture is not None and Path(g.initial_texture).exists():
+        counts["mlp_fwd"] += FIT_STEPS
+        counts["mlp_bwd"] += FIT_STEPS
+    if g.reference_texture is not None and \
+            Path(g.reference_texture).exists():
+        counts["mlp_fwd"] += 1
+    return counts
+
+
 def build_models(cfg: TrainConfig, tiny: bool = False, device="cuda",
                  teacher: Optional[Zero123PlusTeacher] = None,
                  mlp: Optional[NeRF2D] = None,
@@ -731,19 +895,18 @@ def build_models(cfg: TrainConfig, tiny: bool = False, device="cuda",
                  skip_bootstrap: bool = False):
     """The models of a paint run: (generator, teacher, mlp, diffusion,
     mesh_model). The generator is seeded with optim.seed and fills, in
-    this order, the teacher, the texture MLP and (unless skip_bootstrap)
-    the SD2-depth stack, each unless given; the mesh model is
-    guide.shape_path's. Towers with a snapshot in the config
-    (guide.zero123plus_path, controlnet_path, diffusion_name,
+    this order, the teacher and the texture MLP (each unless given), then
+    `seed_texture_field` draws the fit's UVs (guide.initial_texture only),
+    then the SD2-depth stack (unless given or skip_bootstrap). The mesh
+    model is guide.shape_path's, its atlas cached under
+    cache/<shape stem>/ for a mesh without UVs. Towers with a snapshot in
+    the config (guide.zero123plus_path, controlnet_path, diffusion_name,
     inpaint_model_path) then load it, so the generator's stream, and with
     it the MLP and every later draw, does not depend on what loads; a
     guide.concept_path that exists adds its concept to the SD2 text
     tower."""
-    if cfg.guide.initial_texture is not None:
-        raise NotImplementedError(
-            "guide.initial_texture (fitting the MLP to an image) comes with "
-            "a later slice")
     check_int8(cfg)
+    check_parallel(cfg)
     dev = resolve_device(device)
     z_wp = zero123plus_weight_paths(cfg.guide)
     sd_wp = sd_weight_paths(cfg.guide)
@@ -754,6 +917,12 @@ def build_models(cfg: TrainConfig, tiny: bool = False, device="cuda",
         if z_wp is not None:
             logger.info(_loaded_line("Zero123++", z_wp, teacher.loaded))
     mlp = mlp or NeRF2D(generator=generator, device=dev)
+    mesh_model = TexturedMeshModel(
+        cfg.guide, render_grid_size=cfg.render.train_grid_size,
+        texture_resolution=cfg.guide.texture_resolution,
+        cache_path=Path("cache") / Path(cfg.guide.shape_path).stem,
+        compute_dtype=teacher.dtype, device=dev)
+    seed_texture_field(cfg, mesh_model, mlp, generator)
     if not skip_bootstrap and diffusion is None:
         diffusion = StableDiffusionDepth(tiny=tiny, device=dev,
                                          generator=generator,
@@ -764,10 +933,6 @@ def build_models(cfg: TrainConfig, tiny: bool = False, device="cuda",
         if cp is not None and Path(cp).exists():
             diffusion.load_concept(str(cp))
             logger.info(f"Loaded textual-inversion concept from {cp}")
-    mesh_model = TexturedMeshModel(
-        cfg.guide, render_grid_size=cfg.render.train_grid_size,
-        texture_resolution=cfg.guide.texture_resolution,
-        compute_dtype=teacher.dtype, device=dev)
     return generator, teacher, mlp, diffusion, mesh_model
 
 
@@ -793,7 +958,8 @@ def build_sds_trainer(cfg: TrainConfig, tiny: bool = False, device="cuda",
                         timings=timings, diffusion=diffusion,
                         bootstrap_draws=bootstrap_draws)
     trainer = SDSTrainer(cfg, setup, teacher=teacher, mlp=mlp, tiny=tiny,
-                         device=dev, generator=generator)
+                         device=dev, generator=generator,
+                         mesh_model=mesh_model)
     return trainer, setup
 
 
@@ -925,6 +1091,11 @@ class ConTEXTure:
         self._median_eval = False
         self._img_writer = (AsyncImageWriter() if cfg.log.async_image_writer
                             else sync_writer())
+        change = self.mesh_model.edit_change_mask
+        if change is not None:
+            self.log_train_image(change[:, None].repeat(1, 3, 1, 1),
+                                 "reference_texture_change_mask",
+                                 file_type="png")
         # optional wandb: metrics.json is always written, wandb is opt-in
         self._wandb = None
         if os.environ.get("WANDB_ENABLED"):
@@ -982,13 +1153,15 @@ class ConTEXTure:
         continues from the newest checkpoint."""
         logger.info("Starting SDS Texture Generation ^_^")
         cfg = self.cfg
+        check_parallel(cfg)
         setup = prepare_sds(cfg, self.mesh_model, self.mlp, self.teacher,
                             generator=self.generator,
                             diffusion=self.diffusion)
         sds = self.sds = SDSTrainer(cfg, setup, teacher=self.teacher,
                                     mlp=self.mlp, tiny=self.tiny,
                                     device=self.device,
-                                    generator=self.generator)
+                                    generator=self.generator,
+                                    mesh_model=self.mesh_model)
         iterations = cfg.optim.sds_iterations
         ts = [int(t) for t in sds.t_schedule(iterations).tolist()]
 
@@ -1063,15 +1236,18 @@ class ConTEXTure:
         profiler.GLOBAL_TIMINGS.dump(self.exp_path / "timings.json")
 
     def paint_kernel_launches(self, start_iter: int = 0) -> Dict[str, int]:
-        """Kernel launches of a `paint_zero123plus` run on the card that
-        began at start_iter (after it ran: the step's derivation needs its
-        SDSTrainer): prepare_sds's, each step's, the view-consistency
-        metric's (K5 once for its cached geometry, K1 once a call), K1 once
-        for each texture map logged, and full_eval's."""
+        """Kernel launches of a run on the card (the models' construction
+        and a `paint_zero123plus` that began at start_iter; after it ran:
+        the step's derivation needs its SDSTrainer): seed_texture_field's,
+        prepare_sds's, each step's, the view-consistency metric's (K5 once
+        for its cached geometry, K1 once a call), K1 once for each texture
+        map logged, and full_eval's."""
         cfg, n = self.cfg, self.cfg.optim.sds_iterations
         its = range(start_iter, n)
         counts = prepare_sds_kernel_launches(cfg, self.teacher,
                                              self.diffusion)
+        for k, v in seed_texture_kernel_launches(cfg).items():
+            counts[k] += v
         for k, v in self.sds.expected_kernel_launches().items():
             counts[k] += len(its) * v
         vc = sum(1 for i in its if logs_metrics(i, n)
@@ -1142,6 +1318,7 @@ class ConTEXTure:
         card and copied to the host while the next renders, with at most
         _EVAL_INFLIGHT frames holding device buffers; a non-finite frame
         raises. Notes the "eval" window (frames after the first)."""
+        check_parallel(self.cfg)
         logger.info(f"Evaluating and saving model, painting iteration "
                     f"#{self.paint_step}...")
         save_path.mkdir(exist_ok=True, parents=True)

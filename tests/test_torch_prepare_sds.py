@@ -315,10 +315,28 @@ def test_prepare_sds_bootstrap_needs_the_sd2_stack(reference, port):
         prepare_sds(cfg, mesh_model, trainer.mlp, trainer.teacher)
 
 
-def test_mesh_without_uvs_waits_for_atlas_unwrap(tmp_path):
+def test_mesh_without_uvs_waits_for_atlas_unwrap(tmp_path, monkeypatch):
+    """A mesh without UVs goes through atlas_unwrap: its atlas is the
+    reference's numpy unwrap of the normalised mesh, and it renders."""
+    from contexture_nerf_tpu.models import textured_mesh as jtm
+    from contexture_nerf_tpu.models.mesh import Mesh as JMesh
+    from contexture_nerf_tpu.native import objio
+
     v, f, _, _ = uv_sphere(4, 6)
     write_obj(tmp_path / "nouv.obj", v, f)
     cfg = torch_config_from_dict({"guide": {
         "shape_path": str(tmp_path / "nouv.obj")}})
-    with pytest.raises(NotImplementedError, match="atlas_unwrap"):
-        TexturedMeshModel(cfg.guide, device="cpu")
+    mm = TexturedMeshModel(cfg.guide, render_grid_size=32,
+                           texture_resolution=16, device="cpu")
+    ref_mesh = JMesh.load(str(tmp_path / "nouv.obj")).normalize_mesh(
+        target_scale=cfg.guide.shape_scale, dy=cfg.guide.dy)
+    monkeypatch.setattr(objio, "chart_unwrap_native", lambda *a, **k: None)
+    vt, ft = jtm.atlas_unwrap(ref_mesh.vertices, ref_mesh.faces)
+    np.testing.assert_array_equal(mm.ft, ft)
+    np.testing.assert_array_equal(mm.vt, vt)
+    assert mm.face_attributes.shape == (1, f.shape[0], 3, 2)
+    cache = mm.render_geometry(theta=[np.pi / 2], phi=[0.0], radius=[2.0])
+    assert float(cache.mask.sum()) > 0
+    on = cache.mask[0, 0] > 0
+    uv = cache.uv_features[0][on]
+    assert float(uv.min()) >= 0.0 and float(uv.max()) <= 1.0

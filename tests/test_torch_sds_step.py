@@ -9,6 +9,8 @@ The reference's precomputed-embedding path runs its Pallas kernel in
 interpret mode, as tests/test_local_grad.py does.
 """
 
+import logging
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -26,7 +28,8 @@ from contexture_nerf_tpu_torch.diffusion.zero123plus import \
 from contexture_nerf_tpu_torch.diffusion.schedulers import \
     make_alphas_cumprod
 from contexture_nerf_tpu_torch.models.fields import NeRF2D, uv_lattice
-from contexture_nerf_tpu_torch.training.trainer import SDSTrainer
+from contexture_nerf_tpu_torch.training.trainer import (
+    SDSTrainer, build_sds_trainer)
 from tools.make_shapes import uv_sphere, write_obj
 
 T = 500
@@ -154,11 +157,24 @@ def test_paint_loop_follows_the_dreamtime_schedule(reference):
                for k, v in port.mlp.state_dict().items())
 
 
-def test_exact_lattice_render_waits_for_rasterizer(tmp_path):
+def test_exact_lattice_render_waits_for_rasterizer(tmp_path, caplog):
+    """The exact branch is built from prepare_sds's cache6 and the mesh
+    model, and turns local_sds_grad off with the reference's warning;
+    without them it raises."""
+    write_obj(tmp_path / "s.obj", *uv_sphere(6, 8))
     d = _cfg_dict(tmp_path, True, True)
     d["optim"]["exact_lattice_render"] = True
-    with pytest.raises(NotImplementedError, match="rasterizer"):
-        SDSTrainer(torch_config_from_dict(d), {}, tiny=True, device="cpu")
+    cfg = torch_config_from_dict(d)
+    with pytest.raises(ValueError, match="rasterizer"):
+        SDSTrainer(cfg, {}, tiny=True, device="cpu")
+    with caplog.at_level(logging.WARNING, logger="contexture_nerf_tpu_torch"):
+        trainer, setup = build_sds_trainer(cfg, tiny=True, device="cpu",
+                                           skip_bootstrap=True)
+    assert "disabling optim.local_sds_grad" in caplog.text
+    assert trainer.exact and not trainer.local_grad
+    assert len(setup["cache6"].face_idx) == 6
+    assert setup["uv_grid_pts"] is None and setup["mask_grid"] is None
+    assert trainer.expected_kernel_launches()["mlp_fwd"] == 1
 
 
 def test_entry_points_default_to_the_card():
