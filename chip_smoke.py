@@ -5,7 +5,7 @@ Run from the root of a checkout, on a machine with one NVIDIA GPU:
 
     python3 chip_smoke.py [--seed N] [--profile] [--sweep]
                           [--mlp-only | --raster-only [--against DIR] |
-                           --snapshot-only]
+                           --snapshot-only | --mesh-only]
 
 It builds the hand-written CUDA kernels from csrc/, holds each against its
 plain PyTorch version at the shapes the main path gives it (and checks that
@@ -28,7 +28,13 @@ them. Then the paint path (the CLI on spot_quick_test.yaml, its resume, the
 default-size eval) and the snapshot path: the paint path's first CLI run
 again from its seeded towers written to disk as diffusers snapshots (17.6 GB
 at F32 under build/snapshots/, deleted after), which must equal the
-random-tower run bit for bit. Any failed phase exits non-zero. The last line is {"ok": true,
+random-tower run bit for bit. Then the mesh path (`mesh_path`): a
+100,000-face sphere written without UVs, its atlas unwrapped on the host
+and cached, K5 on it and on its atlas, K1 and K2 at the fit's 4,096 and
+the texture lattice's 1,048,576 points, the 300-step fit to an image,
+exact_lattice_render steps (two runs from one state) and the
+reference_texture mask on the default path, on main_path's teacher. Any
+failed phase exits non-zero. The last line is {"ok": true,
 "device": {...}}; the line before it is the JSON record of the kernels.
 --profile also writes a torch.profiler table of one step to chiprun_out/;
 --sweep also times K3/K4 at each query tile the kernel is built for.
@@ -37,7 +43,8 @@ main path, no result line); --against DIR then also times the K5 of the
 checkout at DIR (an earlier commit unpacked there) and of this one, in
 turns, each in a subprocess on the same card. --snapshot-only runs only the
 snapshot path, with its own random-tower run to hold the loaded run to (no
-result line).
+result line). --mesh-only runs only the mesh path, on a teacher of its
+own (no result line).
 """
 
 import argparse
@@ -159,6 +166,41 @@ def mlp_tol(ref, ref32):
     bf16 version `ref`; `ref32` is the plain f32 version (see check)."""
     noise = float((ref - ref32).abs().max())
     return max(2.0 * noise, 1e-3 * float(ref.abs().max())), noise
+
+
+def mlp_check(name, got, ref, ref32, failures):
+    """An MLP kernel's output held against its plain bf16 version `ref` at
+    the bf16 noise level: both round every matmul operand to bf16 at the
+    same points and sum in f32 in other orders, so a sum next to a rounding
+    boundary flips one ulp and the flip cascades through the later layers.
+    The plain bf16 version's distance from plain f32 (`ref32`) measures that
+    noise; the kernel must stay within twice it (or 1e-3 of max|plain|
+    where bf16 is exact). The planted faults show that a wrong kernel
+    misses it. Returns the max abs error."""
+    import torch
+
+    err = float((got - ref).abs().max())
+    tol, noise = mlp_tol(ref, ref32)
+    ok = err <= tol and bool(torch.isfinite(got).all())
+    print(f"  {name}: max_abs_err {err:.3e} (tol {tol:.3e} = max(2 x "
+          f"bf16-vs-f32 {noise:.3e}, 1e-3 max|plain|); max|plain| "
+          f"{float(ref.abs().max()):.3e}) {'ok' if ok else 'MISS'}")
+    if not ok:
+        failures.append(name)
+    return err
+
+
+def mlp_caught(name, got, refs, refs32, failures, resolved=True):
+    """A planted fault must miss the tolerance on at least one tensor.
+    With resolved=False the fault is smaller than the tolerance can see at
+    that shape: its ratio is printed and not required."""
+    ratio = max(float((a - b).abs().max()) / mlp_tol(b, c)[0]
+                for a, b, c in zip(got, refs, refs32))
+    verdict = "caught" if ratio > 1 else (
+        "NOT CAUGHT" if resolved else "below the tolerance at this shape")
+    print(f"  planted fault {name}: max err/tol {ratio:.2f} {verdict}")
+    if resolved and not ratio > 1:
+        failures.append(f"tolerance passes planted fault {name}")
 
 
 def planted_mlp(torch, ws, bs, emb, g, fault):
@@ -352,31 +394,10 @@ def mlp_phases(torch, rec_fwd, rec_bwd, seed, n_canvas, n_slice, failures):
     f32 = torch.float32
 
     def check(name, got, ref, ref32):
-        """Kernel vs plain bf16 against the bf16 noise level: both round
-        every matmul operand to bf16 at the same points and sum in f32 in
-        other orders, so a sum next to a rounding boundary flips one ulp and
-        the flip cascades through the later layers. The plain bf16 version's
-        distance from plain f32 measures that noise; the kernel must stay
-        within twice it (or 1e-3 of max|plain| where bf16 is exact). The
-        planted faults below show that a wrong kernel misses it."""
-        err = float((got - ref).abs().max())
-        tol, noise = mlp_tol(ref, ref32)
-        ok = err <= tol and bool(torch.isfinite(got).all())
-        print(f"  {name}: max_abs_err {err:.3e} (tol {tol:.3e} = max(2 x "
-              f"bf16-vs-f32 {noise:.3e}, 1e-3 max|plain|); max|plain| "
-              f"{float(ref.abs().max()):.3e}) {'ok' if ok else 'MISS'}")
-        if not ok:
-            failures.append(name)
-        return err
+        return mlp_check(name, got, ref, ref32, failures)
 
     def caught(name, got, refs, refs32):
-        """A planted fault must miss the tolerance on at least one tensor."""
-        ratio = max(float((a - b).abs().max()) / mlp_tol(b, c)[0]
-                    for a, b, c in zip(got, refs, refs32))
-        print(f"  planted fault {name}: max err/tol {ratio:.2f} "
-              f"{'caught' if ratio > 1 else 'NOT CAUGHT'}")
-        if not ratio > 1:
-            failures.append(f"tolerance passes planted fault {name}")
+        mlp_caught(name, got, refs, refs32, failures)
 
     def fwd_identical(name, x, multires):
         same = torch.equal(mk.mlp_fwd_kernel(wflat, bflat, x, multires),
@@ -2192,6 +2213,465 @@ def snapshot_path(torch, seed, reference, failures):
     return launches
 
 
+# the mesh path: a mesh a user brings (no UVs), at 100,000 faces
+MESH_LAT, MESH_LON = 251, 200  # numpy_uv_sphere: 2 x 200 x 250 faces
+MESH_STEM = "mesh_path_sphere"
+
+
+def write_uvless_obj(path, verts, faces):
+    """An OBJ of v and f lines only, as a mesh without UVs comes."""
+    import numpy as np
+
+    with open(path, "w") as fh:
+        np.savetxt(fh, verts, fmt="v %.6f %.6f %.6f")
+        np.savetxt(fh, faces + 1, fmt="f %d %d %d")
+
+
+def shape_record(name, source, replaces, peak=H100_BF16_FLOPS):
+    rec = Record(name, source, replaces, peak)
+    rec.d["launches"] = 0
+    return rec
+
+
+def mlp_shapes(torch, seed, recs, failures):
+    """K1 and K2 on the uv input at the mesh path's new shapes against
+    their plain versions (mlp_check, and planted faults that must miss):
+    N = 4,096 (a step of fit_texture_to_image) and N = 1,048,576 (the
+    texture lattice that exact_lattice_render queries and back-propagates
+    through in every step). Two K2 runs bit-identical. Times into
+    recs[("mlp_fwd"|"mlp_bwd", n)]."""
+    from contexture_nerf_tpu_torch.models.fields import NeRF2D, uv_lattice
+    from contexture_nerf_tpu_torch.ops import mlp_kernel as mk
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed + 11)
+    mlp = NeRF2D(generator=gen, device=dev).requires_grad_(False)
+    params = [p for lin in mlp.linears() for p in (lin.weight, lin.bias)]
+    ws, bs = mk.pack_params(params, 10)
+    bf, f32 = torch.bfloat16, torch.float32
+    wflat, bflat = mk.flatten_params(ws, bs, bf)
+    wt = mk.transposed_stack(wflat)
+    macs = sum(l.in_features * l.out_features for l in mlp.linears())
+    wbytes = wflat.numel() * 2 + bflat.numel() * 4
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for n in (4096, 1024 * 1024):
+        uv = (torch.rand((n, 2), generator=gen, device=dev) if n == 4096
+              else uv_lattice(1024, device=dev))
+        emb = mk.embed_block(uv, 10)  # f32, for the planted faults
+        g = torch.randn((n, 3), generator=gen, device=dev) * 1e-2
+        plan = mk.dw_plan(n, sms)
+        busy = min(plan["chunks"], -(-plan["ksteps"] // plan["steps"]))
+        print(f"  N = {n}: K2's dW plan {plan['chunks']} chunks x "
+              f"{plan['steps']} k-steps over {plan['ksteps']} k-steps "
+              f"({busy} chunks with points, {plan['chunks'] - busy} empty; "
+              f"grid {plan['grid']} = {plan['grid'] / sms:.2f} waves of "
+              f"{sms})")
+        ref = mk.fused_nerf2d_plain(ws, bs, uv, 10, bf)
+        ref32 = mk.fused_nerf2d_plain(ws, bs, uv, 10, f32)
+        e1 = mlp_check(f"K1 mlp_fwd uv ({n}, 2)",
+                       mk.mlp_fwd_kernel(wflat, bflat, uv, 10), ref, ref32,
+                       failures)
+        mlp_caught(f"K1 relu6_fwd at N = {n}",
+                   [planted_mlp(torch, ws, bs, emb, None, "relu6_fwd")[0]],
+                   [ref], [ref32], failures)
+        del ref, ref32
+        dws, dbs = mk.mlp_bwd_kernel(wflat, bflat, uv, g, 10, wt)
+        rws, rbs = mk.fused_nerf2d_bwd_plain(ws, bs, uv, g, 10, bf)
+        fws, fbs = mk.fused_nerf2d_bwd_plain(ws, bs, uv, g, 10, f32)
+        e2 = 0.0
+        for i, (a, b, c) in enumerate(zip(dws + dbs, rws + rbs, fws + fbs)):
+            e2 = max(e2, mlp_check(f"K2 mlp_bwd uv N = {n} "
+                                   f"{'dW' if i < 9 else 'db'}{i % 9} "
+                                   f"{tuple(b.shape)}", a, b, c, failures))
+        dws2, dbs2 = mk.mlp_bwd_kernel(wflat, bflat, uv, g, 10, wt)
+        same = all(torch.equal(a, b) for a, b in zip(dws + dbs, dws2 + dbs2))
+        print(f"  K2 at N = {n}: two runs bit-identical {same}")
+        if not same:
+            failures.append(f"K2 determinism at N = {n}")
+        del dws2, dbs2
+        for fault in ("relu6_mask", "skip_offset", "dropped_chunk"):
+            _, pws, pbs = planted_mlp(torch, ws, bs, emb, g, fault)
+            # at 4,096 points the dropped chunk is 128 points: 3% of each
+            # sum, under the bf16 noise that mlp_tol allows there
+            mlp_caught(f"K2 {fault} at N = {n}", pws + pbs, rws + rbs,
+                       fws + fbs, failures,
+                       resolved=fault != "dropped_chunk" or n > 4096)
+            del pws, pbs
+        del dws, dbs, rws, rbs, fws, fbs, emb
+        torch.cuda.empty_cache()
+        ms1 = cuda_ms(lambda: mk.mlp_fwd_kernel(wflat, bflat, uv, 10))
+        pms1 = cuda_ms(lambda: mk.fused_nerf2d_plain(ws, bs, uv, 10, bf),
+                       reps=3, warmup=1)
+        fl1 = 2.0 * n * macs
+        by1 = n * (2 * 4 + 3 * 4) + wbytes
+
+        def k2():
+            return mk.mlp_bwd_kernel(wflat, bflat, uv, g, 10, wt)
+
+        ms2 = cuda_ms(k2)
+        pms2 = cuda_ms(
+            lambda: mk.fused_nerf2d_bwd_plain(ws, bs, uv, g, 10, bf),
+            reps=3, warmup=1)
+        fl2 = 2.0 * n * (3 * macs - 42 * 256)
+        by2 = by1 + (wflat.numel() + bflat.numel()) * 4
+        card = card_line()
+        for key, e, ms, pms, fl, nb in (("mlp_fwd", e1, ms1, pms1, fl1, by1),
+                                        ("mlp_bwd", e2, ms2, pms2, fl2, by2)):
+            rec = recs[(key, n)]
+            rec.add(e, ms, pms, fl, nb)
+            b_ms, b_by = bound(fl, nb)
+            print(f"    {key} N = {n}: ms {ms:.3f} plain_ms {pms:.3f} "
+                  f"bound_ms {b_ms:.4f} ({b_by}) [{card}]")
+        if n > 4096:
+            mlp_bwd_breakdown(torch, mk, wflat, bflat, wt,
+                              mk.pad_embedding(uv, 10, dtype=bf), g, n)
+        del uv, g
+        torch.cuda.empty_cache()
+
+
+def mesh_path(torch, seed, teacher, recs, shape_recs, failures):
+    """A mesh a user brings, at full width: a UV sphere of 100,000 faces
+    written as an OBJ without UVs. (a) its atlas unwrapped on the host
+    (timed), then read from cache/<stem>/ (timed; nothing unwrapped); the
+    atlas in [0, 1] with _overlap_frac(G=256) < 0.02; K5 on its 7 views and
+    in UV space held to the plain version. (b) K1 and K2 at N = 4,096 and
+    1,048,576 (`mlp_shapes`); the 300-step fit to an image written here,
+    whose MSE must fall. (c) build_sds_trainer on the mesh with
+    exact_lattice_render and that image as guide.initial_texture: one
+    warm-up and three timed steps, launches as derived, peak memory; the
+    same steps again from the same state, held to the first at a stated
+    tolerance. (d) the default path with guide.reference_texture the
+    current texture map as PNG: the change mask is empty and a step leaves
+    the MLP as it was; a planted mask of ones changes it. Every run of the
+    path counts its launches. Returns them."""
+    import copy
+    import gc
+    import shutil
+
+    import numpy as np
+
+    from contexture_nerf_tpu_torch.core.config import config_from_dict
+    from contexture_nerf_tpu_torch.diffusion.sd_depth import \
+        StableDiffusionDepth
+    from contexture_nerf_tpu_torch.models import textured_mesh as tmm
+    from contexture_nerf_tpu_torch.models.fields import NeRF2D
+    from contexture_nerf_tpu_torch.ops import _build
+    from contexture_nerf_tpu_torch.ops.image import save_image, tensor2numpy
+    from contexture_nerf_tpu_torch.raster import raster_kernel as rk
+    from contexture_nerf_tpu_torch.raster.rasterize import rasterize_geometry
+    from contexture_nerf_tpu_torch.training import trainer as tr
+
+    card = card_line()
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    launches = {k: 0 for k in _build.launch_counts}
+    work = ROOT / "build" / "mesh_path"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    obj = work / f"{MESH_STEM}.obj"
+    v, f = numpy_uv_sphere(MESH_LAT, MESH_LON)
+    write_uvless_obj(obj, v, f)
+    F = f.shape[0]
+    text = "a photo of a dairy cow"
+
+    def cfg_of(optim=None, **guide):
+        return config_from_dict({"optim": dict({"seed": seed}, **(optim or {})),
+                                 "guide": dict({"text": text,
+                                                "shape_path": str(obj)},
+                                               **guide)})
+
+    cfg = cfg_of()
+    cache = Path("cache") / MESH_STEM  # where build_models keeps the atlas
+    shutil.rmtree(cache, ignore_errors=True)
+    unwraps = []
+    real_unwrap = tmm.atlas_unwrap
+
+    def timed_unwrap(*a, **k):
+        t0 = time.perf_counter()
+        out = real_unwrap(*a, **k)
+        unwraps.append(time.perf_counter() - t0)
+        return out
+
+    def model():
+        t0 = time.perf_counter()
+        mm = tmm.TexturedMeshModel(
+            cfg.guide, render_grid_size=cfg.render.train_grid_size,
+            texture_resolution=cfg.guide.texture_resolution,
+            cache_path=cache, compute_dtype=teacher.dtype, device=dev)
+        return mm, time.perf_counter() - t0
+
+    tmm.atlas_unwrap = timed_unwrap
+    try:
+        # (a) the atlas
+        mm, cold_s = model()
+        again, warm_s = model()
+        vt, ft = mm.vt, mm.ft
+        t0 = time.perf_counter()
+        overlap = tmm._overlap_frac(vt, ft, G=256)
+        overlap_s = time.perf_counter() - t0
+        charts = int(tmm._charts_from_ft(ft).max()) + 1
+        in01 = bool(vt.min() >= 0.0 and vt.max() <= 1.0)
+        same = np.array_equal(again.vt, vt) and np.array_equal(again.ft, ft)
+        files = sorted(p.name for p in cache.iterdir())
+        print(f"  (a) {obj.name}: {F} faces, {v.shape[0]} vertices, no UVs; "
+              f"atlas_unwrap {unwraps[0]:.2f} s on the host "
+              f"({1e3 * unwraps[0] / F:.4f} ms a face), the model built "
+              f"in {cold_s:.2f} s; {vt.shape[0]} UV vertices in {charts} "
+              f"charts, in [0, 1] {in01}, overlap_frac(G=256) "
+              f"{overlap:.5f} (limit 0.02; {overlap_s:.1f} s); cache "
+              f"{files}; the second build {warm_s:.2f} s, unwraps "
+              f"{len(unwraps)}, the same atlas {same} [{card}]")
+        if not (in01 and overlap < 0.02 and same and len(unwraps) == 1):
+            failures.append("mesh path: the atlas or its cache")
+        del again
+
+        th, ph, r = tr.view_angles(cfg.render)
+        _, fvc, fvi, _ = mm.project(th, ph, r)
+        fvz = fvc[..., 2].contiguous()
+        res = cfg.render.train_grid_size
+        ok_all = True
+        for label, cz, ci, H in (("7 views at 384^2", fvz, fvi, 384),
+                                 ("the front view at 1200^2", fvz[:1],
+                                  fvi[:1], res)):
+            idx, bary = rk.rasterize_geometry_kernel(cz, ci, H, H)
+            p_idx, p_bary = rasterize_geometry(cz, ci, H, H, face_chunk=256)
+            a = rk.raster_agreement(idx, bary, p_idx, p_bary, cz)
+            exact = torch.equal(idx, p_idx) and torch.equal(bary, p_bary)
+            ok = rk.agreement_ok(a)
+            ok_all &= ok
+            print(f"  K5 unwrapped sphere, {label} (F={F}): face_idx agree "
+                  f"{a['agree']:.6f}, {a['unexplained']} unexplained, bary "
+                  f"max err {a['bary_err']:.3e}, bit-identical to plain "
+                  f"{exact} {'ok' if ok else 'MISS'}")
+            shape_recs["raster_mesh"].add(a["bary_err"], 0, 0, 0, 0, times=0)
+        ms, dtimes = raster_times(torch, rk.rasterize_geometry_kernel,
+                                  fvz[:1], fvi[:1], res, res)
+        pms = cuda_ms(lambda: rasterize_geometry(fvz[:1], fvi[:1], res, res,
+                                                 face_chunk=256),
+                      reps=1, warmup=0)
+        pairs = pixel_face_pairs(torch, fvi[:1], res, res)
+        nbytes = res * res * 16 + F * 36
+        shape_recs["raster_mesh"].add(0.0, ms, pms, 20.0 * pairs, nbytes)
+        ms7, d7 = raster_times(torch, rk.rasterize_geometry_kernel, fvz, fvi,
+                               res, res)
+        print(f"    front view 1x{res}^2: {times_line(ms, dtimes)}; plain_ms "
+              f"{pms:.2f}; bound "
+              f"{bound(20.0 * pairs, nbytes, H100_FP32_FLOPS)[0]:.4f} ms; "
+              f"7x{res}^2 (prepare_sds's launch): {times_line(ms7, d7)} "
+              f"[{card}]")
+
+        tres = cfg.guide.texture_resolution
+        fvi_uv = (mm.face_attributes * 2.0 - 1.0).contiguous()
+        fvz_uv = torch.ones(fvi_uv.shape[:-1], device=dev)
+        idx, bary = rk.rasterize_geometry_kernel(fvz_uv, fvi_uv, tres, tres)
+        p_idx, p_bary = rasterize_geometry(fvz_uv, fvi_uv, tres, tres,
+                                           face_chunk=256)
+        same_uv = torch.equal(idx, p_idx) and torch.equal(bary, p_bary)
+        a = rk.raster_agreement(idx, bary, p_idx, p_bary, fvz_uv)
+        mlp_a = NeRF2D(generator=torch.Generator(device=dev).manual_seed(
+            seed + 3), device=dev)
+        one = {k: int(k in ("raster", "mlp_fwd")) for k in launches}
+        atlas, _ = counted(torch, lambda: mm.get_texture_map_only_valid_areas(
+            mlp_a), lambda _: one, "(a) UV-space atlas of the unwrapped "
+            "sphere", launches, failures)
+        shape_recs["raster_atlas"].d["launches"] += 1
+        with plain_paths(torch, k1=False):
+            atlas_p = mm.get_texture_map_only_valid_areas(mlp_a)
+        atlas_same = torch.equal(atlas, atlas_p)
+        ms_uv, d_uv = raster_times(torch, rk.rasterize_geometry_kernel,
+                                   fvz_uv, fvi_uv, tres, tres)
+        pms_uv = cuda_ms(lambda: rasterize_geometry(fvz_uv, fvi_uv, tres,
+                                                    tres, face_chunk=256),
+                         reps=1, warmup=0)
+        pairs = pixel_face_pairs(torch, fvi_uv, tres, tres)
+        nbytes = tres * tres * 16 + F * 36
+        shape_recs["raster_atlas"].add(a["bary_err"], ms_uv, pms_uv,
+                                       20.0 * pairs, nbytes)
+        print(f"  K5 UV-space raster of the atlas (1x{tres}^2, every z 1, "
+              f"F={F}): bit-identical to plain {same_uv}, "
+              f"{float((idx >= 0).float().mean()):.4f} of texels covered; "
+              f"the atlas through plain K5 bit-identical {atlas_same}; "
+              f"{times_line(ms_uv, d_uv)}; plain_ms {pms_uv:.2f} [{card}]")
+        if not (ok_all and same_uv and atlas_same):
+            failures.append("mesh path: K5 on the unwrapped sphere")
+        del idx, bary, p_idx, p_bary, atlas, atlas_p, fvc, fvi, fvz
+        torch.cuda.empty_cache()
+
+        # (b) K1 and K2 at the fit's and the lattice's point counts, then
+        # the fit to an image
+        mlp_shapes(torch, seed, shape_recs, failures)
+        img = np.random.default_rng(seed).uniform(0.0, 1.0, (4, 4, 3))
+        img = np.kron(img, np.ones((64, 64, 1)))  # 4x4 blocks of colour
+        save_image((img * 255).astype(np.uint8), work / "initial.png")
+        image = tr.load_texture_image(work / "initial.png",
+                                      cfg.guide.texture_resolution)
+        mlp_b = NeRF2D(generator=torch.Generator(device=dev).manual_seed(
+            seed + 4), device=dev)
+        fit = {k: 0 for k in launches}
+        fit["mlp_fwd"] = fit["mlp_bwd"] = tr.FIT_STEPS
+        losses, fit_s = counted(
+            torch, lambda: mm.fit_texture_to_image(
+                mlp_b, image, steps=tr.FIT_STEPS,
+                generator=torch.Generator(device=dev).manual_seed(seed)),
+            lambda _: fit, f"(b) fit_texture_to_image ({tr.FIT_STEPS} "
+            "steps of 4,096 points)", launches, failures)
+        for key in ("mlp_fwd", "mlp_bwd"):
+            shape_recs[(key, 4096)].d["launches"] += tr.FIT_STEPS
+        losses = losses.cpu()
+        first, last = float(losses[:10].mean()), float(losses[-10:].mean())
+        print(f"  (b) the fit: MSE {float(losses[0]):.5f} -> "
+              f"{float(losses[-1]):.5f} (first 10 steps' mean {first:.5f}, "
+              f"last 10 {last:.5f}) in {fit_s:.2f} s "
+              f"({1e3 * fit_s / tr.FIT_STEPS:.2f} ms a step) [{card}]")
+        if not (bool(torch.isfinite(losses).all()) and last < 0.5 * first):
+            failures.append("mesh path: the fit's MSE did not fall")
+        del mlp_b, mlp_a
+
+        # (c) exact_lattice_render on the sphere, the fit in build_models
+        sd = StableDiffusionDepth(device=dev, generator=torch.Generator(
+            device=dev).manual_seed(seed))
+        cfg_c = cfg_of({"exact_lattice_render": True},
+                       initial_texture=str(work / "initial.png"))
+
+        def built(cfg_x, diffusion):
+            def want(out):
+                c = tr.prepare_sds_kernel_launches(cfg_x, teacher, diffusion)
+                for k, n in tr.seed_texture_kernel_launches(cfg_x).items():
+                    c[k] += n
+                return c
+            return want
+
+        torch.cuda.reset_peak_memory_stats()
+        (trainer, setup), build_s = counted(
+            torch, lambda: tr.build_sds_trainer(cfg_c, device="cuda",
+                                                teacher=teacher,
+                                                diffusion=sd),
+            built(cfg_c, sd), "(c) build_sds_trainer, exact_lattice_render "
+            "+ initial_texture", launches, failures)
+        for key in ("mlp_fwd", "mlp_bwd"):
+            shape_recs[(key, 4096)].d["launches"] += tr.FIT_STEPS
+        shape_recs["raster_mesh"].d["launches"] += 2
+        build_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        print(f"  (c) built in {build_s:.1f} s (the atlas from the cache: "
+              f"unwraps {len(unwraps)}); exact {trainer.exact}, "
+              f"local_sds_grad {trainer.local_grad}; peak memory "
+              f"{build_peak:.2f} GiB")
+        if not trainer.exact or trainer.local_grad or len(unwraps) != 1:
+            failures.append("mesh path: the exact trainer")
+        expected = trainer.expected_kernel_launches()
+        ts = trainer.t_schedule(1000).tolist()[100:104]
+        state = ({k: v.clone() for k, v in trainer.mlp.state_dict().items()},
+                 copy.deepcopy(trainer.optimizer.state_dict()),
+                 trainer.generator.get_state())
+        runs = []
+        for run in range(2):
+            trainer.mlp.load_state_dict(state[0])
+            trainer.optimizer.load_state_dict(copy.deepcopy(state[1]))
+            trainer.generator.set_state(state[2])
+            torch.cuda.reset_peak_memory_stats()
+            losses, times = [], []
+            for i, t in enumerate(ts):
+                (_, loss, gnorm, _, grid), secs = counted(
+                    torch, lambda: trainer.step(t), lambda _: expected,
+                    f"(c) exact step {i} of run {run}", launches, failures)
+                losses.append(float(loss))
+                times.append(1e3 * secs)
+                if not (np.isfinite(losses[-1]) and bool(
+                        torch.isfinite(grid).all())):
+                    failures.append(f"mesh path: exact step {i} not finite")
+            for key in ("mlp_fwd", "mlp_bwd"):
+                shape_recs[(key, 1024 * 1024)].d["launches"] += len(ts)
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            params = {k: v.detach().clone()
+                      for k, v in trainer.mlp.state_dict().items()}
+            runs.append((losses, params))
+            med = sorted(times[1:])[len(times[1:]) // 2]
+            print(f"  (c) run {run}: exact step losses "
+                  + ", ".join(f"{x:.6g}" for x in losses)
+                  + f"; ms {', '.join(f'{x:.1f}' for x in times)} (the "
+                  f"first a warm-up; median of the timed {med:.1f}); peak "
+                  f"memory {peak:.2f} GiB [{card}]")
+        # The tolerance of two exact runs from one state: the first step's
+        # forward is deterministic (K1, the gather, the teacher), so its
+        # loss is equal; the gather's backward adds with float atomics, so
+        # a near-zero gradient may flip Adam's step (lr, at most 2 lr a
+        # step apart): the parameters within 2 x steps x lr, 99.9% of them
+        # within lr; the later losses, which the parameters move by ~8%
+        # from step to step, within 1% of each other.
+        (l0, p0), (l1, p1) = runs
+        bit = l0 == l1 and all(torch.equal(p0[k], p1[k]) for k in p0)
+        lr = cfg_c.optim.sds_lr
+        dmax = max(float((p0[k] - p1[k]).abs().max()) for k in p0)
+        frac = min(float(((p0[k] - p1[k]).abs() <= lr).float().mean())
+                   for k in p0)
+        loss_rel = max(abs(a - b) / abs(b) for a, b in zip(l0, l1))
+        close = (l0[0] == l1[0] and loss_rel <= 1e-2
+                 and dmax <= 2 * len(ts) * lr and frac >= 0.999)
+        print(f"  (c) two runs from one state: bit-identical {bit}; first "
+              f"losses equal {l0[0] == l1[0]}; losses max rel diff "
+              f"{loss_rel:.3e} (limit 1e-2); parameters max |diff| "
+              f"{dmax:.3e} (limit {2 * len(ts) * lr:.1e} = 2 x steps x lr), "
+              f"share within lr {frac:.6f} (limit 0.999) "
+              f"{'ok' if close else 'MISS'}")
+        if not close:
+            failures.append("mesh path: two exact runs differ beyond the "
+                            "tolerance")
+        del trainer, setup, state, runs, p0, p1
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (d) the default path with reference_texture = the current map
+        mlp_d = NeRF2D(generator=torch.Generator(device=dev).manual_seed(
+            seed + 5), device=dev)
+        with torch.no_grad():
+            tex, _ = mm.get_texture_map(mlp_d)
+        save_image(tensor2numpy(tex[0].permute(1, 2, 0).clamp(0, 1)),
+                   work / "reference.png")
+        del tex
+        cfg_d = cfg_of(reference_texture=str(work / "reference.png"))
+        (trainer, setup), _ = counted(
+            torch, lambda: tr.build_sds_trainer(cfg_d, device="cuda",
+                                                teacher=teacher, mlp=mlp_d,
+                                                diffusion=sd),
+            built(cfg_d, sd), "(d) build_sds_trainer, reference_texture",
+            launches, failures)
+        shape_recs["raster_mesh"].d["launches"] += 2
+        change = trainer.mesh_model.edit_change_mask
+        pts = setup["edit_mask_pts"]
+        empty = (change is not None and pts is not None
+                 and float(change.sum()) == 0 and float(pts.abs().sum()) == 0)
+        expected = trainer.expected_kernel_launches()
+        before = {k: v.clone() for k, v in mlp_d.state_dict().items()}
+        t = trainer.t_schedule(1000).tolist()[100]
+        (_, loss, _, _, _), secs = counted(
+            torch, lambda: trainer.step(t), lambda _: expected,
+            "(d) default step, empty change mask", launches, failures)
+        kept = all(torch.equal(before[k], v)
+                   for k, v in mlp_d.state_dict().items())
+        trainer.edit_mask = torch.ones_like(trainer.edit_mask)  # planted
+        (_, loss1, _, _, _), secs1 = counted(
+            torch, lambda: trainer.step(t), lambda _: expected,
+            "(d) default step, a planted mask of ones", launches, failures)
+        moved = any(not torch.equal(before[k], v)
+                    for k, v in mlp_d.state_dict().items())
+        print(f"  (d) change mask of the unchanged texture: "
+              f"{0 if change is None else int(change.sum())} texels, "
+              f"edit_mask_pts sum "
+              f"{float('nan') if pts is None else float(pts.sum())}; a step "
+              f"(loss {float(loss):.6g}, {1e3 * secs:.1f} ms) left the MLP "
+              f"as it was {kept}; with a planted mask of ones (loss "
+              f"{float(loss1):.6g}, {1e3 * secs1:.1f} ms) it moved {moved}")
+        if not (empty and kept and moved):
+            failures.append("mesh path: the reference_texture mask")
+        del trainer, setup, sd, mlp_d, mm
+    finally:
+        tmm.atlas_unwrap = real_unwrap
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  mesh path {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2211,6 +2691,11 @@ def main():
                     help="run only the snapshot phase (a random-tower CLI "
                     "run, then the same run from its towers written to "
                     "disk) and stop (no kernel phases, no result line)")
+    ap.add_argument("--mesh-only", action="store_true",
+                    help="run only the mesh path (a mesh without UVs, its "
+                    "atlas, K1/K2 at the fit's and the lattice's point "
+                    "counts, the exact and the masked steps) and stop (no "
+                    "result line)")
     ap.add_argument("--k5-times-of", metavar="DIR", help=argparse.SUPPRESS)
     args = ap.parse_args()
     import torch
@@ -2264,8 +2749,46 @@ def main():
                             "contexture_nerf_tpu/ops/groupnorm.py:69",
                             peak=H100_FP32_FLOPS),
     }
+    mlp_src = "contexture_nerf_tpu_torch/csrc/mlp_fwd.cu"
+    bwd_src = "contexture_nerf_tpu_torch/csrc/mlp_bwd.cu"
+    raster_src = "contexture_nerf_tpu_torch/csrc/raster.cu"
+    shape_recs = {  # the mesh path's new shapes, launches counted there
+        ("mlp_fwd", 4096): shape_record(
+            "mlp_fwd (fit_texture_to_image, N=4096)", mlp_src,
+            "contexture_nerf_tpu/ops/mlp_kernel.py:81"),
+        ("mlp_bwd", 4096): shape_record(
+            "mlp_bwd (fit_texture_to_image, N=4096)", bwd_src,
+            "contexture_nerf_tpu/ops/mlp_kernel.py:93"),
+        ("mlp_fwd", 1024 * 1024): shape_record(
+            "mlp_fwd (exact_lattice_render lattice, N=1048576)", mlp_src,
+            "contexture_nerf_tpu/ops/mlp_kernel.py:81"),
+        ("mlp_bwd", 1024 * 1024): shape_record(
+            "mlp_bwd (exact_lattice_render lattice, N=1048576)", bwd_src,
+            "contexture_nerf_tpu/ops/mlp_kernel.py:93"),
+        "raster_mesh": shape_record(
+            "raster (unwrapped 100,000-face mesh, 1x1200^2)", raster_src,
+            "contexture_nerf_tpu/raster/pallas_raster.py:41",
+            H100_FP32_FLOPS),
+        "raster_atlas": shape_record(
+            "raster (its UV-space atlas, 1x1024^2)", raster_src,
+            "contexture_nerf_tpu/raster/pallas_raster.py:41",
+            H100_FP32_FLOPS),
+    }
     from contexture_nerf_tpu_torch.core.config import config_from_dict
 
+    if args.mesh_only:
+        from contexture_nerf_tpu_torch.diffusion.zero123plus import \
+            Zero123PlusTeacher
+
+        print("mesh path: a 100,000-face mesh without UVs on a teacher of "
+              "its own")
+        dev = torch.device("cuda")
+        teacher = Zero123PlusTeacher(device=dev, generator=torch.Generator(
+            device=dev).manual_seed(args.seed))
+        mesh_path(torch, args.seed, teacher, recs, shape_recs, failures)
+        for f in failures:
+            print(f"FAIL: {f}")
+        return 1 if failures else 0
     if args.snapshot_only:
         print("snapshot path: the CLI on spot_quick_test.yaml with random "
               "towers, then from the same towers written to disk")
@@ -2308,6 +2831,13 @@ def main():
     painted, reference = paint_path(torch, args.seed, trainer, recs,
                                     failures)
     launches = {k: launches[k] + painted[k] for k in launches}
+    print("mesh path: a 100,000-face mesh without UVs (its atlas unwrapped "
+          "and cached), K1/K2 at the fit's and the lattice's point counts, "
+          "exact_lattice_render and reference_texture, on main_path's "
+          "teacher")
+    meshed = mesh_path(torch, args.seed, trainer.teacher, recs, shape_recs,
+                       failures)
+    launches = {k: launches[k] + meshed[k] for k in launches}
     del trainer
     print("snapshot path: the paint path's first CLI run from its towers "
           "written to disk as diffusers snapshots")
@@ -2317,11 +2847,16 @@ def main():
         rec.d["launches"] = launches.get(name, 0)
         if rec.d["launches"] == 0:
             failures.append(f"{name} was not launched on the main path")
+    for rec in shape_recs.values():
+        if rec.d["launches"] == 0:
+            failures.append(f"{rec.d['name']} was not launched on the mesh "
+                            "path")
     if failures:
         for f in failures:
             print(f"FAIL: {f}")
         return 1
-    print(json.dumps({"kernels": [r.out() for r in recs.values()]}))
+    print(json.dumps({"kernels": [r.out() for r in (*recs.values(),
+                                                    *shape_recs.values())]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -338,11 +338,13 @@ def test_emulated_bwd_kernel_matches_reference_and_plain(models, variant):
         assert float((a - b).abs().max()) <= tol, i
 
 
-@pytest.mark.parametrize("n", [1, 1000, 200704, 614400])
+@pytest.mark.parametrize("n", [1, 1000, 4096, 200704, 614400, 1048576])
 def test_dw_work_plan_covers_every_weight_row_and_point_once(n):
     """Phase B's units (row block, point chunk) cover every (layer, weight
     row, point) of dW_0..dW_7 exactly once; layers 0 and 5 have a 48-row
-    embedding block; the grid is whole waves of an H100's 132 SMs."""
+    embedding block; the grid is whole waves of an H100's 132 SMs. At
+    4,096 points (a step of fit_texture_to_image) the last of the 33
+    chunks holds no point: its units write zero partials."""
     blocks = mk.dw_row_blocks()
     plan = mk.dw_plan(n, 132)
     assert plan["grid"] == len(blocks) * plan["chunks"]
