@@ -2227,12 +2227,6 @@ def write_uvless_obj(path, verts, faces):
         np.savetxt(fh, faces + 1, fmt="f %d %d %d")
 
 
-def shape_record(name, source, replaces, peak=H100_BF16_FLOPS):
-    rec = Record(name, source, replaces, peak)
-    rec.d["launches"] = 0
-    return rec
-
-
 def mlp_shapes(torch, seed, recs, failures):
     """K1 and K2 on the uv input at the mesh path's new shapes against
     their plain versions (mlp_check, and planted faults that must miss):
@@ -2375,10 +2369,9 @@ def mesh_path(torch, seed, teacher, recs, shape_recs, failures):
     text = "a photo of a dairy cow"
 
     def cfg_of(optim=None, **guide):
-        return config_from_dict({"optim": dict({"seed": seed}, **(optim or {})),
-                                 "guide": dict({"text": text,
-                                                "shape_path": str(obj)},
-                                               **guide)})
+        return config_from_dict({
+            "optim": dict({"seed": seed}, **(optim or {})),
+            "guide": dict({"text": text, "shape_path": str(obj)}, **guide)})
 
     cfg = cfg_of()
     cache = Path("cache") / MESH_STEM  # where build_models keeps the atlas
@@ -2753,23 +2746,23 @@ def main():
     bwd_src = "contexture_nerf_tpu_torch/csrc/mlp_bwd.cu"
     raster_src = "contexture_nerf_tpu_torch/csrc/raster.cu"
     shape_recs = {  # the mesh path's new shapes, launches counted there
-        ("mlp_fwd", 4096): shape_record(
+        ("mlp_fwd", 4096): Record(
             "mlp_fwd (fit_texture_to_image, N=4096)", mlp_src,
             "contexture_nerf_tpu/ops/mlp_kernel.py:81"),
-        ("mlp_bwd", 4096): shape_record(
+        ("mlp_bwd", 4096): Record(
             "mlp_bwd (fit_texture_to_image, N=4096)", bwd_src,
             "contexture_nerf_tpu/ops/mlp_kernel.py:93"),
-        ("mlp_fwd", 1024 * 1024): shape_record(
+        ("mlp_fwd", 1024 * 1024): Record(
             "mlp_fwd (exact_lattice_render lattice, N=1048576)", mlp_src,
             "contexture_nerf_tpu/ops/mlp_kernel.py:81"),
-        ("mlp_bwd", 1024 * 1024): shape_record(
+        ("mlp_bwd", 1024 * 1024): Record(
             "mlp_bwd (exact_lattice_render lattice, N=1048576)", bwd_src,
             "contexture_nerf_tpu/ops/mlp_kernel.py:93"),
-        "raster_mesh": shape_record(
+        "raster_mesh": Record(
             "raster (unwrapped 100,000-face mesh, 1x1200^2)", raster_src,
             "contexture_nerf_tpu/raster/pallas_raster.py:41",
             H100_FP32_FLOPS),
-        "raster_atlas": shape_record(
+        "raster_atlas": Record(
             "raster (its UV-space atlas, 1x1024^2)", raster_src,
             "contexture_nerf_tpu/raster/pallas_raster.py:41",
             H100_FP32_FLOPS),

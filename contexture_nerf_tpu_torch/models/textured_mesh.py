@@ -288,11 +288,6 @@ def atlas_cache_files(cache: Path, mesh: Mesh) -> Tuple[Path, Path]:
     return cache / f"vt_{tag}.npy", cache / f"ft_{tag}.npy"
 
 
-def has_uvs(mesh: Mesh) -> bool:
-    return (mesh.vt is not None and mesh.ft is not None
-            and mesh.vt.shape[0] > 0 and mesh.ft.min() > -1)
-
-
 class TexturedMeshModel:
     """Mesh geometry, renderer and the texture lattice size. `opt` is the
     guide config (shape_path, shape_scale, dy, texture_interpolation_mode).
@@ -339,15 +334,16 @@ class TexturedMeshModel:
         """(vt float32, ft int64), the first of: the mesh's own UVs; the
         atlas cached in cache_path for this geometry; `atlas_unwrap`, then
         written to the cache."""
-        if has_uvs(self.mesh):
-            return (self.mesh.vt.astype(np.float32),
-                    self.mesh.ft.astype(np.int64))
-        files = (atlas_cache_files(self.cache_path, self.mesh)
+        mesh = self.mesh
+        if (mesh.vt is not None and mesh.ft is not None
+                and mesh.vt.shape[0] > 0 and mesh.ft.min() > -1):
+            return mesh.vt.astype(np.float32), mesh.ft.astype(np.int64)
+        files = (atlas_cache_files(self.cache_path, mesh)
                  if self.cache_path is not None else None)
         if files is not None and all(f.exists() for f in files):
             vt, ft = (np.load(f) for f in files)
             return vt.astype(np.float32), ft.astype(np.int64)
-        vt, ft = atlas_unwrap(self.mesh.vertices, self.mesh.faces)
+        vt, ft = atlas_unwrap(mesh.vertices, mesh.faces)
         if files is not None:
             self.cache_path.mkdir(parents=True, exist_ok=True)
             np.save(files[0], vt)

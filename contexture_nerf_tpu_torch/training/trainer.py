@@ -415,8 +415,9 @@ class SDSTrainer:
         """Kernel launches of one step on the card, derived from the
         configs and the attention routing rule: the MLP forward once for the
         canvas, or for the texture lattice with exact_lattice_render (plus
-        once for the backward slice with local_sds_grad), its backward once, every teacher self-attention the rule routes to the
-        flash kernel (cross-attention's 77 tokens never are), and K6 (one
+        once for the backward slice with local_sds_grad), its backward once,
+        every teacher self-attention the rule routes to the flash kernel
+        (cross-attention's 77 tokens never are), and K6 (one
         launch) for every GroupNorm of the two UNet passes, the ControlNet
         and the VAE encodes (the canvas, and the slice with local_sds_grad);
         the rasterizer never (it runs in prepare_sds)."""
@@ -846,7 +847,8 @@ def load_texture_image(path, res: int) -> Optional[torch.Tensor]:
 
 
 def seed_texture_field(cfg: TrainConfig, mesh_model: TexturedMeshModel,
-                       mlp: NeRF2D, generator: torch.Generator) -> None:
+                       mlp: NeRF2D,
+                       generator: Optional[torch.Generator]) -> None:
     """guide.initial_texture: fit the MLP to the image
     (`fit_texture_to_image`, its UVs drawn from `generator`).
     guide.reference_texture: the texels where the image and the current

@@ -214,7 +214,8 @@ def test_cli_paints_a_mesh_without_uvs_then_reads_its_cache(
 
     path = _uvless_obj(tmp_path, "bring_your_own")
     monkeypatch.chdir(tmp_path)
-    argv = [f"--config_path={ROOT / 'configs/text_guided/spot_quick_test.yaml'}",
+    yaml = ROOT / "configs" / "text_guided" / "spot_quick_test.yaml"
+    argv = [f"--config_path={yaml}",
             f"--guide.shape_path={path}", f"--log.exp_root={tmp_path}",
             "--render.train_grid_size=48", "--render.eval_grid_size=48",
             "--guide.texture_resolution=16", "--log.full_eval_size=1",

@@ -109,7 +109,7 @@ def _port_mesh_model(tmp):
                              device="cpu")
 
 
-# -- guide.initial_texture ----------------------------------------------------------
+# -- guide.initial_texture ----------------------------------------------------
 
 def _fit_both(tmp, jt, img, steps, batch=256, lr=1e-3):
     """The reference's fit and the port's on the reference's draws from one
@@ -132,9 +132,10 @@ def test_fit_texture_to_image_matches_reference(reference):
     """The fit on the reference's jax.random draws, f32, 256 points a step.
     One step moves a parameter by lr g / (|g| + 1e-8), the sign of its
     gradient unless the gradient is near eps: every parameter within 2 lr
-    of the reference's, 99.9% of each leaf within 1e-5. Over four steps, Adam's ratios of
-    gradients amplify the frameworks' float differences (the MLPs' outputs
-    differ by ~1e-6 relative), so the fitted function is held instead: its
+    of the reference's, 99.9% of each leaf within 1e-5. Over four steps,
+    Adam's ratios of gradients amplify the frameworks' float differences
+    (the MLPs' outputs differ by ~1e-6 relative), so the fitted function
+    is held instead: its
     colours at 1024 probe UVs within 5e-3 of the reference's, while the fit
     moved them by 0.1 or more on average."""
     tmp, jt, _ = reference
@@ -202,7 +203,7 @@ def test_initial_texture_fit_draws_from_the_run_generator(tmp_path,
     assert tr.seed_texture_kernel_launches(seeded)["mlp_bwd"] == 2
 
 
-# -- reading the images ---------------------------------------------------------------
+# -- reading the images -------------------------------------------------------
 
 def test_load_texture_image_matches_reference(reference, tmp_path, caplog,
                                               monkeypatch):
@@ -221,7 +222,7 @@ def test_load_texture_image_matches_reference(reference, tmp_path, caplog,
         tr.load_texture_image(tmp_path / "odd.png", RES)
 
 
-# -- guide.reference_texture ----------------------------------------------------------
+# -- guide.reference_texture --------------------------------------------------
 
 def test_change_mask_matches_reference(reference, tmp_path):
     tmp, jt, _ = reference
@@ -294,7 +295,7 @@ def test_prepare_sds_samples_the_change_mask(reference):
                                np.asarray(setup["edit_mask_pts"]), atol=1e-3)
 
 
-# -- the masked step ----------------------------------------------------------------
+# -- the masked step ----------------------------------------------------------
 
 def _draws(hot, z_shape):
     """The step's draws, as sds_step and _cfg_core take them from the key."""
