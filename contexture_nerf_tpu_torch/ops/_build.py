@@ -8,7 +8,8 @@ Nothing here runs when the module is imported: the first call that needs a
 kernel builds it (or `build_all` builds every one, in parallel).
 
 Every wrapper adds one to `launch_counts[name]` where it launches its
-kernel, and nowhere else, so a run can show which kernels it went through.
+kernel, and nowhere else, so a run can show which kernels it went through;
+`launch_shapes` keeps the same launches by the call's sizes.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ import shutil
 import subprocess
 import threading
 import time
+from collections import Counter
 from pathlib import Path
 from typing import Dict
 
@@ -48,6 +50,9 @@ launch_counts: Dict[str, int] = {
     "groupnorm": 0,
 }
 
+# the same launches by kernel and call sizes: (name, *sizes) -> launches
+launch_shapes: Counter = Counter()
+
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
 
@@ -55,6 +60,13 @@ _LOCK = threading.Lock()
 def reset_launch_counts() -> None:
     for k in launch_counts:
         launch_counts[k] = 0
+    launch_shapes.clear()
+
+
+def count_launch(name: str, *sizes: int, n: int = 1) -> None:
+    """Count n launches of kernel `name` at the call's `sizes`."""
+    launch_counts[name] += n
+    launch_shapes[(name, *sizes)] += n
 
 
 def _nvcc() -> str:

@@ -131,8 +131,8 @@ def flash_attention(q, k, v, extra_k=None, extra_v=None, block_m=0):
         out.data_ptr(), B, H, sq, skv, se, _STRIDES(*strides), block_m,
         _build.stream_ptr(q.device))
     _build.check(err, "flash_attn_fwd")
-    _build.launch_counts["flash_attn_two_source" if se
-                         else "flash_attn_single"] += 1
+    _build.count_launch("flash_attn_two_source" if se
+                        else "flash_attn_single", B, H, sq, skv, se)
     return out
 
 

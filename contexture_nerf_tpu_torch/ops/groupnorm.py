@@ -178,7 +178,7 @@ def group_norm_silu_kernel(x: torch.Tensor, scale: torch.Tensor,
         bg, groups, C // groups, n, n // (C // groups), p.cluster, p.chunk,
         p.keep, eps, act, p.vec, _build.stream_ptr(x.device))
     _build.check(err, "groupnorm_fwd")
-    _build.launch_counts["groupnorm"] += LAUNCHES_PER_CALL
+    _build.count_launch("groupnorm", *x.shape, n=LAUNCHES_PER_CALL)
     return out
 
 

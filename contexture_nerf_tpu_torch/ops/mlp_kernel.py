@@ -268,7 +268,7 @@ def mlp_fwd_kernel(wflat, bflat, x, multires):
                       int(multires or 0), wflat.data_ptr(), bflat.data_ptr(),
                       out.data_ptr(), n, _build.stream_ptr(x.device))
     _build.check(err, "mlp_fwd")
-    _build.launch_counts["mlp_fwd"] += 1
+    _build.count_launch("mlp_fwd", n)
     return out
 
 
@@ -384,7 +384,7 @@ def mlp_bwd_kernel(wflat, bflat, x, g, multires, wt=None):
                                         total[lo:].data_ptr(), hi - lo,
                                         part.shape[0], stream),
                      "mlp_bwd_reduce")
-    _build.launch_counts["mlp_bwd"] += 1
+    _build.count_launch("mlp_bwd", n)
     return split_flat(total[:W_NUMEL], total[W_NUMEL:])
 
 

@@ -223,7 +223,7 @@ def rasterize_geometry_kernel(face_vertices_z: torch.Tensor,
                           n_busy, xs.data_ptr(), ys.data_ptr(), B, F, height,
                           width, face_idx.data_ptr(), bary.data_ptr(), stream)
     _build.check(err, "raster_draw")
-    _build.launch_counts["raster"] += 1
+    _build.count_launch("raster", B, height, width, F)
     return face_idx, bary
 
 

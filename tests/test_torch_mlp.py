@@ -338,6 +338,37 @@ def test_emulated_bwd_kernel_matches_reference_and_plain(models, variant):
         assert float((a - b).abs().max()) <= tol, i
 
 
+@pytest.mark.parametrize("fault", [None, "relu6_mask", "skip_offset",
+                                   "dropped_chunk"])
+def test_frobenius_limit_holds_k2_and_misses_planted_faults(fault):
+    """At 4,096 points (a step of fit_texture_to_image) the emulated K2
+    stays within chip_smoke.fro_tol on every gradient (relative Frobenius
+    error within half the plain bf16 version's distance from plain f32),
+    and each planted fault misses it on at least one: a K2 that leaves one
+    of its dW plan's point chunks out of the sum can pass mlp_tol's max abs
+    limit at this count, and this limit is what catches it on the card."""
+    from chip_smoke import fro_tol, planted_mlp, rel_fro
+
+    n = 4096
+    gen = torch.Generator().manual_seed(4)
+    mlp = NeRF2D(generator=gen, device="cpu")
+    ps = [p.detach() for lin in mlp.linears() for p in (lin.weight,
+                                                         lin.bias)]
+    ws, bs = mk.pack_params(ps, 10)
+    uv = torch.rand((n, 2), generator=gen)
+    g = torch.randn((n, 3), generator=gen) * 1e-2
+    rws, rbs = mk.fused_nerf2d_bwd_plain(ws, bs, uv, g, 10, torch.bfloat16)
+    fws, fbs = mk.fused_nerf2d_bwd_plain(ws, bs, uv, g, 10, torch.float32)
+    if fault is None:
+        dws, dbs = emulate_bwd_kernel(ws, bs, uv, g, 10)
+    else:
+        _, dws, dbs = planted_mlp(torch, ws, bs, mk.embed_block(uv, 10), g,
+                                  fault)
+    ratio = max(rel_fro(a, b) / fro_tol(b, c)[0]
+                for a, b, c in zip(dws + dbs, rws + rbs, fws + fbs))
+    assert (ratio <= 1) if fault is None else (ratio > 1), ratio
+
+
 @pytest.mark.parametrize("n", [1, 1000, 4096, 200704, 614400, 1048576])
 def test_dw_work_plan_covers_every_weight_row_and_point_once(n):
     """Phase B's units (row block, point chunk) cover every (layer, weight
