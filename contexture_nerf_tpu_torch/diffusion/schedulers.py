@@ -1,10 +1,12 @@
-"""DDPM noise schedule pieces the SDS step needs, PNDM (PLMS) for the
-SD2-depth img2img bootstrap, and the DreamTime t schedule.
+"""Diffusion noise schedulers: the DDPM schedule pieces the SDS step needs,
+the DDPM ancestral sampler, EulerAncestral for Zero123++ generation, PNDM
+(PLMS) for the SD2-depth img2img bootstrap, and the DreamTime t schedule.
 
-Counterpart of contexture_nerf_tpu/diffusion/schedulers.py
-(`make_alphas_cumprod`, `add_noise`, `velocity_target`, `PLMSState`,
-`PNDM`, `dreamtime_schedule`). SD's "scaled_linear" betas: linspace(sqrt(b0),
-sqrt(b1), T)^2, with b0 = 0.00085, b1 = 0.012.
+Counterpart of contexture_nerf_tpu/diffusion/schedulers.py (all of it).
+SD's "scaled_linear" betas: linspace(sqrt(b0), sqrt(b1), T)^2, with
+b0 = 0.00085, b1 = 0.012. The samplers' `step` functions take their normal
+draw as a tensor, so a test can feed the reference's `jax.random` draws;
+their timestep sequences are host ints.
 """
 
 from __future__ import annotations
@@ -12,6 +14,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import List, Tuple
 
+import numpy as np
 import torch
 
 from contexture_nerf_tpu_torch import resolve_device
@@ -42,6 +45,166 @@ def velocity_target(alphas_cumprod, sample, noise, t):
     """v = sqrt(acp) eps - sqrt(1 - acp) x_0."""
     acp = _acp(alphas_cumprod, t, sample)
     return torch.sqrt(acp) * noise - torch.sqrt(1.0 - acp) * sample
+
+
+def pred_x0_from_v(alphas_cumprod, sample, v, t):
+    """x_0 of a v-prediction: sqrt(acp) x_t - sqrt(1 - acp) v."""
+    acp = _acp(alphas_cumprod, t, sample)
+    return torch.sqrt(acp) * sample - torch.sqrt(1.0 - acp) * v
+
+
+def pred_eps_from_v(alphas_cumprod, sample, v, t):
+    """eps of a v-prediction: sqrt(acp) v + sqrt(1 - acp) x_t."""
+    acp = _acp(alphas_cumprod, t, sample)
+    return torch.sqrt(acp) * v + torch.sqrt(1.0 - acp) * sample
+
+
+class DDPM:
+    """The DDPM ancestral sampler (diffusers' math) for "epsilon" or
+    "v_prediction" model outputs."""
+
+    def __init__(self, alphas_cumprod: torch.Tensor,
+                 num_train_timesteps: int = 1000,
+                 prediction_type: str = "epsilon"):
+        self.alphas_cumprod = alphas_cumprod
+        self.num_train_timesteps = num_train_timesteps
+        self.prediction_type = prediction_type
+
+    @staticmethod
+    def create(num_train_timesteps: int = 1000,
+               prediction_type: str = "epsilon", device="cuda") -> "DDPM":
+        return DDPM(make_alphas_cumprod(device), num_train_timesteps,
+                    prediction_type)
+
+    def timesteps(self, num_inference_steps: int) -> List[int]:
+        """arange(n) * (T // n), reversed."""
+        ratio = self.num_train_timesteps // num_inference_steps
+        return [i * ratio for i in range(num_inference_steps)][::-1]
+
+    def add_noise(self, sample, noise, t):
+        return add_noise(self.alphas_cumprod, sample, noise, t)
+
+    def step(self, model_output: torch.Tensor, t: int, sample: torch.Tensor,
+             noise: torch.Tensor, num_inference_steps: int) -> torch.Tensor:
+        """One ancestral reverse step x_t -> x_{t - T // n}; `noise` is its
+        normal draw, added with std sqrt(variance) (clipped at 1e-20) only
+        where t > 0."""
+        t = int(t)
+        prev_t = t - self.num_train_timesteps // num_inference_steps
+        acp = self.alphas_cumprod
+        acp_t = acp[t]
+        acp_prev = acp[prev_t] if prev_t >= 0 else torch.ones_like(acp_t)
+        beta_prod_t = 1 - acp_t
+        beta_prod_prev = 1 - acp_prev
+        current_alpha = acp_t / acp_prev
+        current_beta = 1 - current_alpha
+        if self.prediction_type == "epsilon":
+            x0 = (sample - torch.sqrt(beta_prod_t) * model_output) / \
+                torch.sqrt(acp_t)
+        elif self.prediction_type == "v_prediction":
+            x0 = pred_x0_from_v(acp, sample, model_output, [t])
+        else:
+            raise NotImplementedError(self.prediction_type)
+        x0_coeff = torch.sqrt(acp_prev) * current_beta / beta_prod_t
+        xt_coeff = torch.sqrt(current_alpha) * beta_prod_prev / beta_prod_t
+        prev = x0_coeff * x0 + xt_coeff * sample
+        variance = torch.clamp(beta_prod_prev / beta_prod_t * current_beta,
+                               min=1e-20)
+        std = torch.sqrt(variance) if t > 0 else torch.zeros_like(variance)
+        return prev + std * noise.to(prev.dtype)
+
+
+def trailing_timesteps(num_train_timesteps: int,
+                       num_inference_steps: int) -> List[int]:
+    """round(arange(T, 0, -T / n)) - 1, the arange in f32 and the rounding
+    half to even before the subtraction, as diffusers and the reference
+    do. The reference's f32 arange puts some values on the other side of a
+    .5 than a float64 one (n = 48), so it is computed in f32 here too."""
+    T = num_train_timesteps
+    ts = np.arange(T, 0, -T / num_inference_steps, dtype=np.float32)
+    return (np.round(ts).astype(np.int64) - 1).tolist()
+
+
+def linspace_timesteps(num_train_timesteps: int,
+                       num_inference_steps: int) -> List[int]:
+    """round(linspace(0, T - 1, n)), reversed: the reference's f32
+    linspace, whose XLA evaluation takes i * ((T - 1) * (1 / (n - 1)))
+    with each product rounded to f32 (the rounding decides n = 31)."""
+    n, last = num_inference_steps, np.float32(num_train_timesteps - 1)
+    if n == 1:
+        vals = np.zeros(1, np.float32)
+    else:
+        step = np.float32(last * (np.float32(1) / np.float32(n - 1)))
+        vals = np.append(np.arange(n - 1, dtype=np.float32) * step, last)
+    return np.round(vals[::-1]).astype(np.int64).tolist()
+
+
+class EulerAncestral:
+    """The Euler ancestral sampler of Zero123++ generation (its hub
+    config: v_prediction, trailing spacing)."""
+
+    def __init__(self, alphas_cumprod: torch.Tensor,
+                 num_train_timesteps: int = 1000,
+                 prediction_type: str = "v_prediction",
+                 timestep_spacing: str = "trailing"):
+        self.alphas_cumprod = alphas_cumprod
+        self.num_train_timesteps = num_train_timesteps
+        self.prediction_type = prediction_type
+        self.timestep_spacing = timestep_spacing
+
+    @staticmethod
+    def create(num_train_timesteps: int = 1000,
+               prediction_type: str = "v_prediction",
+               timestep_spacing: str = "trailing",
+               device="cuda") -> "EulerAncestral":
+        return EulerAncestral(make_alphas_cumprod(device),
+                              num_train_timesteps, prediction_type,
+                              timestep_spacing)
+
+    @property
+    def all_sigmas(self) -> torch.Tensor:
+        acp = self.alphas_cumprod
+        return torch.sqrt((1 - acp) / acp)
+
+    def timesteps_and_sigmas(self, num_inference_steps: int
+                             ) -> Tuple[List[int], torch.Tensor]:
+        """(the n timesteps, their (n + 1,) f32 sigmas with a final 0)."""
+        T = self.num_train_timesteps
+        if self.timestep_spacing == "trailing":
+            ts = trailing_timesteps(T, num_inference_steps)
+        else:
+            ts = linspace_timesteps(T, num_inference_steps)
+        sigmas = self.all_sigmas[torch.tensor(
+            ts, device=self.alphas_cumprod.device)]
+        return ts, torch.cat([sigmas, sigmas.new_zeros(1)])
+
+    def scale_model_input(self, sample, sigma):
+        return sample / torch.sqrt(sigma ** 2 + 1)
+
+    def add_noise(self, sample, noise, sigma):
+        return sample + noise * sigma
+
+    def step(self, model_output: torch.Tensor, step_index: int,
+             sample: torch.Tensor, sigmas: torch.Tensor,
+             noise: torch.Tensor) -> torch.Tensor:
+        """One Euler ancestral step from sigmas[i] to sigmas[i + 1]; `noise`
+        is its normal draw. The model output (bf16 at full size) is taken
+        in f32, as the reference's f32 sigma promotes it."""
+        sigma, sigma_to = sigmas[step_index], sigmas[step_index + 1]
+        out = model_output.float()
+        if self.prediction_type == "epsilon":
+            x0 = sample - sigma * out
+        elif self.prediction_type == "v_prediction":
+            x0 = (out * (-sigma / torch.sqrt(sigma ** 2 + 1))
+                  + sample / (sigma ** 2 + 1))
+        else:
+            raise NotImplementedError(self.prediction_type)
+        sigma_up = torch.sqrt(sigma_to ** 2 * (sigma ** 2 - sigma_to ** 2)
+                              / sigma ** 2)
+        sigma_down = torch.sqrt(sigma_to ** 2 - sigma_up ** 2)
+        derivative = (sample - x0) / sigma
+        prev = sample + derivative * (sigma_down - sigma)
+        return prev + noise.to(prev.dtype) * sigma_up
 
 
 @dataclass

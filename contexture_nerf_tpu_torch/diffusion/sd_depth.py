@@ -1,9 +1,12 @@
-"""SD2-depth guidance: the text embedding and the depth-conditioned img2img
-that bootstraps the front view.
+"""SD2-depth guidance: the text embedding, the depth-conditioned img2img
+that bootstraps (and repaints) the front view, txt2img and the SDS
+gradient.
 
 Counterpart of contexture_nerf_tpu/diffusion/sd_depth.py
-`StableDiffusionDepth` (`__init__`, `get_text_embeds`, `encode_imgs`,
-`decode_latents`, `img2img_step` with all of `_build_img2img`). The
+`StableDiffusionDepth` (all of it: `get_text_embeds`, `encode_imgs`,
+`decode_latents`, `img2img_step` with all of `_build_img2img`,
+`img2img_single_step`, `produce_latents`, `prompt_to_img`, `sds_grad`,
+`load_concept`). The
 reference compiles the 50-step PNDM loop into one graph (a scan, with a
 `lax.cond` between the depth UNet and the 9-channel inpaint UNet at
 10 < i < 20); here it is a host loop and the cond a Python `if`. The
@@ -15,8 +18,9 @@ latent without the inpaint branch) are skipped, as XLA drops them.
 
 Towers with a local diffusers checkpoint (`SDWeightPaths`) load it through
 diffusion/weights.py; the others keep seeded random weights.
-`load_concept` adds a textual-inversion concept. Not ported yet:
-`img2img_single_step`, `produce_latents`, `prompt_to_img` and `sds_grad`.
+`load_concept` adds a textual-inversion concept. `produce_latents` and
+`sds_grad` take their draws (the initial latent; t and the noise) as
+tensors too, and draw them from a generator otherwise.
 """
 
 from __future__ import annotations
@@ -91,14 +95,21 @@ class StableDiffusionDepth(nn.Module):
     random weights; without it they keep torch's init (for a bridged
     load). Then each tower with a path in `weight_paths` loads it, and the
     tokenizer reads the snapshot's vocab; `loaded` holds each loaded
-    tower's path, bytes and seconds."""
+    tower's path, bytes and seconds. `sds_grad` draws t from
+    [min_timestep, max_timestep] of the 1000 training steps, and adds no
+    noise with no_noise."""
 
     def __init__(self, tiny: bool = False, device="cuda",
                  generator: Optional[torch.Generator] = None,
-                 weight_paths: Optional[SDWeightPaths] = None):
+                 weight_paths: Optional[SDWeightPaths] = None,
+                 min_timestep: float = 0.02, max_timestep: float = 0.98,
+                 no_noise: bool = False):
         super().__init__()
         dev = self.device = resolve_device(device)
         self.num_train_timesteps = 1000
+        self.min_step = int(self.num_train_timesteps * min_timestep)
+        self.max_step = int(self.num_train_timesteps * max_timestep)
+        self.no_noise = no_noise
         self.dtype = torch.float32 if tiny else torch.bfloat16
         if tiny:
             self.unet_config = UNetConfig.tiny(in_channels=5)
@@ -292,3 +303,126 @@ class StableDiffusionDepth(nn.Module):
             img = self.decode_latents(latents)
             intermediates = [self.decode_latents(x) for x in inters]
         return img, intermediates
+
+    # -- txt2img and SDS ---------------------------------------------------------
+
+    def _cfg(self, unet: nn.Module, lat_in, t, text_embeddings,
+             guidance_scale: float) -> torch.Tensor:
+        """CFG over the [uncond; cond] batch: the difference in the tower
+        dtype, the guidance in f32, as img2img_step takes it."""
+        u, c = unet(lat_in, t, text_embeddings.to(self.device)).chunk(2)
+        return u.float() + guidance_scale * (c - u).float()
+
+    @staticmethod
+    def _normalize_depth(depth: torch.Tensor) -> torch.Tensor:
+        dmin, dmax = depth.min(), depth.max()
+        return 2.0 * (depth - dmin) / torch.clamp(dmax - dmin, min=1e-8) - 1.0
+
+    @torch.no_grad()
+    def img2img_single_step(self, text_embeddings, prev_latents, depth_mask,
+                            step: int, guidance_scale: float = 100.0,
+                            num_inference_steps: int = 50) -> torch.Tensor:
+        """One CFG denoise step at timestep `step` from a fresh PLMS state:
+        the depth resized (bicubic) to the latent and normalized to
+        [-1, 1]."""
+        lat = prev_latents.to(self.device, torch.float32)
+        lat_sz = lat.shape[-1]
+        depth = self._normalize_depth(resize_bicubic(
+            depth_mask.to(self.device, torch.float32), (lat_sz, lat_sz)))
+        lat_in = torch.cat([torch.cat([lat] * 2), torch.cat([depth] * 2)], 1)
+        noise_pred = self._cfg(self.unet, lat_in, [step], text_embeddings,
+                               guidance_scale)
+        state = self.scheduler.init_state(lat.shape, self.device)
+        _, prev = self.scheduler.step(state, noise_pred, step, lat,
+                                      num_inference_steps)
+        return prev
+
+    @torch.no_grad()
+    def produce_latents(self, text_embeddings, depth_mask,
+                        latents: Optional[torch.Tensor] = None,
+                        height: int = 512, width: int = 512,
+                        num_inference_steps: int = 50,
+                        guidance_scale: float = 7.5,
+                        generator: Optional[torch.Generator] = None
+                        ) -> torch.Tensor:
+        """txt2img latents: the PLMS loop under CFG from `latents` (N, 4,
+        h, w), N the text pairs (a normal draw from `generator`, seeded 0
+        if None, when not given), the depth (N, 1, h, w) at the latent
+        size beside them."""
+        down = self.vae_config.downsample
+        shape = (text_embeddings.shape[0] // 2,
+                 self.unet_config.in_channels - 1, height // down,
+                 width // down)
+        if latents is None:
+            g = generator or torch.Generator(device=self.device).manual_seed(0)
+            latents = torch.randn(shape, generator=g, device=g.device)
+        latents = latents.to(self.device, torch.float32)
+        depth_pair = torch.cat([depth_mask.to(self.device,
+                                              torch.float32)] * 2)
+        pndm = self.scheduler
+        state = pndm.init_state(latents.shape, self.device)
+        for t in pndm.timesteps(num_inference_steps):
+            lat_in = torch.cat([torch.cat([latents] * 2), depth_pair], 1)
+            noise_pred = self._cfg(self.unet, lat_in, t, text_embeddings,
+                                   guidance_scale)
+            state, latents = pndm.step(state, noise_pred, t, latents,
+                                       num_inference_steps)
+        return latents
+
+    @torch.no_grad()
+    def prompt_to_img(self, prompts, depth_mask, height: int = 512,
+                      width: int = 512, num_inference_steps: int = 50,
+                      guidance_scale: float = 7.5, seed: int = 0,
+                      latents: Optional[torch.Tensor] = None) -> np.ndarray:
+        """Text -> image by depth-conditioned txt2img: the depth (N,1,H,W)
+        normalized to [-1, 1] and resized (bicubic) to the latent, the
+        latents from a generator seeded `seed` (or `latents`), decoded.
+        Returns (N, height, width, 3) uint8."""
+        if isinstance(prompts, str):
+            prompts = [prompts]
+        text_embeds = self.get_text_embeds(prompts)
+        down = self.vae_config.downsample
+        depth = resize_bicubic(self._normalize_depth(
+            depth_mask.to(self.device, torch.float32)),
+            (height // down, width // down))
+        latents = self.produce_latents(
+            text_embeds, depth, latents=latents, height=height, width=width,
+            num_inference_steps=num_inference_steps,
+            guidance_scale=guidance_scale,
+            generator=torch.Generator(device=self.device).manual_seed(seed))
+        imgs = self.decode_latents(latents).float()
+        return (imgs.permute(0, 2, 3, 1) * 255).round().to(
+            torch.uint8).cpu().numpy()
+
+    @torch.no_grad()
+    def sds_grad(self, latents, text_embeddings, depth_mask,
+                 t: Optional[torch.Tensor] = None,
+                 noise: Optional[torch.Tensor] = None,
+                 guidance_scale: float = 100.0,
+                 generator: Optional[torch.Generator] = None
+                 ) -> torch.Tensor:
+        """The eps-prediction SDS gradient with respect to the latents,
+        w(t) (eps_pred - eps) with w = 1 - alphas_cumprod[t], through
+        nan_to_num. t ((1,), drawn uniformly from [min_step, max_step]
+        when None) and the noise (a normal draw when None; zeros with
+        no_noise) come from `generator` (seeded 0 if None) in that order.
+        depth_mask is at the latent size, beside each latent."""
+        g = generator or torch.Generator(device=self.device).manual_seed(0)
+        if t is None:
+            t = torch.randint(self.min_step, self.max_step + 1, (1,),
+                              generator=g, device=g.device)
+        t = torch.as_tensor(t, device=self.device).long().reshape(-1)
+        latents = latents.to(self.device, torch.float32)
+        if self.no_noise:
+            noise = torch.zeros_like(latents)
+        elif noise is None:
+            noise = torch.randn(latents.shape, generator=g, device=g.device)
+        noise = noise.to(self.device, torch.float32)
+        noisy = sch.add_noise(self.alphas, latents, noise, t)
+        depth = depth_mask.to(self.device, torch.float32)
+        lat_in = torch.cat([torch.cat([noisy] * 2), torch.cat([depth] * 2)],
+                           1)
+        noise_pred = self._cfg(self.unet, lat_in, t, text_embeddings,
+                               guidance_scale)
+        w = (1 - self.alphas[t]).reshape(-1, 1, 1, 1)
+        return torch.nan_to_num(w * (noise_pred - noise))

@@ -1,15 +1,18 @@
-"""The Zero123++ SDS teacher: UNet with reference attention + depth
-ControlNet + the VAE encoder + the CLIP text and vision towers, and the
-latent/image scalings.
+"""The Zero123++ teacher and generator: UNet with reference attention +
+depth ControlNet + the VAE + the CLIP text and vision towers, the
+latent/image scalings, and the EulerAncestral generation loop.
 
 Counterpart of contexture_nerf_tpu/diffusion/zero123plus.py
 (`scale_latents` ... `unscale_image`, `default_ramping_coefficients`, and
-`Zero123PlusPipeline`'s `encode_condition_image`, `prepare_conditioning`,
-`embed_control_cond`, `_cfg_core`, `_cfg_v_pred`, `_cfg_v_pred_individual`).
-The conditioning takes its two VAE posterior draws as tensors, so a test
-can feed the reference's. Towers with a local diffusers checkpoint
-(`Zero123PlusWeightPaths`) load it through diffusion/weights.py, and the
-ramping coefficients come from the snapshot's model_index.json.
+`Zero123PlusPipeline`). `Zero123PlusTeacher` holds what the SDS step needs
+(`encode_condition_image`, `prepare_conditioning`, `embed_control_cond`,
+`_cfg_core`, `_cfg_v_pred`, `_cfg_v_pred_individual`); its subclass
+`Zero123PlusPipeline` adds the VAE decoder, the samplers,
+`attach_inpaint_unet` and `generate`. The conditioning and the loop take
+their normal draws as tensors, so a test can feed the reference's. Towers
+with a local diffusers checkpoint (`Zero123PlusWeightPaths`) load it
+through diffusion/weights.py, and the ramping coefficients come from the
+snapshot's model_index.json.
 """
 
 from __future__ import annotations
@@ -18,13 +21,13 @@ import json
 import warnings
 from dataclasses import dataclass
 from pathlib import Path
-from typing import List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn as nn
 
-from contexture_nerf_tpu_torch import resolve_device
+from contexture_nerf_tpu_torch import phase, resolve_device
 from contexture_nerf_tpu_torch.diffusion import schedulers as sch
 from contexture_nerf_tpu_torch.diffusion import weights as W
 from contexture_nerf_tpu_torch.diffusion.clip import (
@@ -34,7 +37,8 @@ from contexture_nerf_tpu_torch.diffusion.controlnet import (ControlNet,
                                                             embed_cond)
 from contexture_nerf_tpu_torch.diffusion.unet import (UNet2DCondition,
                                                       UNetConfig)
-from contexture_nerf_tpu_torch.diffusion.vae import (Encoder, VAEConfig,
+from contexture_nerf_tpu_torch.diffusion.vae import (Decoder, Encoder,
+                                                     VAEConfig, decode,
                                                      encode_moments,
                                                      sample_gaussian)
 from contexture_nerf_tpu_torch.ops.image import resize_linear
@@ -267,11 +271,15 @@ class Zero123PlusTeacher(nn.Module):
 
     @torch.no_grad()
     def _cfg_core(self, latents, t, branch_cond_lats, branch_ehs,
-                  depth_image, neg_noise, cond_noise,
-                  cn_cond_emb=None) -> List[torch.Tensor]:
+                  depth_image, neg_noise, cond_noise, cn_cond_emb=None,
+                  scale_input: Optional[Callable] = None
+                  ) -> List[torch.Tensor]:
         """Reference-attention UNet + depth ControlNet over nb CFG branches;
         per-branch v-predictions (B,4,H,W). Write-pass noise: `neg_noise`
-        for the negative branch (row 0), `cond_noise` shared by the rest."""
+        for the negative branch (row 0), `cond_noise` shared by the rest;
+        the cond latent is DDPM-noised to t and fed as it is.
+        `scale_input` scales the denoised branches' input (EulerAncestral's
+        scale_model_input); None, the DDPM teacher's, scales nothing."""
         B = latents.shape[0]
         nb = branch_cond_lats.shape[0]
         branch_noise = torch.stack([neg_noise] + [cond_noise] * (nb - 1)).to(
@@ -279,7 +287,9 @@ class Zero123PlusTeacher(nn.Module):
         cond_lats = branch_cond_lats.repeat_interleave(B, dim=0)
         ehs = branch_ehs.repeat_interleave(B, dim=0)
         noise = branch_noise.repeat_interleave(B, dim=0)
-        lat_in = torch.cat([latents] * nb)  # DDPM: no input scaling
+        lat_in = torch.cat([latents] * nb)
+        if scale_input is not None:
+            lat_in = scale_input(lat_in)
 
         th, tw = latents.shape[2] * 8, latents.shape[3] * 8
         if cn_cond_emb is None and tuple(depth_image.shape[2:]) != (th, tw):
@@ -304,11 +314,11 @@ class Zero123PlusTeacher(nn.Module):
 
     def _cfg_v_pred(self, latents, t, cond_lat_pair, encoder_hidden_states,
                     depth_image, guidance_scale, neg_noise, cond_noise,
-                    cn_cond_emb=None):
-        """Two-branch CFG: v_u + g (v_c - v_u)."""
+                    cn_cond_emb=None, scale_input: Optional[Callable] = None):
+        """Two-branch CFG: v_u + g (v_c - v_u), in the towers' dtype."""
         v_uncond, v_cond = self._cfg_core(
             latents, t, cond_lat_pair, encoder_hidden_states, depth_image,
-            neg_noise, cond_noise, cn_cond_emb)
+            neg_noise, cond_noise, cn_cond_emb, scale_input)
         return v_uncond + guidance_scale * (v_cond - v_uncond)
 
     def _cfg_v_pred_individual(self, latents, t, cond_lat_pair,
@@ -325,3 +335,163 @@ class Zero123PlusTeacher(nn.Module):
             neg_noise, cond_noise, cn_cond_emb)
         return (v_u + guidance_scale_i * (v_img - v_u)
                 + guidance_scale_t * (v_full - v_img))
+
+
+GENERATION_STEP_DRAWS = ("write_neg", "write_cond", "step", "blend")
+
+
+class Zero123PlusPipeline(Zero123PlusTeacher):
+    """The teacher plus what generation needs: the VAE decoder (random from
+    `generator` after the teacher's towers, or loaded from the same
+    weight_paths.vae as the encoder), EulerAncestral (v_prediction,
+    trailing) and DDPM (v_prediction) over the teacher's schedule, and an
+    optional SD2-inpaint UNet (`attach_inpaint_unet`)."""
+
+    def __init__(self, tiny: bool = False, device="cuda",
+                 generator: Optional[torch.Generator] = None,
+                 weight_paths: Optional[Zero123PlusWeightPaths] = None):
+        super().__init__(tiny, device, generator, weight_paths)
+        wp = weight_paths or Zero123PlusWeightPaths()
+        with torch.device(self.alphas_cumprod.device):
+            self.vae_decoder = Decoder(self.vae_config, self.dtype)
+        if generator is not None:
+            random_init_(self.vae_decoder, generator)
+        self.vae_decoder.to(self.dtype).requires_grad_(False)
+        self.loaded.update(W.load_towers_([
+            ("vae_decoder", self.vae_decoder, wp.vae, W.convert_vae,
+             self.vae_config, "decoder")]))
+        self.euler = sch.EulerAncestral(self.alphas_cumprod,
+                                        prediction_type="v_prediction",
+                                        timestep_spacing="trailing")
+        self.ddpm = sch.DDPM(self.alphas_cumprod,
+                             prediction_type="v_prediction")
+        # held outside the module tree: the SD2 stack owns it
+        self._attached: Dict[str, nn.Module] = {}
+
+    @property
+    def inpaint_unet(self) -> Optional[nn.Module]:
+        return self._attached.get("inpaint_unet")
+
+    def attach_inpaint_unet(self, module: nn.Module) -> None:
+        """Wire the SD2-stack's 9-channel inpaint UNet
+        (`StableDiffusionDepth.inpaint_unet`) into `generate`."""
+        self._attached["inpaint_unet"] = module
+
+    def draw_generation(self, cond_hw, num_inference_steps: int,
+                        height: int, width: int,
+                        generator: torch.Generator) -> Dict[str, torch.Tensor]:
+        """generate's normal draws from `generator`, every one whatever the
+        flags (so variants share their streams): eps_cond and eps_neg (the
+        conditioning's posterior samples), latents, and stacked over the
+        steps write_neg and write_cond (_cfg_core's write-pass noises), step
+        (the Euler noise) and blend."""
+        down, c = self.vae_config.downsample, self.vae_config.latent_channels
+        dev = generator.device
+        cond = (c, cond_hw[0] // down, cond_hw[1] // down)
+        lat = (c, height // down, width // down)
+        n = num_inference_steps
+
+        def normal(*shape):
+            return torch.randn(shape, generator=generator, device=dev)
+
+        d = {"eps_cond": normal(1, *cond), "eps_neg": normal(1, *cond),
+             "latents": normal(1, *lat)}
+        steps = [[normal(*cond), normal(*cond), normal(1, *lat),
+                  normal(1, *lat)] for _ in range(n)]
+        for k, name in enumerate(GENERATION_STEP_DRAWS):
+            d[name] = torch.stack([s[k] for s in steps])
+        return d
+
+    @torch.no_grad()
+    def decode_grid(self, latents: torch.Tensor) -> torch.Tensor:
+        """Scaled latents (1,4,h,w) -> the [0,1] RGB grid, f32."""
+        img = decode(self.vae_decoder, unscale_latents(latents)
+                     / self.vae_config.scaling_factor).float()
+        return torch.clamp(unscale_image(img) / 2 + 0.5, 0.0, 1.0)
+
+    @torch.no_grad()
+    def generate(self, cond_image: torch.Tensor, depth_image: torch.Tensor,
+                 num_inference_steps: int = 28, guidance_scale: float = 4.0,
+                 height: int = 960, width: int = 640,
+                 use_blending: bool = False, use_inpaint: bool = False,
+                 latent_mask_grid: Optional[torch.Tensor] = None,
+                 latent_renders_grid: Optional[torch.Tensor] = None,
+                 masked_input_latents: Optional[torch.Tensor] = None,
+                 draws: Optional[Dict[str, torch.Tensor]] = None,
+                 generator: Optional[torch.Generator] = None,
+                 timings: Optional[Dict[str, float]] = None
+                 ) -> torch.Tensor:
+        """EulerAncestral generation of the 3x2 grid. cond_image (1,3,Hc,Wc)
+        in [-1,1]; depth_image (1,3,height,width) in [0,1]. Returns the
+        [0,1] RGB grid (1,3,height,width), f32.
+
+        use_blending: before each step outside the inpaint range the latent
+        becomes lat*mask + (renders + sigma_i eps)*(1 - mask), and after
+        the last it is blended with the clean renders (the reference noises
+        the renders grid, not the mask grid). use_inpaint: the steps
+        10 < i < 20 run the attached 9-channel UNet on the whole
+        [lat, mask, masked latents] concat scaled by scale_model_input,
+        under CFG with the difference in the tower dtype and the guidance
+        in f32; its output feeds the same v-prediction Euler step.
+        latent_mask_grid (1,1,h,w), 1 = generate; latent_renders_grid and
+        masked_input_latents (1,4,h,w) in the scale_latents domain. `draws`
+        (draw_generation's) default to `generator` (seeded 0 if None).
+        `timings` receives generate_conditioning, generate_steps and
+        generate_decode."""
+        if use_inpaint and self.inpaint_unet is None:
+            raise ValueError("use_inpaint=True requires attach_inpaint_unet")
+        if (use_blending or use_inpaint) and latent_mask_grid is None:
+            raise ValueError("use_blending/use_inpaint require "
+                             "latent_mask_grid")
+        if use_blending and latent_renders_grid is None:
+            raise ValueError("use_blending requires latent_renders_grid")
+        if use_inpaint and masked_input_latents is None:
+            raise ValueError("use_inpaint requires masked_input_latents")
+        dev, f32 = self.alphas_cumprod.device, torch.float32
+        euler = self.euler
+        ts, sigmas = euler.timesteps_and_sigmas(num_inference_steps)
+        down = self.vae_config.downsample
+        h, w = height // down, width // down
+        if draws is None:
+            draws = self.draw_generation(
+                cond_image.shape[2:], len(ts), height, width,
+                generator or torch.Generator(device=dev).manual_seed(0))
+        d = {k: v.to(dev) for k, v in draws.items()}
+
+        def lat_input(x):
+            return None if x is None else x.to(dev, f32)
+
+        mask = lat_input(latent_mask_grid)
+        renders = lat_input(latent_renders_grid)
+        masked = lat_input(masked_input_latents)
+        with phase(timings, "generate_conditioning", dev):
+            cond_lat_pair, ehs = self.prepare_conditioning(
+                cond_image.to(dev, f32), d["eps_cond"], d["eps_neg"])
+            depth = depth_image.to(dev, f32)
+            cn_emb = self.embed_control_cond(depth, (h, w))
+        with phase(timings, "generate_steps", dev):
+            lat = d["latents"].to(f32) * sigmas[0]
+            for i, t in enumerate(ts):
+                sigma = sigmas[i]
+                in_inpaint = use_inpaint and 10 < i < 20
+                if use_blending and not in_inpaint:
+                    lat = lat * mask + euler.add_noise(
+                        renders, d["blend"][i].to(f32), sigma) * (1 - mask)
+                if in_inpaint:
+                    nine = torch.cat([lat, mask, masked], dim=1)
+                    nine = euler.scale_model_input(torch.cat([nine] * 2),
+                                                   sigma)
+                    u, c = self.inpaint_unet(nine, t, ehs).chunk(2)
+                    v = u.float() + guidance_scale * (c - u).float()
+                else:
+                    v = self._cfg_v_pred(
+                        lat, t, cond_lat_pair, ehs, depth, guidance_scale,
+                        d["write_neg"][i], d["write_cond"][i],
+                        cn_cond_emb=cn_emb,
+                        scale_input=lambda x: euler.scale_model_input(
+                            x, sigma))
+                lat = euler.step(v, i, lat, sigmas, d["step"][i].to(f32))
+            if use_blending:
+                lat = lat * mask + renders * (1 - mask)
+        with phase(timings, "generate_decode", dev):
+            return self.decode_grid(lat)

@@ -16,8 +16,10 @@ VAE conditioning. `build_sds_trainer` goes from a config to a ready
 `SDSTrainer`: mesh model (its UV atlas unwrapped and cached for a mesh
 without UVs), MLP (fitted to guide.initial_texture, and the change mask of
 guide.reference_texture taken, by `seed_texture_field`), teacher, SD2-depth
-stack, `prepare_sds`, trainer. The repaint passes of `paint_viewpoint`
-(paint_step > 1: median fill, the inpaint UNet) come with a later slice.
+stack, `prepare_sds`, trainer. `ConTEXTure.paint_viewpoint` paints a
+pose as the reference's method does: its repaint passes (paint_step > 1)
+render with the median fill and, with guide.use_inpainting, run the
+inpaint UNet at 10 < i < 20.
 
 One step: query the texture MLP at the grid's UVs (the fused kernel on the
 card), composite with the mask, VAE-encode and DDPM-noise, run the Zero123++
@@ -62,8 +64,8 @@ from contexture_nerf_tpu_torch.diffusion.sd_depth import (SDWeightPaths,
 from contexture_nerf_tpu_torch.diffusion.unet import UNetConfig
 from contexture_nerf_tpu_torch.diffusion.vae import VAEConfig, encode_moments
 from contexture_nerf_tpu_torch.diffusion.zero123plus import (
-    Zero123PlusTeacher, Zero123PlusWeightPaths, scale_image, scale_latents,
-    unscale_image)
+    Zero123PlusPipeline, Zero123PlusTeacher, Zero123PlusWeightPaths,
+    scale_image, scale_latents, unscale_image)
 from contexture_nerf_tpu_torch.models.fields import NeRF2D
 from contexture_nerf_tpu_torch.models.textured_mesh import TexturedMeshModel
 from contexture_nerf_tpu_torch.ops import _build
@@ -422,18 +424,8 @@ class SDSTrainer:
         and the VAE encodes (the canvas, and the slice with local_sds_grad);
         the rasterizer never (it runs in prepare_sds)."""
         ucfg = self.teacher.unet_config
-        lat = self.latent_shape()[2:]
-        cond = tuple(self.cond_lat_pair.shape[2:])
-        calls = []  # (Sq, Skv, Se) of each self-attention
-        for (level, n_unet), (_, n_cn) in zip(self_attention_levels(ucfg),
-                                              self_attention_levels(
-                                                  ucfg, controlnet=True)):
-            tc, tl = tokens_at(cond, level), tokens_at(lat, level)
-            calls += [(tc, tc, 0)] * n_unet  # write pass
-            calls += [(tl, tl, tc)] * n_unet  # read pass, reference tokens
-            calls += [(tl, tl, 0)] * n_cn  # ControlNet
-        single = sum(1 for c in calls if c[2] == 0 and routes_to_kernel(*c))
-        two = sum(1 for c in calls if c[2] > 0 and routes_to_kernel(*c))
+        single, two = teacher_attention_launches(
+            ucfg, self.latent_shape()[2:], tuple(self.cond_lat_pair.shape[2:]))
         encodes = 2 if self.local_grad else 1
         gn = (2 * unet_groupnorms(ucfg) + unet_groupnorms(ucfg, True)
               + encodes * vae_groupnorms(self.teacher.vae_config))
@@ -466,6 +458,33 @@ def self_attention_levels(ucfg: UNetConfig, controlnet: bool = False
             n += depth
         out.append((bi, n))
     return out
+
+
+def teacher_attention_launches(ucfg: UNetConfig, lat_hw, cond_hw
+                               ) -> Tuple[int, int]:
+    """(K3, K4) launches of one teacher call (`_cfg_core`, any number of
+    CFG branches: they share a call) on a (h, w) latent with a (hc, wc)
+    cond latent: the write pass's, the read pass's (with the reference
+    tokens) and the ControlNet's self-attentions that the routing rule
+    sends to the kernel (cross-attention's 77 tokens never are)."""
+    calls = []  # (Sq, Skv, Se) of each self-attention
+    for (level, n_unet), (_, n_cn) in zip(self_attention_levels(ucfg),
+                                          self_attention_levels(
+                                              ucfg, controlnet=True)):
+        tc, tl = tokens_at(cond_hw, level), tokens_at(lat_hw, level)
+        calls += [(tc, tc, 0)] * n_unet  # write pass
+        calls += [(tl, tl, tc)] * n_unet  # read pass, reference tokens
+        calls += [(tl, tl, 0)] * n_cn  # ControlNet
+    single = sum(1 for c in calls if c[2] == 0 and routes_to_kernel(*c))
+    two = sum(1 for c in calls if c[2] > 0 and routes_to_kernel(*c))
+    return single, two
+
+
+def unet_self_attention_launches(ucfg: UNetConfig, lat_hw) -> int:
+    """K3 launches of one plain UNet call on a (h, w) latent."""
+    return sum(n for level, n in self_attention_levels(ucfg)
+               if routes_to_kernel(tokens_at(lat_hw, level),
+                                   tokens_at(lat_hw, level)))
 
 
 def unet_groupnorms(ucfg: UNetConfig, controlnet: bool = False) -> int:
@@ -505,19 +524,74 @@ def prepare_sds_kernel_launches(cfg: TrainConfig,
     CLIP's 77 and 257 tokens route to the plain attention path."""
     counts = {k: 0 for k in _build.launch_counts}
     counts["raster"] = counts["mlp_fwd"] = 1
-    gn = 2 * vae_groupnorms(teacher.vae_config)
+    counts["groupnorm"] = groupnorm_launches(
+        2 * vae_groupnorms(teacher.vae_config))
     if diffusion is not None:
-        counts["raster"] += 1
-        counts["mlp_fwd"] += 1
-        steps = len(diffusion.scheduler.timesteps(BOOTSTRAP_STEPS))
-        lat = diffusion.latent_shape()[2:]
-        single = sum(n for level, n in self_attention_levels(
-            diffusion.unet_config)
-            if routes_to_kernel(tokens_at(lat, level), tokens_at(lat, level)))
-        counts["flash_attn_single"] += steps * single
-        decodes = 1 + (min(10, steps) if cfg.log.vis_diffusion_steps else 0)
-        gn += (steps * unet_groupnorms(diffusion.unet_config)
-               + decodes * vae_groupnorms(diffusion.vae_config, decoder=True))
+        for k, v in paint_viewpoint_kernel_launches(cfg, diffusion).items():
+            counts[k] += v
+    return counts
+
+
+def paint_viewpoint_kernel_launches(cfg: TrainConfig,
+                                    diffusion: StableDiffusionDepth,
+                                    paint_step: int = 1) -> Dict[str, int]:
+    """Kernel launches of one `paint_viewpoint` pass on the card: K5 and
+    K1 once for the front render (the median fill is plain), then for
+    each of the PLMS sequence's UNet calls its K3 self-attentions and K6
+    GroupNorms (the inpaint UNet's at 10 < i < 20 on a repaint pass with
+    guide.use_inpainting, after one VAE encode of the masked image), then
+    K6 in the decode (and in the intermediate decodes with
+    log.vis_diffusion_steps)."""
+    counts = {k: 0 for k in _build.launch_counts}
+    counts["raster"] = counts["mlp_fwd"] = 1
+    steps = len(diffusion.scheduler.timesteps(BOOTSTRAP_STEPS))
+    lat = diffusion.latent_shape()[2:]
+    inpaint = sum(1 for i in range(steps) if 10 < i < 20) \
+        if cfg.guide.use_inpainting and paint_step > 1 else 0
+    gn = 0
+    for ucfg, n in ((diffusion.unet_config, steps - inpaint),
+                    (diffusion.inpaint_config, inpaint)):
+        counts["flash_attn_single"] += n * unet_self_attention_launches(
+            ucfg, lat)
+        gn += n * unet_groupnorms(ucfg)
+    if inpaint:
+        gn += vae_groupnorms(diffusion.vae_config)
+    decodes = 1 + (min(10, steps) if cfg.log.vis_diffusion_steps else 0)
+    gn += decodes * vae_groupnorms(diffusion.vae_config, decoder=True)
+    counts["groupnorm"] = groupnorm_launches(gn)
+    return counts
+
+
+def generate_kernel_launches(pipe: Zero123PlusPipeline,
+                             num_inference_steps: int, height: int,
+                             width: int, cond_hw,
+                             use_inpaint: bool = False) -> Dict[str, int]:
+    """Kernel launches of `Zero123PlusPipeline.generate` on the card: K6 in
+    the two VAE encodes of the conditioning (CLIP's 77 and 257 tokens take
+    the plain attention path); each step a teacher call (K3/K4 as
+    `teacher_attention_launches`, K6 in the two UNet passes and the
+    ControlNet) or, at 10 < i < 20 with use_inpaint, one inpaint UNet call
+    (K3, K6); then K6 in the decode."""
+    counts = {k: 0 for k in _build.launch_counts}
+    down = pipe.vae_config.downsample
+    lat = (height // down, width // down)
+    cond = (cond_hw[0] // down, cond_hw[1] // down)
+    steps = len(pipe.euler.timesteps_and_sigmas(num_inference_steps)[0])
+    inpaint = sum(1 for i in range(steps) if 10 < i < 20) \
+        if use_inpaint else 0
+    ucfg = pipe.unet_config
+    single, two = teacher_attention_launches(ucfg, lat, cond)
+    counts["flash_attn_single"] = (steps - inpaint) * single
+    counts["flash_attn_two_source"] = (steps - inpaint) * two
+    gn = ((steps - inpaint) * (2 * unet_groupnorms(ucfg)
+                               + unet_groupnorms(ucfg, True))
+          + 2 * vae_groupnorms(pipe.vae_config)
+          + vae_groupnorms(pipe.vae_config, decoder=True))
+    if inpaint:
+        icfg = pipe.inpaint_unet.config
+        counts["flash_attn_single"] += inpaint * \
+            unet_self_attention_launches(icfg, lat)
+        gn += inpaint * unet_groupnorms(icfg)
     counts["groupnorm"] = groupnorm_launches(gn)
     return counts
 
@@ -615,19 +689,24 @@ def background_image(guide: GuideConfig, device) -> torch.Tensor:
 def paint_viewpoint(cfg: TrainConfig, mesh_model: TexturedMeshModel,
                     mlp: NeRF2D, diffusion: StableDiffusionDepth, text_z,
                     draws: Optional[Dict[str, torch.Tensor]] = None,
-                    timings: Optional[Dict[str, float]] = None
-                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The first paint step of the front view: render the front pose on the
-    background (green with guide.use_background_color, else the background
-    image resized to the grid), crop the object's box, repaint the crop by
-    SD2-depth img2img (guidance guide.guidance_scale, the seed
-    optim.seed, the crop's mask as the update mask; the inpaint UNet only
-    serves later paint steps) and paste the result, resized back, into the
-    frame. `draws` go to img2img_step. Returns (rgb (1,3,H,W), object mask
-    (1,1,H,W)). `timings` receives bootstrap_render, bootstrap_unet,
-    bootstrap_decode and bootstrap_paste."""
+                    timings: Optional[Dict[str, float]] = None,
+                    paint_step: int = 1, pose: Optional[Dict] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                               List[torch.Tensor]]:
+    """One paint step of a pose (the front view's when None): render it on
+    the background (green with guide.use_background_color, else the
+    background image resized to the grid), crop the object's box, repaint
+    the crop by SD2-depth img2img (guidance guide.guidance_scale, the seed
+    optim.seed, the crop's mask as the update mask) and paste the result,
+    resized back, into the frame. A repaint pass (paint_step > 1) renders
+    with the median fill, and with guide.use_inpainting its img2img runs
+    the inpaint UNet at 10 < i < 20. `draws` go to img2img_step. Returns
+    (rgb (1,3,H,W), object mask (1,1,H,W), the render (1,3,H,W), the
+    intermediate images of log.vis_diffusion_steps). `timings` receives
+    bootstrap_render, bootstrap_unet, bootstrap_decode and
+    bootstrap_paste."""
     dev = mesh_model.device
-    pose = Zero123PlusDataset(cfg.render).poses()[0]
+    pose = pose or Zero123PlusDataset(cfg.render).poses()[0]
     phi = pose["phi"] - np.deg2rad(cfg.render.front_offset)
     phi = float(phi + 2 * np.pi if phi < 0 else phi)
     with phase(timings, "bootstrap_render", dev):
@@ -639,24 +718,26 @@ def paint_viewpoint(cfg: TrainConfig, mesh_model: TexturedMeshModel,
                                        (sz, sz))
         outputs = mesh_model.render(mlp, theta=[pose["theta"]], phi=[phi],
                                     radius=[pose["radius"]],
-                                    background=background)
+                                    background=background,
+                                    use_median=paint_step > 1)
         rgb_render, object_mask = outputs["image"], outputs["mask"]
         mh, mw, Mh, Mw = get_nonzero_region_tuple(object_mask[0, 0])
         cropped_rgb = rgb_render[:, :, mh:Mh, mw:Mw]
         cropped_depth = outputs["depth"][:, :, mh:Mh, mw:Mw]
         cropped_mask = object_mask[:, :, mh:Mh, mw:Mw]
-    out, _ = diffusion.img2img_step(
+    out, intermediates = diffusion.img2img_step(
         text_z[1], cropped_rgb, cropped_depth,
         guidance_scale=cfg.guide.guidance_scale, strength=1.0,
         num_inference_steps=BOOTSTRAP_STEPS, update_mask=cropped_mask,
         fixed_seed=cfg.optim.seed,
-        intermediate_vis=cfg.log.vis_diffusion_steps, use_inpaint=False,
+        intermediate_vis=cfg.log.vis_diffusion_steps,
+        use_inpaint=cfg.guide.use_inpainting and paint_step > 1,
         draws=draws, timings=timings)
     with phase(timings, "bootstrap_paste", dev):
         rgb_output = rgb_render.clone()
         rgb_output[:, :, mh:Mh, mw:Mw] = resize_linear(out, (Mh - mh,
                                                              Mw - mw))
-    return rgb_output, object_mask
+    return rgb_output, object_mask, rgb_render, intermediates
 
 
 @torch.no_grad()
@@ -714,7 +795,7 @@ def prepare_sds(cfg: TrainConfig, mesh_model: TexturedMeshModel, mlp: NeRF2D,
     else:
         with phase(timings, "bootstrap_text", dev):
             text_z, _ = calc_text_embeddings(cfg, diffusion)
-        rgb_front, mask_front = paint_viewpoint(
+        rgb_front, mask_front, _, _ = paint_viewpoint(
             cfg, mesh_model, mlp, diffusion, text_z, draws=bootstrap_draws,
             timings=timings)
     with phase(timings, "crops", dev):
@@ -926,9 +1007,10 @@ def build_models(cfg: TrainConfig, tiny: bool = False, device="cuda",
         compute_dtype=teacher.dtype, device=dev)
     seed_texture_field(cfg, mesh_model, mlp, generator)
     if not skip_bootstrap and diffusion is None:
-        diffusion = StableDiffusionDepth(tiny=tiny, device=dev,
-                                         generator=generator,
-                                         weight_paths=sd_wp)
+        diffusion = StableDiffusionDepth(
+            tiny=tiny, device=dev, generator=generator, weight_paths=sd_wp,
+            min_timestep=cfg.optim.min_timestep,
+            max_timestep=cfg.optim.max_timestep, no_noise=cfg.optim.no_noise)
         if sd_wp is not None:
             logger.info(_loaded_line("SD2", sd_wp, diffusion.loaded))
         cp = cfg.guide.concept_path
@@ -1089,6 +1171,7 @@ class ConTEXTure:
         logger.info(f"Loaded Mesh, #parameters: {n}")
         self.dataloaders = self._init_dataloaders()
         self.sds: Optional[SDSTrainer] = None
+        self.text_z = None
         self._consistency = None
         self._median_eval = False
         self._img_writer = (AsyncImageWriter() if cfg.log.async_image_writer
@@ -1156,6 +1239,8 @@ class ConTEXTure:
         logger.info("Starting SDS Texture Generation ^_^")
         cfg = self.cfg
         check_parallel(cfg)
+        self.paint_step += 1  # prepare_sds paints the front view
+        logger.info(f"--- Painting step #{self.paint_step} ---")
         setup = prepare_sds(cfg, self.mesh_model, self.mlp, self.teacher,
                             generator=self.generator,
                             diffusion=self.diffusion)
@@ -1236,6 +1321,38 @@ class ConTEXTure:
         self.full_eval()
         self._img_writer.flush()  # raise any failed or pending log write
         profiler.GLOBAL_TIMINGS.dump(self.exp_path / "timings.json")
+
+    @torch.no_grad()
+    def paint_viewpoint(self, data: Dict, should_project_back: bool = False,
+                        draws: Optional[Dict[str, torch.Tensor]] = None,
+                        timings: Optional[Dict[str, float]] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The next paint step of the pose `data` (theta, phi, radius): the
+        free `paint_viewpoint` at paint_step + 1, so a repaint pass renders
+        with the median fill and, with guide.use_inpainting, inpaints. Logs
+        the render, the output and the diffusion steps (with
+        log.vis_diffusion_steps). should_project_back is dead, as in the
+        reference (its consumer does not exist there). Returns (rgb
+        (1,3,H,W), object mask (1,1,H,W))."""
+        if self.diffusion is None:
+            raise ValueError("paint_viewpoint needs the SD2-depth stack")
+        self.paint_step += 1
+        logger.info(f"--- Painting step #{self.paint_step} ---")
+        logger.info(f"Painting from theta: {data['theta']}, phi: "
+                    f"{self._adjust_phi(data['phi'])}, radius: "
+                    f"{data['radius']}")
+        if self.text_z is None:
+            self.text_z, _ = calc_text_embeddings(self.cfg, self.diffusion)
+        start = time.perf_counter()
+        rgb_output, object_mask, rgb_render, steps_vis = paint_viewpoint(
+            self.cfg, self.mesh_model, self.mlp, self.diffusion, self.text_z,
+            draws=draws, timings=timings, paint_step=self.paint_step,
+            pose=data)
+        self.log_train_image(rgb_render, "paint_viewpoint:rgb_render")
+        logger.info(f"img2img elapsed: {time.perf_counter() - start:.2f}s")
+        self.log_diffusion_steps(steps_vis)
+        self.log_train_image(rgb_output, "full_output")
+        return rgb_output, object_mask
 
     def paint_kernel_launches(self, start_iter: int = 0) -> Dict[str, int]:
         """Kernel launches of a run on the card (the models' construction

@@ -78,11 +78,15 @@ def vae_decoder_state_dict(vae_params: Mapping) -> Dict[str, torch.Tensor]:
 def load_teacher(teacher, zp_params: Mapping) -> None:
     """Zero123PlusPipeline.params (numpy tree with "unet", "controlnet",
     "vae" and, where given, the CLIP towers "text" and "vision") into a
-    Zero123PlusTeacher."""
+    Zero123PlusTeacher, or into a Zero123PlusPipeline (its VAE decoder
+    too)."""
     teacher.unet.load_state_dict(convert_tree(zp_params["unet"]))
     teacher.controlnet.load_state_dict(convert_tree(zp_params["controlnet"]))
     teacher.vae_encoder.load_state_dict(
         vae_encoder_state_dict(zp_params["vae"]))
+    if hasattr(teacher, "vae_decoder"):
+        teacher.vae_decoder.load_state_dict(
+            vae_decoder_state_dict(zp_params["vae"]))
     for key, tower in (("text", teacher.text_encoder),
                        ("vision", teacher.vision_encoder)):
         if key in zp_params:
