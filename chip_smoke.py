@@ -5,7 +5,7 @@ Run from the root of a checkout, on a machine with one NVIDIA GPU:
 
     python3 chip_smoke.py [--seed N] [--profile] [--sweep]
                           [--mlp-only | --raster-only [--against DIR] |
-                           --snapshot-only | --mesh-only]
+                           --snapshot-only | --mesh-only | --generate-only]
 
 It builds the hand-written CUDA kernels from csrc/, holds each against its
 plain PyTorch version at the shapes the main path gives it (and checks that
@@ -33,8 +33,17 @@ random-tower run bit for bit. Then the mesh path (`mesh_path`): a
 and cached, K5 on it and on its atlas, K1 and K2 at the fit's 4,096 and
 the texture lattice's 1,048,576 points, the 300-step fit to an image,
 exact_lattice_render steps (two runs from one state) and the
-reference_texture mask on the default path, on main_path's teacher. Any
-failed phase exits non-zero. The last line is {"ok": true,
+reference_texture mask on the default path, on main_path's teacher. Then
+the generation path (`generation_path`): get_depth_maps_cond_grid on the
+torus (7 views, the SD2-depth paint of the front view) and a repaint
+(paint step 2: median fill, inpaint UNet), check_gt_zero123plus on its two
+PNGs (28 EulerAncestral steps of the Zero123++ UNet, ControlNet and
+reference attention at 960x640, the 960x640 decode), generate again from
+the same draws (bit-identical), with blending and inpainting, and at
+masks 1 and 0 (the plain grid and the decode of the renders, bit for
+bit); K3/K4 and K6 held to their limits on a generate step, an inpaint
+step on the canvas, a repaint inpaint step and the decode. Any failed
+phase exits non-zero. The last line is {"ok": true,
 "device": {...}}; the line before it is the JSON record of the kernels.
 --profile also writes a torch.profiler table of one step to chiprun_out/;
 --sweep also times K3/K4 at each query tile the kernel is built for.
@@ -44,7 +53,8 @@ checkout at DIR (an earlier commit unpacked there) and of this one, in
 turns, each in a subprocess on the same card. --snapshot-only runs only the
 snapshot path, with its own random-tower run to hold the loaded run to (no
 result line). --mesh-only runs only the mesh path, on a teacher of its
-own (no result line).
+own (no result line). --generate-only runs only the generation path, on
+towers of its own (no result line).
 """
 
 import argparse
@@ -680,6 +690,18 @@ def routed_attention_calls():
         layers.attention = orig
 
 
+# the K3/K4 call shapes (B, H, Sq, Skv, Se) and the K6 signatures held to
+# their plain versions so far in this run: a later path records the ones
+# no earlier path ran as shape records of their own
+ATTENTION_SEEN = set()
+GROUPNORM_SEEN = set()
+
+
+def attention_shape(args):
+    q, k, _, ek, _ = args
+    return (*q.shape[:3], k.shape[2], 0 if ek is None else ek.shape[2])
+
+
 def check_routed_calls(torch, calls, label, failures):
     """K3/K4 held to attention_limit on every recorded kernel-routed call's
     real inputs. Returns (max |kernel - plain|, K3 calls, K4 calls)."""
@@ -689,6 +711,7 @@ def check_routed_calls(torch, calls, label, failures):
     strided = 0
     with torch.no_grad():
         for args in calls:
+            ATTENTION_SEEN.add(attention_shape(args))
             got = att.flash_attention(*args)
             plain = att.flash_attention_plain(*args)
             limit = attention_limit(torch, *args, plain)
@@ -1273,7 +1296,7 @@ def host_us(torch, fn, reps=20):
     return (b - a) / reps * 1e6
 
 
-def groupnorm_signature_times(torch, sigs, failures, label):
+def groupnorm_signature_times(torch, sigs, failures, label, per_sig=None):
     """K6, its plain version and the library's F.group_norm (+ F.silu: two
     calls) timed at each signature's sample input (a real activation of the
     main path), and K6 held against the plain version there within
@@ -1283,7 +1306,8 @@ def groupnorm_signature_times(torch, sigs, failures, label):
     the largest signatures, writes every signature's row to
     chiprun_out/k6_signatures_<label>.txt, and returns (ms, plain_ms,
     library_ms, max_abs_err, device_ms, library_device_ms), each summed over
-    the signatures' calls."""
+    the signatures' calls; `per_sig`, when given, gets each signature's
+    {"n", "ms", "pms", "lms", "err", "bytes", "numel"}, a call's numbers."""
     import torch.nn.functional as F
 
     from contexture_nerf_tpu_torch.ops import groupnorm as gn
@@ -1327,6 +1351,13 @@ def groupnorm_signature_times(torch, sigs, failures, label):
             agg[i] += v
         rows.append((n * nbytes, n, shape, str(dt)[6:], str(odt)[6:],
                      path.path, path.cluster, t, hu, lhu, b_ms))
+        key = (shape, dt, odt, eps, act)
+        GROUPNORM_SEEN.add(key)
+        if per_sig is not None:
+            per_sig[key] = {"n": n, "ms": t["ms"], "pms": t["pms"],
+                            "lms": t["lms"], "bytes": nbytes,
+                            "numel": x.numel(), "err": float(
+                                (got.float() - plain.float()).abs().max())}
     print(f"    K6 held to its limit at {len(sigs)} shapes: largest "
           f"err/limit {worst:.3f}")
     for path, (k, n, d, ld, b_ms) in sorted(paths.items()):
@@ -2615,6 +2646,361 @@ def mesh_path(torch, seed, teacher, shape_recs, failures):
     return launches
 
 
+GEN_STEPS = 28  # check_gt_zero123plus's default, the reference's
+
+
+def plus(*counts):
+    """The sum of launch-count dicts."""
+    out = {}
+    for c in counts:
+        for k, v in c.items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
+def attention_shape_record(torch, args, name):
+    """A K3/K4 shape record timed at one real call's inputs: the kernel, the
+    plain version and SDPA on the concatenated KV (CUDA events), the bound
+    4 B H Sq (Skv + Se) 64 operations or the bytes of q, k, v, o."""
+    import torch.nn.functional as F
+
+    from contexture_nerf_tpu_torch.ops import attention as att
+
+    q, k, v, ek, ev = args
+    kk = k if ek is None else torch.cat([k, ek], dim=2)
+    vv = v if ev is None else torch.cat([v, ev], dim=2)
+    B, H, Sq, _ = q.shape
+    rec = Record(name, "contexture_nerf_tpu_torch/csrc/flash_attn.cu",
+                 "contexture_nerf_tpu/ops/attention.py:"
+                 + ("159" if ek is not None else "140"))
+    err = float((att.flash_attention(*args).float()
+                 - att.flash_attention_plain(*args).float()).abs().max())
+    rec.add(err, cuda_ms(lambda: att.flash_attention(*args)),
+            cuda_ms(lambda: att.flash_attention_plain(*args), reps=3),
+            4.0 * B * H * Sq * kk.shape[2] * 64,
+            2 * (2 * q.numel() + kk.numel() + vv.numel()),
+            lib_ms=cuda_ms(lambda: F.scaled_dot_product_attention(q, kk, vv)))
+    return rec
+
+
+def generation_path(torch, seed, models, recs, shape_recs, failures):
+    """Ground-truth multiview generation at full width, as its two drivers
+    run it. (1) `get_depth_maps_cond_grid.main` on shapes/torus.obj at the
+    default config (the 7 views at render.train_grid_size, the 50-step
+    SD2-depth paint of the front view), then a second
+    `ConTEXTure.paint_viewpoint` of the front pose (the repaint: the median
+    fill, the inpaint UNet at 10 < i < 20): both finite in [0, 1] and equal
+    outside the object's box. (2) `check_gt_zero123plus.main` on the two
+    PNGs: 28 EulerAncestral steps at 960x640 on random full-width towers,
+    grid.png and 6 views written, the grid finite in [0, 1], and generate
+    again from the same draws bit-identical. (3) generate with use_blending
+    and use_inpaint (the mask grid: the 6 views' object masks at the
+    latent size; the renders and the masked latents: VAE encodes of the
+    condition image tiled 3x2; the SD2 stack's inpaint UNet attached), and
+    with use_blending alone at mask 1 (the plain grid, bit for bit) and at
+    mask 0 (the decode of the renders, bit for bit). (4) K3/K4 held to
+    attention_limit on every kernel-routed call of one generate step, one
+    inpaint-UNet step on the Zero123++ canvas and one repaint inpaint step;
+    K6 held to groupnorm_limit at every signature of a generate step, an
+    inpaint step and the 960x640 decode. A signature or shape no earlier
+    path held becomes a shape record, with its launches on this path. Every
+    run counts its launches against the derivation (`counted`). `models`
+    (teacher, mlp) go to the driver's ConTEXTure. Returns (the launches by
+    kernel, the path's seconds)."""
+    import gc
+    import shutil
+    from collections import Counter
+
+    from contexture_nerf_tpu_torch import check_gt_zero123plus as cg
+    from contexture_nerf_tpu_torch import get_depth_maps_cond_grid as gd
+    from contexture_nerf_tpu_torch.diffusion.zero123plus import \
+        scale_latents
+    from contexture_nerf_tpu_torch.ops import _build
+    from contexture_nerf_tpu_torch.ops.grid import merge_6_to_grid
+    from contexture_nerf_tpu_torch.ops.image import (crop_and_resize,
+                                                     get_nonzero_region_tuple,
+                                                     resize_nearest)
+    from contexture_nerf_tpu_torch.training import trainer as tr
+
+    card = card_line()
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    launches = {k: 0 for k in _build.launch_counts}
+    shapes = Counter()  # the path's launches by call sizes
+    none = {k: 0 for k in _build.launch_counts}
+    work = ROOT / "build" / "generation_path"
+    shutil.rmtree(work, ignore_errors=True)
+    grids, gt = work / "grids", work / "gt"
+    peaks = {}
+
+    def run(label, fn, want):
+        torch.cuda.reset_peak_memory_stats()
+        out, secs = counted(torch, fn, want, label, launches, failures,
+                            shapes)
+        peaks[label] = torch.cuda.max_memory_allocated() / 2 ** 30
+        return out, secs
+
+    def in_range(x, slack=0.0):
+        return bool(torch.isfinite(x).all()) and \
+            float(x.min()) >= -slack and float(x.max()) <= 1 + slack
+
+    # (1) the cond-grid driver, then the repaint
+    t_boot, t_re = {}, {}
+    (ct, rgb1, mask1), boot_s = run(
+        "(1) get_depth_maps_cond_grid (7 views, paint step 1)",
+        lambda: gd.main(["--shape_path", str(ROOT / "shapes" / "torus.obj"),
+                         "--text", "a photo of a dairy cow", "--out_dir",
+                         str(grids), f"--optim.seed={seed}"], device="cuda",
+                        timings=t_boot, **models),
+        lambda r: plus({"raster": 1}, tr.paint_viewpoint_kernel_launches(
+            r[0].cfg, r[0].diffusion, 1)))
+    pose = ct.dataloaders["train"].poses()[0]
+    (rgb2, mask2), re_s = run(
+        "(1) ConTEXTure.paint_viewpoint again (paint step 2: median fill, "
+        "inpaint UNet)", lambda: ct.paint_viewpoint(pose, timings=t_re),
+        lambda _: tr.paint_viewpoint_kernel_launches(ct.cfg, ct.diffusion, 2))
+    mh, mw, Mh, Mw = get_nonzero_region_tuple(mask1[0, 0])
+    box = torch.zeros_like(rgb1, dtype=torch.bool)
+    box[..., mh:Mh, mw:Mw] = True
+    kept = torch.equal(rgb1[~box], rgb2[~box]) and torch.equal(mask1, mask2)
+    moved = float((rgb1[box] - rgb2[box]).abs().max())
+    # the decode is clipped to [0, 1]; the antialiased resize that pastes
+    # it back into the frame may round a weight sum to 1 + 1 ulp
+    ranges = [in_range(x, 1e-6) for x in (rgb1, rgb2)]
+    ok = all(ranges) and kept and ct.paint_step == 2
+    res = ct.cfg.render.train_grid_size
+    print(f"  paint steps 1 and 2 at {res}^2 (box {mh}:{Mh}, {mw}:{Mw}): in "
+          f"[0, 1] within 1e-6 {ranges[0]} / {ranges[1]} (max "
+          f"{float(rgb1.max()):.8f} / {float(rgb2.max()):.8f}); equal "
+          f"outside the box {kept}; max |change| inside {moved:.4f} "
+          f"{'ok' if ok else 'BAD'}")
+    for label, t_ in (("paint step 1", t_boot), ("paint step 2", t_re)):
+        print(f"  {label} by phase: " + ", ".join(
+            f"{k} {v:.1f}" for k, v in t_.items()) + f" ms [{card}]")
+    if not ok:
+        failures.append("generation path: the two paint passes")
+
+    # (2) check_gt_zero123plus on the two PNGs
+    t_gen = {}
+    (pipe, grid), gen_s = run(
+        f"(2) check_gt_zero123plus ({GEN_STEPS} steps)",
+        lambda: cg.main(["--cond", str(grids / "cond_image.png"),
+                         "--depth_grid", str(grids / "depth_grid.png"),
+                         "--out_dir", str(gt), "--steps", str(GEN_STEPS)],
+                        device="cuda", timings=t_gen),
+        lambda r: tr.generate_kernel_launches(
+            r[0], GEN_STEPS, 3 * r[0].tile_px, 2 * r[0].tile_px,
+            (r[0].tile_px, r[0].tile_px)))
+    t = pipe.tile_px
+    H, W = 3 * t, 2 * t
+    down = pipe.vae_config.downsample
+    lat_hw = (H // down, W // down)
+    names = sorted(p.name for p in gt.iterdir())
+    written = names == ["grid.png"] + [f"view_{i}.png" for i in range(6)]
+    cond = cg.load_image(grids / "cond_image.png", (t, t)).to(dev) * 2 - 1
+    depth = cg.load_image(grids / "depth_grid.png", (W, H)).to(dev)
+
+    def gen(**kw):
+        return pipe.generate(
+            cond, depth, num_inference_steps=GEN_STEPS,
+            guidance_scale=cg.GUIDANCE_SCALE, height=H, width=W,
+            generator=torch.Generator(device=dev).manual_seed(cg.SEED), **kw)
+
+    def plain_want(_):
+        return tr.generate_kernel_launches(pipe, GEN_STEPS, H, W, (t, t))
+
+    again, again_s = run("(2) generate again from the same draws", gen,
+                         plain_want)
+    same = torch.equal(grid, again)
+    ok = written and in_range(grid) and tuple(grid.shape) == (1, 3, H, W)
+    print(f"  {GEN_STEPS}-step generate at {H}x{W}: wrote {names}; grid in "
+          f"[0, 1] {in_range(grid)}, mean {float(grid.mean()):.4f}; again "
+          f"from the same draws bit-identical {same} (max |diff| "
+          f"{float((grid - again).abs().max()):.3e}) "
+          f"{'ok' if ok and same else 'BAD'}")
+    if not (ok and same):
+        failures.append("generation path: check_gt_zero123plus's grid")
+
+    # (3) blending and inpainting
+    def mask_grid():
+        cache, _ = tr.define_view_weights(ct.mesh_model, ct.cfg.render)
+        tiles = [crop_and_resize(cache.mask[i:i + 1], get_nonzero_region_tuple(
+            cache.mask[i, 0]), t, t) for i in range(1, cache.mask.shape[0])]
+        return merge_6_to_grid(torch.cat(tiles))
+
+    mask_px, _ = run("(3) the 6 views' masks", mask_grid,
+                     lambda _: plus(none, {"raster": 1}))
+    mask = (resize_nearest(mask_px, lat_hw) > 0.5).float()
+    mask_up = resize_nearest(mask, (H, W))
+    cond_grid = merge_6_to_grid(((cond + 1) / 2).repeat(6, 1, 1, 1))
+    g = torch.Generator(device=dev).manual_seed(seed + 12)
+    eps = torch.randn((2, pipe.vae_config.latent_channels) + lat_hw,
+                      generator=g, device=dev)
+
+    def encode(img, e):
+        z = pipe.encode_condition_image(img * 2 - 1, e[None])
+        return scale_latents(z.float() * pipe.vae_config.scaling_factor)
+
+    (renders, masked), _ = run(
+        "(3) renders and masked latents (two VAE encodes)",
+        lambda: (encode(cond_grid, eps[0]),
+                 encode(cond_grid * (1 - mask_up) + 0.5 * mask_up, eps[1])),
+        lambda _: plus(none, {"groupnorm": tr.groupnorm_launches(
+            2 * tr.vae_groupnorms(pipe.vae_config))}))
+    pipe.attach_inpaint_unet(ct.diffusion.inpaint_unet)
+    t_inp = {}
+    blended, inp_s = run(
+        "(3) generate, use_blending and use_inpaint",
+        lambda: gen(use_blending=True, use_inpaint=True,
+                    latent_mask_grid=mask, latent_renders_grid=renders,
+                    masked_input_latents=masked, timings=t_inp),
+        lambda _: tr.generate_kernel_launches(pipe, GEN_STEPS, H, W, (t, t),
+                                              use_inpaint=True))
+    ones, _ = run("(3) generate, use_blending, mask 1",
+                  lambda: gen(use_blending=True,
+                              latent_mask_grid=torch.ones_like(mask),
+                              latent_renders_grid=renders), plain_want)
+    zeros, _ = run("(3) generate, use_blending, mask 0",
+                   lambda: gen(use_blending=True,
+                               latent_mask_grid=torch.zeros_like(mask),
+                               latent_renders_grid=renders), plain_want)
+    decoded, _ = run(
+        "(3) the decode of the renders", lambda: pipe.decode_grid(renders),
+        lambda _: plus(none, {"groupnorm": tr.groupnorm_launches(
+            tr.vae_groupnorms(pipe.vae_config, decoder=True))}))
+    share = float(mask.mean())
+    ones_same, zeros_same = torch.equal(ones, grid), torch.equal(zeros,
+                                                                  decoded)
+    ok = (in_range(blended) and 0 < share < 1 and ones_same and zeros_same)
+    print(f"  blending + inpainting: mask share {share:.4f} (1 = generate); "
+          f"grid in [0, 1] {in_range(blended)}, differs from the plain one "
+          f"by {float((blended - grid).abs().max()):.4f}; mask 1 = the plain "
+          f"grid bit for bit {ones_same}; mask 0 = the decode of the renders "
+          f"bit for bit {zeros_same} {'ok' if ok else 'BAD'}")
+    if not ok:
+        failures.append("generation path: blending and inpainting")
+
+    # (4) the kernels against their plain versions on this path's inputs
+    ts, sigmas = pipe.euler.timesteps_and_sigmas(GEN_STEPS)
+    draws = pipe.draw_generation((t, t), len(ts), H, W, torch.Generator(
+        device=dev).manual_seed(seed))
+    with torch.no_grad():
+        cond_lat_pair, ehs = pipe.prepare_conditioning(
+            cond, draws["eps_cond"], draws["eps_neg"])
+        cn_emb = pipe.embed_control_cond(depth, lat_hw)
+    lat = draws["latents"] * sigmas[0]
+    i = 12  # a step inside the inpaint range
+    nine = pipe.euler.scale_model_input(torch.cat(
+        [torch.cat([lat, mask, masked], dim=1)] * 2), sigmas[i])
+    sd = ct.diffusion
+    sd_lat = torch.randn(sd.latent_shape(), generator=g, device=dev)
+    sd_mask = torch.ones((1, 1) + sd.latent_shape()[2:], device=dev)
+    sd_nine = torch.cat([torch.cat([sd_lat, sd_mask, sd_lat], dim=1)] * 2)
+    text = ct.text_z[1]
+
+    def main_step():
+        return pipe._cfg_v_pred(
+            lat, ts[0], cond_lat_pair, ehs, depth, cg.GUIDANCE_SCALE,
+            draws["write_neg"][0], draws["write_cond"][0], cn_cond_emb=cn_emb,
+            scale_input=lambda x: pipe.euler.scale_model_input(x, sigmas[0]))
+
+    def inpaint_step():
+        return pipe.inpaint_unet(nine, ts[i], ehs)
+
+    def repaint_step():
+        return sd.inpaint_unet(sd_nine, 501, text)
+
+    icfg = pipe.inpaint_unet.config
+    steps = (("one generate step (main UNet)", main_step, [pipe],
+              tr.teacher_attention_launches(pipe.unet_config, lat_hw,
+                                            (t // down, t // down))),
+             ("one inpaint-UNet step (the 120x80 canvas latent)",
+              inpaint_step, [pipe.inpaint_unet],
+              (tr.unet_self_attention_launches(icfg, lat_hw), 0)),
+             ("one repaint inpaint step (its 64^2 latent)", repaint_step,
+              [sd.inpaint_unet],
+              (tr.unet_self_attention_launches(sd.inpaint_config,
+                                               sd.latent_shape()[2:]), 0)))
+    seen_att, seen_gn = set(ATTENTION_SEEN), set(GROUPNORM_SEEN)
+    new_att, sigs = {}, {}
+    with torch.no_grad():
+        for label, fn, towers, (want1, want2) in steps:
+            with routed_attention_calls() as calls:
+                traffic = groupnorm_traffic(torch, towers, fn)
+            for args in calls:
+                key = attention_shape(args)
+                if key not in seen_att:
+                    new_att.setdefault(key, (label, args))
+            err, single, two = check_routed_calls(torch, calls, label,
+                                                  failures)
+            for name, got, want in (("flash_attn_single", single, want1),
+                                    ("flash_attn_two_source", two, want2)):
+                recs[name].d["max_abs_err"] = max(recs[name].d["max_abs_err"],
+                                                  err)
+                if got != want:
+                    failures.append(f"{label}: {got} {name} calls != {want}")
+            for key, (c, a) in traffic["sigs"].items():
+                sigs.setdefault(key, [0, a])[0] += c
+            del calls
+        dec = groupnorm_traffic(torch, [pipe.vae_decoder],
+                                lambda: pipe.decode_grid(renders))
+        for key, (c, a) in dec["sigs"].items():
+            sigs.setdefault(key, [0, a])[0] += c
+    per_sig = {}
+    ms, pms, lms, err, dms, ldms = groupnorm_signature_times(
+        torch, sigs, failures, "generation", per_sig=per_sig)
+    recs["groupnorm"].d["max_abs_err"] = max(recs["groupnorm"].d[
+        "max_abs_err"], err)
+    print(f"  K6 at the {len(sigs)} signatures of a generate step, an "
+          f"inpaint step, a repaint inpaint step and the {H}x{W} decode "
+          f"({dec['calls']} calls, bound {dec['bound_ms']:.3f} ms): ms "
+          f"{ms:.3f} plain_ms {pms:.3f} library_ms {lms:.3f}; device time "
+          f"K6 {dms:.3f}, library {ldms:.3f}; max_abs_err {err:.3e}")
+    gn_src = "contexture_nerf_tpu_torch/csrc/groupnorm.cu"
+    new_recs = []  # shape records keyed as _build.launch_shapes keys
+    for key, d in per_sig.items():
+        if key in seen_gn:
+            continue
+        skey = ("groupnorm", *key[0])
+        if skey not in shape_recs:
+            shape_recs[skey] = Record(
+                f"groupnorm (generation path, {tuple(key[0])})", gn_src,
+                "contexture_nerf_tpu/ops/groupnorm.py:69", H100_FP32_FLOPS)
+            new_recs.append(skey)
+        shape_recs[skey].add(d["err"], d["ms"], d["pms"], 12.0 * d["numel"],
+                             d["bytes"], lib_ms=d["lms"])
+    for key, (label, args) in new_att.items():
+        kind = "flash_attn_two_source" if key[4] else "flash_attn_single"
+        new_recs.append((kind, *key))
+        shape_recs[new_recs[-1]] = attention_shape_record(
+            torch, args, f"{kind} (generation path: {label}, {key})")
+    for key in new_recs:
+        rec = shape_recs[key]
+        rec.d["launches"] = shapes[key]
+        print(f"  new shape {rec.d['name']}: {shapes[key]} launches on the "
+              "generation path")
+        if not shapes[key]:
+            failures.append(f"{rec.d['name']} was not launched")
+
+    secs = time.perf_counter() - t_phase
+    print(f"  generate: {GEN_STEPS} steps {gen_s:.2f} s whole ("
+          f"conditioning {t_gen.get('generate_conditioning', 0):.1f} ms, a "
+          f"step {t_gen.get('generate_steps', 0) / GEN_STEPS:.1f} ms, the "
+          f"{H}x{W} decode {t_gen.get('generate_decode', 0):.1f} ms); again "
+          f"{again_s:.2f} s; with blending and inpainting {inp_s:.2f} s (a "
+          f"step {t_inp.get('generate_steps', 0) / GEN_STEPS:.1f} ms) "
+          f"[{card}]")
+    print("  peak memory by run: " + "; ".join(
+        f"{k} {v:.2f} GiB" for k, v in peaks.items()) + f" [{card}]")
+    print(f"  generation path {secs:.1f} s (paint steps {boot_s:.1f} + "
+          f"{re_s:.1f} s)")
+    pipe.attach_inpaint_unet(None)
+    del ct, pipe, sd
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, secs
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2639,8 +3025,14 @@ def main():
                     "point counts and the mesh path (a mesh without UVs, its "
                     "atlas, the fit, the exact and the masked steps) and "
                     "stop (no result line)")
+    ap.add_argument("--generate-only", action="store_true",
+                    help="run only the generation path (the two "
+                    "ground-truth drivers, generate's blending and "
+                    "inpainting, its kernels against the plain versions) on "
+                    "towers of its own and stop (no result line)")
     ap.add_argument("--k5-times-of", metavar="DIR", help=argparse.SUPPRESS)
     args = ap.parse_args()
+    t_script = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -2753,6 +3145,12 @@ def main():
         for f in failures:
             print(f"FAIL: {f}")
         return 1 if failures else 0
+    if args.generate_only:
+        print("generation path alone, on towers of its own")
+        generation_path(torch, args.seed, {}, recs, {}, failures)
+        for f in failures:
+            print(f"FAIL: {f}")
+        return 1 if failures else 0
     if args.snapshot_only:
         print("snapshot path: the CLI on spot_quick_test.yaml with random "
               "towers, then from the same towers written to disk")
@@ -2800,6 +3198,13 @@ def main():
     meshed = mesh_path(torch, args.seed, trainer.teacher, shape_recs,
                        failures)
     launches = {k: launches[k] + meshed[k] for k in launches}
+    print("generation path: get_depth_maps_cond_grid on the torus and a "
+          "repaint, check_gt_zero123plus (28 steps at 960x640), generate's "
+          "blending and inpainting, on main_path's teacher and MLP")
+    generated, gen_s = generation_path(
+        torch, args.seed, {"teacher": trainer.teacher, "mlp": trainer.mlp},
+        recs, shape_recs, failures)
+    launches = {k: launches[k] + generated[k] for k in launches}
     del trainer
     print("snapshot path: the paint path's first CLI run from its towers "
           "written to disk as diffusers snapshots")
@@ -2809,6 +3214,9 @@ def main():
         rec.d["launches"] = launches.get(name, 0)
         if rec.d["launches"] == 0:
             failures.append(f"{name} was not launched on the main path")
+    total = time.perf_counter() - t_script
+    print(f"generation path {gen_s:.1f} s of the script's {total:.1f} s "
+          f"({100 * gen_s / total:.1f}%) [{card_line()}]")
     if failures:
         for f in failures:
             print(f"FAIL: {f}")

@@ -181,11 +181,13 @@ def test_fused_entry_points_launch_the_kernels(cuda):
 
 # (B, H, Sq, Skv, Se): ragged shapes, the bootstrap's (64^2 and 32^2 tokens),
 # tails of 1, 16 and BN - 1 = 127 keys in each source, Sq off the 128- and
-# 192-row query tiles
+# 192-row query tiles, and the SD2-inpaint UNet's on the Zero123++ canvas
+# (generate's inpaint steps: a 120x80 latent, 9600 tokens, CFG batch 2)
 FLASH_CASES = [(2, 3, 777, 1234, 0), (2, 3, 777, 1234, 301), (2, 3, 64, 64, 0),
                (2, 3, 1, 1025, 63), (2, 5, 4096, 4096, 0),
                (2, 10, 1024, 1024, 0), (1, 2, 300, 129, 16),
-               (1, 2, 130, 144, 255), (1, 2, 257, 255, 129)]
+               (1, 2, 130, 144, 255), (1, 2, 257, 255, 129),
+               (2, 5, 9600, 9600, 0)]
 
 
 @pytest.mark.parametrize("strided", [False, True])
@@ -424,6 +426,10 @@ GN_CASES = [
     ((2, 320, 120, 80), torch.bfloat16, torch.bfloat16, torch.float32, 1e-5,
      True),
     ((1, 128, 960, 640), torch.bfloat16, torch.bfloat16, torch.bfloat16,
+     1e-6, True),
+    # the largest of generate's 960x640 decode: its last up block's first
+    # resnet, 256 channels in
+    ((1, 256, 960, 640), torch.bfloat16, torch.bfloat16, torch.bfloat16,
      1e-6, True),
     ((1, 96, 7, 13), torch.float32, torch.float32, torch.float32, 1e-5, True),
     ((2, 64, 5, 9), torch.bfloat16, torch.float32, torch.float32, 1e-6,
