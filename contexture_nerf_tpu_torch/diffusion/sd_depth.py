@@ -284,17 +284,15 @@ class StableDiffusionDepth(nn.Module):
                     truth = pndm.add_noise(gt, d["noise"], t)
                     latents = latents * mask_lat + truth * (1 - mask_lat)
                 if masked_latents is not None and 10 < i < 20:
+                    unet = self.inpaint_unet
                     lat_in = torch.cat([torch.cat([latents] * 2),
                                         torch.cat([mask_lat] * 2),
                                         torch.cat([masked_latents] * 2)], 1)
-                    pred = self.inpaint_unet(lat_in, t, text)
                 else:
+                    unet = self.unet
                     lat_in = torch.cat([torch.cat([latents] * 2), depth_pair],
                                        1)
-                    pred = self.unet(lat_in, t, text)
-                u, c = pred.chunk(2)
-                # the difference in the tower dtype, the guidance in f32
-                noise_pred = u.float() + guidance_scale * (c - u).float()
+                noise_pred = self._cfg(unet, lat_in, t, text, guidance_scale)
                 state, latents = pndm.step(state, noise_pred, t, latents,
                                            num_inference_steps)
                 if i in sel:
@@ -309,7 +307,7 @@ class StableDiffusionDepth(nn.Module):
     def _cfg(self, unet: nn.Module, lat_in, t, text_embeddings,
              guidance_scale: float) -> torch.Tensor:
         """CFG over the [uncond; cond] batch: the difference in the tower
-        dtype, the guidance in f32, as img2img_step takes it."""
+        dtype, the guidance in f32."""
         u, c = unet(lat_in, t, text_embeddings.to(self.device)).chunk(2)
         return u.float() + guidance_scale * (c - u).float()
 

@@ -16,8 +16,8 @@ sampler step
 on given outputs and draws agrees to 1e-6 of its scale. `generate` starts
 from sigma_0 ~ 14.6 times the latent draw and runs each step's difference
 through CFG at 4, then the decoder multiplies the latent by 1 / (0.75 *
-0.18215) ~ 7.3; the grids agree to 1.0e-4 / 1.2e-4 / 1.3e-4 (plain /
-blending / inpaint, measured) on [0, 1], held to 5e-4.
+0.18215) ~ 7.3; the grids agree to 1.1e-4 / 1.3e-4 / 1.2e-4 (plain /
+blending / inpaint, measured) on [0, 1], held to 3e-4.
 """
 
 import jax
@@ -46,7 +46,7 @@ H, W = 48, 32  # a 3x2 canvas of 16 px tiles; the tiny VAE halves it
 LAT = (1, 4, H // 2, W // 2)
 COND = (1, 4, 16, 16)  # the 32^2 condition image's latent
 KEY = 7
-GRID_TOL = 5e-4
+GRID_TOL = 3e-4
 
 
 @pytest.fixture(scope="module", autouse=True)
