@@ -6,6 +6,15 @@ Submodules keep the flax names (`conv1`, `time_emb_proj`, `attn1`, `to_q`,
 `state_dict` mechanically. Parameters live in the tower dtype (bf16 at full
 size, f32 at tiny size); Dense and Conv cast their input to it, as flax
 does; norms compute in f32 and cast their output.
+
+`quant` (optim.int8_controlnet / int8_teacher) is a plain attribute of a
+Dense or Conv, not a parameter or buffer, so it changes no state_dict.
+`set_quant` sets it on exactly the layers the reference quantizes: the
+resnets' convs (not time_emb_proj), the resamplers' convs, the attention
+projections (the attention itself stays exact), the feed-forward and the
+transformer's proj_in / proj_out. Each block names them in `QUANT`. The
+int8 branch adds the bias after the cast to the layer's dtype, as flax
+does after its injected product.
 """
 
 from __future__ import annotations
@@ -18,20 +27,46 @@ import torch.nn.functional as F
 
 from contexture_nerf_tpu_torch.ops.attention import attention
 from contexture_nerf_tpu_torch.ops.groupnorm import GroupNormSiLU
+from contexture_nerf_tpu_torch.ops.quant import int8_conv2d, int8_linear
 
 
 class Dense(nn.Linear):
-    """nn.Linear that casts its input to its own dtype (flax Dense)."""
+    """nn.Linear that casts its input to its own dtype (flax Dense); W8A8
+    when `quant` is set."""
+
+    quant = False
 
     def forward(self, x):
-        return super().forward(x.to(self.weight.dtype))
+        x = x.to(self.weight.dtype)
+        if not self.quant:
+            return super().forward(x)
+        y = int8_linear(x, self.weight)
+        return y if self.bias is None else y + self.bias
 
 
 class Conv(nn.Conv2d):
-    """nn.Conv2d that casts its input to its own dtype (flax Conv)."""
+    """nn.Conv2d that casts its input to its own dtype (flax Conv); W8A8
+    when `quant` is set."""
+
+    quant = False
 
     def forward(self, x):
-        return super().forward(x.to(self.weight.dtype))
+        x = x.to(self.weight.dtype)
+        if not self.quant:
+            return super().forward(x)
+        y = int8_conv2d(x, self.weight, self.stride[0], self.padding[0])
+        return y if self.bias is None else y + self.bias.reshape(1, -1, 1, 1)
+
+
+def set_quant(tower: nn.Module, on: bool) -> None:
+    """W8A8 on (or off) for every layer of `tower` that a block lists in
+    its QUANT; the tower's other layers (conv_in, conv_out, the time
+    embedding, a ControlNet's hint embedder and zero convs) stay exact."""
+    for m in tower.modules():
+        for name in getattr(m, "QUANT", ()):
+            layer = getattr(m, name)
+            if layer is not None:
+                layer.quant = bool(on)
 
 
 class LayerNormF32(nn.Module):
@@ -70,6 +105,8 @@ class TimestepEmbedding(nn.Module):
 
 
 class ResnetBlock2D(nn.Module):
+    QUANT = ("conv1", "conv2", "conv_shortcut")
+
     def __init__(self, in_channels: int, out_channels: int, eps: float = 1e-5,
                  temb_dim: int = None, dtype=torch.float32):
         super().__init__()
@@ -97,6 +134,8 @@ class Downsample2D(nn.Module):
     (asymmetric=True) pads (0, 1, 0, 1), right and bottom only, before a
     pad-0 conv, as diffusers does."""
 
+    QUANT = ("conv",)
+
     def __init__(self, channels: int, asymmetric: bool = False):
         super().__init__()
         self.asymmetric = asymmetric
@@ -110,6 +149,8 @@ class Downsample2D(nn.Module):
 
 
 class Upsample2D(nn.Module):
+    QUANT = ("conv",)
+
     def __init__(self, channels: int):
         super().__init__()
         self.conv = Conv(channels, channels, 3, padding=1)
@@ -123,6 +164,8 @@ class CrossAttention(nn.Module):
     extra tokens projected with the same to_k/to_v and attended jointly
     (Zero123++ reference attention, read pass); the kernel streams them as a
     second KV source."""
+
+    QUANT = ("to_q", "to_k", "to_v", "to_out")
 
     def __init__(self, query_dim: int, context_dim: int, num_heads: int,
                  head_dim: int, dtype=torch.float32):
@@ -161,6 +204,8 @@ class CrossAttention(nn.Module):
 class FeedForward(nn.Module):
     """GEGLU feed-forward: exact (erf) GELU in f32, tanh GELU in bf16, as
     the reference chooses by dtype."""
+
+    QUANT = ("geglu_proj", "out_proj")
 
     def __init__(self, dim: int):
         super().__init__()
@@ -203,6 +248,8 @@ class BasicTransformerBlock(nn.Module):
 class Transformer2DModel(nn.Module):
     """Spatial transformer over NCHW features, with linear projections (the
     SD2 / Zero123++ layout)."""
+
+    QUANT = ("proj_in", "proj_out")
 
     def __init__(self, channels: int, num_heads: int, head_dim: int,
                  context_dim: int, depth: int = 1, dtype=torch.float32):

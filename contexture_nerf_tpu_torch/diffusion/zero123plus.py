@@ -35,6 +35,7 @@ from contexture_nerf_tpu_torch.diffusion.clip import (
     CLIPVisionModelWithProjection)
 from contexture_nerf_tpu_torch.diffusion.controlnet import (ControlNet,
                                                             embed_cond)
+from contexture_nerf_tpu_torch.diffusion.layers import set_quant
 from contexture_nerf_tpu_torch.diffusion.unet import (UNet2DCondition,
                                                       UNetConfig)
 from contexture_nerf_tpu_torch.diffusion.vae import (Decoder, Encoder,
@@ -161,13 +162,17 @@ class Zero123PlusTeacher(nn.Module):
     load). Then each tower with a path in `weight_paths` loads it, and the
     tokenizer and the ramp come from the snapshot; `loaded` holds each
     loaded tower's path, bytes and seconds. `tile_px` is the side of one of
-    the 3x2 grid's tiles."""
+    the 3x2 grid's tiles. `int8_controlnet` / `int8_unet`
+    (optim.int8_controlnet / int8_teacher) quantize the ControlNet, or the
+    UNet and the ControlNet, to W8A8 on the fly (`set_int8`); the weights
+    and the state_dicts stay as they are."""
 
     CONDITIONING_SCALE = 2.0  # the depth ControlNet's, reference trainer
 
     def __init__(self, tiny: bool = False, device="cuda",
                  generator: Optional[torch.Generator] = None,
-                 weight_paths: Optional[Zero123PlusWeightPaths] = None):
+                 weight_paths: Optional[Zero123PlusWeightPaths] = None,
+                 int8_controlnet: bool = False, int8_unet: bool = False):
         super().__init__()
         dev = resolve_device(device)
         self.dtype = torch.float32 if tiny else torch.bfloat16
@@ -212,6 +217,17 @@ class Zero123PlusTeacher(nn.Module):
             ("vision_encoder", self.vision_encoder, wp.vision_encoder,
              W.convert_clip_vision, self.vision_config)])
         self.alphas_cumprod = sch.make_alphas_cumprod(device=dev)
+        self.set_int8(int8_controlnet, int8_unet)
+
+    def set_int8(self, int8_controlnet: bool = False,
+                 int8_unet: bool = False) -> None:
+        """W8A8 teacher towers: int8_unet quantizes the UNet and the
+        ControlNet, int8_controlnet the ControlNet alone (the reference's
+        quant flags of each tower)."""
+        self.int8_controlnet = bool(int8_controlnet)
+        self.int8_unet = bool(int8_unet)
+        set_quant(self.unet, self.int8_unet)
+        set_quant(self.controlnet, self.int8_controlnet or self.int8_unet)
 
     # -- conditioning ------------------------------------------------------------
 
@@ -345,12 +361,15 @@ class Zero123PlusPipeline(Zero123PlusTeacher):
     `generator` after the teacher's towers, or loaded from the same
     weight_paths.vae as the encoder), EulerAncestral (v_prediction,
     trailing) and DDPM (v_prediction) over the teacher's schedule, and an
-    optional SD2-inpaint UNet (`attach_inpaint_unet`)."""
+    optional SD2-inpaint UNet (`attach_inpaint_unet`), which stays exact
+    under int8_unet, as the reference's."""
 
     def __init__(self, tiny: bool = False, device="cuda",
                  generator: Optional[torch.Generator] = None,
-                 weight_paths: Optional[Zero123PlusWeightPaths] = None):
-        super().__init__(tiny, device, generator, weight_paths)
+                 weight_paths: Optional[Zero123PlusWeightPaths] = None,
+                 int8_controlnet: bool = False, int8_unet: bool = False):
+        super().__init__(tiny, device, generator, weight_paths,
+                         int8_controlnet, int8_unet)
         wp = weight_paths or Zero123PlusWeightPaths()
         with torch.device(self.alphas_cumprod.device):
             self.vae_decoder = Decoder(self.vae_config, self.dtype)

@@ -98,14 +98,13 @@ BOOTSTRAP_STEPS = 50  # img2img_step's num_inference_steps, as the reference
 FIT_STEPS = 300  # fit_texture_to_image's steps for guide.initial_texture
 
 
-def check_int8(cfg: TrainConfig) -> None:
-    """The reference paints another (W8A8) result with optim.int8_*; the
-    port must not paint the bf16 one in its place."""
-    for knob in ("int8_controlnet", "int8_teacher"):
-        if getattr(cfg.optim, knob):
-            raise NotImplementedError(
-                f"optim.{knob} quantizes the teacher to W8A8 in the "
-                "reference (ops/quant.py); the port has no int8 path yet")
+def apply_int8(cfg: TrainConfig, teacher: Zero123PlusTeacher
+               ) -> Zero123PlusTeacher:
+    """optim.int8_controlnet / optim.int8_teacher onto the teacher's towers
+    (W8A8 ControlNet, or UNet and ControlNet), as the reference's
+    _init_zero123plus passes them; a given teacher follows the config."""
+    teacher.set_int8(cfg.optim.int8_controlnet, cfg.optim.int8_teacher)
+    return teacher
 
 
 def check_parallel(cfg: TrainConfig) -> None:
@@ -146,7 +145,6 @@ class SDSTrainer:
                  device="cuda", generator: Optional[torch.Generator] = None,
                  mesh_model: Optional[TexturedMeshModel] = None):
         dev = self.device = resolve_device(device)
-        check_int8(cfg)
         check_parallel(cfg)
         self.exact = bool(cfg.optim.exact_lattice_render)
         if self.exact and (mesh_model is None
@@ -160,8 +158,8 @@ class SDSTrainer:
         self.cfg = cfg
         self.generator = generator or torch.Generator(
             device=dev).manual_seed(cfg.optim.seed)
-        self.teacher = teacher or Zero123PlusTeacher(
-            tiny=tiny, device=dev, generator=self.generator)
+        self.teacher = apply_int8(cfg, teacher or Zero123PlusTeacher(
+            tiny=tiny, device=dev, generator=self.generator))
         self.dtype = self.teacher.dtype
         self.mlp = mlp or NeRF2D(generator=self.generator, device=dev)
         self.mlp.to(dev)
@@ -987,8 +985,8 @@ def build_models(cfg: TrainConfig, tiny: bool = False, device="cuda",
     inpaint_model_path) then load it, so the generator's stream, and with
     it the MLP and every later draw, does not depend on what loads; a
     guide.concept_path that exists adds its concept to the SD2 text
-    tower."""
-    check_int8(cfg)
+    tower. optim.int8_controlnet / int8_teacher set the teacher's W8A8
+    towers (`apply_int8`)."""
     check_parallel(cfg)
     dev = resolve_device(device)
     z_wp = zero123plus_weight_paths(cfg.guide)
@@ -999,6 +997,7 @@ def build_models(cfg: TrainConfig, tiny: bool = False, device="cuda",
                                      generator=generator, weight_paths=z_wp)
         if z_wp is not None:
             logger.info(_loaded_line("Zero123++", z_wp, teacher.loaded))
+    apply_int8(cfg, teacher)
     mlp = mlp or NeRF2D(generator=generator, device=dev)
     mesh_model = TexturedMeshModel(
         cfg.guide, render_grid_size=cfg.render.train_grid_size,

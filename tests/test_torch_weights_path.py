@@ -35,6 +35,7 @@ from contexture_nerf_tpu.diffusion.sd_depth import \
     StableDiffusionDepth as JSD
 from contexture_nerf_tpu.diffusion.unet import UNetConfig as JUNetConfig
 from contexture_nerf_tpu.diffusion.vae import VAEConfig as JVAEConfig
+from contexture_nerf_tpu_torch import run_contexture
 from contexture_nerf_tpu_torch import weights as bridge
 from contexture_nerf_tpu_torch.core.config import config_from_dict
 from contexture_nerf_tpu_torch.diffusion import clip as tclip
@@ -648,18 +649,52 @@ def test_trainer_path_rules(tmp_path, snaps):
     assert diffusion.tokenizer.added_tokens == {}
 
 
+def _quant_flags(teacher):
+    """(UNet, ControlNet) -> the set of their layers' int8 flags."""
+    return tuple({bool(getattr(m, "quant", False)) for m in tower.modules()
+                  if hasattr(m, "quant")}
+                 for tower in (teacher.unet, teacher.controlnet))
+
+
 @pytest.mark.parametrize("knob", ["int8_controlnet", "int8_teacher"])
-def test_int8_knobs_raise(tmp_path, knob):
-    """The reference paints a W8A8 result for these; the port must not
-    paint the bf16 one in its place."""
-    cfg = _cfg(tmp_path, str(tmp_path / "unused.obj"), knob)
+def test_int8_knobs_reach_the_teacher(tmp_path, knob, monkeypatch):
+    """optim.int8_controlnet quantizes the ControlNet alone,
+    optim.int8_teacher the UNet and the ControlNet, through build_models,
+    ConTEXTure, SDSTrainer and the CLI; a knob that is off leaves (or
+    puts) the towers exact. The edge layers stay exact either way."""
+    shape = str(tmp_path / "sphere.obj")
+    write_obj(shape, *uv_sphere(6, 8))
+    cfg = _cfg(tmp_path, shape, knob)
     setattr(cfg.optim, knob, True)
-    with pytest.raises(NotImplementedError, match=f"optim.{knob}"):
-        tr.build_models(cfg, tiny=True, device="cpu")
-    with pytest.raises(NotImplementedError, match=f"optim.{knob}"):
-        tr.ConTEXTure(cfg, tiny_models=True, device="cpu")
-    with pytest.raises(NotImplementedError, match=f"optim.{knob}"):
-        tr.SDSTrainer(cfg, {}, tiny=True, device="cpu")
+
+    def check(teacher):
+        unet, cnet = _quant_flags(teacher)
+        assert unet == ({True, False} if knob == "int8_teacher" else {False})
+        assert cnet == {True, False}
+        for tower in (teacher.unet, teacher.controlnet):
+            assert not tower.conv_in.quant
+            assert not tower.time_embedding.linear_1.quant
+            assert not tower.down_0_resnet_0.time_emb_proj.quant
+        assert not teacher.controlnet.controlnet_mid_block.quant
+        assert teacher.controlnet.down_0_resnet_0.conv1.quant
+
+    _, teacher, mlp, _, mesh = tr.build_models(cfg, tiny=True, device="cpu",
+                                               skip_bootstrap=True)
+    check(teacher)
+    check(tr.ConTEXTure(cfg, tiny_models=True, device="cpu").teacher)
+    off = _cfg(tmp_path, shape, "off")
+    setup = tr.prepare_sds(off, mesh, mlp, tr.apply_int8(off, teacher),
+                           skip_bootstrap=True)
+    assert _quant_flags(teacher) == ({False}, {False})
+    check(tr.SDSTrainer(cfg, setup, teacher=teacher, mlp=mlp, tiny=True,
+                        device="cpu").teacher)
+    monkeypatch.setattr(tr.ConTEXTure, "full_eval", lambda self: None)
+    run = run_contexture.main(
+        [f"--guide.shape_path={shape}", f"--log.exp_root={tmp_path}",
+         "--log.exp_name=cli", "--log.eval_only=true",
+         "--guide.texture_resolution=16", "--render.train_grid_size=48",
+         f"--optim.{knob}=true"], device="cpu", tiny_models=True)
+    check(run.teacher)
 
 
 # -- the boundary ---------------------------------------------------------------------------
