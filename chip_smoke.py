@@ -1383,17 +1383,23 @@ def groupnorm_signature_times(torch, sigs, failures, label, per_sig=None):
             tot["ldms"])
 
 
-def main_path(torch, seed, profile, recs, failures):
+def main_config(seed):
+    """The main path's config: the defaults on shapes/torus.obj."""
     from contexture_nerf_tpu_torch.core.config import config_from_dict
+
+    return config_from_dict({"optim": {"seed": seed}, "guide": {
+        "text": "a photo of a dairy cow",
+        "shape_path": str(ROOT / "shapes" / "torus.obj")}})
+
+
+def main_path(torch, seed, profile, recs, failures):
     from contexture_nerf_tpu_torch.diffusion.sd_depth import \
         StableDiffusionDepth
     from contexture_nerf_tpu_torch.ops import _build
     from contexture_nerf_tpu_torch.ops import groupnorm as gn
     from contexture_nerf_tpu_torch.training import trainer as tr
 
-    cfg = config_from_dict({"optim": {"seed": seed}, "guide": {
-        "text": "a photo of a dairy cow",
-        "shape_path": str(ROOT / "shapes" / "torus.obj")}})
+    cfg = main_config(seed)
     timings = {}
     dev = torch.device("cuda")
     torch.cuda.reset_peak_memory_stats()
@@ -1595,6 +1601,350 @@ def main_path(torch, seed, profile, recs, failures):
         (out / "sds_step_profile.txt").write_text(table)
         print("  profile written to chiprun_out/sds_step_profile.txt")
     return launches, trainer
+
+
+# -- the W8A8 teacher (optim.int8_controlnet / optim.int8_teacher) -------------------
+
+INT8_MODES = (("bf16", False, False), ("int8_controlnet", True, False),
+              ("int8_teacher", False, True))
+INT8_FAULTS = {
+    "dense_per_tensor": "one activation scale over a Dense input for "
+                        "per-row scales",
+    "conv_per_sample": "one activation scale per sample of a conv's CFG "
+                       "batch for one over the batch",
+    "weight_per_input": "a conv's weight scales per input channel for per "
+                        "output channel",
+}
+
+
+def bf16_ulp(torch, y):
+    """One bf16 ulp at each element of y (8 significant bits)."""
+    _, e = torch.frexp(y.float())
+    return torch.ldexp(torch.ones_like(y, dtype=torch.float32), e - 8)
+
+
+def int8_parts(torch, x, w, kind, stride, pad):
+    """(q_x, s_x, q_w, s_w, int32 sums, output) of a W8A8 Dense (kind
+    "dense", w (N, K)) or conv (w (O, I, kh, kw)) on x's device."""
+    from contexture_nerf_tpu_torch.ops import quant as Q
+
+    if kind == "dense":
+        q_x, s_x = Q.quantize_int8(x, (-1,))
+        q_w, s_w = Q.quantize_int8(w, (1,))
+        acc = Q.linear_int32(q_x, q_w)
+        return q_x, s_x, q_w, s_w, acc, Q.int8_linear(x, w)
+    q_x, s_x = Q.quantize_int8(x, (0, 1, 2, 3))
+    q_w, s_w = Q.quantize_int8(w, (1, 2, 3))
+    acc = Q.conv2d_int32(q_x, q_w, stride, pad)
+    return q_x, s_x, q_w, s_w, acc, Q.int8_conv2d(x, w, stride, pad)
+
+
+def planted_int8(torch, x, w, stride, pad, fault):
+    """The output of the W8A8 op with one planted fault."""
+    import torch.nn.functional as F
+
+    from contexture_nerf_tpu_torch.ops import quant as Q
+
+    if fault == "dense_per_tensor":
+        q_x, s_x = Q.quantize_int8(x, tuple(range(x.dim())))
+        q_w, s_w = Q.quantize_int8(w, (1,))
+        return (Q.linear_int32(q_x, q_w).float() * s_x * s_w.reshape(-1)
+                ).to(x.dtype)
+    if fault == "conv_per_sample":
+        q_x, s_x = Q.quantize_int8(x, (1, 2, 3))
+        q_w, s_w = Q.quantize_int8(w, (1, 2, 3))
+        return (Q.conv2d_int32(q_x, q_w, stride, pad).float() * s_x
+                * s_w.reshape(1, -1, 1, 1)).to(x.dtype)
+    # weight_per_input: no per-output factor comes out of the sum, so this
+    # fault's arithmetic is dequantized and summed in f32
+    q_x, s_x = Q.quantize_int8(x, (0, 1, 2, 3))
+    q_w, s_w = Q.quantize_int8(w, (0, 2, 3))
+    return F.conv2d(q_x.float() * s_x, q_w.float() * s_w, stride=stride,
+                    padding=pad).to(x.dtype)
+
+
+def beyond_ulp(torch, got, ref):
+    """(elements of got unequal to ref, elements more than one bf16 ulp of
+    ref away from it)."""
+    d = (got.float() - ref.float()).abs()
+    return int((d > 0).sum()), int((d > bf16_ulp(torch, ref)).sum())
+
+
+def int8_draws(torch, trainer, seed):
+    """A teacher call's inputs: a noised latent and the write-pass noises."""
+    g = torch.Generator(device=trainer.device).manual_seed(seed + 8)
+    shape, cshape = trainer.latent_shape(), tuple(
+        trainer.cond_lat_pair.shape[1:])
+
+    def normal(*s):
+        return torch.randn(s, generator=g, device=trainer.device)
+
+    return {"z": 0.5 * normal(*shape), "noise": normal(*shape),
+            "neg_noise": normal(*cshape), "cond_noise": normal(*cshape)}
+
+
+def teacher_call(torch, trainer, lat, t, d, scale_input=None):
+    """The SDS step's teacher call (write pass, ControlNet, read pass, CFG
+    at 10) at the latent `lat`, on the trainer's cached conditioning, with
+    d's write-pass noises."""
+    from contexture_nerf_tpu_torch.training import trainer as tr
+
+    t_t = torch.tensor([int(t)], device=trainer.device)
+    with torch.no_grad():
+        return trainer.teacher._cfg_v_pred(
+            lat, t_t, trainer.cond_lat_pair, trainer.ehs, trainer.depth_grid,
+            tr.GUIDANCE_SCALE, d["neg_noise"], d["cond_noise"],
+            cn_cond_emb=trainer.cn_cond_emb, scale_input=scale_input)
+
+
+def sds_latent(torch, trainer, d, t):
+    """The draws' clean latent DDPM-noised to t, as the step noises it."""
+    from contexture_nerf_tpu_torch.diffusion import schedulers as sch
+
+    t_t = torch.tensor([int(t)], device=trainer.device)
+    return sch.add_noise(trainer.acp, d["z"], d["noise"], t_t)
+
+
+def int8_layer_calls(torch, trainer, d, t):
+    """One int8_teacher teacher call with every quantized layer hooked.
+    Returns ({kind: calls}, {kind: the largest call by operations: (layer,
+    x, w, stride, padding, operations)}); a kind is "dense", "conv3x3/s1",
+    "conv3x3/s2" or "conv1x1/s1"."""
+    import torch.nn as nn
+
+    calls, largest, hooks = {}, {}, []
+
+    def hook(name):
+        def fn(mod, args):
+            x = args[0].to(mod.weight.dtype)
+            if isinstance(mod, nn.Conv2d):
+                k, s, p = mod.kernel_size[0], mod.stride[0], mod.padding[0]
+                kind = f"conv{k}x{k}/s{s}"
+                ho = (x.shape[2] + 2 * p - k) // s + 1
+                wo = (x.shape[3] + 2 * p - k) // s + 1
+                ops = 2.0 * x.shape[0] * ho * wo * mod.weight.numel()
+            else:
+                kind, s, p = "dense", 1, 0
+                ops = 2.0 * (x.numel() // x.shape[-1]) * mod.weight.numel()
+            calls[kind] = calls.get(kind, 0) + 1
+            if kind not in largest or ops > largest[kind][-1]:
+                largest[kind] = (name, x.detach().clone(),
+                                 mod.weight.detach(), s, p, ops)
+        return fn
+
+    for tname in ("unet", "controlnet"):
+        for name, m in getattr(trainer.teacher, tname).named_modules():
+            if getattr(m, "quant", False):
+                hooks.append(m.register_forward_pre_hook(
+                    hook(f"{tname}.{name}")))
+    try:
+        teacher_call(torch, trainer, sds_latent(torch, trainer, d, t), t, d)
+    finally:
+        for h in hooks:
+            h.remove()
+    return calls, largest
+
+
+def int8_kernel_count(torch, fn):
+    """CUDA kernels launched by one fn() call, from the profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as p:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in p.events() if e.device_type == DeviceType.CUDA)
+
+
+def int8_path(torch, seed, trainer, failures):
+    """The W8A8 teacher at full width, on the main path's trainer. (1) One
+    int8_teacher teacher call with every quantized layer hooked: per kind
+    (Dense, 3x3 stride 1 and 2, 1x1 conv) its largest call, quantized on
+    the card and on the CPU from the same inputs: q, the scales and the
+    int32 sums equal bit for bit, the bf16 outputs equal or within one
+    bf16 ulp; three planted faults must miss that. (2) Each kind's largest
+    call timed by part (quantize, patches, _int_mm, rescale) beside the
+    bf16 cuDNN conv or cuBLAS GEMM of the same shape. (3) The CUDA kernels
+    a teacher call launches in bf16 and with int8_teacher. (4) SDS steps
+    with bf16, int8_controlnet and int8_teacher in turns (one warm-up
+    each, then three rounds), each step's K1-K6 launches held to
+    expected_kernel_launches, losses finite; median ms and peak memory by
+    mode. (5) The int8-vs-bf16 v-prediction error (printed, not gated:
+    random towers) and a generate step (the Euler loop body of
+    Zero123PlusPipeline.generate) in bf16 and with int8_teacher. The
+    teacher is left in bf16. Returns (launches by kernel, seconds)."""
+    import copy
+
+    import torch.nn.functional as F
+
+    from contexture_nerf_tpu_torch.diffusion import schedulers as sch
+    from contexture_nerf_tpu_torch.ops import _build
+    from contexture_nerf_tpu_torch.ops import quant as Q
+    from contexture_nerf_tpu_torch.training import trainer as tr
+
+    card = card_line()
+    t_phase = time.perf_counter()
+    dev = trainer.device
+    launches = {k: 0 for k in _build.launch_counts}
+    cfgs = {}
+    for mode, cn, un in INT8_MODES:
+        cfgs[mode] = copy.deepcopy(trainer.cfg)
+        cfgs[mode].optim.int8_controlnet = cn
+        cfgs[mode].optim.int8_teacher = un
+    d = int8_draws(torch, trainer, seed)
+    t_call = 500
+    lat = sds_latent(torch, trainer, d, t_call)
+
+    # (1) the largest quantized calls, on the card and on the CPU
+    tr.apply_int8(cfgs["int8_teacher"], trainer.teacher)
+    calls, largest = int8_layer_calls(torch, trainer, d, t_call)
+    print(f"  quantized calls in one teacher call: {json.dumps(calls)}")
+    for kind, (name, x, w, s, p, ops) in sorted(largest.items()):
+        qk = "dense" if kind == "dense" else "conv"
+        card_parts = int8_parts(torch, x, w, qk, s, p)
+        cpu_parts = int8_parts(torch, x.cpu(), w.cpu(), qk, s, p)
+        same = [torch.equal(a.cpu(), b) for a, b in
+                zip(card_parts[:5], cpu_parts[:5])]
+        uneq, beyond = beyond_ulp(torch, card_parts[5].cpu(), cpu_parts[5])
+        ok = all(same) and beyond == 0
+        print(f"  {kind} {name} x {tuple(x.shape)} w {tuple(w.shape)} "
+              f"({ops / 1e9:.2f} GOP): q_x, s_x, q_w, s_w, int32 sums equal "
+              f"to the CPU's {same}; bf16 output: {uneq} of "
+              f"{card_parts[5].numel()} elements unequal, {beyond} beyond "
+              f"one bf16 ulp {'ok' if ok else 'BAD'}")
+        if not ok:
+            failures.append(f"int8 {kind} {name}: card != CPU")
+        faults = {"dense": ["dense_per_tensor"],
+                  "conv3x3/s1": ["conv_per_sample", "weight_per_input"]}
+        for fault in faults.get(kind, []):
+            bad = planted_int8(torch, x, w, s, p, fault)
+            _, missed = beyond_ulp(torch, bad.cpu(), cpu_parts[5])
+            print(f"    planted fault ({INT8_FAULTS[fault]}): {missed} "
+                  f"elements beyond one bf16 ulp "
+                  f"{'caught' if missed else 'NOT CAUGHT'}")
+            if not missed:
+                failures.append(f"int8 planted fault {fault} not caught")
+        del card_parts, cpu_parts
+
+        # (2) the parts' times beside the bf16 library op of the shape
+        parts = {"quantize x": lambda: Q.quantize_int8(
+            x, (-1,) if qk == "dense" else (0, 1, 2, 3)),
+            "quantize w": lambda: Q.quantize_int8(
+                w, (1,) if qk == "dense" else (1, 2, 3))}
+        q_x, s_x = parts["quantize x"]()
+        q_w, s_w = parts["quantize w"]()
+        if qk == "dense":
+            a, b = q_x.reshape(-1, q_x.shape[-1]), q_w.t()
+            acc = Q.int_mm(a, b)
+            whole = lambda: Q.int8_linear(x, w)  # noqa: E731
+            library = lambda: F.linear(x, w)  # noqa: E731
+            sw = s_w.reshape(-1)
+            sx = s_x.reshape(-1, 1)
+        else:
+            kh = w.shape[2]
+            parts["patches"] = lambda: Q.conv_patches(q_x, kh, kh, s, p)
+            a, _ = parts["patches"]()
+            b = q_w.reshape(w.shape[0], -1).t()
+            acc = Q.int_mm(a, b)
+            whole = lambda: Q.int8_conv2d(x, w, s, p)  # noqa: E731
+            library = lambda: F.conv2d(x, w, stride=s,  # noqa: E731
+                                       padding=p)
+            sw, sx = s_w.reshape(-1), s_x.reshape(1, 1)
+        parts["_int_mm"] = lambda: Q.int_mm(a, b)
+        parts["rescale"] = lambda: (acc.float() * sx * sw).to(x.dtype)
+        ms = {k: cuda_ms(f) for k, f in parts.items()}
+        whole_ms, lib_ms = cuda_ms(whole), cuda_ms(library)
+        print(f"    ms: " + ", ".join(f"{k} {v:.3f}" for k, v in ms.items())
+              + f"; the W8A8 op {whole_ms:.3f} against bf16 "
+              f"{'cuBLAS' if qk == 'dense' else 'cuDNN'} {lib_ms:.3f} "
+              f"(_int_mm {ops / ms['_int_mm'] / 1e9:.1f} TOP/s, bf16 "
+              f"{ops / lib_ms / 1e9:.1f} TFLOP/s) [{card}]")
+        del a, b, acc, q_x, q_w, parts
+    del largest
+    torch.cuda.empty_cache()
+
+    # (3) the launches the quantize passes add to a teacher call
+    kernels = {}
+    for mode in ("bf16", "int8_teacher"):
+        tr.apply_int8(cfgs[mode], trainer.teacher)
+        kernels[mode] = int8_kernel_count(
+            torch, lambda: teacher_call(torch, trainer, lat, t_call, d))
+    print(f"  CUDA kernels a teacher call launches: bf16 {kernels['bf16']}, "
+          f"int8_teacher {kernels['int8_teacher']} (+"
+          f"{kernels['int8_teacher'] - kernels['bf16']} for "
+          f"{sum(calls.values())} quantized calls)")
+
+    # (4) SDS steps, the three modes in turns
+    expected = trainer.expected_kernel_launches()
+    ts = trainer.t_schedule(1000).tolist()[200:204]
+    times = {m: [] for m, _, _ in INT8_MODES}
+    peaks = {m: 0.0 for m, _, _ in INT8_MODES}
+    for r, t in enumerate(ts):
+        for mode, _, _ in INT8_MODES:
+            tr.apply_int8(cfgs[mode], trainer.teacher)
+            torch.cuda.reset_peak_memory_stats()
+            _build.reset_launch_counts()
+            torch.cuda.synchronize()
+            a = time.perf_counter()
+            params, loss, gnorm, fisher, grid = trainer.step(t)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - a) * 1e3
+            got = dict(_build.launch_counts)
+            for k in launches:
+                launches[k] += got[k]
+            peaks[mode] = max(peaks[mode],
+                              torch.cuda.max_memory_allocated() / 2 ** 30)
+            finite = all(bool(torch.isfinite(v).all())
+                         for v in (loss, gnorm, fisher, grid))
+            print(f"  {mode} step {r} t={t}: loss {float(loss):.6g} "
+                  f"grad_norm {float(gnorm):.6g} {ms:.1f} ms launches "
+                  f"{'= derived' if got == expected else json.dumps(got)}")
+            if got != expected:
+                failures.append(f"int8 path {mode} step launches {got} != "
+                                f"{expected}")
+            if not finite:
+                failures.append(f"int8 path {mode} step: non-finite output")
+            if r:
+                times[mode].append(ms)
+    for mode, _, _ in INT8_MODES:
+        v = sorted(times[mode])
+        print(f"  SDS step {mode}: median {v[len(v) // 2]:.1f} ms (timed "
+              f"{', '.join(f'{m:.1f}' for m in v)}), peak memory "
+              f"{peaks[mode]:.2f} GiB [{card}]")
+
+    # (5) the v-prediction against bf16, and a generate step
+    euler = sch.EulerAncestral(trainer.acp, prediction_type="v_prediction",
+                               timestep_spacing="trailing")
+    g_ts, sigmas = euler.timesteps_and_sigmas(28)
+    step_noise = torch.randn(trainer.latent_shape(), device=dev,
+                             generator=torch.Generator(
+                                 device=dev).manual_seed(seed + 9))
+    v, gen_ms = {}, {}
+    for mode, _, _ in INT8_MODES:
+        tr.apply_int8(cfgs[mode], trainer.teacher)
+        v[mode] = teacher_call(torch, trainer, lat, t_call, d).float()
+
+        def gen_step():
+            x = d["noise"] * sigmas[0]
+            vp = teacher_call(torch, trainer, x, g_ts[0], d,
+                              scale_input=lambda y: euler.scale_model_input(
+                                  y, sigmas[0]))
+            return euler.step(vp, 0, x, sigmas, step_noise)
+
+        gen_ms[mode] = cuda_ms(gen_step, reps=3, warmup=1)
+    for mode in ("int8_controlnet", "int8_teacher"):
+        print(f"  v-prediction {mode} against bf16: relative Frobenius "
+              f"{rel_fro(v[mode], v['bf16']):.4f}, max abs "
+              f"{float((v[mode] - v['bf16']).abs().max()):.4f} (max |v| "
+              f"{float(v['bf16'].abs().max()):.4f}; random towers, not "
+              "gated)")
+    print("  generate step (Euler loop body, t=%d): " % int(g_ts[0])
+          + ", ".join(f"{m} {gen_ms[m]:.1f} ms" for m in gen_ms)
+          + f" [{card}]")
+    tr.apply_int8(cfgs["bf16"], trainer.teacher)
+    return launches, time.perf_counter() - t_phase
 
 
 @contextlib.contextmanager
@@ -3030,6 +3380,12 @@ def main():
                     "ground-truth drivers, generate's blending and "
                     "inpainting, its kernels against the plain versions) on "
                     "towers of its own and stop (no result line)")
+    ap.add_argument("--int8-only", action="store_true",
+                    help="run only the int8 path (the W8A8 teacher's "
+                    "layers against the CPU, planted faults, SDS steps in "
+                    "bf16 / int8_controlnet / int8_teacher) on a trainer of "
+                    "its own, without the bootstrap, and stop (no result "
+                    "line)")
     ap.add_argument("--k5-times-of", metavar="DIR", help=argparse.SUPPRESS)
     args = ap.parse_args()
     t_script = time.perf_counter()
@@ -3145,6 +3501,17 @@ def main():
         for f in failures:
             print(f"FAIL: {f}")
         return 1 if failures else 0
+    if args.int8_only:
+        from contexture_nerf_tpu_torch.training import trainer as tr
+
+        print("int8 path alone, on a trainer of its own (prepare_sds "
+              "without the bootstrap)")
+        trainer, _ = tr.build_sds_trainer(main_config(args.seed),
+                                          device="cuda", skip_bootstrap=True)
+        int8_path(torch, args.seed, trainer, failures)
+        for f in failures:
+            print(f"FAIL: {f}")
+        return 1 if failures else 0
     if args.generate_only:
         print("generation path alone, on towers of its own")
         generation_path(torch, args.seed, {}, recs, {}, failures)
@@ -3185,6 +3552,10 @@ def main():
           "-> full-width SDS steps")
     launches, trainer = main_path(torch, args.seed, args.profile, recs,
                                   failures)
+    print("int8 path: the W8A8 teacher (optim.int8_controlnet / "
+          "optim.int8_teacher) on main_path's trainer")
+    quantized, int8_s = int8_path(torch, args.seed, trainer, failures)
+    launches = {k: launches[k] + quantized[k] for k in launches}
     print("paint path: the CLI on configs/text_guided/spot_quick_test.yaml "
           "(10 iterations, full-width towers), its resume, then full_eval, "
           "the view-consistency metric and the UV-space atlas at the "

@@ -27,7 +27,7 @@ reference's custom VJPs: quantization is forward-only.
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Dict, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -36,13 +36,26 @@ MIN_ROWS_CUDA = 17  # _int_mm on CUDA: more than 16 rows
 ALIGN_CUDA = 8  # _int_mm on CUDA: K and N multiples of 8
 
 
+_QMAX: Dict[torch.device, torch.Tensor] = {}
+
+
+def _qmax(device: torch.device) -> torch.Tensor:
+    """127.0 as a 0-dim f32 tensor on `device`, made once. CUDA divides by
+    a Python (host) scalar as a product with its reciprocal, which can be
+    one ulp off the quotient the reference takes; by a device tensor it
+    divides."""
+    if device not in _QMAX:
+        _QMAX[device] = torch.tensor(127.0, device=device)
+    return _QMAX[device]
+
+
 def quantize_int8(x: torch.Tensor, dims: Sequence[int]
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Symmetric int8 with one scale per slice over `dims` (keepdim):
     (q int8, scale f32), x ~= q * scale."""
     xf = x.float()
     amax = xf.abs().amax(dim=tuple(dims), keepdim=True)
-    scale = torch.clamp(amax, min=1e-8) / 127.0
+    scale = torch.clamp(amax, min=1e-8) / _qmax(amax.device)
     q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
     return q, scale
 
@@ -72,19 +85,26 @@ def linear_int32(q_x: torch.Tensor, q_w: torch.Tensor) -> torch.Tensor:
     return acc.reshape(*q_x.shape[:-1], q_w.shape[0])
 
 
-def conv2d_int32(q_x: torch.Tensor, q_w: torch.Tensor, stride: int,
-                 padding: int) -> torch.Tensor:
-    """int8 NCHW input and int8 (O, I, kh, kw) weight -> the int32 NCHW
-    cross-correlation, through patches (B Ho Wo, I kh kw) times _int_mm."""
-    B, C, _, _ = q_x.shape
-    O, _, kh, kw = q_w.shape
+def conv_patches(q_x: torch.Tensor, kh: int, kw: int, stride: int,
+                 padding: int) -> Tuple[torch.Tensor, Tuple[int, int, int]]:
+    """int8 NCHW -> its (B Ho Wo, C kh kw) patch matrix, rows (b, y, x),
+    columns (c, i, j) as the (O, I, kh, kw) weight flattens; and
+    (B, Ho, Wo)."""
+    B, C = q_x.shape[:2]
     xp = F.pad(q_x, (padding,) * 4) if padding else q_x
-    # (B, C, Ho, Wo, kh, kw) -> rows (b, y, x), columns (c, i, j): the
-    # column order of the weight's (I, kh, kw) flattening
     patches = xp.unfold(2, kh, stride).unfold(3, kw, stride)
     Ho, Wo = patches.shape[2], patches.shape[3]
     cols = patches.permute(0, 2, 3, 1, 4, 5).reshape(B * Ho * Wo,
                                                      C * kh * kw)
+    return cols, (B, Ho, Wo)
+
+
+def conv2d_int32(q_x: torch.Tensor, q_w: torch.Tensor, stride: int,
+                 padding: int) -> torch.Tensor:
+    """int8 NCHW input and int8 (O, I, kh, kw) weight -> the int32 NCHW
+    cross-correlation: the patches times _int_mm."""
+    O, _, kh, kw = q_w.shape
+    cols, (B, Ho, Wo) = conv_patches(q_x, kh, kw, stride, padding)
     acc = int_mm(cols, q_w.reshape(O, -1).t())
     return acc.reshape(B, Ho, Wo, O).permute(0, 3, 1, 2)
 
@@ -115,7 +135,10 @@ class _Int8Conv2d(torch.autograd.Function):
         q_x, s_x = quantize_int8(x, (0, 1, 2, 3))  # one scale, batch too
         q_w, s_w = quantize_int8(weight, (1, 2, 3))  # (O, 1, 1, 1)
         acc = conv2d_int32(q_x, q_w, stride, padding)
-        return (acc.float() * s_x * s_w.reshape(1, -1, 1, 1)).to(x.dtype)
+        # contiguous NCHW: the sums are a channels-last view, and the next
+        # GroupNorm (K6 on the card) takes contiguous NCHW only
+        return (acc.float() * s_x * s_w.reshape(1, -1, 1, 1)).to(
+            x.dtype).contiguous()
 
     @staticmethod
     def backward(ctx, g):
@@ -138,5 +161,5 @@ def int8_linear(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
 def int8_conv2d(x: torch.Tensor, weight: torch.Tensor, stride: int = 1,
                 padding: int = 0) -> torch.Tensor:
     """NCHW conv2d (no groups, no dilation, square stride and padding) as
-    W8A8, in x's dtype; no bias."""
+    W8A8, in x's dtype, contiguous; no bias."""
     return _Int8Conv2d.apply(x, weight, int(stride), int(padding))

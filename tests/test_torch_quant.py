@@ -52,6 +52,7 @@ from contexture_nerf_tpu_torch.diffusion.zero123plus import \
     Zero123PlusTeacher
 from contexture_nerf_tpu_torch.models.fields import NeRF2D
 from contexture_nerf_tpu_torch.ops import quant as TQ
+from contexture_nerf_tpu_torch.ops.groupnorm import GroupNormSiLU
 from contexture_nerf_tpu_torch.training.trainer import SDSTrainer
 from tools.make_shapes import uv_sphere, write_obj
 
@@ -171,6 +172,7 @@ def test_int8_conv2d_equals_the_reference(k, stride, pad, dtype):
                                       dimension_numbers=dn)
     yt = TQ.int8_conv2d(xt, wt, stride, pad)
     assert yt.dtype == dtype
+    assert yt.is_contiguous()  # K6, the next GroupNorm, takes NCHW only
     _within_one_ulp(_np(yt), np.asarray(yj.astype(jnp.float32)
                                         ).transpose(0, 3, 1, 2), dtype)
 
@@ -424,7 +426,15 @@ def test_int8_teacher_sds_step_matches_the_reference(tmp_path, monkeypatch):
         "cond_noise": np.asarray(jax.random.normal(k_cond, cl.shape[1:],
                                                    cl.dtype)),
     }
+    # every GroupNorm input contiguous NCHW, as K6 takes it on the card
+    layouts = []
+    hooks = [m.register_forward_pre_hook(
+        lambda mod, args: layouts.append(args[0].is_contiguous()))
+        for m in teacher.modules() if isinstance(m, GroupNormSiLU)]
     _, loss, gn, fisher, grid = port.step(T, draws)
+    for h in hooks:
+        h.remove()
+    assert layouts and all(layouts), layouts.count(False)
     np.testing.assert_allclose(grid.numpy(), np.asarray(grid_ref), atol=1e-5)
     # the same step through the port's exact teacher
     mlp.load_state_dict(weights.convert_tree(
