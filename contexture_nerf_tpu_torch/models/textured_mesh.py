@@ -3,7 +3,10 @@ port's counterpart of contexture_nerf_tpu/models/textured_mesh.py
 `TexturedMeshModel` (`_init_texture_map`, `render_geometry`, `render`,
 `get_texture_map`, `apply_median_fill`, `query_texture_at_uv`,
 `get_texture_map_only_valid_areas`, `fit_texture_to_image`,
-`export_mesh`) and of its UV atlas, `atlas_unwrap`.
+`render_face_normals_face_idx`, the augmentations `cotan_laplacian`,
+`eigens`, `normalize_vertices`, `spectral_augmentations`,
+`axis_augmentations`, `augment_vertices`, and `export_mesh`) and of its UV
+atlas, `atlas_unwrap`.
 
 As in the reference, the MLP's parameters are outside the model: every
 texture call takes the NeRF2D module. A mesh without UVs is unwrapped once
@@ -306,6 +309,7 @@ class TexturedMeshModel:
         self.device = resolve_device(device)
         self.opt = opt
         self.dy = opt.dy
+        self.mesh_scale = opt.shape_scale
         self.texture_resolution = texture_resolution
         self.cache_path = Path(cache_path) if cache_path is not None else None
         self.multires = multires
@@ -320,7 +324,7 @@ class TexturedMeshModel:
             raise FileNotFoundError(
                 f"guide.shape_path {opt.shape_path} does not exist")
         mesh = Mesh.load(opt.shape_path)
-        mesh.normalize_mesh(inplace=True, target_scale=opt.shape_scale,
+        mesh.normalize_mesh(inplace=True, target_scale=self.mesh_scale,
                             dy=self.dy)
         self.mesh = mesh
         self.vt, self.ft = self._init_texture_map()
@@ -512,6 +516,109 @@ class TexturedMeshModel:
                 "texture_map": texture_img}
 
     @torch.no_grad()
+    def render_face_normals_face_idx(self, theta, phi, radius, dims=None):
+        """The geometry-only multiview render of the view weights (K5 on
+        the card): (mask (B,1,H,W), depth (B,1,H,W), normals image
+        (B,3,H,W): each pixel's face normal, 0 on the background, face
+        normals (B,3,F), face index (B,1,H,W), -1 on the background)."""
+        cache = self.render_geometry(theta, phi, radius, dims=dims)
+        B, H, W = cache.face_idx.shape
+        idx = cache.face_idx.clamp(min=0).reshape(B, -1, 1).long()
+        normals = torch.gather(cache.face_normals, 1,
+                               idx.expand(-1, -1, 3)).reshape(B, H, W, 3)
+        normals = normals * cache.mask.permute(0, 2, 3, 1)
+        return (cache.mask, cache.depth_map, normals.permute(0, 3, 1, 2),
+                cache.face_normals.permute(0, 2, 1), cache.face_idx[:, None])
+
+    # -- augmentations (host numpy / scipy; off in the paint loop, as in the
+    # reference) ---------------------------------------------------------------
+
+    def cotan_laplacian(self):
+        """The cotangent-weight Laplacian of the mesh, scipy CSC (n, n)."""
+        from scipy import sparse
+
+        pts = np.asarray(self.mesh.vertices).T  # (3, N)
+        tris = np.asarray(self.mesh.faces)
+        a, b, c = tris[:, 0], tris[:, 1], tris[:, 2]
+        A, Bv, C = pts[:, a], pts[:, b], pts[:, c]
+        eab, ebc, eca = Bv - A, C - Bv, A - C
+        eab = eab / np.linalg.norm(eab, axis=0)
+        ebc = ebc / np.linalg.norm(ebc, axis=0)
+        eca = eca / np.linalg.norm(eca, axis=0)
+        alpha = np.arccos(-np.sum(eca * eab, axis=0))
+        beta = np.arccos(-np.sum(eab * ebc, axis=0))
+        gamma = np.arccos(-np.sum(ebc * eca, axis=0))
+        wab, wbc, wca = 1 / np.tan(gamma), 1 / np.tan(alpha), 1 / np.tan(beta)
+        rows = np.concatenate((a, b, a, b, b, c, b, c, c, a, c, a))
+        cols = np.concatenate((a, b, b, a, b, c, c, b, c, a, a, c))
+        vals = np.concatenate((wab, wab, -wab, -wab, wbc, wbc, -wbc, -wbc,
+                               wca, wca, -wca, -wca))
+        n = pts.shape[1]
+        return sparse.coo_matrix((vals, (rows, cols)), shape=(n, n),
+                                 dtype=float).tocsc()
+
+    def eigens(self, k: int = 20, e: float = 0.0):
+        """The k smallest non-trivial eigenpairs of the Laplacian
+        (shift-invert about e, the 1e-4 shift added back): (values (k,),
+        vectors (k, n))."""
+        import scipy.sparse as sparse
+        from scipy.sparse.linalg import eigsh
+
+        L = self.cotan_laplacian()
+        shift = 1e-4
+        vals, vecs = eigsh(L + shift * sparse.eye(L.shape[0]), k=k + 1,
+                           which="LM", sigma=e, tol=1e-3)
+        return (vals + shift)[1:], vecs[:, 1:].T
+
+    @staticmethod
+    def normalize_vertices(vertices: np.ndarray, mesh_scale: float = 1.0,
+                           dy: float = 0.0) -> np.ndarray:
+        """Centred, scaled to max radius mesh_scale, lifted by dy."""
+        v = vertices - vertices.mean(axis=0)[None]
+        v = v / np.linalg.norm(v, axis=1).max() * mesh_scale
+        v[:, 1] += dy
+        return v
+
+    def spectral_augmentations(self, vertices: np.ndarray,
+                               rng: np.random.Generator) -> np.ndarray:
+        """A random low-frequency deformation along the vertex directions:
+        one eigenvector from each half of the 20 lowest, each with a random
+        sign, its range normalized, 0.25 of it; then normalized."""
+        _, basis = self.eigens(20, 0.0)
+        span = basis.max(axis=-1) - basis.min(axis=-1)
+        basis = basis / span[:, None]
+        k = 2
+        interval = basis.shape[0] // k
+        chosen = [int(rng.integers(0, min(interval, basis.shape[0] - i)))
+                  + i for i in range(0, basis.shape[0], interval)]
+        coeffs = np.zeros(basis.shape[0])
+        coeffs[chosen] = (rng.random(len(chosen)) > 0.5) * 2.0 - 1.0
+        recon = coeffs @ basis
+        dirs = vertices / np.linalg.norm(vertices, axis=1)[:, None]
+        deformed = vertices + 0.25 * recon[:, None] * dirs
+        return self.normalize_vertices(deformed, self.mesh_scale, self.dy)
+
+    def axis_augmentations(self, vertices: np.ndarray,
+                           rng: np.random.Generator,
+                           stretch_factor: float = 1.6,
+                           squish_factor: float = 0.7) -> np.ndarray:
+        """One random axis stretched, another squished; then normalized."""
+        axes = rng.permutation(3)
+        v = vertices.copy()
+        v[:, axes[0]] *= stretch_factor
+        v[:, axes[1]] *= squish_factor
+        return self.normalize_vertices(v, self.mesh_scale, self.dy)
+
+    def augment_vertices(self, rng: np.random.Generator) -> np.ndarray:
+        """The mesh's vertices, each augmentation applied with
+        probability 1/2 (spectral first)."""
+        v = np.asarray(self.mesh.vertices).copy()
+        if rng.random() < 0.5:
+            v = self.spectral_augmentations(v, rng)
+        if rng.random() < 0.5:
+            v = self.axis_augmentations(v, rng)
+        return v
+
     def export_mesh(self, path, mlp: NeRF2D) -> None:
         """mesh.obj, mesh.mtl and albedo.png (the texture map, clipped,
         truncated to uint8) in `path`, the OBJ and MTL text line for line
