@@ -1,7 +1,10 @@
 """Image-space utilities: the port's counterparts of
 contexture_nerf_tpu/ops/image.py `get_view_direction`,
 `get_nonzero_region_tuple`, `resize_bilinear`, `crop_and_resize`,
-`color_with_shade`, `save_colormap` and `tensor2numpy`, the
+`color_with_shade`, `save_colormap`, `tensor2numpy`, `pad_tensor_to_size`,
+`gaussian_kernel_2d`, `gaussian_blur`, `smooth_image`,
+`get_nonzero_region_vectorized`, `crop_img_to_bounding_box` and
+`seed_everything`, the
 `jax.image.resize` methods the SD2-depth bootstrap uses (linear, bicubic,
 nearest), and `save_image`, which writes an image file with Pillow or,
 where Pillow is missing, as PNG through the port's own encoder.
@@ -88,6 +91,74 @@ def crop_and_resize(x: torch.Tensor, bbox: Tuple[int, int, int, int],
     """Crop (B, C, H, W) to the integer bbox and resize to (out_h, out_w)."""
     min_h, min_w, max_h, max_w = bbox
     return resize_linear(x[:, :, min_h:max_h, min_w:max_w], (out_h, out_w))
+
+
+def pad_tensor_to_size(x: torch.Tensor, target_h: int, target_w: int,
+                       value: float = 1.0) -> torch.Tensor:
+    """Centre-pad the last two dims to (target_h, target_w) with `value`,
+    the odd pixel after (below, right)."""
+    ph, pw = target_h - x.shape[-2], target_w - x.shape[-1]
+    return F.pad(x, (pw // 2, pw - pw // 2, ph // 2, ph - ph // 2),
+                 value=value)
+
+
+def resize_bilinear(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+    """The JAX package's resize_bilinear: jax.image.resize linear, which
+    antialiases when it shrinks (resize_linear)."""
+    return resize_linear(x, (out_h, out_w))
+
+
+def gaussian_kernel_2d(kernlen: int, std: float) -> torch.Tensor:
+    """(kernlen, kernlen) outer product of exp(-n^2 / 2 std^2), n centred."""
+    n = torch.arange(kernlen, dtype=torch.float32) - (kernlen - 1.0) / 2.0
+    w = torch.exp(-(n ** 2) / (2 * std * std))
+    return torch.outer(w, w)
+
+
+def gaussian_blur(image: torch.Tensor, kernel_size: int,
+                  std: float) -> torch.Tensor:
+    """Normalized Gaussian blur of (B,1,H,W), zero-padded to the same size."""
+    k = gaussian_kernel_2d(kernel_size, std).to(image.device)
+    k = (k / k.sum())[None, None].to(image.dtype)
+    return F.conv2d(image, k, padding=kernel_size // 2)
+
+
+def smooth_image(img: torch.Tensor, sigma: float,
+                 kernel_size: int = 51) -> torch.Tensor:
+    """Gaussian blur of each channel of a (C,H,W) image."""
+    return gaussian_blur(img[:, None], kernel_size, sigma)[:, 0]
+
+
+def get_nonzero_region_vectorized(masks) -> np.ndarray:
+    """get_nonzero_region_tuple of each (H,W) mask of (B,H,W): (B,4) int64
+    [min_h, min_w, max_h, max_w]."""
+    return np.stack([np.asarray(get_nonzero_region_tuple(m), np.int64)
+                     for m in masks])
+
+
+def crop_img_to_bounding_box(img: torch.Tensor,
+                             bounding_boxes) -> torch.Tensor:
+    """Each image of (B,C,H,W) cropped to its box, top-left aligned in a
+    (max_h, max_w) canvas of ones."""
+    boxes = np.asarray(bounding_boxes)
+    max_h = int((boxes[:, 2] - boxes[:, 0]).max())
+    max_w = int((boxes[:, 3] - boxes[:, 1]).max())
+    out = img.new_ones((img.shape[0], img.shape[1], max_h, max_w))
+    for i, (min_h, min_w, mh, mw) in enumerate(boxes.tolist()):
+        out[i, :, :mh - min_h, :mw - min_w] = img[i, :, min_h:mh, min_w:mw]
+    return out
+
+
+def seed_everything(seed: int) -> None:
+    """Seed Python's, numpy's and torch's global generators (the port's
+    device draws come from explicit torch.Generators)."""
+    import os
+    import random
+
+    random.seed(seed)
+    os.environ["PYTHONHASHSEED"] = str(seed)
+    np.random.seed(seed)
+    torch.manual_seed(seed)
 
 
 def color_with_shade(color: List[float], z_normals: torch.Tensor,
