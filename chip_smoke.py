@@ -5,7 +5,8 @@ Run from the root of a checkout, on a machine with one NVIDIA GPU:
 
     python3 chip_smoke.py [--seed N] [--profile] [--sweep]
                           [--mlp-only | --raster-only [--against DIR] |
-                           --snapshot-only | --mesh-only | --generate-only]
+                           --snapshot-only | --mesh-only | --generate-only |
+                           --int8-only | --tools-only]
 
 It builds the hand-written CUDA kernels from csrc/, holds each against its
 plain PyTorch version at the shapes the main path gives it (and checks that
@@ -42,7 +43,17 @@ reference attention at 960x640, the 960x640 decode), generate again from
 the same draws (bit-identical), with blending and inpainting, and at
 masks 1 and 0 (the plain grid and the decode of the renders, bit for
 bit); K3/K4 and K6 held to their limits on a generate step, an inpaint
-step on the canvas, a repaint inpaint step and the decode. Any failed
+step on the canvas, a repaint inpaint step and the decode. The int8 path
+(`int8_path`, after the main path, on its trainer): the W8A8 teacher's
+largest quantized Dense and conv calls on the card against the CPU (q,
+scales and int32 sums bit for bit, outputs within one bf16 ulp; three
+planted faults), their parts' times beside the bf16 library ops, and SDS
+steps in bf16, int8_controlnet and int8_teacher in turns. The tools path
+(`tools_path`, after the generation path): the semantic smoke (200 steps,
+err_after within 0.15; a green-target teacher must fail it), one run_one
+of each root driver on the torus with the main path's towers,
+render_face_normals_face_idx against the plain rasterizer and the CPU,
+and volume_render at bench.py's shape against the CPU. Any failed
 phase exits non-zero. The last line is {"ok": true,
 "device": {...}}; the line before it is the JSON record of the kernels.
 --profile also writes a torch.profiler table of one step to chiprun_out/;
@@ -54,7 +65,9 @@ turns, each in a subprocess on the same card. --snapshot-only runs only the
 snapshot path, with its own random-tower run to hold the loaded run to (no
 result line). --mesh-only runs only the mesh path, on a teacher of its
 own (no result line). --generate-only runs only the generation path, on
-towers of its own (no result line).
+towers of its own (no result line). --int8-only runs only the int8 path,
+on a trainer of its own without the bootstrap; --tools-only only the
+tools path, on towers of its own (no result line).
 """
 
 import argparse
@@ -1944,7 +1957,9 @@ def int8_path(torch, seed, trainer, failures):
           + ", ".join(f"{m} {gen_ms[m]:.1f} ms" for m in gen_ms)
           + f" [{card}]")
     tr.apply_int8(cfgs["bf16"], trainer.teacher)
-    return launches, time.perf_counter() - t_phase
+    secs = time.perf_counter() - t_phase
+    print(f"  int8 path {secs:.1f} s")
+    return launches, secs
 
 
 @contextlib.contextmanager
@@ -3351,6 +3366,233 @@ def generation_path(torch, seed, models, recs, shape_recs, failures):
     return launches, secs
 
 
+# -- the tools: the semantic smoke, the root drivers, the mesh's face normals,
+# volume rendering ------------------------------------------------------------------------
+
+SMOKE_ERR = 0.15  # semantic smoke: err_after at most this (the reference's 0.13)
+VOLUME_RAYS, VOLUME_SAMPLES = 65536, 64  # bench.py's bench_volume shape
+VOLUME_TOL = 1e-4  # card against CPU, rgb / depth / acc, same draws
+FACE_NORMAL_OUTPUTS = ("mask", "depth", "normals", "face normals")
+
+
+def smoke_ok(res):
+    return res["err_after"] <= SMOKE_ERR and \
+        res["err_after"] < res["err_before"] / 2
+
+
+def drawn_object(torch, path):
+    """(width, height, share of pixels off the white or grey background)
+    of a written PNG."""
+    import numpy as np
+    from PIL import Image
+
+    a = np.asarray(Image.open(path).convert("RGB"), np.int16)
+    bg = (np.abs(a - 255).max(-1) <= 2) | (np.abs(a - 127).max(-1) <= 2)
+    return a.shape[1], a.shape[0], float(1 - bg.mean())
+
+
+def tools_path(torch, seed, models, failures):
+    """The tools at full width on the card. (1) The semantic smoke at its
+    defaults (200 production SDS steps of a tiny ConTEXTure against the
+    trained-by-construction teacher): err_after within SMOKE_ERR and below
+    half of err_before; then a planted fault, a teacher that asks for
+    green, must miss that. (2) One run_one of each root driver on the torus
+    with `models` (the main path's teacher and MLP, and an SD2-depth stack
+    made here) at 2 SDS iterations and a 2-frame eval: the two rendering
+    drivers' 7 crops 320x320 with the object in them, the ablation's
+    metrics; launches held to paint_kernel_launches (+ 7 renders). (3)
+    render_face_normals_face_idx on the torus's 7 views at 1200^2 (K5 once)
+    against the plain rasterizer on the card, bit for bit, and at 128^2
+    against the CPU run. (4) volume_render at bench.py's shape (65,536
+    rays, 64 coarse + 64 fine samples) against the CPU on the same draws,
+    to VOLUME_TOL, and its rays/s. Returns (launches by kernel, seconds)."""
+    import shutil
+
+    from contexture_nerf_tpu_torch import generate_survey_textures as gs
+    from contexture_nerf_tpu_torch import get_texture_renders_cond_grid as gr
+    from contexture_nerf_tpu_torch import run_ablation_study as ab
+    from contexture_nerf_tpu_torch.core.config import (GuideConfig,
+                                                       RenderConfig)
+    from contexture_nerf_tpu_torch.diffusion.sd_depth import \
+        StableDiffusionDepth
+    from contexture_nerf_tpu_torch.models import volume as V
+    from contexture_nerf_tpu_torch.models.textured_mesh import \
+        TexturedMeshModel
+    from contexture_nerf_tpu_torch.ops import _build
+    from contexture_nerf_tpu_torch.tools import semantic_smoke as sm
+    from contexture_nerf_tpu_torch.training import trainer as tr
+
+    card = card_line()
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    launches = {k: 0 for k in _build.launch_counts}
+    work = ROOT / "build" / "tools_path"
+    shutil.rmtree(work, ignore_errors=True)
+
+    def run(label, fn, want=None):
+        """fn() with the counts set to 0 just before and read just after,
+        held to want(result) where given."""
+        _build.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        got = dict(_build.launch_counts)
+        for k in launches:
+            launches[k] += got[k]
+        note = ""
+        if want is not None:
+            exp = want(out)
+            note = " = derived" if got == exp else \
+                f" != derived {json.dumps(exp)}"
+            if got != exp:
+                failures.append(f"tools path {label}: launches {got} != "
+                                f"{exp}")
+        print(f"  {label}: {secs:.1f} s, launches {json.dumps(got)}{note}")
+        return out, secs
+
+    # (1) the semantic smoke, then the green-target fault
+    res, smoke_s = run("(1) semantic smoke (200 steps)",
+                       lambda: sm.run(work / "smoke", device="cuda"))
+    print(f"  smoke result.json: {json.dumps(res)}; err_after within "
+          f"{SMOKE_ERR} and below half err_before: "
+          f"{'ok' if smoke_ok(res) else 'BAD'} [{card}]")
+    if not smoke_ok(res):
+        failures.append(f"semantic smoke: {res}")
+    bad, _ = run("(1) planted fault: a teacher that asks for green",
+                 lambda: sm.run(work / "smoke_green", device="cuda",
+                                teacher_rgb=(0.2, 1.0, 0.2)))
+    print(f"  fault's err_before {bad['err_before']} err_after "
+          f"{bad['err_after']}: {'NOT CAUGHT' if smoke_ok(bad) else 'caught'}")
+    if smoke_ok(bad):
+        failures.append("semantic smoke: the green-target fault passed")
+
+    # (2) the root drivers on the torus, with the main path's towers
+    torus = str(ROOT / "shapes" / "torus.obj")
+    sd = StableDiffusionDepth(device=dev, generator=torch.Generator(
+        device=dev).manual_seed(seed))
+    models = dict(models, diffusion=sd)
+    cut = {"optim": {"seed": seed, "sds_iterations": 2},
+           "log": {"exp_root": str(work / "runs"), "full_eval_size": 2,
+                   "log_images": False, "save_mesh": False}}
+
+    def renders_7(r):
+        return plus(r[0].paint_kernel_launches(),
+                    {"raster": 7, "mlp_fwd": 7})
+
+    def crops_ok(label, written):
+        shapes = [drawn_object(torch, p) for p in written]
+        ok = len(written) == 7 and all(
+            (w, h) == (320, 320) and share > 0.05 for w, h, share in shapes)
+        print(f"  {label}: {len(written)} crops, sizes "
+              f"{sorted({(w, h) for w, h, _ in shapes})}, object share "
+              f"{min(s for _, _, s in shapes):.3f}-"
+              f"{max(s for _, _, s in shapes):.3f} {'ok' if ok else 'BAD'}")
+        if not ok:
+            failures.append(f"{label}: crops {shapes}")
+
+    (_, written), _ = run(
+        "(2) generate_survey_textures.run_one",
+        lambda: gs.run_one(torus, "a photo of a dairy cow",
+                           work / "survey", overrides=cut, device="cuda",
+                           **models), renders_7)
+    crops_ok("survey crops", written)
+    pair = dict(gr.PAIRS[1], path=torus)
+    (_, written), _ = run(
+        "(2) get_texture_renders_cond_grid.run_one",
+        lambda: gr.run_one(pair, pair["prompts"][1], work / "renders",
+                           overrides=cut, device="cuda", **models),
+        renders_7)
+    crops_ok("texture-render crops", written)
+    ablation, _ = run(
+        "(2) run_ablation_study.run_one (gi 3, gt 5)",
+        lambda: ab.run_one(3, 5, overrides=dict(
+            cut, guide={"shape_path": torus}), device="cuda", **models),
+        lambda r: r.paint_kernel_launches())
+    metrics = json.loads((ablation.exp_path / "metrics.json").read_text())
+    ok = bool(metrics) and all(math.isfinite(e["sds_loss"]) for e in metrics
+                               if "sds_loss" in e)
+    print(f"  ablation run: individual control "
+          f"{ablation.cfg.guide.individual_control_of_conditions}, "
+          f"{len(metrics)} metric entries, finite {ok}")
+    if not ok:
+        failures.append("ablation run: metrics")
+    del sd, models, ablation
+    torch.cuda.empty_cache()
+
+    # (3) the face normals of the torus's 7 views
+    th, ph, rad = (torch.tensor(v) for v in tr.view_angles(RenderConfig()))
+    meshes = {}
+
+    def face_normals(res_px, device):
+        if (res_px, device) not in meshes:
+            meshes[(res_px, device)] = TexturedMeshModel(
+                GuideConfig(shape_path=torus), render_grid_size=res_px,
+                texture_resolution=16, device=device)
+        return meshes[(res_px, device)].render_face_normals_face_idx(
+            th, ph, rad)
+
+    card_out, _ = run("(3) render_face_normals_face_idx 7x1200^2",
+                      lambda: face_normals(1200, "cuda"),
+                      lambda _: {**{k: 0 for k in launches}, "raster": 1})
+    with plain_paths(torch, k5=True, k1=False):
+        plain_out = face_normals(1200, "cuda")
+    same = all(torch.equal(a, b) for a, b in zip(card_out, plain_out))
+    small = face_normals(128, "cuda")
+    cpu = face_normals(128, "cpu")
+    idx_same = torch.equal(small[4].cpu(), cpu[4])
+    # the CPU tests' limits against the reference: the camera math's
+    # rounding, scaled by 1/den on faces seen edge-on, moves the normalized
+    # depth by up to 1e-3 and the unit normals by ~1e-5
+    errs = {name: (float((a.cpu() - b).abs().max()), lim) for name, a, b, lim
+            in zip(FACE_NORMAL_OUTPUTS, small[:4], cpu[:4],
+                   (0.0, 1e-3, 1e-4, 1e-4))}
+    ok = same and idx_same and all(e <= lim for e, lim in errs.values())
+    print(f"  face normals at 1200^2: K5 against the plain rasterizer on the "
+          f"card bit for bit {same}; at 128^2 against the CPU: face indices "
+          f"equal {idx_same}, max |diff| (limit) " + ", ".join(
+              f"{k} {e:.2e} ({lim})" for k, (e, lim) in errs.items())
+          + f" {'ok' if ok else 'BAD'}")
+    if not ok:
+        failures.append("render_face_normals_face_idx card != plain / CPU")
+    del card_out, plain_out, meshes
+
+    # (4) volume rendering at bench.py's shape
+    R, S = VOLUME_RAYS, VOLUME_SAMPLES
+
+    def ball(pts):
+        d = torch.linalg.norm(pts, dim=-1)
+        return pts, torch.where(d < 0.5, 50.0, 0.0)
+
+    g = torch.Generator().manual_seed(seed)
+    u_c, u_f = torch.rand((R, S), generator=g), torch.rand((R, S), generator=g)
+
+    def rays(device):
+        o = torch.tensor([0.0, 0.0, 1.5], device=device).expand(R, 3)
+        return o, torch.tensor([0.0, 0.0, -1.0], device=device).expand(R, 3)
+
+    def render(device):
+        return V.volume_render(ball, *rays(device), n_coarse=S, n_fine=S,
+                               u_coarse=u_c.to(device),
+                               u_fine=u_f.to(device))
+
+    on_card, cpu = render(dev), render("cpu")
+    err = {k: float((on_card[k].cpu() - cpu[k]).abs().max())
+           for k in ("rgb", "depth", "acc")}
+    ms = cuda_ms(lambda: render(dev))
+    ok = all(e <= VOLUME_TOL for e in err.values())
+    print(f"  volume_render {R} rays x ({S} + {S}) samples: max |card - CPU| "
+          + ", ".join(f"{k} {v:.2e}" for k, v in err.items())
+          + f" (limit {VOLUME_TOL}) {'ok' if ok else 'BAD'}; {ms:.3f} ms, "
+          f"{R / ms * 1e3:.4g} rays/s [{card}]")
+    if not ok:
+        failures.append(f"volume_render card != CPU: {err}")
+    secs = time.perf_counter() - t_phase
+    print(f"  tools path {secs:.1f} s")
+    return launches, secs
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3386,6 +3628,10 @@ def main():
                     "bf16 / int8_controlnet / int8_teacher) on a trainer of "
                     "its own, without the bootstrap, and stop (no result "
                     "line)")
+    ap.add_argument("--tools-only", action="store_true",
+                    help="run only the tools path (the semantic smoke, the "
+                    "root drivers, the face normals, volume rendering) on "
+                    "towers of its own and stop (no result line)")
     ap.add_argument("--k5-times-of", metavar="DIR", help=argparse.SUPPRESS)
     args = ap.parse_args()
     t_script = time.perf_counter()
@@ -3512,6 +3758,20 @@ def main():
         for f in failures:
             print(f"FAIL: {f}")
         return 1 if failures else 0
+    if args.tools_only:
+        from contexture_nerf_tpu_torch.diffusion.zero123plus import \
+            Zero123PlusTeacher
+        from contexture_nerf_tpu_torch.models.fields import NeRF2D
+
+        print("tools path alone, on towers of its own")
+        dev = torch.device("cuda")
+        gen = torch.Generator(device=dev).manual_seed(args.seed)
+        tools_path(torch, args.seed, {
+            "teacher": Zero123PlusTeacher(device=dev, generator=gen),
+            "mlp": NeRF2D(generator=gen, device=dev)}, failures)
+        for f in failures:
+            print(f"FAIL: {f}")
+        return 1 if failures else 0
     if args.generate_only:
         print("generation path alone, on towers of its own")
         generation_path(torch, args.seed, {}, recs, {}, failures)
@@ -3576,6 +3836,12 @@ def main():
         torch, args.seed, {"teacher": trainer.teacher, "mlp": trainer.mlp},
         recs, shape_recs, failures)
     launches = {k: launches[k] + generated[k] for k in launches}
+    print("tools path: the semantic smoke, the root drivers on main_path's "
+          "towers, the face normals, volume rendering")
+    tooled, tools_s = tools_path(
+        torch, args.seed, {"teacher": trainer.teacher, "mlp": trainer.mlp},
+        failures)
+    launches = {k: launches[k] + tooled[k] for k in launches}
     del trainer
     print("snapshot path: the paint path's first CLI run from its towers "
           "written to disk as diffusers snapshots")
@@ -3586,8 +3852,9 @@ def main():
         if rec.d["launches"] == 0:
             failures.append(f"{name} was not launched on the main path")
     total = time.perf_counter() - t_script
-    print(f"generation path {gen_s:.1f} s of the script's {total:.1f} s "
-          f"({100 * gen_s / total:.1f}%) [{card_line()}]")
+    print(f"generation path {gen_s:.1f} s, int8 path {int8_s:.1f} s, tools "
+          f"path {tools_s:.1f} s of the script's {total:.1f} s "
+          f"[{card_line()}]")
     if failures:
         for f in failures:
             print(f"FAIL: {f}")

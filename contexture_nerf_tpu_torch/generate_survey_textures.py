@@ -18,7 +18,7 @@ import argparse
 import sys
 import traceback
 from pathlib import Path
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 from contexture_nerf_tpu_torch.core.config import config_from_dict
 from contexture_nerf_tpu_torch.ops.image import (crop_and_resize,
@@ -37,11 +37,12 @@ CROP = 320
 
 def run_one(shape_path: str, prompt: str, out_dir: Path,
             overrides: Optional[Dict[str, dict]] = None, device="cuda",
-            tiny_models: bool = False, **models) -> List[Path]:
+            tiny_models: bool = False, **models
+            ) -> Tuple[ConTEXTure, List[Path]]:
     """Paint one pair and write its 7 view crops into out_dir. `overrides`
     ({section: {key: value}}) go over the pair's config; `models`
     (teacher, mlp, diffusion) go to ConTEXTure in place of new random
-    ones. Returns the files written."""
+    ones. Returns (the run, the files written)."""
     name = Path(shape_path).stem + "_" + "".join(
         c for c in prompt if c.isalnum() or c == " ").replace(" ", "_")[:40]
     data = {"log": {"exp_name": f"survey_{name}"},
@@ -63,7 +64,7 @@ def run_one(shape_path: str, prompt: str, out_dir: Path,
         tile = crop_and_resize(out["image"], bbox, CROP, CROP)
         written.append(save_image(tensor2numpy(tile[0].permute(1, 2, 0)),
                                   out_dir / f"{name}_view{i}.png"))
-    return written
+    return trainer, written
 
 
 def main(argv: Optional[List[str]] = None, device="cuda") -> None:

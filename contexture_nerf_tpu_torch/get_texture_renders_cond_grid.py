@@ -23,7 +23,7 @@ import math
 import sys
 import traceback
 from pathlib import Path
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -71,11 +71,12 @@ def canonical_theta(phi_deg: float) -> float:
 
 def run_one(pair: Dict, prompt: str, out_root: Path,
             overrides: Optional[Dict[str, dict]] = None, device="cuda",
-            tiny_models: bool = False, **models) -> List[Path]:
+            tiny_models: bool = False, **models
+            ) -> Tuple[ConTEXTure, List[Path]]:
     """Paint one pair and write its 7 canonical crops. `overrides`
     ({section: {key: value}}) go over the pair's config; `models`
     (teacher, mlp, diffusion) go to ConTEXTure in place of new random
-    ones. Returns the files written."""
+    ones. Returns (the run, the files written)."""
     exp_name = f"{Path(pair['path']).stem}_" + "".join(
         c for c in prompt if c.isalnum() or c == " ").replace(" ", "_")[:40]
     data = {
@@ -117,7 +118,7 @@ def run_one(pair: Dict, prompt: str, out_root: Path,
         written.append(save_image(tensor2numpy(tile[0].permute(1, 2, 0)),
                                   out_dir / f"rendered_image_{i}.png"))
     print(f"wrote 7 canonical renders to {out_dir}")
-    return written
+    return trainer, written
 
 
 def main(argv: Optional[List[str]] = None, device="cuda") -> None:

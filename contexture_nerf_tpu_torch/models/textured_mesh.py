@@ -515,7 +515,6 @@ class TexturedMeshModel:
                 "normals": normals, "render_cache": render_cache,
                 "texture_map": texture_img}
 
-    @torch.no_grad()
     def render_face_normals_face_idx(self, theta, phi, radius, dims=None):
         """The geometry-only multiview render of the view weights (K5 on
         the card): (mask (B,1,H,W), depth (B,1,H,W), normals image
@@ -619,6 +618,7 @@ class TexturedMeshModel:
             v = self.axis_augmentations(v, rng)
         return v
 
+    @torch.no_grad()
     def export_mesh(self, path, mlp: NeRF2D) -> None:
         """mesh.obj, mesh.mtl and albedo.png (the texture map, clipped,
         truncated to uint8) in `path`, the OBJ and MTL text line for line

@@ -107,6 +107,14 @@ def apply_int8(cfg: TrainConfig, teacher: Zero123PlusTeacher
     return teacher
 
 
+def mlp_dtype(teacher_dtype: torch.dtype, device) -> torch.dtype:
+    """The texture MLP's compute dtype: the teacher's, but bf16 on the card,
+    whose MLP kernels (K1, K2) compute in bf16 only; so a tiny (f32)
+    teacher runs there too."""
+    return torch.bfloat16 if torch.device(device).type == "cuda" \
+        else teacher_dtype
+
+
 def check_parallel(cfg: TrainConfig) -> None:
     """The reference builds a (views x tp) or (views x sp) device mesh for
     optim.tensor_parallel / optim.sequence_parallel, refuses both at once,
@@ -161,6 +169,7 @@ class SDSTrainer:
         self.teacher = apply_int8(cfg, teacher or Zero123PlusTeacher(
             tiny=tiny, device=dev, generator=self.generator))
         self.dtype = self.teacher.dtype
+        self.mlp_dtype = mlp_dtype(self.dtype, dev)
         self.mlp = mlp or NeRF2D(generator=self.generator, device=dev)
         self.mlp.to(dev)
         self.tile_px = self.teacher.tile_px
@@ -206,7 +215,7 @@ class SDSTrainer:
             self.uv_pts = _to(setup["uv_grid_pts"], dev,
                               torch.float32).contiguous()
             self.emb_pts = (pad_embedding(self.uv_pts, MULTIRES,
-                                          dtype=self.dtype)
+                                          dtype=self.mlp_dtype)
                             if opt.precompute_uv_embedding else None)
             # guide.reference_texture: the change mask at the grid's UVs
             self.edit_mask = _to(setup.get("edit_mask_pts"), dev,
@@ -241,7 +250,7 @@ class SDSTrainer:
             src = cut(src)
             m = cut(m) if m is not None else None
         fn = fused_nerf2d_emb if self.emb_pts is not None else fused_nerf2d
-        out = fn(self.mlp, src, MULTIRES, compute_dtype=self.dtype)
+        out = fn(self.mlp, src, MULTIRES, compute_dtype=self.mlp_dtype)
         rgb = (torch.tanh(out) + 1.0) / 2.0
         if m is not None:
             rgb = m * rgb + (1 - m) * rgb.detach()
@@ -1003,7 +1012,7 @@ def build_models(cfg: TrainConfig, tiny: bool = False, device="cuda",
         cfg.guide, render_grid_size=cfg.render.train_grid_size,
         texture_resolution=cfg.guide.texture_resolution,
         cache_path=Path("cache") / Path(cfg.guide.shape_path).stem,
-        compute_dtype=teacher.dtype, device=dev)
+        compute_dtype=mlp_dtype(teacher.dtype, dev), device=dev)
     seed_texture_field(cfg, mesh_model, mlp, generator)
     if not skip_bootstrap and diffusion is None:
         diffusion = StableDiffusionDepth(

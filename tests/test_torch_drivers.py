@@ -170,7 +170,7 @@ def test_survey_pngs_are_the_reference(monkeypatch, tmp_path):
     prompt = "a photo of a dairy cow"
     j_survey.run_one(TORUS, prompt, tmp_path / "ref")
     monkeypatch.setattr(port_trainer.ConTEXTure, "paint", lambda self: None)
-    written = survey.run_one(TORUS, prompt, tmp_path / "port",
+    _, written = survey.run_one(TORUS, prompt, tmp_path / "port",
                              overrides=TINY, device="cpu", tiny_models=True,
                              mlp=_bridged_mlp(made[0]))
     names = sorted(p.name for p in (tmp_path / "ref").iterdir())
@@ -187,7 +187,7 @@ def test_texture_render_pngs_are_the_reference(monkeypatch, tmp_path):
     prompt = pair["prompts"][1]
     j_renders.run_one(pair, prompt, tmp_path / "ref")
     monkeypatch.setattr(port_trainer.ConTEXTure, "paint", lambda self: None)
-    written = renders.run_one(pair, prompt, tmp_path / "port",
+    _, written = renders.run_one(pair, prompt, tmp_path / "port",
                               overrides=TINY, device="cpu",
                               tiny_models=True, mlp=_bridged_mlp(made[0]))
     ref_dir = next((tmp_path / "ref" / "torus").iterdir())

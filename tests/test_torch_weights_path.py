@@ -700,7 +700,14 @@ def test_int8_knobs_reach_the_teacher(tmp_path, knob, monkeypatch):
 # -- the boundary ---------------------------------------------------------------------------
 
 NEW_MODULES = ("contexture_nerf_tpu_torch.diffusion.weights",
-               "contexture_nerf_tpu_torch.tools.synth_snapshot")
+               "contexture_nerf_tpu_torch.tools.synth_snapshot",
+               "contexture_nerf_tpu_torch.ops.quant",
+               "contexture_nerf_tpu_torch.models.volume",
+               "contexture_nerf_tpu_torch.tools.make_shapes",
+               "contexture_nerf_tpu_torch.tools.semantic_smoke",
+               "contexture_nerf_tpu_torch.generate_survey_textures",
+               "contexture_nerf_tpu_torch.get_texture_renders_cond_grid",
+               "contexture_nerf_tpu_torch.run_ablation_study")
 FORBIDDEN = ("jax", "jaxlib", "flax", "contexture_nerf_tpu", "safetensors")
 
 
