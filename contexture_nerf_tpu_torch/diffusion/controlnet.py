@@ -12,7 +12,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from contexture_nerf_tpu_torch.diffusion.layers import Conv, set_quant
+from contexture_nerf_tpu_torch.diffusion.layers import Conv
 from contexture_nerf_tpu_torch.diffusion.unet import (UNetConfig,
                                                       build_down_path,
                                                       run_down_path)
@@ -53,13 +53,12 @@ class ControlNetCondEmbedding(nn.Module):
 
 
 class ControlNet(nn.Module):
-    """`quant` (optim.int8_controlnet): W8A8 in the down and mid blocks'
-    resnets, transformers and downsamplers (layers.set_quant); the hint
-    embedder, conv_in, the time embedding and the zero convs stay exact,
-    as the reference's."""
+    """layers.set_quant(controlnet, True) (optim.int8_controlnet): W8A8 in
+    the down and mid blocks' resnets, transformers and downsamplers; the
+    hint embedder, conv_in, the time embedding and the zero convs stay
+    exact, as the reference's."""
 
-    def __init__(self, config: UNetConfig, dtype=torch.float32,
-                 quant: bool = False):
+    def __init__(self, config: UNetConfig, dtype=torch.float32):
         super().__init__()
         cfg = self.config = config
         self.dtype = dtype
@@ -71,7 +70,6 @@ class ControlNet(nn.Module):
         self.n_res = len(res_ch)
         mid = cfg.block_out_channels[-1]
         self.controlnet_mid_block = _zero_conv(mid, mid, 1)
-        set_quant(self, quant)
 
     def forward(self, sample, timesteps, encoder_hidden_states,
                 controlnet_cond, conditioning_scale: float = 1.0,

@@ -15,7 +15,7 @@ from contexture_nerf_tpu_torch.diffusion.layers import (Conv, Downsample2D,
                                                         ResnetBlock2D,
                                                         TimestepEmbedding,
                                                         Transformer2DModel,
-                                                        Upsample2D, set_quant,
+                                                        Upsample2D,
                                                         timestep_embedding)
 from contexture_nerf_tpu_torch.ops.groupnorm import GroupNormSiLU
 
@@ -134,12 +134,11 @@ def run_down_path(module: nn.Module, cfg: UNetConfig, sample, timesteps,
 
 
 class UNet2DCondition(nn.Module):
-    """`quant` (optim.int8_teacher): W8A8 in every resnet, transformer and
-    resampler (layers.set_quant); conv_in, conv_out and the time embedding
-    stay exact, as the reference's."""
+    """layers.set_quant(unet, True) (optim.int8_teacher): W8A8 in every
+    resnet, transformer and resampler; conv_in, conv_out and the time
+    embedding stay exact, as the reference's."""
 
-    def __init__(self, config: UNetConfig, dtype=torch.float32,
-                 quant: bool = False):
+    def __init__(self, config: UNetConfig, dtype=torch.float32):
         super().__init__()
         cfg = self.config = config
         self.dtype = dtype
@@ -161,7 +160,6 @@ class UNet2DCondition(nn.Module):
         c0 = cfg.block_out_channels[0]
         self.conv_norm_out = GroupNormSiLU(c0, 32, 1e-5, out_dtype=dtype)
         self.conv_out = Conv(c0, cfg.out_channels, 3, padding=1)
-        set_quant(self, quant)
 
     def forward(self, sample: torch.Tensor, timesteps,
                 encoder_hidden_states: torch.Tensor,

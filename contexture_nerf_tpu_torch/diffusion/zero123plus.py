@@ -162,17 +162,16 @@ class Zero123PlusTeacher(nn.Module):
     load). Then each tower with a path in `weight_paths` loads it, and the
     tokenizer and the ramp come from the snapshot; `loaded` holds each
     loaded tower's path, bytes and seconds. `tile_px` is the side of one of
-    the 3x2 grid's tiles. `int8_controlnet` / `int8_unet`
-    (optim.int8_controlnet / int8_teacher) quantize the ControlNet, or the
-    UNet and the ControlNet, to W8A8 on the fly (`set_int8`); the weights
-    and the state_dicts stay as they are."""
+    the 3x2 grid's tiles. `set_int8` (optim.int8_controlnet /
+    int8_teacher) quantizes the ControlNet, or the UNet and the
+    ControlNet, to W8A8 on the fly; the weights and the state_dicts stay
+    as they are."""
 
     CONDITIONING_SCALE = 2.0  # the depth ControlNet's, reference trainer
 
     def __init__(self, tiny: bool = False, device="cuda",
                  generator: Optional[torch.Generator] = None,
-                 weight_paths: Optional[Zero123PlusWeightPaths] = None,
-                 int8_controlnet: bool = False, int8_unet: bool = False):
+                 weight_paths: Optional[Zero123PlusWeightPaths] = None):
         super().__init__()
         dev = resolve_device(device)
         self.dtype = torch.float32 if tiny else torch.bfloat16
@@ -217,7 +216,7 @@ class Zero123PlusTeacher(nn.Module):
             ("vision_encoder", self.vision_encoder, wp.vision_encoder,
              W.convert_clip_vision, self.vision_config)])
         self.alphas_cumprod = sch.make_alphas_cumprod(device=dev)
-        self.set_int8(int8_controlnet, int8_unet)
+        self.set_int8()
 
     def set_int8(self, int8_controlnet: bool = False,
                  int8_unet: bool = False) -> None:
@@ -362,14 +361,12 @@ class Zero123PlusPipeline(Zero123PlusTeacher):
     weight_paths.vae as the encoder), EulerAncestral (v_prediction,
     trailing) and DDPM (v_prediction) over the teacher's schedule, and an
     optional SD2-inpaint UNet (`attach_inpaint_unet`), which stays exact
-    under int8_unet, as the reference's."""
+    under set_int8, as the reference's."""
 
     def __init__(self, tiny: bool = False, device="cuda",
                  generator: Optional[torch.Generator] = None,
-                 weight_paths: Optional[Zero123PlusWeightPaths] = None,
-                 int8_controlnet: bool = False, int8_unet: bool = False):
-        super().__init__(tiny, device, generator, weight_paths,
-                         int8_controlnet, int8_unet)
+                 weight_paths: Optional[Zero123PlusWeightPaths] = None):
+        super().__init__(tiny, device, generator, weight_paths)
         wp = weight_paths or Zero123PlusWeightPaths()
         with torch.device(self.alphas_cumprod.device):
             self.vae_decoder = Decoder(self.vae_config, self.dtype)

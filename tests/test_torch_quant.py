@@ -261,8 +261,9 @@ def controlnets():
     p = _perturbed(jm.init(jax.random.PRNGKey(2), jnp.asarray(x),
                            jnp.asarray(t), jnp.asarray(ctx),
                            jnp.asarray(cond)), 2)
-    port = ControlNet(UNetConfig.tiny(), quant=True)
+    port = ControlNet(UNetConfig.tiny())
     port.load_state_dict(weights.convert_tree(p))
+    set_quant(port, True)
     args = (x, t, ctx, cond)
     return jm, jq, port, p, args
 
@@ -294,8 +295,9 @@ def test_unet_int8_matches_the_reference():
         np.array([500])
     p = _perturbed(jm.init(jax.random.PRNGKey(1), jnp.asarray(x),
                            jnp.asarray(t), jnp.asarray(ctx)), 1)
-    port = UNet2DCondition(UNetConfig.tiny(), quant=True)
+    port = UNet2DCondition(UNetConfig.tiny())
     port.load_state_dict(weights.convert_tree(p))
+    set_quant(port, True)
     ja = [jnp.asarray(a) for a in (x, t, ctx)]
     ta = [torch.from_numpy(a) for a in (x, t, ctx)]
     # write pass, then the read pass over its tokens with residuals
@@ -363,6 +365,55 @@ def test_quantized_block_matches_the_reference(kind):
             **{k: [torch.from_numpy(v)] for k, v in extra.items()}))
     assert np.median(np.abs(ty - jy)) <= 1e-6 * np.abs(jy).max()
     assert _fro(ty, jy) <= _fro(jy, jx) / 3, (_fro(ty, jy), _fro(jy, jx))
+
+
+@pytest.mark.parametrize("tower", ["unet", "controlnet"])
+def test_quant_leaves_the_state_dicts_as_they_were(tower):
+    """quant is a plain attribute: no key, shape or dtype of the tower's
+    state_dict changes, and set_quant(.., False) clears every flag."""
+    cls = UNet2DCondition if tower == "unet" else ControlNet
+    a, b = cls(UNetConfig.tiny()), cls(UNetConfig.tiny())
+    set_quant(b, True)
+    assert any(getattr(m, "quant", False) for m in b.modules())
+    sa, sb = a.state_dict(), b.state_dict()
+    assert list(sa) == list(sb)
+    for k in sa:
+        assert sa[k].shape == sb[k].shape and sa[k].dtype == sb[k].dtype
+    set_quant(b, False)
+    assert not any(getattr(m, "quant", False) for m in b.modules())
+
+
+def test_int8_controlnet_with_zero_heads_leaves_the_v_prediction():
+    """With the ControlNet's zero convs at zero its hints are exactly 0,
+    quantized or not: the int8_controlnet v-prediction equals the exact
+    teacher's (tests/test_quant.py's pipeline test); int8_teacher moves
+    it."""
+    gen = torch.Generator().manual_seed(0)
+    teacher = Zero123PlusTeacher(tiny=True, device="cpu", generator=gen)
+    with torch.no_grad():
+        for name, m in teacher.controlnet.named_children():
+            if name.startswith("controlnet_") and \
+                    name != "controlnet_cond_embedding":
+                m.weight.zero_()
+                m.bias.zero_()
+    lat = torch.from_numpy(_r(1, 4, 16, 16))
+    clp = torch.from_numpy(_r(2, 4, 8, 8))
+    ehs = torch.from_numpy(_r(2, 77, teacher.text_config.hidden_size))
+    depth = torch.from_numpy(RNG.random((1, 3, 128, 128)).astype(np.float32))
+    noises = torch.from_numpy(_r(4, 8, 8)), torch.from_numpy(_r(4, 8, 8))
+    t = torch.tensor([500])
+    v = teacher._cfg_v_pred(lat, t, clp, ehs, depth, 4.0, *noises)
+    teacher.set_int8(int8_controlnet=True)
+    assert teacher.controlnet.down_0_resnet_0.conv1.quant
+    assert not teacher.unet.down_0_resnet_0.conv1.quant
+    v8 = teacher._cfg_v_pred(lat, t, clp, ehs, depth, 4.0, *noises)
+    assert torch.isfinite(v8).all()
+    assert torch.equal(v8, v)
+    teacher.set_int8(int8_unet=True)
+    assert teacher.unet.down_0_resnet_0.conv1.quant
+    assert teacher.controlnet.down_0_resnet_0.conv1.quant
+    assert not torch.equal(teacher._cfg_v_pred(lat, t, clp, ehs, depth, 4.0,
+                                               *noises), v)
 
 
 # -- one SDS step with the W8A8 teacher ------------------------------------------------
