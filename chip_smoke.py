@@ -3380,7 +3380,7 @@ def smoke_ok(res):
         res["err_after"] < res["err_before"] / 2
 
 
-def drawn_object(torch, path):
+def drawn_object(path):
     """(width, height, share of pixels off the white or grey background)
     of a written PNG."""
     import numpy as np
@@ -3482,7 +3482,7 @@ def tools_path(torch, seed, models, failures):
                     {"raster": 7, "mlp_fwd": 7})
 
     def crops_ok(label, written):
-        shapes = [drawn_object(torch, p) for p in written]
+        shapes = [drawn_object(p) for p in written]
         ok = len(written) == 7 and all(
             (w, h) == (320, 320) and share > 0.05 for w, h, share in shapes)
         print(f"  {label}: {len(written)} crops, sizes "

@@ -512,3 +512,16 @@ def test_groupnorm_kernel_rejects_what_it_does_not_take(cuda):
         gn.group_norm_silu(x[:, :40].contiguous(), s[:40], s[:40])
     with pytest.raises(ValueError, match="CUDA"):
         gn.group_norm_silu_kernel(x.cpu(), s.cpu(), s.cpu())
+
+
+def test_int_mm_shape_rules(cuda):
+    """ops/quant.py's int8 product on the card: fewer than 17 rows are
+    zero-padded (exact), K or N not a multiple of 8 raises."""
+    from contexture_nerf_tpu_torch.ops import quant
+
+    a = torch.randint(-127, 128, (5, 32), dtype=torch.int8, device=cuda)
+    b = torch.randint(-127, 128, (16, 32), dtype=torch.int8, device=cuda).t()
+    got = quant.int_mm(a, b)
+    assert torch.equal(got.cpu(), a.cpu().int() @ b.cpu().int())
+    with pytest.raises(ValueError, match="multiples of 8"):
+        quant.int_mm(a[:, :30], b[:30])

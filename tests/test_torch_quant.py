@@ -501,18 +501,3 @@ def test_int8_teacher_sds_step_matches_the_reference(tmp_path, monkeypatch):
         got, ref, ex = float(got), float(ref), float(ex)
         assert np.isfinite(got)
         assert abs(got - ref) < abs(ex - ref), (got, ref, ex)
-
-
-# -- on the card --------------------------------------------------------------------------
-
-@pytest.mark.cuda
-def test_int_mm_shape_rules_on_the_card():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device; chip_smoke.py runs the int8 path "
-                    "on the card")
-    a = torch.randint(-127, 128, (5, 32), dtype=torch.int8, device="cuda")
-    b = torch.randint(-127, 128, (32, 16), dtype=torch.int8, device="cuda")
-    got = TQ.int_mm(a, b)  # 5 rows: zero-padded to 17
-    assert torch.equal(got.cpu(), a.cpu().int() @ b.cpu().int())
-    with pytest.raises(ValueError, match="multiples of 8"):
-        TQ.int_mm(a[:, :30], b[:30])
