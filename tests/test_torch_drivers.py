@@ -48,6 +48,16 @@ TINY = {"render": {"train_grid_size": 64, "eval_grid_size": 64},
 RNG = np.random.default_rng(31)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for this module: the suite runs several test
+    processes at once, and more threads than cores slow all of them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 class _Stop(Exception):
     pass
 

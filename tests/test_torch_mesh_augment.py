@@ -7,9 +7,12 @@ no symmetry), so the Laplacian's low eigenvalues are simple and each
 eigenvector is defined up to its sign.
 
 Tolerances: the Laplacian is the same numpy arithmetic: equal. The
-eigenpairs come from ARPACK (shift-invert, tol 1e-3) started from its own
-random vector, so two calls agree to ARPACK's convergence: eigenvalues
-within 1e-6 relative, eigenvectors (signs aligned) within 1e-4. The
+eigenpairs come from ARPACK (shift-invert, tol 1e-3), started from its own
+random vector, which differs from call to call: each package's are held
+to numpy's dense eigendecomposition within that tol (eigenvalues relative
+to the largest, eigenvectors with signs aligned; over 12 calls the worst
+eigenvector error was 3.2e-4, where the closest eigenvalues lie 1.1e-3
+apart). The
 augmentations, given one eigenbasis and one np.random.Generator seed, are
 the same numpy arithmetic: equal. render_face_normals_face_idx: the face
 indices within the raster tolerance of tests/test_torch_raster.py
@@ -31,6 +34,18 @@ from contexture_nerf_tpu_torch.core.config import GuideConfig
 from contexture_nerf_tpu_torch.models.textured_mesh import TexturedMeshModel
 from contexture_nerf_tpu_torch.raster import raster_kernel as rk
 from contexture_nerf_tpu_torch.tools.make_shapes import write_obj
+
+ARPACK_TOL = 1e-3  # eigsh's tol in both packages' eigens
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for this module: the suite runs several test
+    processes at once, and more threads than cores slow all of them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def icosphere(subdivisions: int, rng: np.random.Generator):
@@ -90,14 +105,18 @@ def test_cotan_laplacian_is_the_reference(meshes):
 
 
 def test_eigenpairs_match_up_to_sign(meshes):
+    """Both packages' eigenpairs against numpy's dense eigendecomposition
+    of the same shifted Laplacian, to ARPACK's tolerance."""
     jm, tm = meshes
-    va, Va = jm.eigens(20, 0.0)
-    vb, Vb = tm.eigens(20, 0.0)
-    assert vb.shape == (20,) and Vb.shape == Va.shape
-    assert np.diff(va).min() > 1e-6 * va.max()  # simple eigenvalues
-    np.testing.assert_allclose(vb, va, rtol=1e-6)
-    sign = np.sign(np.sum(Va * Vb, axis=1))[:, None]
-    np.testing.assert_allclose(Vb * sign, Va, atol=1e-4)
+    L = tm.cotan_laplacian().toarray()
+    w, V = np.linalg.eigh(L + 1e-4 * np.eye(L.shape[0]))
+    w, V = w[1:21] + 1e-4, V[:, 1:21].T  # the shift added back, as eigens
+    assert np.diff(w).min() > 1e-4 * w.max()  # simple eigenvalues
+    for vals, vecs in (jm.eigens(20, 0.0), tm.eigens(20, 0.0)):
+        assert vals.shape == (20,) and vecs.shape == V.shape
+        np.testing.assert_allclose(vals, w, rtol=0, atol=ARPACK_TOL * w.max())
+        sign = np.sign(np.sum(vecs * V, axis=1))[:, None]
+        np.testing.assert_allclose(vecs * sign, V, rtol=0, atol=ARPACK_TOL)
 
 
 @pytest.mark.parametrize("seed", range(6))

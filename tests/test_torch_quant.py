@@ -59,6 +59,16 @@ from tools.make_shapes import uv_sphere, write_obj
 RNG = np.random.default_rng(13)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for this module: the suite runs several test
+    processes at once, and more threads than cores slow all of them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _r(*shape, scale=1.0):
     return (RNG.standard_normal(shape) * scale).astype(np.float32)
 

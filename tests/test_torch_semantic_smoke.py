@@ -28,6 +28,16 @@ from tools import semantic_smoke as ref_smoke
 ITERS = 3
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for this module: the suite runs several test
+    processes at once, and more threads than cores slow all of them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def test_faithful_codec_matches_the_reference_and_inverts_solid_colours():
     rng = np.random.default_rng(0)
     x = rng.uniform(-1, 1, (2, 3, 16, 24)).astype(np.float32)
@@ -68,7 +78,7 @@ def reference(tmp_path_factory):
     return res, made[0], out
 
 
-def _draws(tr, setup_probs, cl_shape, z_shape):
+def _draws(setup_probs, cl_shape, z_shape):
     """step i's draws, as the reference's loop splits its key and its
     sds_step and _cfg_core take them from the sub-key."""
     key, subs = jax.random.PRNGKey(0), []
@@ -90,8 +100,7 @@ def _draws(tr, setup_probs, cl_shape, z_shape):
     return draws
 
 
-def test_smoke_iterations_match_the_reference(reference, tmp_path,
-                                              monkeypatch):
+def test_smoke_iterations_match_the_reference(reference, tmp_path):
     res_ref, tr, _ = reference
     mlp = NeRF2D(device="cpu")
     mlp.load_state_dict(weights.convert_tree(
@@ -102,7 +111,7 @@ def test_smoke_iterations_match_the_reference(reference, tmp_path,
     down = tr.zero123plus.vae_config
     h = setup["mask_grid"].shape[2] // 2 ** (len(down.block_out_channels) - 1)
     w = setup["mask_grid"].shape[3] // 2 ** (len(down.block_out_channels) - 1)
-    draws = _draws(tr, probs, cl.shape[1:], (1, 4, h, w))
+    draws = _draws(probs, cl.shape[1:], (1, 4, h, w))
     res = port_smoke.run(tmp_path, ITERS, device="cpu", mlp=mlp,
                          draws=draws)
     assert res["iters"] == res_ref["iters"] == ITERS

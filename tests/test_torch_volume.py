@@ -21,6 +21,16 @@ from contexture_nerf_tpu_torch.models import volume as TV
 RNG = np.random.default_rng(21)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for this module: the suite runs several test
+    processes at once, and more threads than cores slow all of them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _close(got, ref, tol):
     got, ref = got.numpy(), np.asarray(ref)
     assert got.shape == ref.shape
