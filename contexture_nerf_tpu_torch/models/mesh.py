@@ -3,8 +3,10 @@ contexture_nerf_tpu/models/mesh.py (`load_obj`'s numpy parser,
 `calculate_face_normals`, `Mesh.load`, `normalize_mesh`).
 
 Mesh IO runs once at setup on the host; the renderer then moves the
-vertices, faces and UVs to the device. The JAX package's native C++ parser
-(`native/objio`) is not ported: the numpy parser gives the same arrays.
+vertices, faces and UVs to the device. `load_obj` reads with the C++ parser
+(native/objio.py, built at first use), as the reference does where its
+library builds; the numpy parser is its plain version (`native=False`), and
+takes over when the C++ parser returns a nonzero code, as in the reference.
 """
 
 from __future__ import annotations
@@ -22,11 +24,20 @@ def _triangulate_fan(idx_list):
             for k in range(1, len(idx_list) - 1)]
 
 
-def load_obj(path: str) -> Tuple[np.ndarray, np.ndarray, Optional[np.ndarray],
-                                 Optional[np.ndarray]]:
+def load_obj(path: str, native: bool = True
+             ) -> Tuple[np.ndarray, np.ndarray, Optional[np.ndarray],
+                        Optional[np.ndarray]]:
     """Parse an OBJ file. Returns (vertices [N,3] f32, faces [F,3] i64,
     uvs [T,2] f32 or None, face_uvs_idx [F,3] i64 or None); polygons are
-    fan-triangulated, negative indices count from the end."""
+    fan-triangulated, negative indices count from the end. With `native`
+    the C++ parser reads it (a build failure raises); the numpy parser
+    below when it returns a nonzero code or native=False."""
+    if native:
+        from contexture_nerf_tpu_torch.native import objio
+
+        parsed = objio.load_obj(path)
+        if parsed is not None:
+            return parsed
     verts, uvs = [], []
     face_v, face_vt = [], []
     with open(path, "r") as fh:
@@ -83,10 +94,10 @@ class Mesh:
     face_area: np.ndarray = None
 
     @classmethod
-    def load(cls, obj_path: str) -> "Mesh":
+    def load(cls, obj_path: str, native: bool = True) -> "Mesh":
         if ".obj" not in str(obj_path):
             raise ValueError(f"{obj_path}: the port reads OBJ files only")
-        vertices, faces, vt, ft = load_obj(str(obj_path))
+        vertices, faces, vt, ft = load_obj(str(obj_path), native)
         normals, face_area = calculate_face_normals(vertices, faces)
         return cls(vertices=vertices, faces=faces, vt=vt, ft=ft,
                    normals=normals, face_area=face_area)

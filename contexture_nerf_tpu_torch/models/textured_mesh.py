@@ -10,10 +10,10 @@ atlas, `atlas_unwrap`.
 
 As in the reference, the MLP's parameters are outside the model: every
 texture call takes the NeRF2D module. A mesh without UVs is unwrapped once
-on the host (`atlas_unwrap`, the reference's numpy path; the JAX package's
-C++ unwrap in `native/objio` is not ported) and the atlas is cached on disk
-under the reference's file names, so a cache written by either package
-serves the other.
+on the host (`atlas_unwrap`: the C++ unwrap of native/objio.py, as the
+reference takes where its library builds, or the numpy path) and the atlas
+is cached on disk under the reference's file names, so a cache written by
+either package serves the other.
 """
 
 from __future__ import annotations
@@ -187,9 +187,13 @@ def _chart_overlaps(vt: np.ndarray, ft: np.ndarray,
 
 def atlas_unwrap(vertices: np.ndarray, faces: np.ndarray,
                  angle_thr_deg: float = 75.0,
-                 gutter: float = 4.0 / 1024.0
+                 gutter: float = 4.0 / 1024.0, native: bool = True
                  ) -> Tuple[np.ndarray, np.ndarray]:
-    """Connected-chart UV unwrap: charts grown over face adjacency within
+    """Connected-chart UV unwrap. With `native`, the C++ unwrap
+    (native/objio.py `chart_unwrap_native`; a build failure raises) gives
+    the atlas unless one of its charts overlaps itself (`_chart_overlaps`)
+    or it returns a nonzero code: the reference's rule. Otherwise the numpy
+    path below, its plain version: charts grown over face adjacency within
     an angle of their seed's normal, each projected orthographically (in
     float64) onto its seed's tangent plane with its vertices welded, a
     chart whose projection overlaps itself (> 0.05 of its texels) demoted
@@ -198,6 +202,12 @@ def atlas_unwrap(vertices: np.ndarray, faces: np.ndarray,
     40 times; when no scale fits, `_per_face_unwrap`. Returns (vt (n, 2)
     float32 clipped to [0, 1], ft (F, 3) int64): the reference's numpy
     path, which the reference takes when its C++ unwrap is not built."""
+    if native:
+        from contexture_nerf_tpu_torch.native.objio import chart_unwrap_native
+
+        got = chart_unwrap_native(vertices, faces, angle_thr_deg, gutter)
+        if got is not None and not _chart_overlaps(*got):
+            return got
     F = faces.shape[0]
     chart = _grow_charts(vertices, faces, angle_thr_deg)
     n_charts = int(chart.max()) + 1
