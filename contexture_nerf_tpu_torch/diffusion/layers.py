@@ -15,6 +15,10 @@ projections (the attention itself stays exact), the feed-forward and the
 transformer's proj_in / proj_out. Each block names them in `QUANT`. The
 int8 branch adds the bias after the cast to the layer's dtype, as flax
 does after its injected product.
+
+`tp` (optim.tensor_parallel) is likewise a plain attribute, set by
+parallel/tp.py `shard_params_tp` on a layer whose weight it cut to this
+rank's shard; the layer then computes through that module's collectives.
 """
 
 from __future__ import annotations
@@ -32,12 +36,17 @@ from contexture_nerf_tpu_torch.ops.quant import int8_conv2d, int8_linear
 
 class Dense(nn.Linear):
     """nn.Linear that casts its input to its own dtype (flax Dense); W8A8
-    when `quant` is set."""
+    when `quant` is set, sharded when `tp` is set."""
 
     quant = False
+    tp = None
 
     def forward(self, x):
         x = x.to(self.weight.dtype)
+        if self.tp is not None:
+            from contexture_nerf_tpu_torch.parallel.tp import dense_forward
+
+            return dense_forward(self, x)
         if not self.quant:
             return super().forward(x)
         y = int8_linear(x, self.weight)
@@ -46,12 +55,17 @@ class Dense(nn.Linear):
 
 class Conv(nn.Conv2d):
     """nn.Conv2d that casts its input to its own dtype (flax Conv); W8A8
-    when `quant` is set."""
+    when `quant` is set, sharded when `tp` is set."""
 
     quant = False
+    tp = None
 
     def forward(self, x):
         x = x.to(self.weight.dtype)
+        if self.tp is not None:
+            from contexture_nerf_tpu_torch.parallel.tp import conv_forward
+
+            return conv_forward(self, x)
         if not self.quant:
             return super().forward(x)
         y = int8_conv2d(x, self.weight, self.stride[0], self.padding[0])

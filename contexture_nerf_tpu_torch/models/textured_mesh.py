@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import hashlib
 import math
+import os
 from collections import deque
 from pathlib import Path
 from typing import Dict, Optional, Tuple, Union
@@ -315,13 +316,15 @@ class TexturedMeshModel:
                  texture_resolution: int = 1024,
                  cache_path: Optional[Path] = None, multires: int = 10,
                  fovyangle: float = math.pi / 3,
-                 compute_dtype=torch.float32, device="cuda"):
+                 compute_dtype=torch.float32, device="cuda",
+                 write_cache: bool = True):
         self.device = resolve_device(device)
         self.opt = opt
         self.dy = opt.dy
         self.mesh_scale = opt.shape_scale
         self.texture_resolution = texture_resolution
         self.cache_path = Path(cache_path) if cache_path is not None else None
+        self.write_cache = write_cache
         self.multires = multires
         self.compute_dtype = compute_dtype
         self.default_color = [0.8, 0.1, 0.8]  # magenta
@@ -347,7 +350,8 @@ class TexturedMeshModel:
     def _init_texture_map(self) -> Tuple[np.ndarray, np.ndarray]:
         """(vt float32, ft int64), the first of: the mesh's own UVs; the
         atlas cached in cache_path for this geometry; `atlas_unwrap`, then
-        written to the cache."""
+        written to the cache (unless write_cache is off: the ranks other
+        than 0)."""
         mesh = self.mesh
         if (mesh.vt is not None and mesh.ft is not None
                 and mesh.vt.shape[0] > 0 and mesh.ft.min() > -1):
@@ -358,10 +362,13 @@ class TexturedMeshModel:
             vt, ft = (np.load(f) for f in files)
             return vt.astype(np.float32), ft.astype(np.int64)
         vt, ft = atlas_unwrap(mesh.vertices, mesh.faces)
-        if files is not None:
+        if files is not None and self.write_cache:
             self.cache_path.mkdir(parents=True, exist_ok=True)
-            np.save(files[0], vt)
-            np.save(files[1], ft)
+            for f, a in zip(files, (vt, ft)):
+                # whole files only: another rank may read the cache
+                tmp = f.with_name(f".{f.stem}.{os.getpid()}.npy")
+                np.save(tmp, a)
+                os.replace(tmp, f)
         return vt, ft
 
     def get_texture_map(self, mlp: NeRF2D

@@ -6,11 +6,15 @@ Counterpart of contexture_nerf_tpu/ops/attention.py. The kernel
 KV source extra_k/extra_v (the Zero123++ reference-attention tokens) that
 streams into the same online-softmax state, never concatenated. Calls that
 the reference sends to its XLA einsum path go to plain matmul + softmax here,
-as `_xla_attention` does.
+as `_xla_attention` does. Under `sequence_parallel` the calls that the
+reference's `_ring_eligible` takes go to ring attention over the mesh's
+`sp` axis (parallel/ring.py) ahead of the kernel, as the reference's go
+ahead of its Pallas kernel.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 
 import torch
@@ -26,6 +30,43 @@ MIN_KV_KERNEL = 1024
 HEAD_DIM = 64
 KV_TILE = 128  # the kernel's keys a tile (BN); each source pads to it
 BLOCK_M = (128, 192)  # the kernel's query rows a CTA; it picks by shape
+
+
+# The sequence-parallel context: while a mesh is set, attention() sends
+# eligible calls to ring attention over its `axis` (the reference's
+# _SEQ_PARALLEL, set by the trainer around the SDS step's teacher call).
+_SEQ_PARALLEL = {"mesh": None, "axis": "sp", "min_seq": 256}
+
+
+@contextlib.contextmanager
+def sequence_parallel(mesh, axis: str = "sp", min_seq: int = 256):
+    """Route the eligible attention() calls in this block through ring
+    attention over `axis` of `mesh`."""
+    prev = dict(_SEQ_PARALLEL)
+    _SEQ_PARALLEL.update(mesh=mesh, axis=axis, min_seq=min_seq)
+    try:
+        yield
+    finally:
+        _SEQ_PARALLEL.update(prev)
+
+
+def ring_eligible_lengths(sq: int, skv: int, se: int, n: int,
+                          min_seq: int = 256) -> bool:
+    """The reference's rule: Sq >= min_seq, and Sq, Skv and Se (when
+    there is a second source) divisible by the axis size n."""
+    return sq >= min_seq and sq % n == 0 and skv % n == 0 and se % n == 0
+
+
+def _ring_eligible(q, k, extra_k) -> bool:
+    mesh = _SEQ_PARALLEL["mesh"]
+    if mesh is None:
+        return False
+    from contexture_nerf_tpu_torch.parallel.mesh import axis_size
+
+    n = axis_size(mesh, _SEQ_PARALLEL["axis"])
+    se = 0 if extra_k is None else extra_k.shape[2]
+    return ring_eligible_lengths(q.shape[2], k.shape[2], se, n,
+                                 _SEQ_PARALLEL["min_seq"])
 
 
 def routes_to_kernel(sq: int, skv: int, se: int = 0) -> bool:
@@ -138,8 +179,14 @@ def flash_attention(q, k, v, extra_k=None, extra_v=None, block_m=0):
 
 def attention(q, k, v, extra_k=None, extra_v=None):
     """Multi-head attention over (B, H, S, d) tensors, dispatched by shape as
-    the reference does: the kernel for long sequences on the card, plain
-    matmul + softmax (extra KV concatenated) otherwise."""
+    the reference does: ring attention for the eligible calls under
+    `sequence_parallel`, then the kernel for long sequences on the card,
+    plain matmul + softmax (extra KV concatenated) otherwise."""
+    if _ring_eligible(q, k, extra_k):
+        from contexture_nerf_tpu_torch.parallel.ring import ring_attention
+
+        return ring_attention(q, k, v, _SEQ_PARALLEL["mesh"],
+                              _SEQ_PARALLEL["axis"], extra_k, extra_v)
     se = 0 if extra_k is None else extra_k.shape[2]
     if q.is_cuda and routes_to_kernel(q.shape[2], k.shape[2], se):
         return flash_attention(q, k, v, extra_k, extra_v)

@@ -34,10 +34,21 @@ K2 backward over every texel) and takes the full-canvas backward.
 The eval renders the turntable (K5 once a frame) with one texture map (K1
 once an `evaluate` call: the map depends on the parameters only), filled
 with the painted texels' median after painting.
+
+On several ranks (torchrun, optim.data_parallel), `make_mesh` builds the
+reference's (views), (views x tp) or (views x sp) mesh. The step splits the
+student's query rows into contiguous blocks over `views` (each rank runs
+the MLP on its rows), all-gathers the canvas, runs the composite, the VAE
+encode, the teacher (its attention through the ring under sp, its towers
+sharded under tp) and the loss replicated, and sums the MLP's gradients
+over `views` before Adam; every rank draws the same numbers. The eval
+renders the turntable in chunks over `views`. Rank 0 writes the run's
+files.
 """
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import json
 import logging
@@ -70,7 +81,9 @@ from contexture_nerf_tpu_torch.models.fields import NeRF2D
 from contexture_nerf_tpu_torch.models.textured_mesh import TexturedMeshModel
 from contexture_nerf_tpu_torch.ops import _build
 from contexture_nerf_tpu_torch.ops import groupnorm
-from contexture_nerf_tpu_torch.ops.attention import routes_to_kernel
+from contexture_nerf_tpu_torch.ops.attention import (ring_eligible_lengths,
+                                                     routes_to_kernel,
+                                                     sequence_parallel)
 from contexture_nerf_tpu_torch.ops.grid import merge_6_to_grid, split_grid_to_6
 from contexture_nerf_tpu_torch.ops.image import (color_with_shade,
                                                  crop_and_resize,
@@ -84,6 +97,8 @@ from contexture_nerf_tpu_torch.ops.mlp_kernel import (fused_nerf2d,
 from contexture_nerf_tpu_torch.ops.view_consistency import \
     compute_view_consistency
 from contexture_nerf_tpu_torch.ops.view_weights import compute_view_weights
+from contexture_nerf_tpu_torch.parallel import mesh as pmesh
+from contexture_nerf_tpu_torch.parallel.tp import shard_params_tp
 from contexture_nerf_tpu_torch.raster.render import RenderCache
 from contexture_nerf_tpu_torch.training.views_dataset import (
     MultiviewDataset, ViewsDataset, Zero123PlusDataset)
@@ -96,6 +111,7 @@ MULTIRES = 10
 LOG_EVERY = 50  # iterations between logged metrics, as the reference
 BOOTSTRAP_STEPS = 50  # img2img_step's num_inference_steps, as the reference
 FIT_STEPS = 300  # fit_texture_to_image's steps for guide.initial_texture
+SP_MIN_SEQ = 256  # sequence_parallel's min_seq, the reference's default
 
 
 def apply_int8(cfg: TrainConfig, teacher: Zero123PlusTeacher
@@ -115,21 +131,47 @@ def mlp_dtype(teacher_dtype: torch.dtype, device) -> torch.dtype:
         else teacher_dtype
 
 
-def check_parallel(cfg: TrainConfig) -> None:
-    """The reference builds a (views x tp) or (views x sp) device mesh for
-    optim.tensor_parallel / optim.sequence_parallel, refuses both at once,
-    and refuses either when no mesh can be built, as on one device. The
-    port runs on one device, so it refuses both knobs likewise."""
+def make_mesh(cfg: TrainConfig):
+    """The device mesh of the step and the eval, as the reference's
+    `_make_mesh` builds it over the ranks of torch.distributed (one rank
+    when it is not initialised): None with optim.data_parallel 'off' or one
+    rank; over every rank with 'on', and with 'auto' only when the ranks
+    are on CUDA (the reference's 'auto' builds one on its accelerator
+    only). optim.tensor_parallel / sequence_parallel > 1 make it (n/tp, tp)
+    as ("views", "tp") or (n/sp, sp) as ("views", "sp"); both at once, a
+    degree that does not divide n, or either where no mesh is built
+    raise, in the reference's words."""
+    dp = cfg.optim.data_parallel
     tp = max(1, int(cfg.optim.tensor_parallel))
     sp = max(1, int(cfg.optim.sequence_parallel))
     if tp > 1 and sp > 1:
         raise ValueError("optim.tensor_parallel and "
                          "optim.sequence_parallel are mutually exclusive")
+    n = pmesh.world_size()
+    if n <= 1 or dp == "off":
+        if tp > 1 or sp > 1:
+            raise ValueError(
+                f"optim.tensor_parallel={tp}/sequence_parallel={sp} "
+                f"requested but no mesh can be built (data_parallel={dp!r}, "
+                f"{n} ranks) — an explicit TP/SP request must not be "
+                "silently ignored")
+        return None
+    if dp == "on" or (dp == "auto" and pmesh.device_type() == "cuda"):
+        for name, k in (("tensor_parallel", tp), ("sequence_parallel", sp)):
+            if k > 1:
+                if n % k:
+                    raise ValueError(f"optim.{name}={k} does not divide "
+                                     f"the {n} ranks")
+                return pmesh.create_mesh(
+                    (n // k, k), ("views", "tp" if tp > 1 else "sp"))
+        return pmesh.create_mesh((n,), ("views",))
     if tp > 1 or sp > 1:
         raise ValueError(
             f"optim.tensor_parallel={tp}/sequence_parallel={sp} requested "
-            "but the port runs on one device and builds no device mesh; an "
-            "explicit TP/SP request must not be silently ignored")
+            f"but data_parallel='auto' builds no mesh on the "
+            f"{pmesh.device_type()} backend — set optim.data_parallel='on' "
+            "to force one")
+    return None
 
 
 def _to(x, device, dtype=None):
@@ -140,20 +182,28 @@ def _to(x, device, dtype=None):
 
 
 class SDSTrainer:
-    """The SDS texture loop of the Zero123++ teacher on one device. `setup`
-    is what `prepare_sds` returns. The step's random draws come from
-    `generator` (a new one seeded with optim.seed if None), which also
-    fills a teacher or MLP made here. optim.exact_lattice_render renders
-    the texture map of `mesh_model` through setup's cache6 and turns
-    local_sds_grad off, as the reference does."""
+    """The SDS texture loop of the Zero123++ teacher. `setup` is what
+    `prepare_sds` returns. The step's random draws come from `generator` (a
+    new one seeded with optim.seed if None), which also fills a teacher or
+    MLP made here. optim.exact_lattice_render renders the texture map of
+    `mesh_model` through setup's cache6 and turns local_sds_grad off, as
+    the reference does. `mesh` is the device mesh of the step:
+    make_mesh(cfg) by default, None for this rank alone; with a `tp` axis
+    of size > 1 the teacher's UNet, ControlNet and VAE encoder are sharded
+    here (parallel/tp.py)."""
 
     def __init__(self, cfg: TrainConfig, setup: Dict, teacher:
                  Optional[Zero123PlusTeacher] = None,
                  mlp: Optional[NeRF2D] = None, tiny: bool = False,
                  device="cuda", generator: Optional[torch.Generator] = None,
-                 mesh_model: Optional[TexturedMeshModel] = None):
+                 mesh_model: Optional[TexturedMeshModel] = None,
+                 mesh="config"):
         dev = self.device = resolve_device(device)
-        check_parallel(cfg)
+        self.mesh = make_mesh(cfg) if mesh == "config" else mesh
+        self.n_views = pmesh.axis_size(self.mesh, "views")
+        self.sp = pmesh.axis_size(self.mesh, "sp")
+        self.tp = pmesh.axis_size(self.mesh, "tp")
+        self._grad_rows_split = False
         self.exact = bool(cfg.optim.exact_lattice_render)
         if self.exact and (mesh_model is None
                            or setup.get("cache6") is None):
@@ -168,6 +218,10 @@ class SDSTrainer:
             device=dev).manual_seed(cfg.optim.seed)
         self.teacher = apply_int8(cfg, teacher or Zero123PlusTeacher(
             tiny=tiny, device=dev, generator=self.generator))
+        if self.tp > 1:
+            for tower in (self.teacher.unet, self.teacher.controlnet,
+                          self.teacher.vae_encoder):
+                shard_params_tp(tower, self.mesh, "tp")
         self.dtype = self.teacher.dtype
         self.mlp_dtype = mlp_dtype(self.dtype, dev)
         self.mlp = mlp or NeRF2D(generator=self.generator, device=dev)
@@ -236,7 +290,9 @@ class SDSTrainer:
         """Texture colours in [0,1] at the grid's UVs, or at the window
         (oy, ox, h, w) of the grid, through the fused MLP. With an edit
         mask m (guide.reference_texture), m rgb + (1 - m) rgb.detach():
-        the unedited texels carry no gradient."""
+        the unedited texels carry no gradient. Under a mesh, rows that the
+        `views` size divides are split into contiguous blocks: each rank
+        queries its block, and the colours are all-gathered."""
         H, W = self.grid_hw
         src = self.emb_pts if self.emb_pts is not None else self.uv_pts
         m = self.edit_mask
@@ -249,11 +305,20 @@ class SDSTrainer:
 
             src = cut(src)
             m = cut(m) if m is not None else None
+        split = self.mesh is not None and src.shape[0] % self.n_views == 0
+        if split:
+            r = pmesh.axis_rank(self.mesh, "views")
+            src = pmesh.block(src, self.n_views, r)
+            m = pmesh.block(m, self.n_views, r) if m is not None else None
+        if torch.is_grad_enabled():
+            self._grad_rows_split = split
         fn = fused_nerf2d_emb if self.emb_pts is not None else fused_nerf2d
         out = fn(self.mlp, src, MULTIRES, compute_dtype=self.mlp_dtype)
         rgb = (torch.tanh(out) + 1.0) / 2.0
         if m is not None:
             rgb = m * rgb + (1 - m) * rgb.detach()
+        if split:
+            rgb = pmesh.gather_rows(rgb, self.mesh.get_group("views"))
         return rgb
 
     def _composite(self, rgb, h, w, mask):
@@ -370,16 +435,18 @@ class SDSTrainer:
         z_sg = z.detach()
         latents_noisy = sch.add_noise(self.acp, z_sg, noise, t_t)
         tch = self.teacher
-        if self.individual:
-            v_pred = tch._cfg_v_pred_individual(
-                latents_noisy, t_t, self.cond_lat_pair, self.ehs,
-                self.depth_grid, self.gs_i, self.gs_t, neg_noise, cond_noise,
-                cn_cond_emb=self.cn_cond_emb)
-        else:
-            v_pred = tch._cfg_v_pred(
-                latents_noisy, t_t, self.cond_lat_pair, self.ehs,
-                self.depth_grid, GUIDANCE_SCALE, neg_noise, cond_noise,
-                cn_cond_emb=self.cn_cond_emb)
+        with (sequence_parallel(self.mesh, "sp", SP_MIN_SEQ) if self.sp > 1
+              else contextlib.nullcontext()):
+            if self.individual:
+                v_pred = tch._cfg_v_pred_individual(
+                    latents_noisy, t_t, self.cond_lat_pair, self.ehs,
+                    self.depth_grid, self.gs_i, self.gs_t, neg_noise,
+                    cond_noise, cn_cond_emb=self.cn_cond_emb)
+            else:
+                v_pred = tch._cfg_v_pred(
+                    latents_noisy, t_t, self.cond_lat_pair, self.ehs,
+                    self.depth_grid, GUIDANCE_SCALE, neg_noise, cond_noise,
+                    cn_cond_emb=self.cn_cond_emb)
         v = sch.velocity_target(self.acp, z_sg, noise, t_t)
         acp_t = self.acp[t_t].reshape(-1, 1, 1, 1)
         w = 1 - acp_t
@@ -391,6 +458,11 @@ class SDSTrainer:
             (z_tiles[tile_idx] - tgt_tiles[tile_idx]) ** 2) / z.shape[0]
         loss.backward()
         grads = [p.grad for p in self.mlp.parameters()]
+        if self._grad_rows_split:
+            # each rank's gradient is its rows' share: sum over `views`
+            group = self.mesh.get_group("views")
+            for gr in grads:
+                pmesh.all_reduce_sum(gr, group)
         grad_norm = torch.sqrt(sum(torch.sum(gr.float() ** 2) for gr in grads))
         self.optimizer.step()
         fisher = torch.sum((torch.sqrt(acp_t) /
@@ -432,7 +504,8 @@ class SDSTrainer:
         the rasterizer never (it runs in prepare_sds)."""
         ucfg = self.teacher.unet_config
         single, two = teacher_attention_launches(
-            ucfg, self.latent_shape()[2:], tuple(self.cond_lat_pair.shape[2:]))
+            ucfg, self.latent_shape()[2:], tuple(self.cond_lat_pair.shape[2:]),
+            self.sp)
         encodes = 2 if self.local_grad else 1
         gn = (2 * unet_groupnorms(ucfg) + unet_groupnorms(ucfg, True)
               + encodes * vae_groupnorms(self.teacher.vae_config))
@@ -467,13 +540,15 @@ def self_attention_levels(ucfg: UNetConfig, controlnet: bool = False
     return out
 
 
-def teacher_attention_launches(ucfg: UNetConfig, lat_hw, cond_hw
+def teacher_attention_launches(ucfg: UNetConfig, lat_hw, cond_hw, sp: int = 1
                                ) -> Tuple[int, int]:
     """(K3, K4) launches of one teacher call (`_cfg_core`, any number of
     CFG branches: they share a call) on a (h, w) latent with a (hc, wc)
     cond latent: the write pass's, the read pass's (with the reference
     tokens) and the ControlNet's self-attentions that the routing rule
-    sends to the kernel (cross-attention's 77 tokens never are)."""
+    sends to the kernel (cross-attention's 77 tokens never are). Under
+    sequence parallelism of size sp > 1 the calls that ring attention
+    takes (`ring_eligible_lengths`) launch neither."""
     calls = []  # (Sq, Skv, Se) of each self-attention
     for (level, n_unet), (_, n_cn) in zip(self_attention_levels(ucfg),
                                           self_attention_levels(
@@ -482,9 +557,10 @@ def teacher_attention_launches(ucfg: UNetConfig, lat_hw, cond_hw
         calls += [(tc, tc, 0)] * n_unet  # write pass
         calls += [(tl, tl, tc)] * n_unet  # read pass, reference tokens
         calls += [(tl, tl, 0)] * n_cn  # ControlNet
-    single = sum(1 for c in calls if c[2] == 0 and routes_to_kernel(*c))
-    two = sum(1 for c in calls if c[2] > 0 and routes_to_kernel(*c))
-    return single, two
+    calls = [c for c in calls if routes_to_kernel(*c) and not (
+        sp > 1 and ring_eligible_lengths(*c, sp, SP_MIN_SEQ))]
+    single = sum(1 for c in calls if c[2] == 0)
+    return single, len(calls) - single
 
 
 def unet_self_attention_launches(ucfg: UNetConfig, lat_hw) -> int:
@@ -995,8 +1071,9 @@ def build_models(cfg: TrainConfig, tiny: bool = False, device="cuda",
     it the MLP and every later draw, does not depend on what loads; a
     guide.concept_path that exists adds its concept to the SD2 text
     tower. optim.int8_controlnet / int8_teacher set the teacher's W8A8
-    towers (`apply_int8`)."""
-    check_parallel(cfg)
+    towers (`apply_int8`). Under several ranks each builds the same models
+    from the same seed; only rank 0 writes the atlas cache."""
+    make_mesh(cfg)
     dev = resolve_device(device)
     z_wp = zero123plus_weight_paths(cfg.guide)
     sd_wp = sd_weight_paths(cfg.guide)
@@ -1012,7 +1089,8 @@ def build_models(cfg: TrainConfig, tiny: bool = False, device="cuda",
         cfg.guide, render_grid_size=cfg.render.train_grid_size,
         texture_resolution=cfg.guide.texture_resolution,
         cache_path=Path("cache") / Path(cfg.guide.shape_path).stem,
-        compute_dtype=mlp_dtype(teacher.dtype, dev), device=dev)
+        compute_dtype=mlp_dtype(teacher.dtype, dev), device=dev,
+        write_cache=pmesh.is_writer())
     seed_texture_field(cfg, mesh_model, mlp, generator)
     if not skip_bootstrap and diffusion is None:
         diffusion = StableDiffusionDepth(
@@ -1079,14 +1157,17 @@ def eval_frame(mesh_model: TexturedMeshModel, texture: torch.Tensor, theta,
     return rgb, depth, z_normals
 
 
-def full_eval_kernel_launches(cfg: TrainConfig) -> Dict[str, int]:
-    """Kernel launches of `ConTEXTure.full_eval` on the card: K5 once a
-    turntable frame; K1 once for the texture map, which `evaluate` computes
-    once for all its frames (it depends on the parameters only), and once
-    more for export_mesh's albedo with log.save_mesh."""
+def full_eval_kernel_launches(cfg: TrainConfig, n_views: int = 1,
+                              writer: bool = True) -> Dict[str, int]:
+    """Kernel launches of `ConTEXTure.full_eval` on one rank of the card:
+    K5 once for each of its turntable frames (the frames go in chunks of
+    the mesh's `views` size n_views, the last one filled); K1 once for the
+    texture map, which `evaluate` computes once for all its frames (it
+    depends on the parameters only), and once more for export_mesh's
+    albedo with log.save_mesh on the rank that writes."""
     counts = {k: 0 for k in _build.launch_counts}
-    counts["raster"] = cfg.log.full_eval_size
-    counts["mlp_fwd"] = 1 + (1 if cfg.log.save_mesh else 0)
+    counts["raster"] = -(-cfg.log.full_eval_size // n_views)
+    counts["mlp_fwd"] = 1 + (1 if cfg.log.save_mesh and writer else 0)
     return counts
 
 
@@ -1150,7 +1231,10 @@ class ConTEXTure:
     overwritten by the config's local snapshots);
     `paint` runs `paint_zero123plus`: prepare_sds, the SDS loop with its
     metrics, images and checkpoints, then `full_eval` (the turntable and
-    the exported mesh). Outputs go to log.exp_root/log.exp_name."""
+    the exported mesh). Outputs go to log.exp_root/log.exp_name. On several
+    ranks each builds the same run, the step and the eval run over
+    `make_mesh`'s mesh, and only rank 0 (`writer`) writes files and logs;
+    a resume loads on every rank."""
 
     # eval frames holding device buffers at once in evaluate()
     _EVAL_INFLIGHT = 3
@@ -1160,17 +1244,21 @@ class ConTEXTure:
                  mlp: Optional[NeRF2D] = None,
                  diffusion: Optional[StableDiffusionDepth] = None):
         self.cfg = cfg
+        self.mesh = make_mesh(cfg)
+        self.writer = pmesh.is_writer()
         self.device = resolve_device(device)
         self.paint_step = 0
         self.tiny = tiny_models
 
-        self.exp_path = make_path(Path(cfg.log.exp_dir))
-        self.ckpt_path = make_path(self.exp_path / "checkpoints")
-        self.train_renders_path = make_path(self.exp_path / "vis" / "train")
-        self.eval_renders_path = make_path(self.exp_path / "vis" / "eval")
-        self.final_renders_path = make_path(self.exp_path / "results")
+        mk = make_path if self.writer else Path
+        self.exp_path = mk(Path(cfg.log.exp_dir))
+        self.ckpt_path = mk(self.exp_path / "checkpoints")
+        self.train_renders_path = mk(self.exp_path / "vis" / "train")
+        self.eval_renders_path = mk(self.exp_path / "vis" / "eval")
+        self.final_renders_path = mk(self.exp_path / "results")
         self._init_logger()
-        dump_config(cfg, self.exp_path / "config.yaml")
+        if self.writer:
+            dump_config(cfg, self.exp_path / "config.yaml")
 
         (self.generator, self.teacher, self.mlp, self.diffusion,
          self.mesh_model) = build_models(cfg, tiny_models, self.device,
@@ -1191,7 +1279,7 @@ class ConTEXTure:
                                  file_type="png")
         # optional wandb: metrics.json is always written, wandb is opt-in
         self._wandb = None
-        if os.environ.get("WANDB_ENABLED"):
+        if self.writer and os.environ.get("WANDB_ENABLED"):
             try:
                 import wandb
 
@@ -1211,6 +1299,9 @@ class ConTEXTure:
             if isinstance(h, logging.FileHandler):
                 logger.removeHandler(h)
                 h.close()
+        if not self.writer:  # rank 0 logs for the run
+            logger.setLevel(logging.WARNING)
+            return
         logger.addHandler(logging.FileHandler(self.exp_path / "log.txt"))
         # log.txt gets the run's INFO lines whatever the root logger's level
         logger.setLevel(logging.INFO)
@@ -1246,7 +1337,7 @@ class ConTEXTure:
         continues from the newest checkpoint."""
         logger.info("Starting SDS Texture Generation ^_^")
         cfg = self.cfg
-        check_parallel(cfg)
+        mesh = make_mesh(cfg)
         self.paint_step += 1  # prepare_sds paints the front view
         logger.info(f"--- Painting step #{self.paint_step} ---")
         setup = prepare_sds(cfg, self.mesh_model, self.mlp, self.teacher,
@@ -1256,7 +1347,7 @@ class ConTEXTure:
                                     mlp=self.mlp, tiny=self.tiny,
                                     device=self.device,
                                     generator=self.generator,
-                                    mesh_model=self.mesh_model)
+                                    mesh_model=self.mesh_model, mesh=mesh)
         iterations = cfg.optim.sds_iterations
         ts = [int(t) for t in sds.t_schedule(iterations).tolist()]
 
@@ -1284,7 +1375,7 @@ class ConTEXTure:
         for i in range(start_iter, iterations):
             with profiler.phase("sds_step"):
                 _, loss, grad_norm, fisher, grid = sds.step(ts[i])
-            if logs_metrics(i, iterations):
+            if self.writer and logs_metrics(i, iterations):
                 loss_f = float(loss)
                 # float(loss) waited for the card: note the sync-to-sync
                 # window, so timings.json has the device-inclusive rate
@@ -1312,23 +1403,25 @@ class ConTEXTure:
                 # the window restarts after the metric work, so
                 # window_iter_ms counts loop iterations only
                 win_t0, win_i0 = time.time(), i
-            if cfg.log.log_images and logs_images(i):
+            if self.writer and cfg.log.log_images and logs_images(i):
                 self.log_texture_map(i)
                 self.log_train_image((unscale_image(grid) + 1) / 2,
                                      f"rendered_grid_clean_{i}")
-            if saves_checkpoint(i, iterations,
-                                cfg.optim.checkpoint_interval):
+            if self.writer and saves_checkpoint(
+                    i, iterations, cfg.optim.checkpoint_interval):
                 self.save_checkpoint(i + 1, sds.optimizer)
                 # metrics survive a real interruption too
                 metrics_path.write_text(json.dumps(metrics_log, indent=1))
 
-        metrics_path.write_text(json.dumps(metrics_log, indent=1))
-        self.save_checkpoint(iterations, sds.optimizer)
+        if self.writer:
+            metrics_path.write_text(json.dumps(metrics_log, indent=1))
+            self.save_checkpoint(iterations, sds.optimizer)
         self._median_eval = True
         logger.info("Finished SDS Painting ^_^")
         self.full_eval()
         self._img_writer.flush()  # raise any failed or pending log write
-        profiler.GLOBAL_TIMINGS.dump(self.exp_path / "timings.json")
+        if self.writer:
+            profiler.GLOBAL_TIMINGS.dump(self.exp_path / "timings.json")
 
     @torch.no_grad()
     def paint_viewpoint(self, data: Dict, should_project_back: bool = False,
@@ -1368,22 +1461,26 @@ class ConTEXTure:
         the step's derivation needs its SDSTrainer): seed_texture_field's,
         prepare_sds's, each step's, the view-consistency metric's (K5 once
         for its cached geometry, K1 once a call), K1 once for each texture
-        map logged, and full_eval's."""
+        map logged (the metric and the maps on the rank that writes only),
+        and full_eval's, on this rank."""
         cfg, n = self.cfg, self.cfg.optim.sds_iterations
         its = range(start_iter, n)
+        logged = its if self.writer else ()
         counts = prepare_sds_kernel_launches(cfg, self.teacher,
                                              self.diffusion)
         for k, v in seed_texture_kernel_launches(cfg).items():
             counts[k] += v
         for k, v in self.sds.expected_kernel_launches().items():
             counts[k] += len(its) * v
-        vc = sum(1 for i in its if logs_metrics(i, n)
+        vc = sum(1 for i in logged if logs_metrics(i, n)
                  and logs_view_consistency(i, n))
         counts["raster"] += 1 if vc else 0
         counts["mlp_fwd"] += vc
         if cfg.log.log_images:
-            counts["mlp_fwd"] += sum(1 for i in its if logs_images(i))
-        for k, v in full_eval_kernel_launches(cfg).items():
+            counts["mlp_fwd"] += sum(1 for i in logged if logs_images(i))
+        for k, v in full_eval_kernel_launches(
+                cfg, pmesh.axis_size(self.mesh, "views"),
+                self.writer).items():
             counts[k] += v
         return counts
 
@@ -1444,13 +1541,22 @@ class ConTEXTure:
         each) and eval_texture_atlas.png. Each frame is quantised on the
         card and copied to the host while the next renders, with at most
         _EVAL_INFLIGHT frames holding device buffers; a non-finite frame
-        raises. Notes the "eval" window (frames after the first)."""
-        check_parallel(self.cfg)
+        raises. Notes the "eval" window (frames after the first). Under a
+        mesh the poses go in chunks of the `views` size, the last pose
+        repeated to fill the last chunk: each rank renders its pose of a
+        chunk, the chunk's frames are all-gathered, and rank 0 writes the
+        real ones."""
+        mesh = make_mesh(self.cfg)
         logger.info(f"Evaluating and saving model, painting iteration "
                     f"#{self.paint_step}...")
-        save_path.mkdir(exist_ok=True, parents=True)
+        if self.writer:
+            save_path.mkdir(exist_ok=True, parents=True)
         dim = self.cfg.render.eval_grid_size
         poses = list(dataloader)
+        n_real = len(poses)
+        chunk = pmesh.axis_size(mesh, "views")
+        poses += poses[-1:] * ((-n_real) % chunk)
+        vr = pmesh.axis_rank(mesh, "views")
         texture = self._eval_texture()
         all_preds = []
         pending = deque()
@@ -1471,16 +1577,28 @@ class ConTEXTure:
             else:
                 save_image(arr[0], save_path / f"eval_rendered_{i:04d}_rgb.jpg")
 
-        for i, p in enumerate(poses):
+        for c in range(0, len(poses), chunk):
+            p = poses[c + vr]
             rgb, _, _ = eval_frame(self.mesh_model, texture, [p["theta"]],
                                    [self._adjust_phi(p["phi"])],
                                    [p["radius"]], dim)
             q, bad = _quantize_u8(rgb)
-            pending.append((i, start_host_copy(q), start_host_copy(bad)))
-            if len(pending) >= self._EVAL_INFLIGHT:
-                drain_one()
+            if mesh is not None:
+                group = mesh.get_group("views")
+                q = pmesh.all_gather_cat(q, group)
+                bad = pmesh.all_gather_cat(bad[None], group)
+            if not self.writer:
+                continue
+            for j in range(min(chunk, n_real - c)):
+                pending.append((c + j, start_host_copy(q[j:j + 1]),
+                                start_host_copy(bad.reshape(-1)[j])))
+                if len(pending) >= self._EVAL_INFLIGHT:
+                    drain_one()
         while pending:
             drain_one()
+        if not self.writer:
+            logger.info("Eval Done!")
+            return
         if win["t_first"] is not None and win["frames"] > 0:
             profiler.GLOBAL_TIMINGS.note_window(
                 "eval", win["frames"], time.perf_counter() - win["t_first"])
@@ -1506,7 +1624,7 @@ class ConTEXTure:
         with profiler.phase("eval"):
             self.evaluate(self.dataloaders["val_large"], output_dir,
                           save_as_video=True)
-        if self.cfg.log.save_mesh:
+        if self.cfg.log.save_mesh and self.writer:
             save_path = make_path(self.exp_path / "mesh")
             logger.info(f"Saving mesh to {save_path}")
             with profiler.phase("export"):
@@ -1552,8 +1670,9 @@ class ConTEXTure:
                         file_type: str = "jpg", colormap: bool = False):
         """vis/train/debug_<name>.<file_type> from the first image of a
         batch; colormap routes a (H,W) scalar map through the seismic
-        colormap. Quantised here, written on the writer thread."""
-        if not self.cfg.log.log_images:
+        colormap. Quantised here, written on the writer thread (rank 0
+        only)."""
+        if not self.cfg.log.log_images or not self.writer:
             return
         path = self.train_renders_path / f"debug_{name}.{file_type}"
         if colormap:
@@ -1564,8 +1683,9 @@ class ConTEXTure:
                                 _write_chw_image(path))
 
     def log_diffusion_steps(self, intermediate_vis):
-        """The intermediate denoise frames, in a folder per paint step."""
-        if not intermediate_vis:
+        """The intermediate denoise frames, in a folder per paint step (rank
+        0 only)."""
+        if not intermediate_vis or not self.writer:
             return
         folder = (self.train_renders_path
                   / f"{self.paint_step:04d}_diffusion_steps")
