@@ -6,7 +6,7 @@ Run from the root of a checkout, on a machine with one NVIDIA GPU:
     python3 chip_smoke.py [--seed N] [--profile] [--sweep]
                           [--mlp-only | --raster-only [--against DIR] |
                            --snapshot-only | --mesh-only | --generate-only |
-                           --int8-only | --tools-only]
+                           --int8-only | --tools-only | --parallel-only]
 
 It builds the hand-written CUDA kernels from csrc/, holds each against its
 plain PyTorch version at the shapes the main path gives it (and checks that
@@ -53,8 +53,14 @@ steps in bf16, int8_controlnet and int8_teacher in turns. The tools path
 err_after within 0.15; a green-target teacher must fail it), one run_one
 of each root driver on the torus with the main path's towers,
 render_face_normals_face_idx against the plain rasterizer and the CPU,
-and volume_render at bench.py's shape against the CPU. Any failed
-phase exits non-zero. The last line is {"ok": true,
+and volume_render at bench.py's shape against the CPU, compare_outputs on
+two runs' outputs and knob_quality's two paints. The parallel path
+(`parallel_path`, last): one NCCL rank per visible GPU (up to 4; world
+size 1 on a one-GPU machine, which exercises no multi-rank collective),
+the sharded SDS step against the single-device step, ring attention at
+the teacher's shape, a TP teacher call and the sharded eval. The mesh
+path also times the C++ unwrap and OBJ reader against the numpy ones. Any
+failed phase exits non-zero. The last line is {"ok": true,
 "device": {...}}; the line before it is the JSON record of the kernels.
 --profile also writes a torch.profiler table of one step to chiprun_out/;
 --sweep also times K3/K4 at each query tile the kernel is built for.
@@ -67,7 +73,8 @@ result line). --mesh-only runs only the mesh path, on a teacher of its
 own (no result line). --generate-only runs only the generation path, on
 towers of its own (no result line). --int8-only runs only the int8 path,
 on a trainer of its own without the bootstrap; --tools-only only the
-tools path, on towers of its own (no result line).
+tools path, on towers of its own (no result line). --parallel-only runs only the
+parallel path (no result line).
 """
 
 import argparse
@@ -2638,6 +2645,49 @@ def write_uvless_obj(path, verts, faces):
         np.savetxt(fh, faces + 1, fmt="f %d %d %d")
 
 
+def native_vs_numpy(verts, faces, obj, card, failures):
+    """The C++ unwrap (native/objio.py) and the numpy unwrap of one mesh on
+    the host, timed, their ratio, and whether atlas_unwrap kept the C++
+    atlas (no chart overlaps itself); the OBJ read by the C++ parser and
+    by the numpy parser, timed and held equal."""
+    import numpy as np
+
+    from contexture_nerf_tpu_torch.models import mesh as mesh_io
+    from contexture_nerf_tpu_torch.models import textured_mesh as tmm
+    from contexture_nerf_tpu_torch.native import objio
+
+    objio.build()  # the g++ build is not in the times
+    t0 = time.perf_counter()
+    vt_n, ft_n = objio.chart_unwrap_native(verts, faces)
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    overlaps = tmm._chart_overlaps(vt_n, ft_n)
+    check_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    vt_p, ft_p = tmm.atlas_unwrap(verts, faces, native=False)
+    numpy_s = time.perf_counter() - t0
+    same_ft = np.array_equal(ft_n, ft_p)
+    print(f"  (a) unwrap of the {faces.shape[0]}-face sphere on the host: "
+          f"C++ {native_s:.3f} s (+ the overlap check {check_s:.3f} s), "
+          f"numpy {numpy_s:.3f} s, numpy / C++ {numpy_s / native_s:.1f}x "
+          f"(with the check {numpy_s / (native_s + check_s):.1f}x); a "
+          f"chart overlaps itself: {overlaps}; the same ft {same_ft} "
+          f"[{card}]")
+    t0 = time.perf_counter()
+    got = mesh_io.load_obj(str(obj))
+    read_n = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plain = mesh_io.load_obj(str(obj), native=False)
+    read_p = time.perf_counter() - t0
+    same = all(np.array_equal(a, b) for a, b in zip(got[:2], plain[:2])) \
+        and got[2] is None and plain[2] is None
+    print(f"  (a) OBJ read of {obj.name} ({obj.stat().st_size / 1e6:.1f} MB):"
+          f" C++ {read_n:.3f} s, numpy {read_p:.3f} s, numpy / C++ "
+          f"{read_p / read_n:.1f}x, the same arrays {same} [{card}]")
+    if overlaps or not same:
+        failures.append("mesh path: the native unwrap or OBJ reader")
+
+
 def mesh_path(torch, seed, teacher, shape_recs, failures):
     """A mesh a user brings, at full width: a UV sphere of 100,000 faces
     written as an OBJ without UVs. (a) its atlas unwrapped on the host
@@ -2737,6 +2787,7 @@ def mesh_path(torch, seed, teacher, shape_recs, failures):
         if not (in01 and overlap < 0.02 and same and len(unwraps) == 1):
             failures.append("mesh path: the atlas or its cache")
         del again
+        native_vs_numpy(mm.mesh.vertices, mm.mesh.faces, obj, card, failures)
 
         th, ph, r = tr.view_angles(cfg.render)
         _, fvc, fvi, _ = mm.project(th, ph, r)
@@ -3405,7 +3456,8 @@ def tools_path(torch, seed, models, failures):
     against the plain rasterizer on the card, bit for bit, and at 128^2
     against the CPU run. (4) volume_render at bench.py's shape (65,536
     rays, 64 coarse + 64 fine samples) against the CPU on the same draws,
-    to VOLUME_TOL, and its rays/s. Returns (launches by kernel, seconds)."""
+    to VOLUME_TOL, and its rays/s. (5) `user_tools`: knob_quality and
+    compare_outputs. Returns (launches by kernel, seconds)."""
     import shutil
 
     from contexture_nerf_tpu_torch import generate_survey_textures as gs
@@ -3588,9 +3640,331 @@ def tools_path(torch, seed, models, failures):
           f"{R / ms * 1e3:.4g} rays/s [{card}]")
     if not ok:
         failures.append(f"volume_render card != CPU: {err}")
+
+    # (5) knob_quality's two paints, then compare_outputs on their outputs
+    user_tools(torch, seed, work, card, failures)
     secs = time.perf_counter() - t_phase
     print(f"  tools path {secs:.1f} s")
     return launches, secs
+
+
+def user_tools(torch, seed, work, card, failures):
+    """knob_quality's defaults and knobs paints (2 iterations each, its
+    production scale, each a CLI process of its own whose launches this
+    process does not count) and its comparison; then compare_outputs on the
+    two runs' results/ (the pairing, PSNR and JSON line; with random towers
+    the PSNR says only that the tools run) and on one run against itself
+    (inf, exit 0)."""
+    import contextlib
+    import io
+
+    from contexture_nerf_tpu_torch.tools import compare_outputs
+
+    root = work / "knob_quality"
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m", "contexture_nerf_tpu_torch.tools.knob_quality",
+         "--iters", "2", "--seed", str(seed), "--skip",
+         "knobq_emb_only,knobq_seed1", "--exp-root", str(root)],
+        cwd=ROOT, capture_output=True, text=True, timeout=900)
+    kq_s = time.perf_counter() - t0
+    if r.returncode != 0:
+        failures.append(f"knob_quality exited {r.returncode}: "
+                        f"{r.stdout[-1500:]}{r.stderr[-1500:]}")
+        return
+    res = json.loads(r.stdout.strip().splitlines()[-1])
+    cmp = res.get("default_vs_knobs", {})
+    frames = cmp.get("eval_render_psnr_db", {}).get("per_frame", [])
+    ok = len(frames) == 8 and "texture_atlas_psnr_db" in cmp
+    print(f"  (5) knob_quality --iters 2 (defaults and knobs): {kq_s:.1f} s "
+          f"(paints {json.dumps(res['wall_clock'])}); default vs knobs: "
+          f"atlas {cmp.get('texture_atlas_psnr_db')} dB, albedo "
+          f"{cmp.get('albedo_psnr_db')} dB, eval frames "
+          f"{cmp.get('eval_render_psnr_db', {}).get('mean')} dB mean over "
+          f"{len(frames)}; sds_loss {json.dumps(cmp.get('sds_loss'))} "
+          f"{'ok' if ok else 'BAD'} [{card}]")
+    if not ok:
+        failures.append(f"knob_quality: {res}")
+    a, b = (root / n / "results" for n in ("knobq_default", "knobq_knobs"))
+    out = {}
+    for label, argv in (("two runs", [str(a), str(b)]),
+                        ("a run against itself", [str(a), str(a)])):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = compare_outputs.main(argv)
+        out[label] = (rc, json.loads(buf.getvalue().splitlines()[-1]))
+    (rc2, two), (rc1, self_) = out["two runs"], out["a run against itself"]
+    ok = (two["pairs"] >= 1 and not two["missing"] and rc2 == int(
+        not two["pass"]) and rc1 == 0 and self_["pass"]
+        and self_["value"] == float("inf"))
+    print(f"  (5) compare_outputs default/results knobs/results: exit {rc2},"
+          f" {json.dumps(two)}; against itself: exit {rc1}, worst "
+          f"{self_['value']} dB {'ok' if ok else 'BAD'}")
+    if not ok:
+        failures.append(f"compare_outputs: {out}")
+
+
+PARALLEL_MAX_RANKS = 4
+PARALLEL_DEADLINE_S = 420.0  # a rank alive past it fails the path
+LOSS_RTOL, PARAM_ATOL = 1e-3, 5e-5  # the reference's dryrun tolerances
+TP_REL_FRO = 2e-2  # a TP teacher call on > 1 ranks: bf16 sums reordered
+RING_SHAPE = (2, 5, 9600, 64)  # the teacher's largest self-attention
+
+
+def parallel_rank(dev, seed, work):
+    """One rank of the parallel path (run by parallel/launch.py on NCCL;
+    see parallel_path). Returns {"lines", "failures", "launches"}."""
+    import copy
+
+    import torch
+
+    from contexture_nerf_tpu_torch.ops import _build
+    from contexture_nerf_tpu_torch.ops.attention import flash_attention_plain
+    from contexture_nerf_tpu_torch.parallel import mesh as pm
+    from contexture_nerf_tpu_torch.parallel import tp
+    from contexture_nerf_tpu_torch.parallel.ring import ring_attention
+    from contexture_nerf_tpu_torch.training import trainer as tr
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    n, rank = pm.world_size(), pm.rank()
+    card = card_line() if rank == 0 else ""
+    lines, failures = [], []
+    launches = {k: 0 for k in _build.launch_counts}
+
+    def counted_run(label, fn, want):
+        """fn() with the counts set to 0 just before and read just after,
+        held to the derived `want`."""
+        _build.reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize(dev)
+        got = dict(_build.launch_counts)
+        for k in launches:
+            launches[k] += got[k]
+        exp = {k: want.get(k, 0) for k in got}
+        ok = got == exp
+        lines.append(f"  {label}: launches {json.dumps(got)}"
+                     + (" = derived" if ok else
+                        f" != derived {json.dumps(exp)}"))
+        if not ok:
+            failures.append(f"parallel path {label}: launches {got} != {exp}")
+        return out
+
+    cfg = main_config(seed)
+    cfg.optim.data_parallel = "on"
+    cfg.log.exp_root = str(work)
+    cfg.log.full_eval_size = 8
+    cfg.log.save_mesh = False
+    cfg.log.log_images = False
+    run = tr.ConTEXTure(cfg, device=dev)
+    setup = tr.prepare_sds(cfg, run.mesh_model, run.mlp, run.teacher,
+                           skip_bootstrap=True, generator=run.generator)
+    mlp0 = copy.deepcopy(run.mlp)
+
+    def trainer(mesh, teacher=None):
+        return tr.SDSTrainer(cfg, setup, teacher=teacher or run.teacher,
+                             mlp=copy.deepcopy(mlp0), device=dev,
+                             generator=run.generator,
+                             mesh_model=run.mesh_model, mesh=mesh)
+
+    # (1) the SDS step: single device, then each mode, from one state
+    single = trainer(None)
+    draws = single.draw()
+    modes = [("dp", tr.make_mesh(cfg) or pm.create_mesh((n,), ("views",)))]
+    if n > 1:
+        for k, name in (("tensor_parallel", "tp2"),
+                        ("sequence_parallel", "sp2")):
+            setattr(cfg.optim, k, 2)
+            modes.append((name, tr.make_mesh(cfg)))
+            setattr(cfg.optim, k, 1)
+    results = {}
+    for name, mesh in [("single", None)] + modes:
+        t = single if mesh is None else trainer(
+            mesh, copy.deepcopy(run.teacher) if name == "tp2" else None)
+        pm.collective_counts.clear()
+        params, loss, *_ = counted_run(
+            f"(1) {name} step, mesh "
+            f"{None if mesh is None else tuple(mesh.mesh.shape)} "
+            f"{None if mesh is None else mesh.mesh_dim_names}",
+            lambda: t.step(500, draws), t.expected_kernel_launches())
+        coll = dict(pm.collective_counts)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t.step(500)  # warm
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        for _ in range(2):
+            t.step(500)
+        torch.cuda.synchronize(dev)
+        ms = (time.perf_counter() - t0) / 2 * 1e3
+        peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        results[name] = (params, float(loss))
+        lines.append(f"  (1) {name}: loss {float(loss):.6f}, {ms:.2f} ms a "
+                     f"step, peak {peak:.2f} GiB, collectives a step "
+                     f"{json.dumps(coll)} [{card}]")
+        if name != "tp2":
+            del t
+    p1, l1 = results["single"]
+    for name in results:
+        if name == "single":
+            continue
+        p2, l2 = results[name]
+        perr = max(float((p2[k].float() - p1[k].float()).abs().max())
+                   for k in p1)
+        same = all(torch.equal(p2[k], p1[k]) for k in p1) and l1 == l2
+        ok = same if n == 1 else (abs(l2 - l1) <= LOSS_RTOL * abs(l1)
+                                  and perr <= PARAM_ATOL)
+        lines.append(f"  (1) {name} against the single-device step: loss "
+                     f"{l2:.6f} vs {l1:.6f}, max |param diff| {perr:.3e}, "
+                     f"bit-identical {same} ("
+                     + ("required at world size 1" if n == 1 else
+                        f"limits loss {LOSS_RTOL} rel, params {PARAM_ATOL}")
+                     + f") {'ok' if ok else 'BAD'}")
+        if not ok:
+            failures.append(f"parallel path: the {name} step")
+
+    # (2) ring attention at the teacher's largest self-attention
+    B, H, S, d = RING_SHAPE
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v, ek, ev = (torch.randn((B, H, S, d), generator=g, device=dev)
+                       .to(torch.bfloat16) for _ in range(5))
+    sp_mesh = pm.create_mesh((n,), ("sp",))
+    for label, extra in (("one source", ()), ("two sources", (ek, ev))):
+        out = counted_run(f"(2) ring_attention {label} {RING_SHAPE}",
+                          lambda: ring_attention(q, k, v, sp_mesh, "sp",
+                                                 *extra), {})
+        ref = flash_attention_plain(*(t.float() for t in (q, k, v) + extra))
+        err = (out.float() - ref).abs()
+        ok = bool((err <= bf16_ulp(torch, ref) + 1e-6).all())
+        ms = cuda_ms(lambda: ring_attention(q, k, v, sp_mesh, "sp", *extra),
+                     reps=3, warmup=1)
+        lines.append(f"  (2) ring_attention, {label}, over {n} rank(s): max "
+                     f"|out - plain f32| {float(err.max()):.3e}, within one "
+                     f"bf16 ulp (+ 1e-6) of the plain output {ok}; "
+                     f"{ms:.2f} ms "
+                     f"[{card}]")
+        if not ok:
+            failures.append(f"parallel path: ring_attention {label}")
+    del q, k, v, ek, ev, out, ref
+
+    # (3) a TP teacher call against the replicated call
+    tp_mesh = pm.create_mesh((n,), ("tp",))
+    z = torch.randn(single.latent_shape(), generator=g, device=dev
+                    ).to(single.dtype)
+    t_t = torch.tensor([500], device=dev)
+
+    def call(teacher):
+        return teacher._cfg_v_pred(z, t_t, single.cond_lat_pair, single.ehs,
+                                   single.depth_grid, tr.GUIDANCE_SCALE,
+                                   draws["neg_noise"], draws["cond_noise"],
+                                   cn_cond_emb=single.cn_cond_emb)
+
+    towers = ("unet", "controlnet", "vae_encoder")
+    sharded = copy.deepcopy(run.teacher)
+    for name in towers:
+        tp.shard_params_tp(getattr(sharded, name), tp_mesh)
+    ucfg = run.teacher.unet_config
+    k3, k4 = tr.teacher_attention_launches(
+        ucfg, single.latent_shape()[2:], tuple(single.cond_lat_pair.shape[2:]))
+    want = {"flash_attn_single": k3, "flash_attn_two_source": k4,
+            "groupnorm": tr.groupnorm_launches(
+                2 * tr.unet_groupnorms(ucfg) + tr.unet_groupnorms(ucfg, True))}
+    with torch.no_grad():
+        rep = counted_run("(3) replicated teacher call",
+                          lambda: call(run.teacher), want)
+        got = counted_run(f"(3) teacher call, towers sharded over tp={n}",
+                          lambda: call(sharded), want)
+    rel = float((got.float() - rep.float()).norm() / rep.float().norm())
+    same = torch.equal(got, rep)
+    ok = same if n == 1 else rel <= TP_REL_FRO
+    sizes = {k: sum(tp.sharded_bytes(getattr(run.teacher, t), k)
+                    for t in towers) / 2 ** 30 for k in (1, 2, 4)}
+    held = sum(tp.parameter_bytes(getattr(sharded, t)) for t in towers)
+    lines.append(f"  (3) TP teacher call over {n} rank(s) against the "
+                 f"replicated call: rel Frobenius {rel:.3e}, bit-identical "
+                 f"{same} (" + ("required at world size 1" if n == 1 else
+                               f"limit {TP_REL_FRO}") + f") "
+                 f"{'ok' if ok else 'BAD'}; per-rank parameter GiB of the "
+                 f"UNet, ControlNet and VAE encoder at tp = 1, 2, 4: "
+                 + ", ".join(f"{v:.3f}" for v in sizes.values())
+                 + f" (held here {held / 2 ** 30:.3f}) [{card}]")
+    if not ok:
+        failures.append("parallel path: the TP teacher call")
+    del sharded, rep, got
+
+    # (4) the sharded 8-frame eval against the single frames
+    views = pm.create_mesh((n,), ("views",))
+    out_dir = Path(work) / "eval"
+    counted_run(f"(4) eval, 8 frames in chunks of {n}",
+                lambda: run.evaluate(run.dataloaders["val_large"],
+                                     out_dir / "sharded", mesh=views),
+                {"raster": -(-8 // n), "mlp_fwd": 1})
+    if rank == 0:
+        import numpy as np
+        from PIL import Image
+
+        run.evaluate(run.dataloaders["val_large"], out_dir / "single",
+                     mesh=None)
+        a = sorted((out_dir / "sharded").glob("*.jpg"))
+        b = sorted((out_dir / "single").glob("*.jpg"))
+        same = len(a) == len(b) == 8 and all(
+            x.name == y.name and np.array_equal(np.asarray(Image.open(x)),
+                                                np.asarray(Image.open(y)))
+            for x, y in zip(a, b))
+        lines.append(f"  (4) sharded eval: {len(a)} frames, equal to the "
+                     f"single frames {same} [{card}]")
+        if not same:
+            failures.append("parallel path: the sharded eval")
+    return {"lines": lines, "failures": failures, "launches": launches}
+
+
+def parallel_path(torch, seed, failures):
+    """Several GPUs (parallel/{mesh, ring, tp}, the trainer's mesh): one
+    NCCL rank per visible GPU, up to PARALLEL_MAX_RANKS, started by
+    parallel/launch.py with a deadline (a rank that fails or hangs fails
+    the path; nothing retries on gloo or the CPU). Each rank builds the
+    main path's models at full width (prepare_sds without the bootstrap)
+    and runs: (1) the SDS step on this rank alone, then with
+    data_parallel=on over every rank (a 1-rank views mesh at world size 1;
+    TP = 2 and SP = 2 too from 2 ranks), from the same state and draws:
+    bit-identical at world size 1, else within the reference's dryrun
+    tolerances; each mode's ms a step, peak GiB and collectives a step;
+    (2) ring_attention at the teacher's (2, 5, 9600, 64) self-attention,
+    with and without the second source, within one bf16 ulp (+ 1e-6) of
+    plain f32 attention; (3) a teacher call with its towers sharded over every rank
+    against the replicated call (bit-identical at world size 1), with the
+    per-rank parameter bytes at tp = 1, 2, 4; (4) the 8-frame eval in
+    chunks over `views` against the single frames, bit for bit. Every
+    launch count is held to its derivation. Returns (rank 0's launches,
+    seconds)."""
+    from contexture_nerf_tpu_torch.parallel.launch import run_ranks
+
+    t0 = time.perf_counter()
+    n = max(1, min(PARALLEL_MAX_RANKS, torch.cuda.device_count()))
+    work = ROOT / "build" / "parallel_path"
+    import shutil
+
+    shutil.rmtree(work, ignore_errors=True)
+    print(f"  world size {n} ({torch.cuda.device_count()} visible GPU(s), "
+          f"NCCL, deadline {PARALLEL_DEADLINE_S:.0f} s)")
+    if n == 1:
+        print("  world size 1: no multi-rank collective was exercised on "
+              "the card; the collectives ran over a group of one rank, and "
+              "the multi-rank paths are held on gloo CPU ranks by "
+              "tests/test_torch_parallel.py")
+    try:
+        res = run_ranks(n, f"{Path(__file__).resolve()}:parallel_rank",
+                        "cuda", kwargs={"seed": seed, "work": str(work)},
+                        timeout_s=PARALLEL_DEADLINE_S, threads=4)
+    except RuntimeError as e:
+        failures.append(f"parallel path: {str(e)[-3000:]}")
+        return {}, time.perf_counter() - t0
+    for line in res[0]["lines"]:
+        print(line)
+    for r, got in enumerate(res):
+        failures.extend(f"rank {r}: {f}" for f in got["failures"])
+    secs = time.perf_counter() - t0
+    print(f"  parallel path {secs:.1f} s [{card_line()}]")
+    return res[0]["launches"], secs
 
 
 def main():
@@ -3632,6 +4006,11 @@ def main():
                     help="run only the tools path (the semantic smoke, the "
                     "root drivers, the face normals, volume rendering) on "
                     "towers of its own and stop (no result line)")
+    ap.add_argument("--parallel-only", action="store_true",
+                    help="run only the parallel path (one NCCL rank per "
+                    "visible GPU, up to 4: the sharded SDS step, ring "
+                    "attention, a TP teacher call, the sharded eval) and "
+                    "stop (no result line)")
     ap.add_argument("--k5-times-of", metavar="DIR", help=argparse.SUPPRESS)
     args = ap.parse_args()
     t_script = time.perf_counter()
@@ -3758,6 +4137,12 @@ def main():
         for f in failures:
             print(f"FAIL: {f}")
         return 1 if failures else 0
+    if args.parallel_only:
+        print("parallel path alone")
+        parallel_path(torch, args.seed, failures)
+        for f in failures:
+            print(f"FAIL: {f}")
+        return 1 if failures else 0
     if args.tools_only:
         from contexture_nerf_tpu_torch.diffusion.zero123plus import \
             Zero123PlusTeacher
@@ -3847,13 +4232,19 @@ def main():
           "written to disk as diffusers snapshots")
     from_disk = snapshot_path(torch, args.seed, reference, failures)
     launches = {k: launches[k] + from_disk[k] for k in launches}
+    print("parallel path: one NCCL rank per visible GPU (up to 4), each at "
+          "full width: the sharded SDS step against the single-device step, "
+          "ring attention, a TP teacher call, the sharded 8-frame eval")
+    par, par_s = parallel_path(torch, args.seed, failures)
+    launches = {k: launches[k] + par.get(k, 0) for k in launches}
     for name, rec in recs.items():
         rec.d["launches"] = launches.get(name, 0)
         if rec.d["launches"] == 0:
             failures.append(f"{name} was not launched on the main path")
     total = time.perf_counter() - t_script
     print(f"generation path {gen_s:.1f} s, int8 path {int8_s:.1f} s, tools "
-          f"path {tools_s:.1f} s of the script's {total:.1f} s "
+          f"path {tools_s:.1f} s, parallel path {par_s:.1f} s of the "
+          f"script's {total:.1f} s "
           f"[{card_line()}]")
     if failures:
         for f in failures:

@@ -129,6 +129,17 @@ def parameter_bytes(module: nn.Module) -> int:
     return sum(p.numel() * p.element_size() for p in module.parameters())
 
 
+def sharded_bytes(module: nn.Module, n: int) -> int:
+    """Bytes of the parameters of an unsharded `module` that a rank would
+    hold at tp = n, by the same rules."""
+    total = 0
+    for name, p in module.named_parameters():
+        d = _dim_for(name, p)
+        k = n if d is not None and p.shape[d] % n == 0 else 1
+        total += p.numel() // k * p.element_size()
+    return total
+
+
 # -- the collectives of a sharded layer, with their backward -------------------
 
 class _CopyToTP(torch.autograd.Function):

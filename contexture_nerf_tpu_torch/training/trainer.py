@@ -1535,7 +1535,7 @@ class ConTEXTure:
 
     @torch.no_grad()
     def evaluate(self, dataloader, save_path: Path,
-                 save_as_video: bool = False):
+                 save_as_video: bool = False, mesh="config"):
         """Render every pose of `dataloader` at render.eval_grid_size and
         write the frames (a turntable video with save_as_video, else one JPG
         each) and eval_texture_atlas.png. Each frame is quantised on the
@@ -1545,8 +1545,8 @@ class ConTEXTure:
         mesh the poses go in chunks of the `views` size, the last pose
         repeated to fill the last chunk: each rank renders its pose of a
         chunk, the chunk's frames are all-gathered, and rank 0 writes the
-        real ones."""
-        mesh = make_mesh(self.cfg)
+        real ones. `mesh` is make_mesh(cfg) by default."""
+        mesh = make_mesh(self.cfg) if mesh == "config" else mesh
         logger.info(f"Evaluating and saving model, painting iteration "
                     f"#{self.paint_step}...")
         if self.writer:
