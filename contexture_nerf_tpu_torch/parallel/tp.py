@@ -14,7 +14,9 @@ function with explicit collectives over the `tp` group:
     along the feature or channel axis (so GEGLU's value / gate split sees
     the whole projection);
   - row (input-sharded) Dense: its slice of the input features times its
-    weight shard, all-reduced, the bias added once after the reduce.
+    weight shard, all-reduced in f32 (one rounding to the layer's dtype
+    after the sum, as the unsharded product rounds once), the bias added
+    once after the reduce.
 Under W8A8 the scales are the unsharded layer's: an activation's row scale
 over the whole input row, a row-sharded weight's per-output scale over
 the whole row (kept at shard time); the row-sharded int32 sums are reduced
@@ -212,9 +214,9 @@ def dense_forward(layer, x: torch.Tensor) -> torch.Tensor:
     if layer.quant:
         y = _row_int8(x, layer.weight, s)
     else:
-        y = _ReduceFromTP.apply(F.linear(
-            _SplitToTP.apply(x, s.group, s.n, s.rank), layer.weight),
-            s.group)
+        part = F.linear(_SplitToTP.apply(x, s.group, s.n, s.rank),
+                        layer.weight)
+        y = _ReduceFromTP.apply(part.float(), s.group).to(x.dtype)
     return y if layer.bias is None else y + layer.bias
 
 
