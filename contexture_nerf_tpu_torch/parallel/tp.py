@@ -35,6 +35,9 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from contexture_nerf_tpu_torch.diffusion.layers import Conv, Dense
+from contexture_nerf_tpu_torch.ops.quant import (int8_conv2d, int8_linear,
+                                                 linear_int32, quantize_int8)
 from contexture_nerf_tpu_torch.parallel.mesh import (all_gather_cat,
                                                      all_reduce_sum,
                                                      axis_rank, axis_size,
@@ -96,9 +99,6 @@ def shard_params_tp(module: nn.Module, mesh, axis: str = "tp") -> nn.Module:
     to this rank's contiguous block (the memory is freed) and mark the
     layer with its TPShard; other parameters stay whole. A layer already
     sharded is left as it is. Returns the module."""
-    from contexture_nerf_tpu_torch.diffusion.layers import Conv, Dense
-    from contexture_nerf_tpu_torch.ops.quant import quantize_int8
-
     n, r = axis_size(mesh, axis), axis_rank(mesh, axis)
     group = mesh.get_group(axis)
     specs = tp_param_specs(module, mesh, axis)
@@ -187,8 +187,6 @@ def _row_int8(x: torch.Tensor, weight: torch.Tensor, s: TPShard
     """W8A8 of a row-sharded Dense: q and scale of the whole activation
     row, this rank's slice of q times its weight shard quantized with the
     whole row's scales, the int32 sums reduced, then the scales."""
-    from contexture_nerf_tpu_torch.ops.quant import linear_int32, quantize_int8
-
     if torch.is_grad_enabled() and x.requires_grad:
         raise ValueError("a W8A8 row-parallel Dense has no backward")
     q_x, s_x = quantize_int8(x, (-1,))
@@ -201,8 +199,6 @@ def _row_int8(x: torch.Tensor, weight: torch.Tensor, s: TPShard
 
 def dense_forward(layer, x: torch.Tensor) -> torch.Tensor:
     """A sharded Dense (x already in the layer's dtype)."""
-    from contexture_nerf_tpu_torch.ops.quant import int8_linear
-
     s: TPShard = layer.tp
     if s.kind == "col":
         x = _CopyToTP.apply(x, s.group)
@@ -222,8 +218,6 @@ def dense_forward(layer, x: torch.Tensor) -> torch.Tensor:
 
 def conv_forward(layer, x: torch.Tensor) -> torch.Tensor:
     """A sharded (output-channel) Conv (x already in the layer's dtype)."""
-    from contexture_nerf_tpu_torch.ops.quant import int8_conv2d
-
     s: TPShard = layer.tp
     x = _CopyToTP.apply(x, s.group)
     bias = (None if s.full_bias is None

@@ -157,13 +157,13 @@ def make_mesh(cfg: TrainConfig):
                 "silently ignored")
         return None
     if dp == "on" or (dp == "auto" and pmesh.device_type() == "cuda"):
-        for name, k in (("tensor_parallel", tp), ("sequence_parallel", sp)):
+        for k, axis, name in ((tp, "tp", "tensor_parallel"),
+                              (sp, "sp", "sequence_parallel")):
             if k > 1:
                 if n % k:
                     raise ValueError(f"optim.{name}={k} does not divide "
                                      f"the {n} ranks")
-                return pmesh.create_mesh(
-                    (n // k, k), ("views", "tp" if tp > 1 else "sp"))
+                return pmesh.create_mesh((n // k, k), ("views", axis))
         return pmesh.create_mesh((n,), ("views",))
     if tp > 1 or sp > 1:
         raise ValueError(
@@ -1597,7 +1597,6 @@ class ConTEXTure:
         while pending:
             drain_one()
         if not self.writer:
-            logger.info("Eval Done!")
             return
         if win["t_first"] is not None and win["frames"] > 0:
             profiler.GLOBAL_TIMINGS.note_window(
