@@ -2645,11 +2645,12 @@ def write_uvless_obj(path, verts, faces):
         np.savetxt(fh, faces + 1, fmt="f %d %d %d")
 
 
-def native_vs_numpy(verts, faces, obj, card, failures):
-    """The C++ unwrap (native/objio.py) and the numpy unwrap of one mesh on
-    the host, timed, their ratio, and whether atlas_unwrap kept the C++
-    atlas (no chart overlaps itself); the OBJ read by the C++ parser and
-    by the numpy parser, timed and held equal."""
+def native_vs_numpy(unwrap, verts, faces, obj, card, failures):
+    """The C++ unwrap (native/objio.py) and the numpy unwrap (`unwrap`,
+    textured_mesh.atlas_unwrap with native=False) of one mesh on the host,
+    timed, their ratio, and whether atlas_unwrap kept the C++ atlas (no
+    chart overlaps itself); the OBJ read by the C++ parser and by the
+    numpy parser, timed and held equal."""
     import numpy as np
 
     from contexture_nerf_tpu_torch.models import mesh as mesh_io
@@ -2664,7 +2665,7 @@ def native_vs_numpy(verts, faces, obj, card, failures):
     overlaps = tmm._chart_overlaps(vt_n, ft_n)
     check_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    vt_p, ft_p = tmm.atlas_unwrap(verts, faces, native=False)
+    vt_p, ft_p = unwrap(verts, faces, native=False)
     numpy_s = time.perf_counter() - t0
     same_ft = np.array_equal(ft_n, ft_p)
     print(f"  (a) unwrap of the {faces.shape[0]}-face sphere on the host: "
@@ -2787,7 +2788,9 @@ def mesh_path(torch, seed, teacher, shape_recs, failures):
         if not (in01 and overlap < 0.02 and same and len(unwraps) == 1):
             failures.append("mesh path: the atlas or its cache")
         del again
-        native_vs_numpy(mm.mesh.vertices, mm.mesh.faces, obj, card, failures)
+        # the real unwrap: the timed one counts the model's unwraps
+        native_vs_numpy(real_unwrap, mm.mesh.vertices, mm.mesh.faces, obj,
+                        card, failures)
 
         th, ph, r = tr.view_angles(cfg.render)
         _, fvc, fvi, _ = mm.project(th, ph, r)

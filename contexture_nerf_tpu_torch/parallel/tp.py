@@ -202,10 +202,11 @@ def dense_forward(layer, x: torch.Tensor) -> torch.Tensor:
     s: TPShard = layer.tp
     if s.kind == "col":
         x = _CopyToTP.apply(x, s.group)
-        y = (int8_linear(x, layer.weight) if layer.quant
-             else F.linear(x, layer.weight))
-        if layer.bias is not None:
-            y = y + layer.bias
+        if not layer.quant:
+            y = F.linear(x, layer.weight, layer.bias)
+        else:
+            y = int8_linear(x, layer.weight)
+            y = y if layer.bias is None else y + layer.bias
         return gather_rows(y, s.group, y.ndim - 1)
     if layer.quant:
         y = _row_int8(x, layer.weight, s)

@@ -317,10 +317,13 @@ def test_prepare_sds_bootstrap_needs_the_sd2_stack(reference, port):
 
 def test_mesh_without_uvs_waits_for_atlas_unwrap(tmp_path, monkeypatch):
     """A mesh without UVs goes through atlas_unwrap: its atlas is the
-    reference's numpy unwrap of the normalised mesh, and it renders."""
+    reference's unwrap of the normalised mesh (both packages' C++ unwrap,
+    as the reference takes it where it builds), the port's numpy path
+    equals the reference's numpy path, and it renders."""
     from contexture_nerf_tpu.models import textured_mesh as jtm
     from contexture_nerf_tpu.models.mesh import Mesh as JMesh
     from contexture_nerf_tpu.native import objio
+    from contexture_nerf_tpu_torch.models.textured_mesh import atlas_unwrap
 
     v, f, _, _ = uv_sphere(4, 6)
     write_obj(tmp_path / "nouv.obj", v, f)
@@ -330,10 +333,14 @@ def test_mesh_without_uvs_waits_for_atlas_unwrap(tmp_path, monkeypatch):
                            texture_resolution=16, device="cpu")
     ref_mesh = JMesh.load(str(tmp_path / "nouv.obj")).normalize_mesh(
         target_scale=cfg.guide.shape_scale, dy=cfg.guide.dy)
-    monkeypatch.setattr(objio, "chart_unwrap_native", lambda *a, **k: None)
     vt, ft = jtm.atlas_unwrap(ref_mesh.vertices, ref_mesh.faces)
     np.testing.assert_array_equal(mm.ft, ft)
     np.testing.assert_array_equal(mm.vt, vt)
+    monkeypatch.setattr(objio, "chart_unwrap_native", lambda *a, **k: None)
+    vt, ft = jtm.atlas_unwrap(ref_mesh.vertices, ref_mesh.faces)
+    vt_p, ft_p = atlas_unwrap(mm.mesh.vertices, mm.mesh.faces, native=False)
+    np.testing.assert_array_equal(ft_p, ft)
+    np.testing.assert_array_equal(vt_p, vt)
     assert mm.face_attributes.shape == (1, f.shape[0], 3, 2)
     cache = mm.render_geometry(theta=[np.pi / 2], phi=[0.0], radius=[2.0])
     assert float(cache.mask.sum()) > 0
