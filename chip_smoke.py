@@ -73,8 +73,8 @@ result line). --mesh-only runs only the mesh path, on a teacher of its
 own (no result line). --generate-only runs only the generation path, on
 towers of its own (no result line). --int8-only runs only the int8 path,
 on a trainer of its own without the bootstrap; --tools-only only the
-tools path, on towers of its own (no result line). --parallel-only runs only the
-parallel path (no result line).
+tools path, on towers of its own (no result line). --parallel-only runs
+only the parallel path (no result line).
 """
 
 import argparse

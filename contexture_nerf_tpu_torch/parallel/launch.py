@@ -8,7 +8,8 @@ localhost, MASTER_PORT a free port), initialises the default group
 CPU when the CPU is asked for), calls `function(device, **kwargs)` and
 saves what it returns with torch.save. The parent waits for every rank
 until the deadline; a rank that fails or outlives it fails the launch, and
-every rank still running is killed.
+every rank still running is killed. The ranks' logs and results go to
+a temporary directory, removed when the launch ends.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import importlib
 import importlib.util
 import json
 import os
+import shutil
 import socket
 import subprocess
 import sys
@@ -57,6 +59,13 @@ def run_ranks(n: int, target: str, device: str = "cpu",
     order. Raises (with the ranks' output) when a rank fails or the
     deadline passes."""
     out = Path(tempfile.mkdtemp(prefix="ranks-"))
+    try:
+        return _run(n, target, device, kwargs, timeout_s, threads, out)
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+
+
+def _run(n, target, device, kwargs, timeout_s, threads, out: Path) -> List:
     (out / "kwargs.json").write_text(json.dumps(kwargs or {}))
     port = free_port()
     procs = []
@@ -77,20 +86,18 @@ def run_ranks(n: int, target: str, device: str = "cpu",
     deadline = time.monotonic() + timeout_s
     failed = None
     try:
-        while any(p.poll() is None for p, _ in procs):
-            bad = [r for r, (p, _) in enumerate(procs)
-                   if p.poll() not in (None, 0)]
+        while True:
+            codes = [p.poll() for p, _ in procs]
+            bad = [r for r, c in enumerate(codes) if c not in (None, 0)]
             if bad:
-                failed = f"rank {bad[0]} exited with {procs[bad[0]][0].poll()}"
+                failed = f"rank {bad[0]} exited with {codes[bad[0]]}"
+                break
+            if all(c == 0 for c in codes):
                 break
             if time.monotonic() > deadline:
                 failed = f"deadline of {timeout_s:.0f} s passed"
                 break
             time.sleep(0.05)
-        else:
-            bad = [r for r, (p, _) in enumerate(procs) if p.returncode != 0]
-            if bad:
-                failed = f"rank {bad[0]} exited with {procs[bad[0]][0].returncode}"
     finally:
         for p, log in procs:
             if p.poll() is None:

@@ -3,7 +3,8 @@ contexture_nerf_tpu/parallel/mesh.py.
 
 The JAX package runs one program over a mesh of devices and lets XLA place
 each array (GSPMD). The port runs one process a rank (torchrun, or
-parallel/launch.py) and says where every collective goes. Axes, as in the reference:
+parallel/launch.py) and says where every collective goes. Axes, as in the
+reference:
   views - the data axis: the student's query rows of the SDS step and the
           eval turntable frames;
   tp    - tensor parallelism of the diffusion towers (parallel/tp.py);

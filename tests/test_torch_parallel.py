@@ -129,8 +129,8 @@ def _tp_teacher(dev):
     for case, int8 in (("bf16_path", False), ("int8_controlnet", True)):
         mesh = (pm.create_mesh((n // 2, 2), ("views", "tp")) if int8
                 else pm.create_mesh((n,), ("tp",)))
-        teacher = Zero123PlusTeacher(tiny=True, device=dev,
-                                     generator=torch.Generator().manual_seed(0))
+        teacher = Zero123PlusTeacher(
+            tiny=True, device=dev, generator=torch.Generator().manual_seed(0))
         teacher.set_int8(int8, False)
         inputs = _teacher_inputs(teacher)
         towers = (teacher.unet, teacher.controlnet, teacher.vae_encoder)
@@ -350,7 +350,8 @@ def test_tensor_parallel_teacher_matches_replicated(ranks, case):
 @pytest.mark.parametrize("mode", ["dp", "tp", "sp"])
 def test_sharded_step_matches_the_single_device_step(ranks, mode):
     n, _, res = ranks
-    want_mesh = {"dp": ((n,), ("views",)), "tp": ((n // 2, 2), ("views", "tp")),
+    want_mesh = {"dp": ((n,), ("views",)),
+                 "tp": ((n // 2, 2), ("views", "tp")),
                  "sp": ((n // 2, 2), ("views", "sp"))}[mode]
     for got in res:
         s = got["steps"][mode]
