@@ -3710,10 +3710,103 @@ def user_tools(torch, seed, work, card, failures):
 PARALLEL_MAX_RANKS = 4
 PARALLEL_DEADLINE_S = 420.0  # a rank alive past it fails the path
 LOSS_RTOL, PARAM_ATOL = 1e-3, 5e-5  # the reference's dryrun tolerances
+# The MLP's gradients before Adam, relative Frobenius distance from the
+# single-device step's. Adam's first step moves a parameter by about lr
+# (1e-5) whatever the gradient's scale, so PARAM_ATOL alone cannot see a
+# gradient n times too large, a missing sum or a wrong backward collective.
+GRAD_RTOL = 1e-3
 TP_REL_FRO_F32 = 1e-4  # a TP teacher call in f32: sums reordered
-TP_BF16_MARGIN = 1.5  # a bf16 TP call's distance from f32, x the replicated
+# bf16 TP / SP: the call's (or the step's gradients') distance from the f32
+# single-device run, at most this x the replicated bf16 run's distance
+TP_BF16_MARGIN = 1.5
 LOSS_RTOL_BF16 = 1e-2  # TP / SP steps: the bf16 teacher's sums reordered
 RING_SHAPE = (2, 5, 9600, 64)  # the teacher's largest self-attention
+# planted faults of the sharded step, each of which the step checks must
+# catch (chip_smoke.py parallel path, tests/test_torch_parallel.py)
+PARALLEL_FAULTS = {
+    "n_fold_gather": "the gathered canvas's gradient summed n times (the "
+                     "autograd all-gather's backward)",
+    "no_grad_reduce": "the MLP's gradients left unsummed over views",
+    "tp_copy_no_reduce": "a tp layer's input gradient not summed over tp",
+    "tp_row_no_reduce": "a row-parallel Dense's partial sums not reduced",
+}
+
+
+def mlp_grads(mlp):
+    """The MLP's gradients as the last step left them: summed over `views`,
+    what Adam's update took."""
+    return {k: p.grad.detach().clone() for k, p in mlp.named_parameters()}
+
+
+def grads_rel(a, b):
+    """||a - b|| / ||b|| over every tensor of the dicts a and b."""
+    import torch
+
+    return rel_fro(torch.cat([a[k].float().reshape(-1) for k in b]),
+                   torch.cat([b[k].float().reshape(-1) for k in b]))
+
+
+def step_errors(got, ref):
+    """(loss relative error, max |param diff|, gradients' relative
+    Frobenius distance) of a step's (params, loss, grads) from ref's."""
+    (p2, l2, g2), (p1, l1, g1) = got, ref
+    perr = max(float((p2[k].float() - p1[k].float()).abs().max())
+               for k in p1)
+    return abs(l2 - l1) / max(1.0, abs(l1)), perr, grads_rel(g2, g1)
+
+
+def step_ok(errs, loss_rtol=LOSS_RTOL):
+    loss, param, grad = errs
+    return loss <= loss_rtol and param <= PARAM_ATOL and grad <= GRAD_RTOL
+
+
+@contextlib.contextmanager
+def planted_parallel_fault(name):
+    """One of PARALLEL_FAULTS planted in parallel/{mesh, tp}.py while the
+    block runs."""
+    from contexture_nerf_tpu_torch.parallel import mesh as pm
+    from contexture_nerf_tpu_torch.parallel import tp
+
+    if name == "n_fold_gather":
+        def bad(ctx, g):
+            n, r, dim = ctx.conf
+            return n * pm.block(g, n, r, dim).contiguous(), None, None
+        owner, attr, bad = pm._GatherRows, "backward", staticmethod(bad)
+    elif name == "no_grad_reduce":  # the trainer's sum (tp imports its own)
+        owner, attr = pm, "all_reduce_sum"
+
+        def bad(x, group):
+            return x
+    elif name == "tp_copy_no_reduce":
+        def bad(ctx, g):
+            return g, None
+        owner, attr, bad = tp._CopyToTP, "backward", staticmethod(bad)
+    elif name == "tp_row_no_reduce":
+        def bad(ctx, x, group):
+            return x.clone()
+        owner, attr, bad = tp._ReduceFromTP, "forward", staticmethod(bad)
+    else:
+        raise ValueError(name)
+    old = owner.__dict__[attr]
+    setattr(owner, attr, bad)
+    try:
+        yield
+    finally:
+        setattr(owner, attr, old)
+
+
+@contextlib.contextmanager
+def plain_attention():
+    """Attention off K3/K4 (which take bf16) for the f32 runs; the ring
+    route under sequence_parallel stays."""
+    from contexture_nerf_tpu_torch.ops import attention as A
+
+    kernel_rule = A.routes_to_kernel
+    A.routes_to_kernel = lambda *a: False
+    try:
+        yield
+    finally:
+        A.routes_to_kernel = kernel_rule
 
 
 def f32_teacher(torch, teacher):
@@ -3730,7 +3823,7 @@ def f32_teacher(torch, teacher):
 
 
 def parallel_rank(dev, seed, work):
-    """One rank of the parallel path (run by parallel/launch.py on NCCL;
+    """One rank of the parallel path (run by `run_ranks` on NCCL;
     see parallel_path). Returns {"lines", "failures", "launches"}."""
     import copy
 
@@ -3785,26 +3878,34 @@ def parallel_rank(dev, seed, work):
                              generator=run.generator,
                              mesh_model=run.mesh_model, mesh=mesh)
 
-    # (1) the SDS step: single device, then each mode, from one state
+    # (1) the SDS step: single device, then each mode, from one state and
+    # draws; each step's MLP gradients (summed over `views`) kept
     single = trainer(None)
     draws = single.draw()
-    modes = [("dp", tr.make_mesh(cfg) or pm.create_mesh((n,), ("views",)))]
+    meshes = {"single": None,
+              "dp": tr.make_mesh(cfg) or pm.create_mesh((n,), ("views",))}
     if n > 1:
         for k, name in (("tensor_parallel", "tp2"),
                         ("sequence_parallel", "sp2")):
             setattr(cfg.optim, k, 2)
-            modes.append((name, tr.make_mesh(cfg)))
+            meshes[name] = tr.make_mesh(cfg)
             setattr(cfg.optim, k, 1)
+    tp_teacher = copy.deepcopy(run.teacher) if n > 1 else None
+
+    def sharded(name, teacher=None):
+        return single if name == "single" else trainer(
+            meshes[name], teacher or (tp_teacher if name == "tp2" else None))
+
     results = {}
-    for name, mesh in [("single", None)] + modes:
-        t = single if mesh is None else trainer(
-            mesh, copy.deepcopy(run.teacher) if name == "tp2" else None)
+    for name in meshes:
+        t = sharded(name)
         pm.collective_counts.clear()
         params, loss, *_ = counted_run(
             f"(1) {name} step, mesh "
-            f"{None if mesh is None else tuple(mesh.mesh.shape)} "
-            f"{None if mesh is None else mesh.mesh_dim_names}",
+            f"{None if t.mesh is None else tuple(t.mesh.mesh.shape)} "
+            f"{None if t.mesh is None else t.mesh.mesh_dim_names}",
             lambda: t.step(500, draws), t.expected_kernel_launches())
+        results[name] = (params, float(loss), mlp_grads(t.mlp))
         coll = dict(pm.collective_counts)
         torch.cuda.reset_peak_memory_stats(dev)
         t.step(500)  # warm
@@ -3815,32 +3916,94 @@ def parallel_rank(dev, seed, work):
         torch.cuda.synchronize(dev)
         ms = (time.perf_counter() - t0) / 2 * 1e3
         peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
-        results[name] = (params, float(loss))
         lines.append(f"  (1) {name}: loss {float(loss):.6f}, {ms:.2f} ms a "
                      f"step, peak {peak:.2f} GiB, collectives a step "
                      f"{json.dumps(coll)} [{card}]")
-        if name != "tp2":
-            del t
-    p1, l1 = results["single"]
-    for name in results:
-        if name == "single":
-            continue
-        p2, l2 = results[name]
-        perr = max(float((p2[k].float() - p1[k].float()).abs().max())
-                   for k in p1)
-        same = all(torch.equal(p2[k], p1[k]) for k in p1) and l1 == l2
-        rtol = LOSS_RTOL if name == "dp" else LOSS_RTOL_BF16
-        ok = same if n == 1 else (
-            abs(l2 - l1) <= rtol * max(1.0, abs(l1))
-            and perr <= PARAM_ATOL)
-        lines.append(f"  (1) {name} against the single-device step: loss "
-                     f"{l2:.6f} vs {l1:.6f}, max |param diff| {perr:.3e}, "
-                     f"bit-identical {same} ("
-                     + ("required at world size 1" if n == 1 else
-                        f"limits loss {rtol} rel, params {PARAM_ATOL}")
-                     + f") {'ok' if ok else 'BAD'}")
+        del t
+    ref = results["single"]
+
+    def report(label, errs, ok, limits):
+        lines.append(f"  (1) {label}: loss {errs[0]:.3e} rel, max |param "
+                     f"diff| {errs[1]:.3e}, gradients {errs[2]:.3e} rel "
+                     f"Frobenius ({limits}) {'ok' if ok else 'BAD'}")
         if not ok:
-            failures.append(f"parallel path: the {name} step")
+            failures.append(f"parallel path: {label}")
+
+    if n == 1:
+        p2, l2, g2 = results["dp"]
+        same = l2 == ref[1] and all(torch.equal(p2[k], ref[0][k])
+                                    and torch.equal(g2[k], ref[2][k])
+                                    for k in ref[0])
+        report("dp against the single-device step",
+               step_errors(results["dp"], ref), same,
+               f"bit-identical {same}, required at world size 1")
+        lines.append("  (1f) the planted faults need two ranks or more; at "
+                     "world size 1 they are held on gloo CPU ranks by "
+                     "tests/test_torch_parallel.py")
+    else:
+        limits = f"limits {LOSS_RTOL}, {PARAM_ATOL}, {GRAD_RTOL}"
+        errs = step_errors(results["dp"], ref)
+        report("dp against the single-device step", errs, step_ok(errs),
+               limits)
+        # TP / SP in f32 (attention off K3/K4, which take bf16) against the
+        # f32 single-device step at the same limits; then the bf16 steps'
+        # gradients no farther from the f32 single step's than
+        # TP_BF16_MARGIN x the bf16 single step's, and their loss within
+        # LOSS_RTOL_BF16 of the bf16 single step's
+        draws32 = {k: v.float() if v.is_floating_point() else v
+                   for k, v in draws.items()}
+        t32 = f32_teacher(torch, run.teacher)
+        tp32 = f32_teacher(torch, run.teacher)
+        r32 = {}
+        with plain_attention():
+            for name in ("single", "tp2", "sp2"):
+                t = trainer(meshes[name], tp32 if name == "tp2" else t32)
+                params, loss, *_ = t.step(500, draws32)
+                r32[name] = (params, float(loss), mlp_grads(t.mlp))
+                del t
+        del t32, tp32
+        base = grads_rel(ref[2], r32["single"][2])
+        far_limit = max(TP_BF16_MARGIN * base, GRAD_RTOL)
+        for name in ("tp2", "sp2"):
+            errs = step_errors(r32[name], r32["single"])
+            report(f"{name} in f32 against the f32 single-device step", errs,
+                   step_ok(errs), limits)
+            errs = step_errors(results[name], ref)
+            far = grads_rel(results[name][2], r32["single"][2])
+            ok = errs[0] <= LOSS_RTOL_BF16 and far <= far_limit
+            report(f"{name} in bf16 against the bf16 single-device step",
+                   errs, ok, f"loss limit {LOSS_RTOL_BF16}; gradients from "
+                   f"the f32 single step's {far:.3e}, the bf16 single "
+                   f"step's {base:.3e}, limit {far_limit:.3e}")
+        # (1f) the planted faults, each of which the checks above must catch
+        for fault, name in (("n_fold_gather", "dp"), ("no_grad_reduce", "dp"),
+                            ("tp_copy_no_reduce", "tp2"),
+                            ("tp_row_no_reduce", "tp2")):
+            t = sharded(name)
+            with planted_parallel_fault(fault):
+                params, loss, *_ = t.step(500, draws)
+            got = (params, float(loss), mlp_grads(t.mlp))
+            del t
+            errs = step_errors(got, ref)
+            if name == "dp":
+                caught = not step_ok(errs)
+                alone = (errs[0] <= LOSS_RTOL and errs[1] <= PARAM_ATOL)
+                how = (f"caught {caught}; loss and params alone pass it "
+                       f"{alone}")
+            else:
+                far = grads_rel(got[2], r32["single"][2])
+                caught = not (errs[0] <= LOSS_RTOL_BF16 and far <= far_limit)
+                how = (f"gradients from the f32 single step's {far:.3e}; "
+                       f"caught {caught}; the loss limit {LOSS_RTOL_BF16} "
+                       f"alone catches it {errs[0] > LOSS_RTOL_BF16}")
+            lines.append(f"  (1f) planted fault {fault} "
+                         f"({PARALLEL_FAULTS[fault]}) in the {name} step: "
+                         f"loss {errs[0]:.3e} rel, max |param diff| "
+                         f"{errs[1]:.3e}, gradients {errs[2]:.3e} rel; {how}"
+                         f" {'ok' if caught else 'BAD'}")
+            if not caught:
+                failures.append(f"parallel path: fault {fault} not caught")
+    del tp_teacher
 
     # (2) ring attention at the teacher's largest self-attention
     B, H, S, d = RING_SHAPE
@@ -3903,26 +4066,14 @@ def parallel_rank(dev, seed, work):
     # takes f32): the function itself, and how far bf16 moves the call
     t32 = f32_teacher(torch, run.teacher)
     sharded32 = shard(f32_teacher(torch, run.teacher))
-    from contexture_nerf_tpu_torch.diffusion import layers
-    from contexture_nerf_tpu_torch.ops.attention import flash_attention_plain
-
-    kernel_attention, layers.attention = layers.attention, \
-        flash_attention_plain
-    try:
-        with torch.no_grad():
-            rep32, got32 = (teacher._cfg_v_pred(
-                z.float(), t_t, single.cond_lat_pair.float(),
-                single.ehs.float(), single.depth_grid, tr.GUIDANCE_SCALE,
-                draws["neg_noise"].float(), draws["cond_noise"].float(),
-                cn_cond_emb=single.cn_cond_emb.float())
-                for teacher in (t32, sharded32))
-    finally:
-        layers.attention = kernel_attention
+    with plain_attention(), torch.no_grad():
+        rep32, got32 = (teacher._cfg_v_pred(
+            z.float(), t_t, single.cond_lat_pair.float(),
+            single.ehs.float(), single.depth_grid, tr.GUIDANCE_SCALE,
+            draws["neg_noise"].float(), draws["cond_noise"].float(),
+            cn_cond_emb=single.cn_cond_emb.float())
+            for teacher in (t32, sharded32))
     del t32, sharded32
-
-    def rel_fro(a, b):
-        return float((a.float() - b.float()).norm() / b.float().norm())
-
     rel, rel32 = rel_fro(got, rep), rel_fro(got32, rep32)
     err_rep, err_tp = rel_fro(rep, rep32), rel_fro(got, rep32)
     same = torch.equal(got, rep)
@@ -3977,16 +4128,20 @@ def parallel_rank(dev, seed, work):
 def parallel_path(torch, seed, failures):
     """Several GPUs (parallel/{mesh, ring, tp}, the trainer's mesh): one
     NCCL rank per visible GPU, up to PARALLEL_MAX_RANKS, started by
-    parallel/launch.py with a deadline (a rank that fails or hangs fails
+    parallel/launch.py `run_ranks` with a deadline (a rank that fails or hangs fails
     the path; nothing retries on gloo or the CPU). Each rank builds the
     main path's models at full width (prepare_sds without the bootstrap)
     and runs: (1) the SDS step on this rank alone, then with
     data_parallel=on over every rank (a 1-rank views mesh at world size 1;
     TP = 2 and SP = 2 too from 2 ranks), from the same state and draws:
-    bit-identical at world size 1, else DP within the reference's dryrun
-    tolerances and TP / SP with the loss within LOSS_RTOL_BF16 (their bf16
-    teacher sums in other orders); each mode's ms a step, peak GiB and
-    collectives a step;
+    bit-identical at world size 1 (the MLP's gradients too), else DP within
+    the reference's dryrun tolerances and the gradients within GRAD_RTOL;
+    TP / SP in f32 against the f32 single step at those limits, and in
+    bf16 with the loss within LOSS_RTOL_BF16 and the gradients no farther
+    from the f32 single step's than TP_BF16_MARGIN x the bf16 single
+    step's (their bf16 teacher sums in other orders); the PARALLEL_FAULTS
+    planted one at a time, each of which must fail its step's check; each
+    mode's ms a step, peak GiB and collectives a step;
     (2) ring_attention at the teacher's (2, 5, 9600, 64) self-attention,
     with and without the second source, within one bf16 ulp (+ 1e-6) of
     plain f32 attention; (3) a teacher call with its towers sharded over
@@ -4013,10 +4168,10 @@ def parallel_path(torch, seed, failures):
               "the multi-rank paths are held on gloo CPU ranks by "
               "tests/test_torch_parallel.py")
     try:
-        res = run_ranks(n, f"{Path(__file__).resolve()}:parallel_rank",
-                        "cuda", kwargs={"seed": seed, "work": str(work)},
+        res = run_ranks(n, parallel_rank, "cuda",
+                        kwargs={"seed": seed, "work": str(work)},
                         timeout_s=PARALLEL_DEADLINE_S, threads=4)
-    except RuntimeError as e:
+    except Exception as e:  # a rank raised, or the deadline passed
         failures.append(f"parallel path: {str(e)[-3000:]}")
         return {}, time.perf_counter() - t0
     for line in res[0]["lines"]:

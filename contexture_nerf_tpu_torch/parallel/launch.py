@@ -1,36 +1,28 @@
-"""Start a function on n ranks, one process each, as torchrun would, with a
-deadline: `run_ranks(n, "path/to/file.py:function", device)`.
+"""Start a function on n ranks with a deadline:
+`run_ranks(n, function, device)`.
 
-Each rank runs `python -m contexture_nerf_tpu_torch.parallel.launch` with
+The ranks are torch.multiprocessing processes (spawned). Each sets
 torchrun's environment (RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR
 localhost, MASTER_PORT a free port), initialises the default group
 (parallel/mesh.py `init_from_env`: NCCL on cuda:LOCAL_RANK, or gloo on the
 CPU when the CPU is asked for), calls `function(device, **kwargs)` and
-saves what it returns with torch.save. The parent waits for every rank
-until the deadline; a rank that fails or outlives it fails the launch, and
-every rank still running is killed. The ranks' logs and results go to
-a temporary directory, removed when the launch ends.
+saves what it returns with torch.save into a temporary directory. A rank
+that raises fails the launch (torch's ProcessRaisedException, with its
+traceback); when the deadline passes, every rank still running is killed
+and the launch raises.
 """
 
 from __future__ import annotations
 
-import argparse
-import importlib
-import importlib.util
-import json
 import os
-import shutil
 import socket
-import subprocess
-import sys
 import tempfile
 import time
 from pathlib import Path
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import torch
-
-_ROOT = Path(__file__).resolve().parents[2]
+import torch.multiprocessing as mp
 
 
 def free_port() -> int:
@@ -39,103 +31,41 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def _load(target: str):
-    """'file.py:function' or 'package.module:function'."""
-    where, fn = target.rsplit(":", 1)
-    if where.endswith(".py"):
-        spec = importlib.util.spec_from_file_location(
-            "_rank_target_" + Path(where).stem, where)
-        mod = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(mod)
-    else:
-        mod = importlib.import_module(where)
-    return getattr(mod, fn)
-
-
-def run_ranks(n: int, target: str, device: str = "cpu",
-              kwargs: Optional[Dict] = None, timeout_s: float = 300.0,
-              threads: int = 1) -> List:
-    """Run `target` on n ranks and return each rank's result, in rank
-    order. Raises (with the ranks' output) when a rank fails or the
-    deadline passes."""
-    out = Path(tempfile.mkdtemp(prefix="ranks-"))
-    try:
-        return _run(n, target, device, kwargs, timeout_s, threads, out)
-    finally:
-        shutil.rmtree(out, ignore_errors=True)
-
-
-def _run(n, target, device, kwargs, timeout_s, threads, out: Path) -> List:
-    (out / "kwargs.json").write_text(json.dumps(kwargs or {}))
-    port = free_port()
-    procs = []
-    for r in range(n):
-        env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(n),
-                   LOCAL_RANK=str(r), LOCAL_WORLD_SIZE=str(n),
-                   MASTER_ADDR="localhost", MASTER_PORT=str(port),
-                   OMP_NUM_THREADS=str(threads))
-        env["PYTHONPATH"] = os.pathsep.join(
-            [str(_ROOT)] + [p for p in [env.get("PYTHONPATH")] if p])
-        log = open(out / f"rank{r}.log", "w")
-        procs.append((subprocess.Popen(
-            [sys.executable, "-m", "contexture_nerf_tpu_torch.parallel.launch",
-             "--target", target, "--device", device, "--out", str(out),
-             "--timeout", str(timeout_s), "--threads", str(threads)],
-            env=env, stdout=log, stderr=subprocess.STDOUT, cwd=str(_ROOT)),
-            log))
-    deadline = time.monotonic() + timeout_s
-    failed = None
-    try:
-        while True:
-            codes = [p.poll() for p, _ in procs]
-            bad = [r for r, c in enumerate(codes) if c not in (None, 0)]
-            if bad:
-                failed = f"rank {bad[0]} exited with {codes[bad[0]]}"
-                break
-            if all(c == 0 for c in codes):
-                break
-            if time.monotonic() > deadline:
-                failed = f"deadline of {timeout_s:.0f} s passed"
-                break
-            time.sleep(0.05)
-    finally:
-        for p, log in procs:
-            if p.poll() is None:
-                p.kill()
-            p.wait()
-            log.close()
-    if failed:
-        logs = "\n".join(f"--- rank {r} ---\n"
-                         + (out / f"rank{r}.log").read_text()[-6000:]
-                         for r in range(n))
-        raise RuntimeError(f"{target} on {n} ranks: {failed}\n{logs}")
-    return [torch.load(out / f"rank{r}.pt", weights_only=False)
-            for r in range(n)]
-
-
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--target", required=True)
-    ap.add_argument("--device", default="cuda")
-    ap.add_argument("--out", required=True)
-    ap.add_argument("--timeout", type=float, default=300.0)
-    ap.add_argument("--threads", type=int, default=1)
-    args = ap.parse_args()
-    torch.set_num_threads(args.threads)
+def _rank(r, n, port, fn, device, kwargs, timeout_s, threads, out):
     import torch.distributed as dist
 
     from contexture_nerf_tpu_torch.parallel.mesh import init_from_env
 
-    out = Path(args.out)
-    kwargs = json.loads((out / "kwargs.json").read_text())
-    dev = init_from_env(args.device, timeout_s=args.timeout)
+    os.environ.update(RANK=str(r), WORLD_SIZE=str(n), LOCAL_RANK=str(r),
+                      LOCAL_WORLD_SIZE=str(n), MASTER_ADDR="localhost",
+                      MASTER_PORT=str(port), OMP_NUM_THREADS=str(threads))
+    torch.set_num_threads(threads)
+    dev = init_from_env(device, timeout_s=timeout_s)
     try:
-        result = _load(args.target)(dev, **kwargs)
-        torch.save(result, out / f"rank{dist.get_rank()}.pt")
+        torch.save(fn(dev, **kwargs), Path(out) / f"rank{r}.pt")
     finally:
         dist.destroy_process_group()
-    return 0
 
 
-if __name__ == "__main__":
-    sys.exit(main())
+def run_ranks(n: int, fn: Callable, device: str = "cpu",
+              kwargs: Optional[Dict] = None, timeout_s: float = 300.0,
+              threads: int = 1) -> List:
+    """Run `fn` (a module-level function) on n ranks and return each
+    rank's result, in rank order."""
+    with tempfile.TemporaryDirectory(prefix="ranks-") as out:
+        ctx = mp.start_processes(
+            _rank, args=(n, free_port(), fn, device, kwargs or {}, timeout_s,
+                         threads, out), nprocs=n, join=False)
+        deadline = time.monotonic() + timeout_s
+        try:
+            while not ctx.join(timeout=max(0.0, deadline - time.monotonic())):
+                if time.monotonic() >= deadline:
+                    raise RuntimeError(f"{fn.__name__} on {n} ranks: the "
+                                       f"deadline of {timeout_s:.0f} s passed")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+                p.join()
+        return [torch.load(Path(out) / f"rank{r}.pt", weights_only=False)
+                for r in range(n)]

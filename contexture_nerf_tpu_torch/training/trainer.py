@@ -307,9 +307,7 @@ class SDSTrainer:
             m = cut(m) if m is not None else None
         split = self.mesh is not None and src.shape[0] % self.n_views == 0
         if split:
-            r = pmesh.axis_rank(self.mesh, "views")
-            src = pmesh.block(src, self.n_views, r)
-            m = pmesh.block(m, self.n_views, r) if m is not None else None
+            src, m = pmesh.shard_leading_axis((src, m), self.mesh)
         if torch.is_grad_enabled():
             self._grad_rows_split = split
         fn = fused_nerf2d_emb if self.emb_pts is not None else fused_nerf2d

@@ -2,22 +2,26 @@
 trainer's mesh) on 2 and 4 gloo ranks on the CPU, against the
 single-process port and the JAX reference.
 
-One launch of N ranks (parallel/launch.py `run_ranks`, one process a rank,
-torch on one thread, a deadline that kills every rank) runs every check in
-turn (`rank_checks`): the mesh's placement (tests/test_parallel.py:25-77),
-ring attention against dense attention (atol 2e-5, rtol 1e-4, as
-test_parallel.py:213-240) and its refusal of indivisible lengths, the tiny
-teacher's v-prediction with its towers tensor-parallel against the
-replicated one (rtol 2e-4, atol 2e-5, test_parallel.py:80-117; the
-int8_controlnet case at tp = 2: a row-parallel layer that is not quantized
-sums in another order, and an int8 rounding downstream can turn that ulp
-into a quantization step, more often the more shards), one sharded SDS
-step per mode (DP, TP
-= 2, SP = 2) against the single-device step from the same state and draws
-(loss within 1e-3 relative and parameters within 5e-5, the reference's
-dryrun tolerances, __graft_entry__.py:160-200), the sharded eval against
-the single frames, make_mesh's shapes, and the CLI painting a tiny run
-under torchrun's environment, held to the single-process run.
+One launch of N ranks (parallel/launch.py `run_ranks`, one spawned process
+a rank, torch on one thread, a deadline that kills every rank) runs every
+check in turn (`rank_checks`): the mesh's placement
+(tests/test_parallel.py:25-77), ring attention against dense attention
+(atol 2e-5, rtol 1e-4, as test_parallel.py:213-240) and its refusal of
+indivisible lengths, the tiny teacher's v-prediction with its towers
+tensor-parallel against the replicated one (rtol 2e-4, atol 2e-5,
+test_parallel.py:80-117; the int8_controlnet case at tp = 2: a row-parallel
+layer that is not quantized sums in another order, and an int8 rounding
+downstream can turn that ulp into a quantization step, more often the more
+shards), one sharded SDS step per mode (DP, TP = 2, SP = 2) against the
+single-device step from the same state and draws (loss within 1e-3 relative
+and parameters within 5e-5, the reference's dryrun tolerances,
+__graft_entry__.py:160-200, and the MLP's gradients before Adam within
+chip_smoke.GRAD_RTOL: Adam's first step moves each parameter by about lr
+whatever the gradient, so the parameters alone cannot see a wrong
+gradient), chip_smoke.PARALLEL_FAULTS planted one at a time (each must fail
+that check), the sharded eval against the single frames, make_mesh's
+shapes, and the CLI painting a tiny run under torchrun's environment, held
+to the single-process run.
 The reference's ring attention runs on its 8 virtual CPU devices, and its
 `_make_mesh` gives the words the port's errors keep.
 """
@@ -30,8 +34,13 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import (GRAD_RTOL, LOSS_RTOL, PARALLEL_FAULTS, PARAM_ATOL,
+                        mlp_grads, planted_parallel_fault, step_errors)
+
 ROOT = Path(__file__).resolve().parent.parent
-LOSS_RTOL, PARAM_ATOL = 1e-3, 5e-5  # the reference's dryrun tolerances
+# the planted faults, each in the mode whose collectives it breaks
+FAULT_MODES = {"n_fold_gather": "dp", "no_grad_reduce": "dp",
+               "tp_copy_no_reduce": "tp", "tp_row_no_reduce": "tp"}
 SHAPE = (2, 3, 64, 16)  # ring inputs (B, H, S, d), as test_parallel.py
 
 
@@ -164,17 +173,27 @@ def _steps(dev, tmp):
                             mlp=copy.deepcopy(mlp), tiny=True, device=dev,
                             generator=gen, mesh=None)
         draws = one.draw()
-        p1, l1, g1, _, _ = one.step(500, draws)
+        p1, l1, n1, _, _ = one.step(500, draws)
+        mlp0 = copy.deepcopy(mlp)
         many = tr.SDSTrainer(cfg, setup, teacher=teacher, mlp=mlp, tiny=True,
                              device=dev, generator=gen)
         pm.collective_counts.clear()
-        p2, l2, g2, _, _ = many.step(500, draws)
-        out[mode] = {"single": (p1, float(l1), float(g1)),
-                     "sharded": (p2, float(l2), float(g2)),
+        p2, l2, n2, _, _ = many.step(500, draws)
+        out[mode] = {"single": (p1, float(l1), mlp_grads(one.mlp)),
+                     "sharded": (p2, float(l2), mlp_grads(many.mlp)),
+                     "grad_norm": (float(n1), float(n2)),
                      "mesh": (tuple(many.mesh.mesh.shape),
                               many.mesh.mesh_dim_names),
                      "collectives": dict(pm.collective_counts),
-                     "launches": many.expected_kernel_launches()}
+                     "launches": many.expected_kernel_launches(),
+                     "faults": {}}
+        for fault in (f for f, m in FAULT_MODES.items() if m == mode):
+            bad = tr.SDSTrainer(cfg, setup, teacher=teacher,
+                                mlp=copy.deepcopy(mlp0), tiny=True,
+                                device=dev, generator=gen)
+            with planted_parallel_fault(fault):
+                p3, l3, _, _, _ = bad.step(500, draws)
+            out[mode]["faults"][fault] = (p3, float(l3), mlp_grads(bad.mlp))
     return out
 
 
@@ -274,7 +293,7 @@ def ranks(request, tmp_path_factory):
     n = request.param
     tmp = tmp_path_factory.mktemp(f"ranks{n}")
     write_obj(tmp / "s.obj", *uv_sphere(8, 12))
-    results = run_ranks(n, f"{__file__}:rank_checks", "cpu",
+    results = run_ranks(n, rank_checks, "cpu",
                         kwargs={"tmp": str(tmp)},
                         timeout_s=400)
     return n, tmp, results
@@ -358,6 +377,12 @@ def test_sharded_step_matches_the_single_device_step(ranks, mode):
         assert s["mesh"] == want_mesh
         (p1, l1, _), (p2, l2, _) = s["single"], s["sharded"]
         assert abs(l2 - l1) <= LOSS_RTOL * max(1.0, abs(l1))
+        # the gradients Adam took: summed over views, through the gather's
+        # and the tp layers' backward
+        _, _, grad_err = step_errors(s["sharded"], s["single"])
+        assert grad_err <= GRAD_RTOL, grad_err
+        n1, n2 = s["grad_norm"]
+        assert abs(n2 - n1) <= GRAD_RTOL * n1
         for key in p1:
             torch.testing.assert_close(p2[key], p1[key], rtol=0,
                                        atol=PARAM_ATOL)
@@ -372,6 +397,20 @@ def test_sharded_step_matches_the_single_device_step(ranks, mode):
             single = got["steps"]["dp"]["launches"]
             assert s["launches"]["flash_attn_two_source"] <= \
                 single["flash_attn_two_source"]
+
+
+@pytest.mark.parametrize("fault", list(FAULT_MODES))
+def test_planted_fault_fails_the_step_check(ranks, fault):
+    """Each of PARALLEL_FAULTS, planted in its mode's step, moves the
+    gradients past GRAD_RTOL (an n-fold gradient or a missing sum leaves
+    the loss and the parameters within the dryrun's limits)."""
+    n, _, res = ranks
+    mode = FAULT_MODES[fault]
+    assert fault in PARALLEL_FAULTS
+    for got in res:
+        s = got["steps"][mode]
+        _, _, grad_err = step_errors(s["faults"][fault], s["single"])
+        assert grad_err > GRAD_RTOL, (fault, grad_err)
 
 
 def test_sharded_eval_matches_single_frames(ranks):
@@ -441,6 +480,9 @@ def test_cli_under_torchrun_matches_the_single_process_run(
     for a, b in zip(m1, m2):
         assert abs(a["sds_loss"] - b["sds_loss"]) <= \
             LOSS_RTOL * max(1.0, abs(a["sds_loss"]))
+        # the gradients' norm, summed over the ranks before Adam
+        assert abs(a["grad_norm"] - b["grad_norm"]) <= \
+            GRAD_RTOL * a["grad_norm"]
     assert sorted(p.name for p in (exp / "results").iterdir()) == \
         sorted(p.name for p in (one.exp_path / "results").iterdir())
     assert (exp / "log.txt").exists() and (exp / "timings.json").exists()
