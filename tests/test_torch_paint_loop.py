@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from contexture_nerf_tpu_torch.core import checkpoint as ckpt
+from contexture_nerf_tpu_torch.core import profiler
 from contexture_nerf_tpu_torch.core.config import config_from_dict
 from contexture_nerf_tpu_torch.training import trainer as tr
 from tools.make_shapes import uv_sphere, write_obj
@@ -57,6 +58,9 @@ def runs(tmp_path_factory):
     shape = str(d / "sphere.obj")
     write_obj(shape, *uv_sphere(8, 12))
     cfg = _cfg(d / "exp", shape)
+    # timings are process-wide (as in the reference): start this run's
+    # from nothing, whatever ran earlier in this process
+    profiler.GLOBAL_TIMINGS = profiler.Timings()
     a = tr.ConTEXTure(cfg, tiny_models=True, device="cpu")
     before = _state(a)
     a.paint()
