@@ -23,9 +23,10 @@ ControlNet + SD VAE encoder + 8x256 MLP on a 960x640 canvas, bf16, random
 towers from the seed) for one warm-up and three timed SDS steps, then one
 step with the GroupNorms and the attention layers hooked (K6's calls, bytes
 and per-shape times; K3/K4 held to their limit on every kernel-routed call,
-as on one bootstrap UNet call) and one with the plain GroupNorm path.
-prepare_sds's launches and each step's must equal the counts derived for
-them. Then the paint path (the CLI on spot_quick_test.yaml, its resume, the
+as on one bootstrap UNet call) and one with the plain GroupNorm path;
+`teacher_v_pred` at the step's inputs must equal the step's own teacher
+call bit for bit (a planted guidance scale of 1 must not). prepare_sds's
+launches and each step's must equal the counts derived for them. Then the paint path (the CLI on spot_quick_test.yaml, its resume, the
 default-size eval) and the snapshot path: the paint path's first CLI run
 again from its seeded towers written to disk as diffusers snapshots (17.6 GB
 at F32 under build/snapshots/, deleted after), which must equal the
@@ -33,8 +34,12 @@ random-tower run bit for bit. Then the mesh path (`mesh_path`): a
 100,000-face sphere written without UVs, its atlas unwrapped on the host
 and cached, K5 on it and on its atlas, K1 and K2 at the fit's 4,096 and
 the texture lattice's 1,048,576 points, the 300-step fit to an image,
-exact_lattice_render steps (two runs from one state) and the
-reference_texture mask on the default path, on main_path's teacher. Then
+exact_lattice_render steps (two runs from one state), the
+reference_texture mask on the default path, the kaolin-compatible
+`rasterize` (K5) and `render_multiple_view_texture` against their plain
+and composed versions bit for bit, and the sphere as an OFF through the
+CLI beside its OBJ (2 SDS iterations each, bit for bit), on main_path's
+teacher. Then
 the generation path (`generation_path`): get_depth_maps_cond_grid on the
 torus (7 views, the SD2-depth paint of the front view) and a repaint
 (paint step 2: median fill, inpaint UNet), check_gt_zero123plus on its two
@@ -1412,6 +1417,100 @@ def main_config(seed):
         "shape_path": str(ROOT / "shapes" / "torus.obj")}})
 
 
+def teacher_call_launches(trainer):
+    """Kernel launches of one teacher call (`teacher_v_pred` /
+    `_cfg_v_pred`) at the trainer's shapes: its routed self-attentions (K3,
+    K4) and K6 for the GroupNorms of the two UNet passes and the
+    ControlNet."""
+    from contexture_nerf_tpu_torch.ops import _build
+    from contexture_nerf_tpu_torch.training import trainer as tr
+
+    ucfg = trainer.teacher.unet_config
+    k3, k4 = tr.teacher_attention_launches(
+        ucfg, trainer.latent_shape()[2:],
+        tuple(trainer.cond_lat_pair.shape[2:]))
+    return dict({k: 0 for k in _build.launch_counts}, **{
+        "flash_attn_single": k3, "flash_attn_two_source": k4,
+        "groupnorm": tr.groupnorm_launches(
+            2 * tr.unet_groupnorms(ucfg) + tr.unet_groupnorms(ucfg, True))})
+
+
+def teacher_v_pred_check(torch, seed, trainer, t, failures):
+    """`teacher_v_pred`, the public single-step teacher, at the main path's
+    shapes: one SDS step with its teacher call recorded, then
+    teacher_v_pred on the trainer's conditioning at that call's noised
+    latent and write-pass draws, which must equal the step's v-prediction
+    bit for bit; with a planted guidance scale of 1 for 10 it must not;
+    and with its draws taken from a generator it must equal the call on
+    the same draws given as tensors. Returns the launches, each run's held
+    to its derivation."""
+    import inspect
+
+    from contexture_nerf_tpu_torch.ops import _build
+    from contexture_nerf_tpu_torch.training import trainer as tr
+
+    tch, dev = trainer.teacher, trainer.device
+    launches = {k: 0 for k in _build.launch_counts}
+    seen = {}
+    real = tch._cfg_v_pred
+
+    def recorded(*a, **k):
+        out = real(*a, **k)
+        seen.update(inspect.signature(real).bind(*a, **k).arguments,
+                    out=out.clone())
+        return out
+
+    tch._cfg_v_pred = recorded
+    try:
+        counted(torch, lambda: trainer.step(t),
+                lambda _: trainer.expected_kernel_launches(),
+                "teacher_v_pred: an SDS step, its teacher call recorded",
+                launches, failures)
+    finally:
+        del tch._cfg_v_pred
+    one = teacher_call_launches(trainer)
+
+    def call(label, scale, *noises, **kw):
+        with torch.no_grad():
+            return counted(torch, lambda: tch.teacher_v_pred(
+                seen["latents"], seen["t"], trainer.cond_lat_pair,
+                trainer.ehs, trainer.depth_grid, scale, *noises,
+                cn_cond_emb=trainer.cn_cond_emb, **kw), lambda _: one,
+                f"teacher_v_pred, {label}", launches, failures)
+
+    draws = (seen["neg_noise"], seen["cond_noise"])
+    got, secs = call("the step's draws", tr.GUIDANCE_SCALE, *draws)
+    planted, _ = call("a planted guidance scale of 1", 1.0, *draws)
+    gen = torch.Generator(device=dev)
+    drawn, _ = call("draws from a generator", tr.GUIDANCE_SCALE,
+                    generator=gen.manual_seed(seed + 11))
+    gen.manual_seed(seed + 11)
+    given, _ = call("the same draws as tensors", tr.GUIDANCE_SCALE,
+                    *(torch.randn(d.shape, generator=gen, device=dev)
+                      for d in draws))
+    step_call = (seen["guidance_scale"] == tr.GUIDANCE_SCALE
+                 and seen["scale_input"] is None)
+    same = torch.equal(got, seen["out"])
+    caught = not torch.equal(planted, seen["out"])
+    same_gen = torch.equal(drawn, given)
+    print(f"  teacher_v_pred at the step's inputs (latent "
+          f"{tuple(seen['latents'].shape)}, t {int(seen['t'])}, CFG "
+          f"{seen['guidance_scale']}, identity input scale "
+          f"{seen['scale_input'] is None}): {1e3 * secs:.1f} ms, equal to the "
+          f"step's teacher call bit for bit {same}; a planted guidance scale "
+          f"of 1 {'caught' if caught else 'NOT CAUGHT'} (max abs diff "
+          f"{float((planted - seen['out']).abs().max()):.3e}); generator "
+          f"draws = the same draws as tensors {same_gen}; finite "
+          f"{bool(torch.isfinite(got).all())} [{card_line()}]")
+    if not (step_call and same and same_gen
+            and bool(torch.isfinite(got).all())):
+        failures.append("teacher_v_pred differs from the step's teacher call")
+    if not caught:
+        failures.append("teacher_v_pred's check passes a planted guidance "
+                        "scale of 1")
+    return launches
+
+
 def main_path(torch, seed, profile, recs, failures):
     from contexture_nerf_tpu_torch.diffusion.sd_depth import \
         StableDiffusionDepth
@@ -1552,6 +1651,8 @@ def main_path(torch, seed, profile, recs, failures):
             step_ms.append(ms)
     launches = {k: prep[k] + _build.launch_counts[k] for k in prep}
     changed = any(not torch.equal(init[k], params[k]) for k in init)
+    checked = teacher_v_pred_check(torch, seed, trainer, ts[-1], failures)
+    launches = plus(launches, checked)
     if not changed:
         failures.append("params did not change")
     step_ms.sort()
@@ -2645,6 +2746,200 @@ def write_uvless_obj(path, verts, faces):
         np.savetxt(fh, faces + 1, fmt="f %d %d %d")
 
 
+OFF_STEM = MESH_STEM + "_off"
+
+
+def write_off(path, verts, faces):
+    """An OFF file of the triangles in their order, the vertices written as
+    write_uvless_obj writes them."""
+    import numpy as np
+
+    with open(path, "w") as fh:
+        fh.write(f"OFF\n{len(verts)} {len(faces)} 0\n")
+        np.savetxt(fh, verts, fmt="%.6f %.6f %.6f")
+        np.savetxt(fh, faces, fmt="3 %d %d %d")
+
+
+def kaolin_entries(torch, seed, sphere, launches, shapes, failures, card):
+    """The kaolin-compatible geometry entries on the card. raster/
+    rasterize.py `rasterize` with backend=None on CUDA tensors (K5, one
+    launch a call) on the torus's 7 views and on the sphere's front view at
+    the default 1200^2, each equal bit for bit to backend="plain" on the
+    same tensors (face_idx and the interpolated UVs); a planted fault, the
+    plain call on the UV features of a face order rolled by one, must
+    differ. `Renderer.render_multiple_view_texture` on the torus (a random
+    1024^2 texture, white background) equal bit for bit to render_geometry
+    + render_texture_with_cache, and with the cache given to itself; the
+    same planted fault on its UV attributes must differ."""
+    from contexture_nerf_tpu_torch.core.config import config_from_dict
+    from contexture_nerf_tpu_torch.models import textured_mesh as tmm
+    from contexture_nerf_tpu_torch.raster.rasterize import rasterize
+    from contexture_nerf_tpu_torch.training import trainer as tr
+
+    dev = torch.device("cuda")
+    cfg = config_from_dict({"guide": {
+        "shape_path": str(ROOT / "shapes" / "torus.obj")}})
+    torus = tmm.TexturedMeshModel(
+        cfg.guide, render_grid_size=cfg.render.train_grid_size,
+        texture_resolution=cfg.guide.texture_resolution, device=dev)
+    res = cfg.render.train_grid_size
+    th, ph, r = tr.view_angles(cfg.render)
+    one = dict({k: 0 for k in launches}, raster=1)
+    ok = True
+    for label, mm, n in (("the torus's 7 views", torus, 7),
+                         ("the sphere's front view", sphere, 1)):
+        _, fvc, fvi, _ = mm.project(th[:n], ph[:n], r[:n])
+        fvz = fvc[..., 2].contiguous()
+        uv = mm.face_attributes.expand(n, -1, -1, -1)
+        (img, idx), secs = counted(
+            torch, lambda: rasterize(res, res, fvz, fvi, uv), lambda _: one,
+            f"rasterize (backend=None) on {label} ({n}x{res}^2, "
+            f"F={fvz.shape[1]})", launches, failures, shapes)
+        p_img, p_idx = rasterize(res, res, fvz, fvi, uv, backend="plain",
+                                 face_chunk=256)
+        same = torch.equal(img, p_img) and torch.equal(idx, p_idx)
+        line = (f"  rasterize on {label}: {1e3 * secs:.1f} ms, face_idx and "
+                f"UVs bit-identical to backend=\"plain\" {same}, "
+                f"{float((idx >= 0).float().mean()):.4f} of pixels covered")
+        ok &= same
+        if n > 1:  # the planted fault, on the torus (plain on the sphere
+            # takes ~11 s a call)
+            rolled, _ = rasterize(res, res, fvz, fvi, uv.roll(1, dims=1),
+                                  backend="plain", face_chunk=256)
+            caught = not torch.equal(img, rolled)
+            line += (f"; planted rolled face order "
+                     f"{'caught' if caught else 'NOT CAUGHT'}")
+            if not caught:
+                failures.append("rasterize's check passes a rolled face "
+                                "order")
+        print(line + f" [{card}]")
+        del img, idx, p_img, p_idx, fvc, fvi, fvz
+    # the renderer's entry on the torus
+    rnd = torus.renderer
+    uv = torus.face_attributes.expand(7, -1, -1, -1)
+    tex = torch.rand((1, 3) + (cfg.guide.texture_resolution,) * 2,
+                     generator=torch.Generator(device=dev).manual_seed(
+                         seed + 12), device=dev)
+
+    def render(attr, **kw):
+        return rnd.render_multiple_view_texture(
+            torus.verts, torus.faces, attr, tex, th, ph, r,
+            look_at_height=torus.dy, background_type="white", **kw)
+
+    got, secs = counted(torch, lambda: render(uv), lambda _: one,
+                        f"render_multiple_view_texture on the torus "
+                        f"(7x{res}^2)", launches, failures, shapes)
+    want, _ = counted(torch, lambda: rnd.render_texture_with_cache(
+        rnd.render_geometry(torus.verts, torus.faces, uv, th, ph, r,
+                            look_at_height=torus.dy), tex, "white"),
+        lambda _: one, "render_geometry + render_texture_with_cache on the "
+        "torus", launches, failures, shapes)
+    cached, _ = counted(torch, lambda: render(uv, render_cache=got[4]),
+                        lambda _: dict(one, raster=0),
+                        "render_multiple_view_texture, the cache given",
+                        launches, failures, shapes)
+    with plain_paths(torch, k1=False):
+        rolled = render(uv.roll(1, dims=1))
+    same = all(torch.equal(a, b) for a, b in zip(got[:4], want))
+    same_cached = all(torch.equal(a, b) for a, b in zip(got[:4], cached[:4]))
+    caught = not torch.equal(got[0], rolled[0])
+    finite = all(bool(torch.isfinite(x).all()) for x in got[:4])
+    print(f"  render_multiple_view_texture on the torus: {1e3 * secs:.1f} ms;"
+          f" image, mask, depth, normals bit-identical to render_geometry + "
+          f"render_texture_with_cache {same}, with the cache given "
+          f"{same_cached}, finite {finite}; planted rolled face order "
+          f"{'caught' if caught else 'NOT CAUGHT'} [{card}]")
+    ok &= same and same_cached and finite
+    if not caught:
+        failures.append("render_multiple_view_texture's check passes a "
+                        "rolled face order")
+    if not ok:
+        failures.append("the kaolin-compatible entries differ from their "
+                        "plain or composed versions")
+
+
+def off_cli_runs(torch, seed, obj, verts, faces, unwraps, launches, shapes,
+                 failures, card):
+    """(e) An OFF shape: the mesh path's sphere written as an OFF under a
+    stem of its own, the OBJ's triangles in the OBJ's order, which
+    Mesh.load must read to the OBJ's arrays; then the CLI at full width on
+    the OBJ and on the OFF (optim.sds_iterations=2, a 2-frame eval), each
+    unwrapping into its own cache/<stem>/ (one unwrap each: the OFF run
+    does not read the OBJ's atlas), each run's launches held to
+    paint_kernel_launches. The two runs must give the same atlas, MLP,
+    losses and files (the albedo PNG, the turntable, the atlas PNG, the
+    logged images) bit for bit."""
+    import gc
+    import shutil
+
+    import numpy as np
+
+    from contexture_nerf_tpu_torch import run_contexture
+    from contexture_nerf_tpu_torch.models.mesh import Mesh
+
+    off = obj.with_name(f"{OFF_STEM}.off")
+    write_off(off, verts, faces)
+    a, b = Mesh.load(str(obj)), Mesh.load(str(off))
+    keys = ("vertices", "faces", "normals", "face_area")
+    loaded = (a.vt is None and b.vt is None and all(
+        getattr(a, k).dtype == getattr(b, k).dtype
+        and np.array_equal(getattr(a, k), getattr(b, k)) for k in keys))
+    print(f"  (e) {off.name} ({off.stat().st_size / 1e6:.1f} MB): Mesh.load "
+          f"gives the OBJ's vertices, faces, normals and areas {loaded}")
+    if not loaded:
+        failures.append("mesh path: the OFF's arrays differ from the OBJ's")
+    del a, b
+    exp_root = obj.parent / "cli"
+    runs = {}
+    for ext, shape in (("obj", obj), ("off", off)):
+        cache = Path("cache") / shape.stem
+        shutil.rmtree(cache, ignore_errors=True)
+        n = len(unwraps)
+        argv = [f"--guide.shape_path={shape}",
+                "--guide.text=a photo of a dairy cow",
+                f"--log.exp_root={exp_root}", f"--log.exp_name={shape.stem}",
+                f"--optim.seed={seed}", "--optim.sds_iterations=2",
+                "--log.full_eval_size=2"]
+        run, secs = counted(torch, lambda: run_contexture.main(argv),
+                            lambda r: r.paint_kernel_launches(0),
+                            f"(e) the CLI on {shape.name}", launches,
+                            failures, shapes)
+        exp = exp_root / shape.stem
+        runs[ext] = {
+            "secs": secs, "unwraps": len(unwraps) - n,
+            "cache": sorted(p.name for p in cache.iterdir()),
+            "vt": run.mesh_model.vt, "ft": run.mesh_model.ft,
+            "mlp": {k: v.detach().cpu() for k, v in run.mlp.state_dict(
+            ).items()},
+            "metrics": [{k: v for k, v in e.items() if k != "elapsed_s"}
+                        for e in json.loads((exp / "metrics.json"
+                                             ).read_text())],
+            "files": {str(p.relative_to(exp)): p.read_bytes() for d in (
+                "results", "mesh", "vis") for p in sorted((exp / d).rglob(
+                    "*")) if p.is_file()}}
+        del run
+        gc.collect()
+        torch.cuda.empty_cache()
+    o, f = runs["obj"], runs["off"]
+    atlas = np.array_equal(o["vt"], f["vt"]) and np.array_equal(o["ft"],
+                                                                f["ft"])
+    mlp = all(torch.equal(o["mlp"][k], f["mlp"][k]) for k in o["mlp"])
+    losses = bool(o["metrics"]) and o["metrics"] == f["metrics"]
+    files = bool(o["files"]) and o["files"] == f["files"]
+    own = o["unwraps"] == f["unwraps"] == 1 and bool(f["cache"])
+    print(f"  (e) the CLI on the OBJ {o['secs']:.1f} s, on the OFF "
+          f"{f['secs']:.1f} s (2 SDS iterations, a 2-frame eval, each with "
+          f"its unwrap: {o['unwraps']} and {f['unwraps']}, caches "
+          f"cache/{obj.stem}/{o['cache']} and cache/{off.stem}/{f['cache']}"
+          f"); bit for bit: atlas {atlas}, MLP {mlp}, metrics {losses} "
+          f"(sds_loss {[e.get('sds_loss') for e in f['metrics']]}), "
+          f"{len(f['files'])} files {files} ({', '.join(sorted(f['files']))})"
+          f" [{card}]")
+    if not (atlas and mlp and losses and files and own):
+        failures.append("mesh path: the CLI's OFF run differs from its OBJ "
+                        "run")
+
+
 def native_vs_numpy(unwrap, verts, faces, obj, card, failures):
     """The C++ unwrap (native/objio.py) and the numpy unwrap (`unwrap`,
     textured_mesh.atlas_unwrap with native=False) of one mesh on the host,
@@ -2694,7 +2989,8 @@ def mesh_path(torch, seed, teacher, shape_recs, failures):
     written as an OBJ without UVs. (a) its atlas unwrapped on the host
     (timed), then read from cache/<stem>/ (timed; nothing unwrapped); the
     atlas in [0, 1] with _overlap_frac(G=256) < 0.02; K5 at prepare_sds's
-    two shapes on the mesh and in UV space held to the plain version. (b)
+    two shapes on the mesh and in UV space held to the plain version; the
+    kaolin-compatible entries (`kaolin_entries`). (b)
     the 300-step fit to an image written here, whose MSE must fall (K1 and
     K2 at its and the lattice's point counts are held in mlp_phases). (c)
     build_sds_trainer on the mesh with exact_lattice_render and that image
@@ -2703,8 +2999,9 @@ def mesh_path(torch, seed, teacher, shape_recs, failures):
     the first at a stated tolerance, and twice with a planted fault that
     must miss it. (d) the default path with guide.reference_texture the
     current texture map as PNG: the change mask is empty and a step leaves
-    the MLP as it was; a planted mask of ones changes it. Every run of the
-    path counts its launches; shape_recs, keyed by launch sizes as
+    the MLP as it was; a planted mask of ones changes it. (e) the sphere
+    as an OFF through the CLI beside its OBJ (`off_cli_runs`). Every run of
+    the path counts its launches; shape_recs, keyed by launch sizes as
     _build.launch_shapes keys them, get this path's launches at theirs.
     Returns the launches by kernel."""
     import copy
@@ -2871,6 +3168,8 @@ def mesh_path(torch, seed, teacher, shape_recs, failures):
         if not (ok_all and same_uv and atlas_same):
             failures.append("mesh path: K5 on the unwrapped sphere")
         del idx, bary, p_idx, p_bary, atlas, atlas_p, fvc, fvi, fvz
+        torch.cuda.empty_cache()
+        kaolin_entries(torch, seed, mm, launches, shapes, failures, card)
         torch.cuda.empty_cache()
 
         # (b) the fit to an image
@@ -3051,6 +3350,12 @@ def mesh_path(torch, seed, teacher, shape_recs, failures):
         if not (empty and kept and moved):
             failures.append("mesh path: the reference_texture mask")
         del trainer, setup, sd, mlp_d, mm
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (e) the same sphere as an OFF, through the CLI beside the OBJ
+        off_cli_runs(torch, seed, obj, v, f, unwraps, launches, shapes,
+                     failures, card)
     finally:
         tmm.atlas_unwrap = real_unwrap
     gc.collect()
@@ -4049,12 +4354,7 @@ def parallel_rank(dev, seed, work):
         return teacher
 
     sharded = shard(copy.deepcopy(run.teacher))
-    ucfg = run.teacher.unet_config
-    k3, k4 = tr.teacher_attention_launches(
-        ucfg, single.latent_shape()[2:], tuple(single.cond_lat_pair.shape[2:]))
-    want = {"flash_attn_single": k3, "flash_attn_two_source": k4,
-            "groupnorm": tr.groupnorm_launches(
-                2 * tr.unet_groupnorms(ucfg) + tr.unet_groupnorms(ucfg, True))}
+    want = teacher_call_launches(single)
     with torch.no_grad():
         rep = counted_run("(3) replicated teacher call",
                           lambda: call(run.teacher), want)
@@ -4205,8 +4505,9 @@ def main():
     ap.add_argument("--mesh-only", action="store_true",
                     help="run only K1/K2 at the fit's and the lattice's "
                     "point counts and the mesh path (a mesh without UVs, its "
-                    "atlas, the fit, the exact and the masked steps) and "
-                    "stop (no result line)")
+                    "atlas, the kaolin-compatible entries, the fit, the "
+                    "exact and the masked steps, the mesh as an OFF through "
+                    "the CLI) and stop (no result line)")
     ap.add_argument("--generate-only", action="store_true",
                     help="run only the generation path (the two "
                     "ground-truth drivers, generate's blending and "
@@ -4425,8 +4726,9 @@ def main():
                                     failures)
     launches = {k: launches[k] + painted[k] for k in launches}
     print("mesh path: a 100,000-face mesh without UVs (its atlas unwrapped "
-          "and cached), the fit, exact_lattice_render and reference_texture, "
-          "on main_path's teacher")
+          "and cached), rasterize and render_multiple_view_texture, the fit, "
+          "exact_lattice_render, reference_texture, the mesh as an OFF "
+          "through the CLI, on main_path's teacher")
     meshed = mesh_path(torch, args.seed, trainer.teacher, shape_recs,
                        failures)
     launches = {k: launches[k] + meshed[k] for k in launches}

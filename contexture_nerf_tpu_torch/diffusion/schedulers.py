@@ -81,6 +81,10 @@ class DDPM:
         ratio = self.num_train_timesteps // num_inference_steps
         return [i * ratio for i in range(num_inference_steps)][::-1]
 
+    def scale_model_input(self, sample, t):
+        """The sample unchanged: this sampler does not scale its input."""
+        return sample
+
     def add_noise(self, sample, noise, t):
         return add_noise(self.alphas_cumprod, sample, noise, t)
 
@@ -241,6 +245,10 @@ class PNDM:
         ratio = self.num_train_timesteps // num_inference_steps
         ts = [i * ratio + 1 for i in range(num_inference_steps)]
         return (ts[:-1] + ts[-2:-1] + ts[-1:])[::-1]
+
+    def scale_model_input(self, sample, t):
+        """The sample unchanged: this sampler does not scale its input."""
+        return sample
 
     def add_noise(self, sample, noise, t):
         return add_noise(self.alphas_cumprod, sample, noise, t)

@@ -6,7 +6,8 @@ Counterpart of contexture_nerf_tpu/diffusion/zero123plus.py
 (`scale_latents` ... `unscale_image`, `default_ramping_coefficients`, and
 `Zero123PlusPipeline`). `Zero123PlusTeacher` holds what the SDS step needs
 (`encode_condition_image`, `prepare_conditioning`, `embed_control_cond`,
-`_cfg_core`, `_cfg_v_pred`, `_cfg_v_pred_individual`); its subclass
+`_cfg_core`, `_cfg_v_pred`, `_cfg_v_pred_individual` and the single-step
+`teacher_v_pred`); its subclass
 `Zero123PlusPipeline` adds the VAE decoder, the samplers,
 `attach_inpaint_unet` and `generate`. The conditioning and the loop take
 their normal draws as tensors, so a test can feed the reference's. Towers
@@ -335,6 +336,33 @@ class Zero123PlusTeacher(nn.Module):
             latents, t, cond_lat_pair, encoder_hidden_states, depth_image,
             neg_noise, cond_noise, cn_cond_emb, scale_input)
         return v_uncond + guidance_scale * (v_cond - v_uncond)
+
+    def teacher_v_pred(self, latents_noisy, t, cond_lat_pair,
+                       encoder_hidden_states, depth_image,
+                       guidance_scale: float,
+                       neg_noise: Optional[torch.Tensor] = None,
+                       cond_noise: Optional[torch.Tensor] = None,
+                       generator: Optional[torch.Generator] = None,
+                       cn_cond_emb=None) -> torch.Tensor:
+        """The single-step SDS teacher: the two-branch CFG v-prediction at
+        externally noised latents, with DDPM's identity input scale. The
+        write pass's noises (each cond_lat_pair.shape[1:]) are `neg_noise`
+        and `cond_noise`, or, when not given, two normal draws from
+        `generator` in that order (as SDSTrainer.draw takes them). The SDS
+        step's own teacher call is this one."""
+        if neg_noise is None or cond_noise is None:
+            if generator is None:
+                raise ValueError("teacher_v_pred needs neg_noise and "
+                                 "cond_noise, or a generator")
+            shape = tuple(cond_lat_pair.shape[1:])
+            neg_noise, cond_noise = (
+                torch.randn(shape, generator=generator,
+                            device=generator.device).to(cond_lat_pair.device)
+                for _ in range(2))
+        return self._cfg_v_pred(latents_noisy, t, cond_lat_pair,
+                                encoder_hidden_states, depth_image,
+                                guidance_scale, neg_noise, cond_noise,
+                                cn_cond_emb, scale_input=None)
 
     def _cfg_v_pred_individual(self, latents, t, cond_lat_pair,
                                encoder_hidden_states, depth_image,

@@ -1,6 +1,8 @@
 """2-D NeRF texture field: Fourier UV embedding + 8x256 skip-MLP.
 
-Counterpart of contexture_nerf_tpu/models/fields.py. Layers keep the flax
+Counterpart of contexture_nerf_tpu/models/fields.py (`embedder_out_dim`
+lives beside the fused MLP in ops/mlp_kernel.py, which sizes its padded
+embedding by it, and is taken from there). Layers keep the flax
 names (`pts_linear_i`, `output_linear`) so weights.py maps them one to one;
 nn.Linear keeps the torch layout (weight (out, in)).
 """
@@ -13,7 +15,8 @@ import torch
 import torch.nn as nn
 
 from contexture_nerf_tpu_torch import resolve_device
-from contexture_nerf_tpu_torch.ops.mlp_kernel import fused_nerf2d
+from contexture_nerf_tpu_torch.ops.mlp_kernel import (embedder_out_dim,
+                                                      fused_nerf2d)
 
 
 def fourier_embed(x: torch.Tensor, multires: int = 10) -> torch.Tensor:
@@ -32,7 +35,7 @@ class NeRF2D(nn.Module):
     reference instantiates, and the one the fused kernels take). Parameters
     f32, on `device` (the card unless the caller asks for the CPU)."""
 
-    D, W, SKIP, INPUT_CH, OUTPUT_CH = 8, 256, 4, 42, 3
+    D, W, SKIP, INPUT_CH, OUTPUT_CH = 8, 256, 4, embedder_out_dim(10), 3
 
     def __init__(self, generator: torch.Generator = None, device="cuda"):
         super().__init__()

@@ -1,6 +1,7 @@
-"""Host-side OBJ loading and mesh normalization; the port's own copy of
-contexture_nerf_tpu/models/mesh.py (`load_obj`'s numpy parser,
-`calculate_face_normals`, `Mesh.load`, `normalize_mesh`).
+"""Host-side OBJ/OFF loading and mesh normalization; the port's own copy of
+contexture_nerf_tpu/models/mesh.py (`load_obj`'s numpy parser, `load_off`,
+`calculate_face_normals`, `Mesh.load`, `normalize_mesh`,
+`standardize_mesh`).
 
 Mesh IO runs once at setup on the host; the renderer then moves the
 vertices, faces and UVs to the device. `load_obj` reads with the C++ parser
@@ -69,6 +70,26 @@ def load_obj(path: str, native: bool = True
     return vertices, faces, uvs_arr, ft
 
 
+def load_off(path: str) -> Tuple[np.ndarray, np.ndarray, None, None]:
+    """Parse an OFF file. Returns (vertices [N,3] f32, faces [F,3] i64,
+    None, None); each polygon is fan-triangulated in file order."""
+    with open(path, "r") as fh:
+        tokens = fh.read().split()
+    assert tokens[0] == "OFF", f"not an OFF file: {path}"
+    nv, nf = int(tokens[1]), int(tokens[2])
+    ptr = 4
+    verts = np.asarray(tokens[ptr: ptr + 3 * nv],
+                       dtype=np.float32).reshape(nv, 3)
+    ptr += 3 * nv
+    faces = []
+    for _ in range(nf):
+        n = int(tokens[ptr])
+        faces.extend(_triangulate_fan(
+            [int(t) for t in tokens[ptr + 1: ptr + 1 + n]]))
+        ptr += 1 + n
+    return verts, np.asarray(faces, dtype=np.int64), None, None
+
+
 def calculate_face_normals(vertices: np.ndarray, faces: np.ndarray
                            ) -> Tuple[np.ndarray, np.ndarray]:
     """Per-face unit normals and areas from the cross product."""
@@ -95,9 +116,14 @@ class Mesh:
 
     @classmethod
     def load(cls, obj_path: str, native: bool = True) -> "Mesh":
-        if ".obj" not in str(obj_path):
-            raise ValueError(f"{obj_path}: the port reads OBJ files only")
-        vertices, faces, vt, ft = load_obj(str(obj_path), native)
+        """Read an OBJ (through the C++ parser with `native`) or an OFF."""
+        if ".obj" in str(obj_path):
+            vertices, faces, vt, ft = load_obj(str(obj_path), native)
+        elif ".off" in str(obj_path):
+            vertices, faces, vt, ft = load_off(str(obj_path))
+        else:
+            raise ValueError(
+                f"{obj_path} extension not implemented in mesh reader.")
         normals, face_area = calculate_face_normals(vertices, faces)
         return cls(vertices=vertices, faces=faces, vt=vt, ft=ft,
                    normals=normals, face_area=face_area)
@@ -115,4 +141,13 @@ class Mesh:
         mesh.vertices = verts
         mesh.normals, mesh.face_area = calculate_face_normals(
             mesh.vertices, mesh.faces)
+        return mesh
+
+    def standardize_mesh(self, inplace: bool = False) -> "Mesh":
+        """Center and scale by the std of the vertex norms."""
+        mesh = self if inplace else copy.deepcopy(self)
+        verts = mesh.vertices.astype(np.float32)
+        verts = verts - verts.mean(axis=0)
+        verts = verts / np.linalg.norm(verts, axis=1).std()
+        mesh.vertices = verts
         return mesh

@@ -28,3 +28,11 @@ def split_grid_to_6(grid: torch.Tensor, tile_size: int) -> torch.Tensor:
         raise ValueError(f"grid {H}x{W} is not 3x2 tiles of {t}")
     x = grid.reshape(C, ROWS, t, COLS, t).permute(3, 1, 0, 2, 4)
     return x.reshape(ROWS * COLS, C, t, t)
+
+
+def split_zero123plus_grid(grid: torch.Tensor, tile_size: int):
+    """The grid's tiles as a nested [row][col] list of views of
+    grid[..., rows, cols] (row r, column c holds view ROWS * c + r)."""
+    t = tile_size
+    return [[grid[..., r * t:(r + 1) * t, c * t:(c + 1) * t]
+             for c in range(COLS)] for r in range(ROWS)]

@@ -44,8 +44,11 @@ W_NUMEL = sum(k * n for k, n in zip(LAYER_K, LAYER_N))
 B_NUMEL = sum(LAYER_N)
 
 
-def _emb_dim(multires: int) -> int:
-    return 2 + 4 * multires
+def embedder_out_dim(multires: int = 10, input_dims: int = 2,
+                     include_input: bool = True) -> int:
+    """Width of the Fourier embedding: input_dims * (include_input +
+    2 multires); 42 for the texture field's uv at multires 10."""
+    return input_dims * (int(include_input) + 2 * multires)
 
 
 def embed_block(uv: torch.Tensor, multires: int) -> torch.Tensor:
@@ -75,7 +78,7 @@ def pack_params(params: List[torch.Tensor], multires: int
                 ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
     """NeRF2D parameters [w0, b0, ..., w8, b8] in torch layout ((out, in))
     -> padded f32 (ws (K_i, N_i), bs (N_i,)) lists."""
-    e = _emb_dim(multires)
+    e = embedder_out_dim(multires)
     ws, bs = [], []
     for i in range(DEPTH + 1):
         w = params[2 * i].float().t()
@@ -95,7 +98,7 @@ def pack_params(params: List[torch.Tensor], multires: int
 def unpack_grads(dws: List[torch.Tensor], dbs: List[torch.Tensor],
                  multires: int) -> List[torch.Tensor]:
     """Padded (dws, dbs) -> gradients in the torch parameter layout."""
-    e = _emb_dim(multires)
+    e = embedder_out_dim(multires)
     out = []
     for i in range(DEPTH + 1):
         dw, db = dws[i], dbs[i]
@@ -243,7 +246,7 @@ def _check_kernel_inputs(x, multires, compute_dtype):
     if multires is not None:
         if x.shape[1] != 2 or x.dtype != torch.float32:
             raise ValueError("uv must be (N, 2) float32")
-        if _emb_dim(multires) > EMB_PAD:
+        if embedder_out_dim(multires) > EMB_PAD:
             raise ValueError(f"multires={multires} exceeds EMB_PAD={EMB_PAD}")
     elif x.shape[1] != EMB_PAD or x.dtype != torch.bfloat16:
         raise ValueError(f"emb must be (N, {EMB_PAD}) bfloat16, got "

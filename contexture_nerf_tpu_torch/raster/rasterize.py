@@ -1,6 +1,7 @@
 """Triangle visibility and attribute interpolation; the port's counterpart
 of contexture_nerf_tpu/raster/rasterize.py (`pixel_grid`,
-`face_edge_setup`, `rasterize_geometry`, `interpolate_attributes`).
+`face_edge_setup`, `rasterize_geometry`, `interpolate_attributes` and the
+kaolin-compatible `rasterize`).
 
 `rasterize_geometry` here is the plain PyTorch version of the rasterizer
 kernel (K5, raster/raster_kernel.py and csrc/raster.cu): a loop over face
@@ -20,7 +21,7 @@ repeat them bit for bit.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -35,6 +36,13 @@ def pixel_centers(height: int, width: int, device="cpu"
     ys = 1.0 - (torch.arange(height, dtype=torch.float32, device=device)
                 + 0.5) / height * 2.0
     return ys, xs
+
+
+def pixel_grid(height: int, width: int, device="cpu"
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """NDC coordinates of pixel centres as a meshgrid: (y (H,W), x (H,W))."""
+    ys, xs = pixel_centers(height, width, device)
+    return torch.meshgrid(ys, xs, indexing="ij")
 
 
 def face_edge_setup(face_vertices_image: torch.Tensor):
@@ -114,3 +122,32 @@ def interpolate_attributes(face_idx: torch.Tensor, bary: torch.Tensor,
     out = out.reshape(B, H, W, C)
     return torch.where((face_idx >= 0)[..., None], out,
                        torch.zeros((), dtype=out.dtype, device=out.device))
+
+
+def rasterize(height: int, width: int, face_vertices_z: torch.Tensor,
+              face_vertices_image: torch.Tensor, face_features: torch.Tensor,
+              backend: Optional[str] = None, face_chunk: int = 128):
+    """kaolin-compatible entry (kal.render.mesh.rasterize's arguments):
+    face_vertices_z (B, F, 3), face_vertices_image (B, F, 3, 2) NDC,
+    face_features (B, F, 3, C) -> (image_features (B, H, W, C), 0 on
+    background; face_idx (B, H, W) int32, -1 on background).
+
+    The port's backends, in place of the reference's "pallas"/"xla":
+    "kernel" is K5 (raster/raster_kernel.py, CUDA tensors only; it raises
+    on CPU tensors and never gives way to the plain version), "plain" is
+    `rasterize_geometry` above (face_chunk faces a chunk) on any device,
+    and None takes "kernel" for CUDA tensors and "plain" for CPU ones."""
+    if backend is None:
+        backend = "kernel" if face_vertices_z.is_cuda else "plain"
+    if backend == "kernel":
+        from contexture_nerf_tpu_torch.raster.raster_kernel import \
+            rasterize_geometry_kernel
+        face_idx, bary = rasterize_geometry_kernel(
+            face_vertices_z, face_vertices_image, height, width)
+    elif backend == "plain":
+        face_idx, bary = rasterize_geometry(
+            face_vertices_z, face_vertices_image, height, width,
+            face_chunk=face_chunk)
+    else:
+        raise ValueError(f"no raster backend {backend!r}")
+    return interpolate_attributes(face_idx, bary, face_features), face_idx

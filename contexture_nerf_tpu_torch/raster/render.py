@@ -1,7 +1,8 @@
 """Multi-view mesh renderer; the port's counterpart of
 contexture_nerf_tpu/raster/render.py (`RenderCache`,
 `normalize_multiple_depth`, `Renderer.render_geometry`,
-`Renderer.render_texture_with_cache`).
+`Renderer.render_texture_with_cache`, and the kaolin-compatible
+`Renderer.render_multiple_view_texture`).
 
 The geometry pass rasterizes every view once (K5 on the card, one launch
 for all views) and keeps its buffers in a `RenderCache`; texture passes then
@@ -128,3 +129,24 @@ class Renderer:
         normals = normals.reshape(B, H, W, 3) * mask_hw1
         return (image.permute(0, 3, 1, 2), cache.mask, cache.depth_map,
                 normals.permute(0, 3, 1, 2))
+
+    def render_multiple_view_texture(self, verts: torch.Tensor,
+                                     faces: torch.Tensor,
+                                     uv_face_attr: torch.Tensor,
+                                     texture_map: torch.Tensor, elev=None,
+                                     azim=None, radius=None,
+                                     look_at_height: float = 0.0,
+                                     dims: Optional[Tuple[int, int]] = None,
+                                     background_type: str = "none",
+                                     render_cache: Optional[
+                                         RenderCache] = None):
+        """kaolin-compatible entry: `render_geometry` (unless a cache is
+        given), then `render_texture_with_cache`. Returns (image (B,3,H,W),
+        mask (B,1,H,W), depth (B,1,H,W), normals (B,3,H,W), cache)."""
+        if render_cache is None:
+            render_cache = self.render_geometry(
+                verts, faces, uv_face_attr, elev, azim, radius,
+                look_at_height=look_at_height, dims=dims)
+        image, mask, depth, normals = self.render_texture_with_cache(
+            render_cache, texture_map, background_type)
+        return image, mask, depth, normals, render_cache

@@ -441,7 +441,7 @@ class SDSTrainer:
                     self.depth_grid, self.gs_i, self.gs_t, neg_noise,
                     cond_noise, cn_cond_emb=self.cn_cond_emb)
             else:
-                v_pred = tch._cfg_v_pred(
+                v_pred = tch.teacher_v_pred(
                     latents_noisy, t_t, self.cond_lat_pair, self.ehs,
                     self.depth_grid, GUIDANCE_SCALE, neg_noise, cond_noise,
                     cn_cond_emb=self.cn_cond_emb)
