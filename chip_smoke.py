@@ -129,36 +129,85 @@ def cuda_ms(fn, reps=10, warmup=2):
     return times[len(times) // 2]
 
 
-def device_ms_by_kernel(fn, reps=20, tries=3):
+class NotMeasured(float):
+    """A device reading the profiler left empty: NaN that prints as "not
+    measured (N events seen)" and stays so through the sums, products and
+    quotients it enters (their events added), so a sum with one empty
+    reading in it is not measured either."""
+
+    def __new__(cls, events):
+        self = super().__new__(cls, math.nan)
+        self.events = events
+        return self
+
+    def _join(self, other):
+        return NotMeasured(self.events + getattr(other, "events", 0))
+
+    __add__ = __radd__ = __sub__ = __rsub__ = _join
+    __mul__ = __rmul__ = __truediv__ = __rtruediv__ = _join
+
+    def __format__(self, spec):
+        return f"not measured ({self.events} events seen)"
+
+    def __str__(self):
+        return format(self)
+
+    __repr__ = __str__
+
+
+# the windows device_ms_by_kernel took, those that came back without
+# device time by their try (0: a reading's first window) and the events
+# those held; printed at the end of the script
+PROFILER_WINDOWS = {"taken": 0, "empty by try": {}, "events in empty": 0}
+
+
+def device_ms_by_kernel(fn, reps=20, tries=4, pad_s=0.01):
     """{kernel name: milliseconds of device time a call of fn() spends in
     it}: the profiler's self device time over reps calls, after a warm-up.
-    The profiler now and then hands back no device events for a window of
-    short calls; such a window is taken again, up to `tries` times, and a
-    reading that stays empty is {} ("not measured")."""
+    Windows of a few short calls have come back without device events, so
+    each window is padded with pad_s of idle host time before the first
+    call and after the synchronise that ends the last, and a window that
+    still comes back empty is taken again with twice the reps and the
+    padding, up to `tries` times. A reading that stays empty is {"not
+    measured": NotMeasured(the events the last window held)}."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(tries):
-        with profile(activities=[ProfilerActivity.CUDA]) as p:
+    for i in range(tries):
+        PROFILER_WINDOWS["taken"] += 1
+        with profile(activities=[ProfilerActivity.CUDA],
+                     acc_events=True) as p:
+            time.sleep(pad_s)
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
+            time.sleep(pad_s)
         times = {e.key: e.self_device_time_total / reps / 1e3
                  for e in p.key_averages() if e.self_device_time_total > 0}
         if times:
             return times
-    return {}
+        empty = PROFILER_WINDOWS["empty by try"]
+        empty[i] = empty.get(i, 0) + 1
+        PROFILER_WINDOWS["events in empty"] += len(p.events())
+        reps, pad_s = 2 * reps, 2 * pad_s
+    return {"not measured": NotMeasured(len(p.events()))}
 
 
-def device_ms(fn, reps=20, tries=3):
+def device_ms(fn, reps=20, tries=4):
     """Milliseconds of device time a call of fn() spends in kernels: the
     card's own time, without the host work between launches that cuda_ms
-    also counts where a call is shorter than its host work. NaN ("not
-    measured"), never 0, when the profiler saw no device events."""
-    times = device_ms_by_kernel(fn, reps, tries)
-    return sum(times.values()) if times else float("nan")
+    also counts where a call is shorter than its host work. A NotMeasured,
+    never 0, when the profiler saw no device events."""
+    return sum(device_ms_by_kernel(fn, reps, tries).values())
+
+
+def share_of_bound(bound_ms, dev_ms):
+    """A device time's share of its bound ("at K% of the bound"), or what
+    NotMeasured prints."""
+    return (f"{dev_ms}" if isinstance(dev_ms, NotMeasured)
+            else f"at {100 * bound_ms / dev_ms:.0f}% of the bound")
 
 
 def bound(flops, nbytes, peak=H100_BF16_FLOPS):
@@ -992,7 +1041,7 @@ def raster_times(torch, fn, fvz, fvi, H, W):
 def times_line(ms, dev):
     """Event ms and device ms of a K5 call: the raster kernels by name, the
     other device work (PyTorch's kernels, copies) summed."""
-    total = sum(dev.values()) if dev else float("nan")
+    total = sum(dev.values())
     own = {k.replace("(anonymous namespace)::", "").split("(")[0]: v
            for k, v in dev.items() if "raster" in k}
     rest = [v for k, v in dev.items() if "raster" not in k]
@@ -1388,7 +1437,11 @@ def groupnorm_signature_times(torch, sigs, failures, label, per_sig=None):
     for path, (k, n, d, ld, b_ms) in sorted(paths.items()):
         print(f"    path {path}: {k} shapes, {n} calls; device time K6 "
               f"{d:.3f} ms, library {ld:.3f}, bound {b_ms:.3f} (bytes); K6 "
-              f"at {100 * b_ms / d:.0f}% of the bound")
+              f"{share_of_bound(b_ms, d)}")
+    k, n, d, ld, b_ms = (sum(v) for v in zip(*paths.values()))
+    print(f"    all paths: {k} shapes, {n} calls; device time K6 {d:.3f} ms, "
+          f"library {ld:.3f}, bound {b_ms:.3f} (bytes); K6 "
+          f"{share_of_bound(b_ms, d)}")
     lines = []
     for nb, n, shape, dt, odt, path, cs, t, hu, lhu, b_ms in sorted(
             rows, key=lambda r: r[0], reverse=True):
@@ -1397,8 +1450,8 @@ def groupnorm_signature_times(torch, sigs, failures, label, per_sig=None):
             f"K6 {t['ms']:.4f} ms (device {t['dms']:.4f}, host "
             f"{hu:.1f} us), library {t['lms']:.4f} (device "
             f"{t['ldms']:.4f}, host {lhu:.1f} us), plain {t['pms']:.4f}, "
-            f"bound {b_ms:.4f} (bytes) a call; device time at "
-            f"{100 * b_ms / t['dms']:.0f}% of the bound")
+            f"bound {b_ms:.4f} (bytes) a call; device time "
+            f"{share_of_bound(b_ms, t['dms'])}")
     for line in lines[:6]:
         print("    " + line)
     out = ROOT / "chiprun_out"
@@ -3956,17 +4009,41 @@ def tools_path(torch, seed, models, failures):
     return launches, secs
 
 
+KNOB_RUN_DIFF = {"optim.local_sds_grad", "optim.precompute_uv_embedding"}
+
+
+def knob_runs_check(default, knobs, cmp):
+    """What is wrong with knob_quality's defaults run `default` against its
+    knobs run `knobs` (run directories; `cmp` its `compare` of the two):
+    their configs must differ in the two knobs alone, and their atlases
+    must differ (a finite PSNR). [] when nothing is."""
+    from contexture_nerf_tpu_torch.tools import knob_quality
+
+    bad = []
+    diff = knob_quality.config_diff(default, knobs)
+    if set(diff) != KNOB_RUN_DIFF:
+        bad.append(f"config.yaml differs in {diff}, not in "
+                   f"{sorted(KNOB_RUN_DIFF)} alone")
+    if not math.isfinite(cmp.get("texture_atlas_psnr_db", math.inf)):
+        bad.append(f"atlas PSNR {cmp.get('texture_atlas_psnr_db')} dB: the "
+                   f"two runs painted the same atlas")
+    return bad
+
+
 def user_tools(torch, seed, work, card, failures):
     """knob_quality's defaults and knobs paints (2 iterations each, its
     production scale, each a CLI process of its own whose launches this
-    process does not count) and its comparison; then compare_outputs on the
-    two runs' results/ (the pairing, PSNR and JSON line; with random towers
-    the PSNR says only that the tools run) and on one run against itself
-    (inf, exit 0)."""
+    process does not count) and its comparison, held by knob_runs_check:
+    the two runs' configs differ in the two knobs alone and their atlases
+    differ; the same check on the defaults run given as both runs (the
+    reference tool's comparison of a run with itself) must fail. Then
+    compare_outputs on the two runs' results/ (the pairing, PSNR and JSON
+    line; with random towers the PSNR says only that the tools run) and on
+    one run against itself (inf, exit 0)."""
     import contextlib
     import io
 
-    from contexture_nerf_tpu_torch.tools import compare_outputs
+    from contexture_nerf_tpu_torch.tools import compare_outputs, knob_quality
 
     root = work / "knob_quality"
     t0 = time.perf_counter()
@@ -3983,20 +4060,37 @@ def user_tools(torch, seed, work, card, failures):
     res = json.loads(r.stdout.strip().splitlines()[-1])
     cmp = res.get("default_vs_knobs", {})
     frames = cmp.get("eval_render_psnr_db", {}).get("per_frame", [])
-    ok = len(frames) == 8 and "texture_atlas_psnr_db" in cmp
+    default, knobs = root / "knobq_default", root / "knobq_knobs"
+    bad = knob_runs_check(default, knobs, cmp)
+    resolved = res.get("resolved_knobs", {})
+    want = {"knobq_default": dict.fromkeys(knob_quality.KNOBS, False),
+            "knobq_knobs": dict.fromkeys(knob_quality.KNOBS, True)}
+    if resolved != want:
+        bad.append(f"resolved knobs {resolved}, not {want}")
+    if len(frames) != 8:
+        bad.append(f"{len(frames)} eval frames compared, not 8")
     print(f"  (5) knob_quality --iters 2 (defaults and knobs): {kq_s:.1f} s "
-          f"(paints {json.dumps(res['wall_clock'])}); default vs knobs: "
-          f"atlas {cmp.get('texture_atlas_psnr_db')} dB, albedo "
+          f"(paints {json.dumps(res['wall_clock'])}); resolved knobs "
+          f"{json.dumps(resolved)}; config.yaml differs in "
+          f"{json.dumps(knob_quality.config_diff(default, knobs))}; default "
+          f"vs knobs: atlas {cmp.get('texture_atlas_psnr_db')} dB, albedo "
           f"{cmp.get('albedo_psnr_db')} dB, eval frames "
           f"{cmp.get('eval_render_psnr_db', {}).get('mean')} dB mean over "
           f"{len(frames)}; sds_loss {json.dumps(cmp.get('sds_loss'))} "
-          f"{'ok' if ok else 'BAD'} [{card}]")
-    if not ok:
-        failures.append(f"knob_quality: {res}")
-    a, b = (root / n / "results" for n in ("knobq_default", "knobq_knobs"))
+          f"{'ok' if not bad else 'BAD'} [{card}]")
+    failures.extend(f"knob_quality: {b}" for b in bad)
+    planted = knob_runs_check(default, default,
+                              knob_quality.compare(default, default))
+    print(f"  (5) planted fault: the defaults run as both runs (a run against "
+          f"itself): {'caught: ' + '; '.join(planted) if planted else 'MISSED'}")
+    if not planted:
+        failures.append("knob_runs_check passed the defaults run against "
+                        "itself")
     out = {}
-    for label, argv in (("two runs", [str(a), str(b)]),
-                        ("a run against itself", [str(a), str(a)])):
+    for label, argv in (("two runs", [str(default / "results"),
+                                      str(knobs / "results")]),
+                        ("a run against itself", [str(default / "results"),
+                                                  str(default / "results")])):
         buf = io.StringIO()
         with contextlib.redirect_stdout(buf):
             rc = compare_outputs.main(argv)
@@ -4760,6 +4854,11 @@ def main():
         if rec.d["launches"] == 0:
             failures.append(f"{name} was not launched on the main path")
     total = time.perf_counter() - t_script
+    print(f"profiler windows: {PROFILER_WINDOWS['taken']} taken; without "
+          f"device time, by try: "
+          f"{json.dumps(PROFILER_WINDOWS['empty by try'])}, holding "
+          f"{PROFILER_WINDOWS['events in empty']} events; each taken again "
+          f"with twice the reps and the padding")
     print(f"generation path {gen_s:.1f} s, int8 path {int8_s:.1f} s, tools "
           f"path {tools_s:.1f} s, parallel path {par_s:.1f} s of the "
           f"script's {total:.1f} s "

@@ -2,15 +2,25 @@
 tools/knob_quality.py.
 
 Paints the same production-scale run (spot_quick_test.yaml at a 1200^2
-train grid, 1024^2 eval grid and texture, 8 eval frames) with the
-reference-parity defaults and with `optim.local_sds_grad` +
-`optim.precompute_uv_embedding`, each through the port's CLI in a process
-of its own, beside two controls: precompute_uv_embedding alone (the same
-function, so any drift it shows is noise) and the defaults at seed + 1 (the
-chaos floor of an equally valid run). Then it compares each run with the
-default one: PSNR of the texture atlases (results/eval_texture_atlas.png)
-and of the exported albedos, per-frame PSNR of the eval turntables
-(results/eval_video_*.gif), and the last SDS losses of metrics.json.
+train grid, 1024^2 eval grid and texture, 8 eval frames) four times, each
+through the port's CLI in a process of its own:
+
+- knobq_default: `optim.local_sds_grad=false` and
+  `optim.precompute_uv_embedding=false`, the reference-exact path (the
+  config's defaults turn both knobs on);
+- knobq_knobs: both knobs true;
+- knobq_emb_only: local_sds_grad false, precompute_uv_embedding true; the
+  same function as the defaults, so any drift it shows is noise;
+- knobq_seed1: the defaults at seed + 1, the chaos floor of an equally
+  valid run.
+
+Then it compares each run with the default one: PSNR of the texture
+atlases (results/eval_texture_atlas.png) and of the exported albedos,
+per-frame PSNR of the eval turntables (results/eval_video_*.gif), and the
+last SDS losses of metrics.json. Each run's two knobs as its config.yaml
+resolved them go into the result too, and the tool exits 1 when the
+defaults and the knobs runs resolved to the same two values (the
+comparison would hold a run against itself).
 
     python -m contexture_nerf_tpu_torch.tools.knob_quality [--iters 500]
         [--seed 0] [--exp-root DIR] [--out FILE] [--skip TAGS]
@@ -19,6 +29,8 @@ and of the exported albedos, per-frame PSNR of the eval turntables
 The runs go under --exp-root (build/knob_quality by default) and the JSON
 to --out (knob_quality.json there). With random towers the PSNR only shows
 that the tool runs; it measures the knobs' drift only with real weights.
+The reference's tool paints its defaults run with no knob flags, so under
+the config's defaults it compares two runs of the same path.
 """
 from __future__ import annotations
 
@@ -33,13 +45,17 @@ import numpy as np
 
 REPO = Path(__file__).resolve().parents[2]
 DEFAULT_ROOT = REPO / "build" / "knob_quality"
+KNOBS = ("local_sds_grad", "precompute_uv_embedding")  # config section optim
 
 
 def paint_argv(exp_root: Path, exp_name: str, iters: int, seed: int,
-               knobs: bool, extra=None) -> list:
+               knobs) -> list:
     """The CLI arguments of one paint: production render and texture
     scale, where the knobs' timings were taken and where local_sds_grad's
-    receptive-field cut acts on 320^2 tiles of the 960x640 grid."""
+    receptive-field cut acts on 320^2 tiles of the 960x640 grid. `knobs`
+    sets both KNOBS (a bool) or each in turn (a pair of bools)."""
+    if isinstance(knobs, bool):
+        knobs = (knobs, knobs)
     argv = [
         "--config_path=configs/text_guided/spot_quick_test.yaml",
         f"--log.exp_root={exp_root}",
@@ -52,19 +68,38 @@ def paint_argv(exp_root: Path, exp_name: str, iters: int, seed: int,
         "--log.full_eval_size=8",
         f"--optim.checkpoint_interval={iters}",
     ]
-    if knobs:
-        argv += ["--optim.local_sds_grad=true",
-                 "--optim.precompute_uv_embedding=true"]
-    return argv + list(extra or [])
+    return argv + [f"--optim.{k}={str(v).lower()}"
+                   for k, v in zip(KNOBS, knobs)]
+
+
+def resolved_knobs(exp: Path) -> dict:
+    """{knob: value} of KNOBS as the run resolved them (its config.yaml)."""
+    import yaml
+
+    optim = yaml.safe_load((exp / "config.yaml").read_text())["optim"]
+    return {k: optim[k] for k in KNOBS}
+
+
+def config_diff(exp_a: Path, exp_b: Path) -> dict:
+    """{"section.key": (a, b)} for each config key on which two runs'
+    config.yaml differ, the run's name (log.exp_name) aside."""
+    import yaml
+
+    a, b = (yaml.safe_load((e / "config.yaml").read_text())
+            for e in (exp_a, exp_b))
+    return {f"{sec}.{k}": (a[sec].get(k), b[sec].get(k))
+            for sec in a for k in a[sec].keys() | b[sec].keys()
+            if a[sec].get(k) != b[sec].get(k)
+            and f"{sec}.{k}" != "log.exp_name"}
 
 
 def _run_paint(exp_root: Path, exp_name: str, iters: int, seed: int,
-               knobs: bool, extra=None) -> float:
+               knobs) -> float:
     """One paint through `python -m contexture_nerf_tpu_torch
     .run_contexture` in a process of its own (its output to
     <exp_root>/<exp_name>.log); returns its wall seconds."""
     cmd = [sys.executable, "-m", "contexture_nerf_tpu_torch.run_contexture",
-           *paint_argv(exp_root, exp_name, iters, seed, knobs, extra)]
+           *paint_argv(exp_root, exp_name, iters, seed, knobs)]
     exp_root.mkdir(parents=True, exist_ok=True)
     t0 = time.time()
     with open(exp_root / f"{exp_name}.log", "w") as fh:
@@ -153,8 +188,7 @@ def main(argv=None) -> int:
     runs = {
         "knobq_default": dict(seed=args.seed, knobs=False),
         "knobq_knobs": dict(seed=args.seed, knobs=True),
-        "knobq_emb_only": dict(seed=args.seed, knobs=False,
-                               extra=["--optim.precompute_uv_embedding=true"]),
+        "knobq_emb_only": dict(seed=args.seed, knobs=(False, True)),
         "knobq_seed1": dict(seed=args.seed + 1, knobs=False),
     }
     skip = set(filter(None, args.skip.split(",")))
@@ -164,8 +198,7 @@ def main(argv=None) -> int:
             if name in skip or (root / name / "mesh" / "albedo.png").exists():
                 continue
             wall[name + "_s"] = round(_run_paint(
-                root, name, args.iters, spec["seed"], spec["knobs"],
-                extra=spec.get("extra")), 1)
+                root, name, args.iters, spec["seed"], spec["knobs"]), 1)
 
     exp = {k: root / k for k in runs}
     result = {
@@ -175,6 +208,8 @@ def main(argv=None) -> int:
         "iters": args.iters,
         "seed": args.seed,
         "wall_clock": wall,
+        "resolved_knobs": {k: resolved_knobs(e) for k, e in exp.items()
+                           if (e / "config.yaml").exists()},
     }
     for key, other in (("default_vs_knobs", "knobq_knobs"),
                        ("default_vs_emb_only_bit_identity_control",
@@ -186,6 +221,13 @@ def main(argv=None) -> int:
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(result, indent=2) + "\n")
     print(json.dumps(result))
+    knobs = result["resolved_knobs"]
+    if {"knobq_default", "knobq_knobs"} <= knobs.keys() \
+            and knobs["knobq_default"] == knobs["knobq_knobs"]:
+        print(f"knob_quality: knobq_default and knobq_knobs resolved to the "
+              f"same knobs {knobs['knobq_default']}: their comparison holds "
+              f"a run against itself", file=sys.stderr)
+        return 1
     return 0
 
 
