@@ -14,6 +14,8 @@ from typing import Dict, Optional
 
 import torch
 
+from contexture_nerf_tpu_torch.core.profiler import span
+
 
 def resolve_device(device="cuda") -> torch.device:
     """The device an entry point runs on. The default is the card; the CPU
@@ -30,16 +32,19 @@ def resolve_device(device="cuda") -> torch.device:
 
 @contextlib.contextmanager
 def phase(timings: Optional[Dict[str, float]], name: str, device):
-    """Wall milliseconds of a block added to timings[name], a CUDA device
-    synchronised at both ends (nothing is timed when timings is None)."""
-    if timings is None:
+    """A block in `profiler.span(name)`, and its wall milliseconds added to
+    timings[name], a CUDA device synchronised at both ends (nothing is
+    timed when timings is None)."""
+    with span(name):
+        if timings is None:
+            yield
+            return
+        dev = torch.device(device)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
         yield
-        return
-    dev = torch.device(device)
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-    t0 = time.perf_counter()
-    yield
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-    timings[name] = timings.get(name, 0.0) + (time.perf_counter() - t0) * 1e3
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        timings[name] = timings.get(name, 0.0) + \
+            (time.perf_counter() - t0) * 1e3

@@ -8,6 +8,11 @@ contexture_nerf_tpu/core/profiler.py.
     `torch.profiler.record_function` range, so phases show in a trace. It
     synchronises the card only with block=True, where the reference blocks;
   - `annotate(name)`: the decorator form;
+  - `span(name)`: a range on the profiler's clock while `torch.profiler`
+    records, and nothing at all otherwise: the spans inside the SDS step,
+    the teacher's passes and the kernel wrappers;
+  - `host_read(x, cause)`: a device-to-host read of a scalar inside a
+    `sync.<cause>` span, so a trace counts the program's syncs;
   - `start_trace`/`stop_trace`: a `torch.profiler` trace of the CPU and the
     card, written as a Chrome trace.
 """
@@ -16,6 +21,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import numbers
 import time
 from collections import defaultdict
 from functools import wraps
@@ -101,6 +107,32 @@ def phase(name: str, timings: Optional[Timings] = None,
     if block:
         _sync()
     t.add(name, time.perf_counter() - t0)
+
+
+_NO_SPAN = contextlib.nullcontext()
+_recording = torch._C._autograd._profiler_enabled
+
+
+def span(name: str):
+    """A `record_function` range named `name` while the profiler records
+    (its events then share the trace's clock with the kernels launched
+    inside); otherwise one shared no-op context: no range, no clock read,
+    no allocation. Names beginning `pb.` are the benchmark's own."""
+    if _recording():
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
+
+
+def host_read(x, cause: str):
+    """int(x) for an integer or boolean scalar tensor, float(x) otherwise,
+    inside a `sync.<cause>` span: every device-to-host read of the SDS loop
+    goes through here, so the `sync.*` spans of a step are its syncs. A
+    number that is no tensor (a draw given from outside) waits for nothing:
+    int(x) or float(x), no span."""
+    if not torch.is_tensor(x):
+        return int(x) if isinstance(x, numbers.Integral) else float(x)
+    with span("sync." + cause):
+        return float(x) if x.is_floating_point() else int(x)
 
 
 def annotate(name: str, timings: Optional[Timings] = None):

@@ -29,6 +29,7 @@ import torch
 import torch.nn as nn
 
 from contexture_nerf_tpu_torch import phase, resolve_device
+from contexture_nerf_tpu_torch.core.profiler import span
 from contexture_nerf_tpu_torch.diffusion import schedulers as sch
 from contexture_nerf_tpu_torch.diffusion import weights as W
 from contexture_nerf_tpu_torch.diffusion.clip import (
@@ -312,20 +313,23 @@ class Zero123PlusTeacher(nn.Module):
             depth_image = resize_linear(depth_image, (th, tw))
 
         t = torch.as_tensor(t, device=latents.device).reshape(-1)
-        noisy_cond = sch.add_noise(self.alphas_cumprod, cond_lats, noise,
-                                   t.expand(cond_lats.shape[0]))
         ref: list = []
-        self.unet(noisy_cond, t, ehs, ref_out=ref)
+        with span("teacher.write"):
+            noisy_cond = sch.add_noise(self.alphas_cumprod, cond_lats, noise,
+                                       t.expand(cond_lats.shape[0]))
+            self.unet(noisy_cond, t, ehs, ref_out=ref)
 
-        depth_all = torch.cat([depth_image] * nb) if cn_cond_emb is None \
-            else None
-        emb_all = None if cn_cond_emb is None else \
-            torch.cat([cn_cond_emb] * nb)
-        downs, mid = self.controlnet(lat_in, t, ehs, depth_all,
-                                     self.CONDITIONING_SCALE,
-                                     cond_embedding=emb_all)
-        v = self.unet(lat_in, t, ehs, down_residuals=downs,
-                      mid_residual=mid, ref_kv_list=ref)
+        with span("teacher.control"):
+            depth_all = torch.cat([depth_image] * nb) \
+                if cn_cond_emb is None else None
+            emb_all = None if cn_cond_emb is None else \
+                torch.cat([cn_cond_emb] * nb)
+            downs, mid = self.controlnet(lat_in, t, ehs, depth_all,
+                                         self.CONDITIONING_SCALE,
+                                         cond_embedding=emb_all)
+        with span("teacher.read"):
+            v = self.unet(lat_in, t, ehs, down_residuals=downs,
+                          mid_residual=mid, ref_kv_list=ref)
         return list(v.chunk(nb, dim=0))
 
     def _cfg_v_pred(self, latents, t, cond_lat_pair, encoder_hidden_states,

@@ -19,6 +19,7 @@ import ctypes
 
 import torch
 
+from contexture_nerf_tpu_torch.core.profiler import span
 from contexture_nerf_tpu_torch.ops import _build
 
 # The reference's routing rule (attention.py:305-307): the kernel only when
@@ -143,11 +144,18 @@ def flash_attention(q, k, v, extra_k=None, extra_v=None, block_m=0):
     raises; a CPU tensor takes the plain version. On the card the output is
     a (B,H,Sq,d) view of (B,Sq,H,d) memory, so the heads merge back into
     the projection's layout for free. block_m: the kernel's query rows a
-    CTA, one of BLOCK_M; 0 picks by shape (the tile sweep sets it)."""
+    CTA, one of BLOCK_M; 0 picks by shape (the tile sweep sets it). Under
+    the profiler a call on the card, checks to launch, is the span
+    `attn.kernel`."""
     if not q.is_cuda:
         if q.device.type != "cpu":
             raise ValueError(f"unsupported device {q.device}")
         return flash_attention_plain(q, k, v, extra_k, extra_v)
+    with span("attn.kernel"):
+        return _flash_attention(q, k, v, extra_k, extra_v, block_m)
+
+
+def _flash_attention(q, k, v, extra_k, extra_v, block_m):
     if (extra_k is None) != (extra_v is None):
         raise ValueError("extra_k and extra_v go together")
     B, H, sq, _ = q.shape

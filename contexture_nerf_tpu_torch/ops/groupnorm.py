@@ -26,6 +26,7 @@ from typing import NamedTuple
 
 import torch
 
+from contexture_nerf_tpu_torch.core.profiler import span
 from contexture_nerf_tpu_torch.ops import _build
 
 USE_KERNEL = True
@@ -142,7 +143,14 @@ def group_norm_silu_kernel(x: torch.Tensor, scale: torch.Tensor,
                            eps: float = 1e-5, act: bool = True,
                            out_dtype=None) -> torch.Tensor:
     """K6 on the card: x (B, C, ...) contiguous, bf16 or f32; out_dtype bf16
-    or f32; scale and bias (C,) contiguous, bf16 or f32, read as they are."""
+    or f32; scale and bias (C,) contiguous, bf16 or f32, read as they are.
+    Under the profiler the call, checks to launch, is the span `k6.fwd`."""
+    with span("k6.fwd"):
+        return _group_norm_silu_kernel(x, scale, bias, groups, eps, act,
+                                       out_dtype)
+
+
+def _group_norm_silu_kernel(x, scale, bias, groups, eps, act, out_dtype):
     out_dtype = out_dtype or x.dtype
     if not x.is_cuda:
         raise ValueError(f"group_norm_silu_kernel takes a CUDA tensor, got "
@@ -184,7 +192,8 @@ def group_norm_silu_kernel(x: torch.Tensor, scale: torch.Tensor,
 
 class _GroupNormSiLUKernel(torch.autograd.Function):
     """K6 forward; the backward recomputes through the plain version, as
-    the reference's custom VJP does (it has no backward kernel)."""
+    the reference's custom VJP does (it has no backward kernel), in the span
+    `k6.bwd` under the profiler."""
 
     @staticmethod
     def forward(ctx, x, scale, bias, groups, eps, act, out_dtype):
@@ -197,7 +206,7 @@ class _GroupNormSiLUKernel(torch.autograd.Function):
     def backward(ctx, g):
         saved = ctx.saved_tensors
         need = ctx.needs_input_grad[:3]
-        with torch.enable_grad():
+        with span("k6.bwd"), torch.enable_grad():
             ins = [t.detach().requires_grad_(r) for t, r in zip(saved, need)]
             y = group_norm_silu_plain(*ins, *ctx.args)
             got = iter(torch.autograd.grad(

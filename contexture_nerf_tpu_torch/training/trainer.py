@@ -280,9 +280,12 @@ class SDSTrainer:
             # loop-invariant ControlNet hint embedding, hoisted
             self.cn_cond_emb = self.teacher.embed_control_cond(
                 self.depth_grid, lat_hw)
+        # capturable on the card: Adam keeps its step counts there and
+        # reads none back (else two `.item()` of each leaf's count a step)
         self.optimizer = torch.optim.Adam(
             self.mlp.parameters(), lr=opt.sds_lr,
-            betas=tuple(opt.sds_betas), eps=opt.sds_eps)
+            betas=tuple(opt.sds_betas), eps=opt.sds_eps,
+            capturable=dev.type == "cuda")
 
     # -- student render ------------------------------------------------------
 
@@ -338,10 +341,16 @@ class SDSTrainer:
         (the MLP over the whole lattice) sampled at the 6 views' cached
         UVs, composited on grey, each view cropped to its box and resized
         to the tile; rgb is then the texture map."""
+        with profiler.span("sds.render"):
+            grid, rgb = self._render_canvas()
+        with profiler.span("sds.encode"):
+            return self._encode(grid, eps), grid, rgb
+
+    def _render_canvas(self):
+        """(grid, rgb) of render_grid_latent, before the encode."""
         if not self.exact:
             rgb = self._query()
-            grid = self._composite(rgb, *self.grid_hw, self.mask_grid)
-            return self._encode(grid, eps), grid, rgb
+            return self._composite(rgb, *self.grid_hw, self.mask_grid), rgb
         texture, _ = self.mesh_model.get_texture_map(self.mlp)
         image, mask, _, _ = self.mesh_model.renderer.render_texture_with_cache(
             self.cache6, texture, "none")
@@ -350,8 +359,7 @@ class SDSTrainer:
                                  self.tile_px, self.tile_px)
                  for i in range(len(self.bboxes6))]
         grid = merge_6_to_grid(torch.cat(tiles)).contiguous()
-        grid = scale_image(grid * 2 - 1)
-        return self._encode(grid, eps), grid, texture
+        return scale_image(grid * 2 - 1), texture
 
     def slice_origin(self, tile_idx: int):
         """(oy, ox) of the backward slice around a tile (column-major tile
@@ -373,22 +381,24 @@ class SDSTrainer:
         sl_h, sl_w = self.sl_h, self.sl_w
         row, col = tile_idx % 3, tile_idx // 3
         oy, ox = self.slice_origin(tile_idx)
-        rgb_sl = self._query((oy, ox, sl_h, sl_w))
-        mask_sl = self.mask_grid[:, :, oy:oy + sl_h, ox:ox + sl_w]
-        patch = self._composite(rgb_sl, sl_h, sl_w, mask_sl)
-        grid = grid_full.clone()
-        grid[:, :, oy:oy + sl_h, ox:ox + sl_w] = patch.to(grid_full.dtype)
-        g_sl = grid[:, :, oy:oy + sl_h, ox:ox + sl_w]
-        eps_l = eps[:, :, oy // vd:(oy + sl_h) // vd,
-                    ox // vd:(ox + sl_w) // vd]
-        z_l = self._encode(g_sl, eps_l)
-        ty, tx = (row * tp - oy) // vd, (col * tp - ox) // vd
-        z_l_tile = z_l[:, :, ty:ty + lt, tx:tx + lt]
-        zy, zx = row * lt, col * lt
-        z = z_full.clone()
-        z[:, :, zy:zy + lt, zx:zx + lt] = \
-            z_full[:, :, zy:zy + lt, zx:zx + lt] + \
-            (z_l_tile - z_l_tile.detach()).to(z_full.dtype)
+        with profiler.span("sds.render"):
+            rgb_sl = self._query((oy, ox, sl_h, sl_w))
+            mask_sl = self.mask_grid[:, :, oy:oy + sl_h, ox:ox + sl_w]
+            patch = self._composite(rgb_sl, sl_h, sl_w, mask_sl)
+            grid = grid_full.clone()
+            grid[:, :, oy:oy + sl_h, ox:ox + sl_w] = patch.to(grid_full.dtype)
+            g_sl = grid[:, :, oy:oy + sl_h, ox:ox + sl_w]
+        with profiler.span("sds.encode"):
+            eps_l = eps[:, :, oy // vd:(oy + sl_h) // vd,
+                        ox // vd:(ox + sl_w) // vd]
+            z_l = self._encode(g_sl, eps_l)
+            ty, tx = (row * tp - oy) // vd, (col * tp - ox) // vd
+            z_l_tile = z_l[:, :, ty:ty + lt, tx:tx + lt]
+            zy, zx = row * lt, col * lt
+            z = z_full.clone()
+            z[:, :, zy:zy + lt, zx:zx + lt] = \
+                z_full[:, :, zy:zy + lt, zx:zx + lt] + \
+                (z_l_tile - z_l_tile.detach()).to(z_full.dtype)
         return z, grid, rgb
 
     # -- the step --------------------------------------------------------------
@@ -415,60 +425,80 @@ class SDSTrainer:
         neg_noise, cond_noise) may be given, e.g. a reference's random
         numbers; otherwise they come from the trainer's generator. Returns
         (params, loss, grad_norm, fisher, grid) as the reference's sds_step
-        does, params being the updated MLP state."""
-        dev = self.device
-        d = self.draw() if draws is None else draws
-        tile_idx = int(d["tile_idx"])
-        eps = _to(d["eps"], dev)
-        noise = _to(d["noise"], dev, torch.float32)
-        neg_noise = _to(d["neg_noise"], dev)
-        cond_noise = _to(d["cond_noise"], dev)
-        t_t = torch.tensor([int(t)], device=dev)
+        does, params being the updated MLP state. Under the profiler the
+        step is the span `sds.step`, cut whole into `sds.draw`,
+        `sds.render` / `sds.encode`, `sds.teacher`, `sds.loss`,
+        `sds.backward`, `sds.adam` and `sds.out`; its one sync is
+        `sync.tile_idx`."""
+        with profiler.span("sds.step"):
+            dev = self.device
+            with profiler.span("sds.draw"):
+                d = self.draw() if draws is None else draws
+                tile_idx = profiler.host_read(d["tile_idx"], "tile_idx")
+                eps = _to(d["eps"], dev)
+                noise = _to(d["noise"], dev, torch.float32)
+                neg_noise = _to(d["neg_noise"], dev)
+                cond_noise = _to(d["cond_noise"], dev)
+                t_t = torch.tensor([int(t)], device=dev)
+            if self.local_grad:
+                z, grid, _ = self.render_grid_latent_local(eps, tile_idx)
+            else:
+                z, grid, _ = self.render_grid_latent(eps)
+            z_sg = z.detach()
+            with profiler.span("sds.teacher"):
+                v_pred = self._teacher(z_sg, noise, t_t, neg_noise,
+                                       cond_noise)
+            with profiler.span("sds.loss"):
+                v = sch.velocity_target(self.acp, z_sg, noise, t_t)
+                acp_t = self.acp[t_t].reshape(-1, 1, 1, 1)
+                w = 1 - acp_t
+                g = torch.nan_to_num(
+                    GRAD_SCALE * w * torch.sqrt(acp_t) * (v_pred - v))
+                targets = (z_sg - g).detach()
+                z_tiles = split_grid_to_6(z, self.lat_tile)
+                tgt_tiles = split_grid_to_6(targets, self.lat_tile)
+                loss = 0.5 * torch.sum(
+                    (z_tiles[tile_idx] - tgt_tiles[tile_idx]) ** 2
+                ) / z.shape[0]
+            with profiler.span("sds.backward"):
+                self.optimizer.zero_grad(set_to_none=True)
+                loss.backward()
+                grads = [p.grad for p in self.mlp.parameters()]
+                if self._grad_rows_split:
+                    # each rank's gradient is its rows' share: sum over
+                    # `views`
+                    group = self.mesh.get_group("views")
+                    for gr in grads:
+                        pmesh.all_reduce_sum(gr, group)
+            with profiler.span("sds.adam"):
+                grad_norm = torch.sqrt(
+                    sum(torch.sum(gr.float() ** 2) for gr in grads))
+                self.optimizer.step()
+            with profiler.span("sds.out"):
+                fisher = torch.sum(
+                    (torch.sqrt(acp_t) /
+                     torch.clamp(torch.sqrt(1 - acp_t), min=1e-8)) ** 2
+                    * torch.abs(v_pred - v) ** 2)
+                params = {k: p.detach().clone()
+                          for k, p in self.mlp.state_dict().items()}
+            return (params, loss.detach(), grad_norm.detach(), fisher,
+                    grid.detach())
 
-        self.optimizer.zero_grad(set_to_none=True)
-        if self.local_grad:
-            z, grid, _ = self.render_grid_latent_local(eps, tile_idx)
-        else:
-            z, grid, _ = self.render_grid_latent(eps)
-        z_sg = z.detach()
+    def _teacher(self, z_sg, noise, t_t, neg_noise, cond_noise):
+        """The teacher's CFG v-prediction at the DDPM-noised latent."""
         latents_noisy = sch.add_noise(self.acp, z_sg, noise, t_t)
         tch = self.teacher
         with (sequence_parallel(self.mesh, "sp", SP_MIN_SEQ) if self.sp > 1
               else contextlib.nullcontext()):
             if self.individual:
-                v_pred = tch._cfg_v_pred_individual(
+                return tch._cfg_v_pred_individual(
                     latents_noisy, t_t, self.cond_lat_pair, self.ehs,
                     self.depth_grid, self.gs_i, self.gs_t, neg_noise,
                     cond_noise, cn_cond_emb=self.cn_cond_emb)
-            else:
-                v_pred = tch.teacher_v_pred(
-                    latents_noisy, t_t, self.cond_lat_pair, self.ehs,
-                    self.depth_grid, GUIDANCE_SCALE, neg_noise, cond_noise,
-                    cn_cond_emb=self.cn_cond_emb)
-        v = sch.velocity_target(self.acp, z_sg, noise, t_t)
-        acp_t = self.acp[t_t].reshape(-1, 1, 1, 1)
-        w = 1 - acp_t
-        g = torch.nan_to_num(GRAD_SCALE * w * torch.sqrt(acp_t) * (v_pred - v))
-        targets = (z_sg - g).detach()
-        z_tiles = split_grid_to_6(z, self.lat_tile)
-        tgt_tiles = split_grid_to_6(targets, self.lat_tile)
-        loss = 0.5 * torch.sum(
-            (z_tiles[tile_idx] - tgt_tiles[tile_idx]) ** 2) / z.shape[0]
-        loss.backward()
-        grads = [p.grad for p in self.mlp.parameters()]
-        if self._grad_rows_split:
-            # each rank's gradient is its rows' share: sum over `views`
-            group = self.mesh.get_group("views")
-            for gr in grads:
-                pmesh.all_reduce_sum(gr, group)
-        grad_norm = torch.sqrt(sum(torch.sum(gr.float() ** 2) for gr in grads))
-        self.optimizer.step()
-        fisher = torch.sum((torch.sqrt(acp_t) /
-                            torch.clamp(torch.sqrt(1 - acp_t), min=1e-8)) ** 2
-                           * torch.abs(v_pred - v) ** 2)
-        params = {k: p.detach().clone()
-                  for k, p in self.mlp.state_dict().items()}
-        return params, loss.detach(), grad_norm.detach(), fisher, grid.detach()
+            return tch.teacher_v_pred(
+                latents_noisy, t_t, self.cond_lat_pair, self.ehs,
+                self.depth_grid, GUIDANCE_SCALE, neg_noise, cond_noise,
+                cn_cond_emb=self.cn_cond_emb)
 
     def t_schedule(self, iterations: int) -> torch.Tensor:
         return sch.dreamtime_schedule(self.acp, iterations, m=500, s=125)
@@ -482,10 +512,12 @@ class SDSTrainer:
         for i in range(n):
             _, loss, grad_norm, fisher, _ = self.step(ts[i])
             if logs_metrics(i, n):
-                metrics.append({"iter": i, "t": ts[i],
-                                "sds_loss": float(loss),
-                                "grad_norm": float(grad_norm),
-                                "fisher_divergence_t": float(fisher)})
+                metrics.append({
+                    "iter": i, "t": ts[i],
+                    "sds_loss": profiler.host_read(loss, "loss"),
+                    "grad_norm": profiler.host_read(grad_norm, "grad_norm"),
+                    "fisher_divergence_t": profiler.host_read(fisher,
+                                                              "fisher")})
         return metrics
 
     # -- launches the step makes -------------------------------------------------
@@ -1374,28 +1406,30 @@ class ConTEXTure:
             with profiler.phase("sds_step"):
                 _, loss, grad_norm, fisher, grid = sds.step(ts[i])
             if self.writer and logs_metrics(i, iterations):
-                loss_f = float(loss)
-                # float(loss) waited for the card: note the sync-to-sync
+                loss_f = profiler.host_read(loss, "loss")
+                # the loss's read waited for the card: note the sync-to-sync
                 # window, so timings.json has the device-inclusive rate
                 if win_t0 is not None and i > win_i0:
                     profiler.GLOBAL_TIMINGS.note_window(
                         "sds_step", i - win_i0, time.time() - win_t0)
-                fisher_f = float(fisher)
+                fisher_f = profiler.host_read(fisher, "fisher")
+                grad_norm_f = profiler.host_read(grad_norm, "grad_norm")
                 ikl_running_avg = (fisher_f if ikl_running_avg is None
                                    else 0.99 * ikl_running_avg
                                    + 0.01 * fisher_f)
                 entry = {"iter": i, "sds_loss": loss_f,
-                         "grad_norm": float(grad_norm),
+                         "grad_norm": grad_norm_f,
                          "fisher_divergence_t": fisher_f,
                          "ikl_running_avg": ikl_running_avg,
                          "t": ts[i], "elapsed_s": time.time() - t0}
                 if logs_view_consistency(i, iterations):
                     with profiler.phase("view_consistency_metric"):
-                        entry["view_consistency"] = float(
-                            self._view_consistency_metric())
+                        entry["view_consistency"] = profiler.host_read(
+                            self._view_consistency_metric(),
+                            "view_consistency")
                 metrics_log.append(entry)
                 logger.info(f"iter {i}: sds_loss={loss_f:.4f} t={ts[i]} "
-                            f"grad_norm={float(grad_norm):.4g}")
+                            f"grad_norm={grad_norm_f:.4g}")
                 if self._wandb is not None:
                     self._wandb.log(metrics_log[-1])
                 # the window restarts after the metric work, so
