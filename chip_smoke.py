@@ -219,10 +219,12 @@ def bound(flops, nbytes, peak=H100_BF16_FLOPS):
 class Record:
     """Per-kernel numbers summed over the launches of one run of the main
     path's stage that launches it (one SDS step, or prepare_sds); `peak` is
-    the card's operation rate for the kernel's arithmetic."""
+    the card's operation rate for the kernel's arithmetic. A shape record
+    whose launches are several launch-shape keys' lists them as `keys`."""
 
-    def __init__(self, name, source, replaces, peak=H100_BF16_FLOPS):
-        self.peak = peak
+    def __init__(self, name, source, replaces, peak=H100_BF16_FLOPS,
+                 keys=None):
+        self.peak, self.keys = peak, keys
         self.d = {"name": name, "route": "cuda", "source": source,
                   "replaces": replaces, "launches": 0, "max_abs_err": 0.0,
                   "ms": 0.0, "plain_ms": 0.0, "flops": 0.0, "bytes": 0.0,
@@ -908,6 +910,154 @@ def groupnorm_ratio(torch, got, plain, limit):
     return float(((got.float() - plain.float()).abs() / limit).max())
 
 
+def vae_encoder_groupnorms(h, w):
+    """(x shape, act) of each GroupNorm call of one SD VAE encode of a
+    (1, 3, h, w) image, in call order (22): two in each resnet, the mid
+    attention's (no SiLU), conv_norm_out; all bf16, eps 1e-6, in the SDS
+    step (the slice's at 448x448, the canvas's at 960x640)."""
+    from contexture_nerf_tpu_torch.diffusion.vae import VAEConfig
+
+    cfg = VAEConfig.sd()
+    out, ch = [], cfg.block_out_channels[0]
+    for bi, oc in enumerate(cfg.block_out_channels):
+        for _ in range(cfg.layers_per_block):
+            out += [((1, ch, h, w), True), ((1, oc, h, w), True)]
+            ch = oc
+        if bi < len(cfg.block_out_channels) - 1:
+            h, w = h // 2, w // 2
+    mid = (1, ch, h, w)
+    return out + [(mid, True)] * 2 + [(mid, False)] + [(mid, True)] * 3
+
+
+def output_gradient(torch, x, dtype, gen):
+    """A gradient of a GroupNorm's output for x: activation-like (channel
+    means away from 0, so mean(dxhat) is too) plus x itself (so
+    mean(dxhat xhat) is as well): every term of the backward shows."""
+    g = activations(torch, tuple(x.shape), torch.float32, gen)
+    return (g + x.float()).to(dtype)
+
+
+def closed_form_bwd(torch, x, scale, bias, g, groups, eps, act,
+                    dtype=None, sum_dtype=None, shift=None, fault=None):
+    """group_norm_silu_bwd_plain's closed form with each sum a limit or a
+    planted fault can move: the elementwise work in `dtype` (default f64),
+    the sums taken in `sum_dtype` (default dtype) and rounded to dtype; the
+    group sums mean, e2 (E[x^2]), m1 (mean(dxhat)) and m2 (mean(dxhat
+    xhat)) moved by `shift`'s amounts; `fault` one of BWD_FAULTS (a stand-in
+    for a wrong gn_bwd): "no_slope" takes g' = g sigmoid(y); "no_projection"
+    drops xhat m2; "chunk" leaves the middle rank's chunk of gn_bwd's plan
+    (for a one-CTA plan the middle quarter of the group) out of m1 and m2,
+    still dividing by n. Returns (dx, dscale, dbias) in dtype, |terms| of
+    mean, e2, m1, m2 per group, and |terms| of dscale and dbias per
+    channel."""
+    from contexture_nerf_tpu_torch.ops import groupnorm as gn
+
+    dtype = dtype or torch.float64
+    sum_dtype = sum_dtype or dtype
+    shift = shift or {}
+    B, C = x.shape[:2]
+    shape = (1, C) + (1,) * (x.dim() - 2)
+    dims = [0] + list(range(2, x.dim()))
+    xd = x.to(dtype).reshape(B, groups, -1)
+    n = xd.shape[-1]
+
+    def mean_of(t, keep=1.0):
+        return (t.to(sum_dtype) * keep).sum(-1, keepdim=True).to(dtype) / n
+
+    mean = mean_of(xd) + shift.get("mean", 0.0)
+    e2 = mean_of(xd * xd) + shift.get("e2", 0.0)
+    rstd = torch.rsqrt(e2 - mean * mean + eps)
+    xhat = ((xd - mean) * rstd).reshape(x.shape)
+    sd = scale.to(dtype).reshape(shape)
+    gp = g.to(dtype)
+    if act:
+        y = xhat * sd + bias.to(dtype).reshape(shape)
+        sig = torch.sigmoid(y)
+        gp = gp * sig * (1 if fault == "no_slope" else (1 + y * (1 - sig)))
+    d = (gp * sd).reshape(B, groups, -1)
+    xh = xhat.reshape(B, groups, -1)
+    keep = torch.ones(n, dtype=dtype, device=x.device)
+    if fault == "chunk":
+        p = gn.bwd_plan(n, B * groups, x.element_size(), g.element_size(),
+                        max_cluster=(gn.max_cluster(bwd=True) if x.is_cuda
+                                     else gn.MAX_CLUSTER))
+        share = p.chunk if p.cluster > 1 else -(-n // 4)
+        parts = -(-n // share)
+        keep[(parts // 2) * share:(parts // 2 + 1) * share] = 0
+    m1 = mean_of(d, keep) + shift.get("m1", 0.0)
+    m2 = mean_of(d * xh, keep) + shift.get("m2", 0.0)
+    proj = 0 if fault == "no_projection" else xh * m2
+    dx = (rstd * (d - m1 - proj)).reshape(x.shape)
+    dscale = (gp * xhat).to(sum_dtype).sum(dims).to(dtype)
+    dbias = gp.to(sum_dtype).sum(dims).to(dtype)
+    mags = {"mean": xd.abs().mean(-1, keepdim=True), "e2": e2,
+            "m1": d.abs().mean(-1, keepdim=True),
+            "m2": (d * xh).abs().mean(-1, keepdim=True)}
+    return (dx, dscale, dbias, mags, (gp * xhat).abs().sum(dims),
+            gp.abs().sum(dims))
+
+
+def groupnorm_bwd_floor(torch, x, scale, bias, g, groups, eps, act,
+                        rho=2.0 ** -14):
+    """The part of |gn_bwd - plain| that the rounding of their f32 sums can
+    cause, per element of (dx, dscale, dbias): as in statistics_floor, each
+    sum is off by at most rho (1024 f32 ulps) of the sum of its terms'
+    magnitudes. The f64 closed form is evaluated with mean, E[x^2],
+    mean(dxhat) and mean(dxhat xhat) each moved by that much, one at a
+    time; the floor is the sum of the moves' effects in magnitude (plus rho
+    of the magnitudes summed into dscale and dbias), doubled, since both
+    sides err."""
+    base = closed_form_bwd(torch, x, scale, bias, g, groups, eps, act)
+    floor = [torch.zeros_like(t) for t in base[:3]]
+    for k, mag in base[3].items():
+        moved = closed_form_bwd(torch, x, scale, bias, g, groups, eps, act,
+                                shift={k: rho * mag})
+        for f, a, b in zip(floor, moved[:3], base[:3]):
+            f += (a - b).abs()
+    floor[1] += rho * base[4]
+    floor[2] += rho * base[5]
+    return [2.0 * f for f in floor]
+
+
+def groupnorm_bwd_limit(torch, x, scale, bias, g, groups, eps, act, plain):
+    """gn_bwd's per-element limits against the closed form's outputs
+    `plain` (dx, dscale, dbias; None where not asked): groupnorm_bwd_floor
+    plus one ulp of each output's dtype at the plain value's magnitude (the
+    two round f32 values that differ by the floor; the elementwise chain's
+    own rounding in f32)."""
+    floor = groupnorm_bwd_floor(torch, x, scale, bias, g, groups, eps, act)
+    out = []
+    for f, p in zip(floor, plain):
+        if p is None:
+            out.append(None)
+            continue
+        a = p.float().abs().clamp(min=2.0 ** -126)
+        mant = 7.0 if p.dtype == torch.bfloat16 else 23.0
+        out.append((torch.exp2(torch.floor(torch.log2(a)) - mant)
+                    + f.float()).reshape(p.shape))
+    return out
+
+
+def groupnorm_bwd_ratio(torch, got, plain, limit):
+    """The largest groupnorm_ratio over the outputs asked for."""
+    return max(groupnorm_ratio(torch, a, b, c)
+               for a, b, c in zip(got, plain, limit) if b is not None)
+
+
+BWD_FAULTS = {"no_slope": "SiLU's slope taken as sigmoid(y) alone",
+              "no_projection": "the xhat * mean(dxhat xhat) term dropped",
+              "chunk": "one CTA's share left out of the group's two sums"}
+
+
+def planted_group_norm_bwd(torch, x, scale, bias, g, groups, eps, act,
+                           fault):
+    """The closed form's dx in f32, rounded to x's dtype, with one of
+    BWD_FAULTS planted (see closed_form_bwd): a stand-in for a wrong
+    gn_bwd."""
+    return closed_form_bwd(torch, x, scale, bias, g, groups, eps, act,
+                           torch.float32, fault=fault)[0].to(x.dtype)
+
+
 def pixel_face_pairs(torch, fvi, H, W):
     """(pixel, face) pairs whose face box covers the pixel centre: the work
     the rasterizer must do for these faces (every such pair gets its edge
@@ -1212,7 +1362,8 @@ def groupnorm_phase(torch, seed, failures):
     """K6 against its plain version at GN_SHAPES on activation-like inputs
     (nonzero, per-channel means): within groupnorm_limit on every element,
     two runs bit-identical, the planted faults outside the limit; and the
-    autograd path's gradients against the plain path's."""
+    autograd path's gradients (gn_bwd's) against the closed form within
+    groupnorm_bwd_limit."""
     from contexture_nerf_tpu_torch.ops import groupnorm as gn
 
     dev = torch.device("cuda")
@@ -1264,14 +1415,148 @@ def groupnorm_phase(torch, seed, failures):
         (fn(*ins, 32, 1e-6, True, torch.float32) * w).sum().backward()
         return [t.grad for t in ins]
 
-    g_k, g_p = grads(gn.group_norm_silu), grads(gn.group_norm_silu_plain)
-    g_err = max(float((a - b).abs().max()) for a, b in zip(g_k, g_p))
-    print(f"  K6 autograd (forward K6, backward through the plain version): "
-          f"gradients vs the plain path's max_abs_err {g_err:.3e} (tol 1e-5)")
-    if not g_err <= 1e-5:
-        failures.append("K6 autograd gradients")
+    # the kernel path's gradients against the closed form, within gn_bwd's
+    # limit (the plain path's autograd sums in another order)
+    g_k = grads(gn.group_norm_silu)
+    plain = gn.group_norm_silu_bwd_plain(x, scale, bias, w, 32, 1e-6, True)
+    limit = groupnorm_bwd_limit(torch, x, scale, bias, w, 32, 1e-6, True,
+                                plain)
+    for name, k, p, lim in zip(("dx", "dscale", "dbias"), g_k, plain, limit):
+        err = float((k - p).abs().max())
+        ratio = groupnorm_ratio(torch, k, p, lim)
+        print(f"  K6 autograd (forward K6, backward gn_bwd) {name}: "
+              f"max_abs_err from the closed form {err:.3e}, max err/limit "
+              f"{ratio:.3f} (limit: groupnorm_bwd_limit, largest "
+              f"{float(lim.max()):.3e})")
+        if not ratio <= 1.0:
+            failures.append(f"K6 autograd gradient {name}")
     return worst
 
+
+
+# the SDS step's encodes as (h, w): the backward slice around the sampled
+# tile (the default path) and the whole canvas (the exact path)
+STEP_SLICE, STEP_CANVAS = (448, 448), (960, 640)
+STEP_NEED = (True, False, False)  # the frozen VAE asks gn_bwd for dx alone
+GN_BWD_OPS = 40  # gn_bwd's FP32 operations an element, counted high
+GN_BWD_SRC = "contexture_nerf_tpu_torch/csrc/groupnorm.cu"
+GN_BWD_REPLACES = ("no TPU counterpart (the reference's custom VJP "
+                   "recomputes through its plain version)")
+
+
+def library_bwd(torch, x, scale, bias, g, groups, eps, act):
+    """The library's backward of the same GroupNorm(+SiLU) call, dx alone:
+    aten's silu_backward (where act) and native_group_norm_backward, from
+    the statistics native_group_norm keeps; a function of no arguments."""
+    B, C = x.shape[:2]
+    hw = x.numel() // (B * C)
+    w, b = scale.to(x.dtype), bias.to(x.dtype)
+    y, mean, rstd = torch.ops.aten.native_group_norm(x, w, b, B, C, hw,
+                                                     groups, eps)
+
+    def run():
+        gy = torch.ops.aten.silu_backward(g, y) if act else g
+        return torch.ops.aten.native_group_norm_backward(
+            gy, x, mean, rstd, w, B, C, hw, groups, [True, False, False])[0]
+    return run
+
+
+def groupnorm_bwd_phase(torch, seed, encodes, failures):
+    """gn_bwd at the SD VAE encoder's 22 GroupNorm calls of each encode in
+    `encodes` ((label, (h, w), Record)), bf16 as the SDS step runs them:
+    each distinct call within groupnorm_bwd_limit of the closed form, every
+    gradient asked and dx alone (STEP_NEED), two runs bit-identical, the
+    planted BWD_FAULTS that apply outside the limit; then timed as the step
+    asks (dx alone): CUDA events, device time, the plain closed form and
+    the library's backward (library_bwd). Each Record gets the sums over
+    the 22 calls, the bytes they must move (x and g read once, dx written
+    once) and the device times."""
+    from contexture_nerf_tpu_torch.ops import groupnorm as gn
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed + 3)
+    bf, eps, everything = torch.bfloat16, 1e-6, (True, True, True)
+    for label, hw, rec in encodes:
+        calls = {}
+        for shape, act in vae_encoder_groupnorms(*hw):
+            calls[(shape, act)] = calls.get((shape, act), 0) + 1
+        dms = ldms = 0.0
+        for (shape, act), times in calls.items():
+            x = activations(torch, shape, bf, gen)
+            C = shape[1]
+            scale = (1 + 0.3 * torch.randn((C,), generator=gen,
+                                           device=dev)).to(bf)
+            bias = (0.2 * torch.randn((C,), generator=gen,
+                                      device=dev)).to(bf)
+            g = output_gradient(torch, x, bf, gen)
+            p = gn.bwd_kernel_plan(x, g)
+            name = (f"gn_bwd {label} {shape} act {act} [{p.path}, "
+                    f"{p.cluster} CTA{'s' * (p.cluster > 1)}]")
+            plain = gn.group_norm_silu_bwd_plain(x, scale, bias, g, 32, eps,
+                                                 act)
+            limit = groupnorm_bwd_limit(torch, x, scale, bias, g, 32, eps,
+                                        act, plain)
+            ok, line = True, []
+            for need in (everything, STEP_NEED):
+                args = (x, scale, bias, g, 32, eps, act, need)
+                got = gn.group_norm_silu_bwd_kernel(*args)
+                again = gn.group_norm_silu_bwd_kernel(*args)
+                same = all(a is None or torch.equal(a, b)
+                           for a, b in zip(got, again))
+                asked = [q if r else None for q, r in zip(plain, need)]
+                ratio = groupnorm_bwd_ratio(torch, got, asked, limit)
+                finite = all(bool(torch.isfinite(a.float()).all())
+                             for a in got if a is not None)
+                ok = ok and ratio <= 1.0 and same and finite
+                line.append(f"{sum(need)} asked: max err/limit {ratio:.3f}, "
+                            f"two runs bit-identical {same}")
+            err = float((got[0].float() - plain[0].float()).abs().max())
+            print(f"  {name} x{times}: " + "; ".join(line)
+                  + f"; dx max_abs_err {err:.3e} {'ok' if ok else 'MISS'}")
+            if not ok:
+                failures.append(name)
+            for fault, what in BWD_FAULTS.items():
+                if fault == "no_slope" and not act:
+                    continue
+                bad = planted_group_norm_bwd(torch, x, scale, bias, g, 32,
+                                             eps, act, fault)
+                r = groupnorm_ratio(torch, bad, plain[0], limit[0])
+                print(f"    planted fault {what}: max err/limit {r:.2f} "
+                      f"{'caught' if r > 1 else 'NOT CAUGHT'}")
+                if not r > 1:
+                    failures.append(f"{name}: limit passes planted fault "
+                                    f"{fault}")
+            del plain, limit, got, again
+
+            def k():
+                return gn.group_norm_silu_bwd_kernel(x, scale, bias, g, 32,
+                                                     eps, act, STEP_NEED)
+
+            lib = library_bwd(torch, x, scale, bias, g, 32, eps, act)
+            t = {"ms": cuda_ms(k), "lms": cuda_ms(lib),
+                 "pms": cuda_ms(lambda: gn.group_norm_silu_bwd_plain(
+                     x, scale, bias, g, 32, eps, act, STEP_NEED), reps=5),
+                 "dms": device_ms(k), "ldms": device_ms(lib)}
+            nbytes = x.numel() * (2 * x.element_size() + g.element_size())
+            rec.add(err, t["ms"], t["pms"], GN_BWD_OPS * x.numel(), nbytes,
+                    times=times, lib_ms=t["lms"])
+            dms, ldms = dms + times * t["dms"], ldms + times * t["ldms"]
+            b_ms = nbytes / H100_BYTES_S * 1e3
+            print(f"    a call: gn_bwd {t['ms']:.4f} ms (device "
+                  f"{t['dms']:.4f}), library {t['lms']:.4f} (device "
+                  f"{t['ldms']:.4f}), plain {t['pms']:.4f}, bound {b_ms:.4f} "
+                  f"(bytes); device time {share_of_bound(b_ms, t['dms'])}")
+            del x, g, lib
+            torch.cuda.empty_cache()
+        rec.d["device_ms"], rec.d["library_device_ms"] = dms, ldms
+        out = rec.out()
+        print(f"  gn_bwd over the {label}'s {sum(calls.values())} calls "
+              f"({hw[0]}x{hw[1]}): ms "
+              f"{out['ms']:.3f} plain_ms {out['plain_ms']:.3f} library_ms "
+              f"{out['library_ms']:.3f} bound_ms {out['bound_ms']:.3f} "
+              f"({out['bound_by']}); device time gn_bwd {dms:.3f} ms, "
+              f"library {ldms:.3f}; gn_bwd "
+              f"{share_of_bound(out['bound_ms'], dms)}")
 
 def check_setup(torch, setup, trainer, res, failures):
     """prepare_sds's outputs: the shapes at full width, finite values, an
@@ -1603,6 +1888,10 @@ def main_path(torch, seed, profile, recs, failures):
           f"{built_s:.1f} s: teacher {n_params / 1e6:.1f} M params "
           f"({n_clip / 1e6:.1f} M of them CLIP) in {trainer.dtype}, canvas "
           f"{trainer.grid_hw}, backward slice {trainer.sl_h}x{trainer.sl_w}")
+    if (trainer.sl_h, trainer.sl_w) != STEP_SLICE or \
+            trainer.grid_hw != STEP_CANVAS:
+        failures.append(f"the step's slice and canvas are not {STEP_SLICE} "
+                        f"and {STEP_CANVAS}, where gn_bwd was held")
     print(f"  prepare_sds {prep_ms:.1f} ms (bootstrap {boot_ms:.1f}): "
           + ", ".join(f"{k} {v:.1f}" for k, v in timings.items())
           + f" ms; peak memory {prep_peak:.2f} GiB; launches "
@@ -3414,9 +3703,9 @@ def mesh_path(torch, seed, teacher, shape_recs, failures):
     gc.collect()
     torch.cuda.empty_cache()
     for key, rec in shape_recs.items():
-        rec.d["launches"] = shapes[key]
-        print(f"  {rec.d['name']}: {shapes[key]} launches on the mesh path")
-        if not shapes[key]:
+        rec.d["launches"] = n = sum(shapes[k] for k in rec.keys or [key])
+        print(f"  {rec.d['name']}: {n} launches on the mesh path")
+        if not n:
             failures.append(f"{rec.d['name']} was not launched on the mesh "
                             "path")
     print(f"  mesh path {time.perf_counter() - t_phase:.1f} s")
@@ -4675,6 +4964,10 @@ def main():
                             "contexture_nerf_tpu_torch/csrc/groupnorm.cu",
                             "contexture_nerf_tpu/ops/groupnorm.py:69",
                             peak=H100_FP32_FLOPS),
+        "groupnorm_bwd": Record(
+            f"groupnorm_bwd (gn_bwd; the step's {STEP_SLICE[0]}x"
+            f"{STEP_SLICE[1]} slice encode, 22 calls)", GN_BWD_SRC,
+            GN_BWD_REPLACES, peak=H100_FP32_FLOPS),
     }
     from contexture_nerf_tpu_torch.core.config import config_from_dict
 
@@ -4709,6 +5002,12 @@ def main():
         ("raster", 1, tres, tres, faces): Record(
             f"raster (its UV-space atlas, 1x{tres}^2)", raster_src, k5_at,
             H100_FP32_FLOPS),
+        ("groupnorm_bwd", "canvas"): Record(
+            f"groupnorm_bwd (gn_bwd; the exact path's {STEP_CANVAS[0]}x"
+            f"{STEP_CANVAS[1]} canvas encode, 22 calls)", GN_BWD_SRC,
+            GN_BWD_REPLACES, H100_FP32_FLOPS, keys=sorted({
+                ("groupnorm_bwd", *shape) for shape, _ in
+                vae_encoder_groupnorms(*STEP_CANVAS)})),
     }
     # K1/K2's shapes: the SDS step's (embedding in), a ragged count, the
     # fit's and the texture lattice's (uv in)
@@ -4804,6 +5103,12 @@ def main():
         "shape_path": str(ROOT / "shapes" / "torus.obj")}}), failures)
     print("K6 phase (kernel vs plain, activation-like inputs):")
     groupnorm_phase(torch, args.seed, failures)
+    print("K6 backward phase (gn_bwd vs its closed form at the VAE "
+          "encoder's 22 GroupNorms, bf16):")
+    groupnorm_bwd_phase(torch, args.seed, [
+        ("slice", STEP_SLICE, recs["groupnorm_bwd"]),
+        ("canvas", STEP_CANVAS, shape_recs[("groupnorm_bwd", "canvas")])],
+        failures)
     print("main path: shapes/torus.obj -> prepare_sds (SD2-depth bootstrap) "
           "-> full-width SDS steps")
     launches, trainer = main_path(torch, args.seed, args.profile, recs,

@@ -47,7 +47,7 @@ SOURCES: Dict[str, tuple] = {
 launch_counts: Dict[str, int] = {
     "mlp_fwd": 0, "mlp_bwd": 0,
     "flash_attn_single": 0, "flash_attn_two_source": 0, "raster": 0,
-    "groupnorm": 0,
+    "groupnorm": 0, "groupnorm_bwd": 0,
 }
 
 # the same launches by kernel and call sizes: (name, *sizes) -> launches

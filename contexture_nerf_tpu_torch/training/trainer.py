@@ -530,18 +530,22 @@ class SDSTrainer:
         every teacher self-attention the rule routes to the flash kernel
         (cross-attention's 77 tokens never are), and K6 (one
         launch) for every GroupNorm of the two UNet passes, the ControlNet
-        and the VAE encodes (the canvas, and the slice with local_sds_grad);
-        the rasterizer never (it runs in prepare_sds)."""
+        and the VAE encodes (the canvas, and the slice with local_sds_grad),
+        and its backward (one launch) for every GroupNorm of the one encode
+        the loss differentiates; the rasterizer never (it runs in
+        prepare_sds)."""
         ucfg = self.teacher.unet_config
         single, two = teacher_attention_launches(
             ucfg, self.latent_shape()[2:], tuple(self.cond_lat_pair.shape[2:]),
             self.sp)
         encodes = 2 if self.local_grad else 1
+        vae_gn = vae_groupnorms(self.teacher.vae_config)
         gn = (2 * unet_groupnorms(ucfg) + unet_groupnorms(ucfg, True)
-              + encodes * vae_groupnorms(self.teacher.vae_config))
+              + encodes * vae_gn)
         return {"mlp_fwd": encodes, "mlp_bwd": 1,
                 "flash_attn_single": single, "flash_attn_two_source": two,
-                "raster": 0, "groupnorm": groupnorm_launches(gn)}
+                "raster": 0, "groupnorm": groupnorm_launches(gn),
+                "groupnorm_bwd": groupnorm_launches(vae_gn)}
 
 
 # -- launches derived from the configs ----------------------------------------------

@@ -11,7 +11,14 @@ full width); a torch emulation of K6's reduction order (per-thread sums of
 order, with the on-chip/overflow split) matches the reference and the Pallas
 kernel in interpret mode; and the limits chip_smoke.py holds K6 to pass a
 plain run whose statistics were summed in another order but reject the
-three planted faults.
+three planted faults. The backward kernel's specification, the closed form
+`group_norm_silu_bwd_plain`, is held to autograd through the plain version;
+gn_bwd's plan covers every group of the VAE encoder's 22 GroupNorms in the
+SDS step and ragged ones; a torch emulation of gn_bwd's partition (ranks'
+chunks, their sums in rank order, the per-channel partials and the
+wrapper's sum of them) matches the closed form; and chip_smoke.py's
+backward limits pass sums taken in another order and reject its planted
+faults.
 
 Tolerances: f32 output within 2e-6 of max(1, |ref|) (the two sum the
 statistics in other orders); bf16 output within one bf16 ulp of the
@@ -27,8 +34,12 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (GN_SHAPES, activations, groupnorm_limit,
-                        groupnorm_ratio, planted_group_norm)
+from chip_smoke import (BWD_FAULTS, GN_SHAPES, STEP_CANVAS, STEP_SLICE,
+                        activations, closed_form_bwd, groupnorm_bwd_limit,
+                        groupnorm_bwd_ratio, groupnorm_limit,
+                        groupnorm_ratio, library_bwd, output_gradient,
+                        planted_group_norm, planted_group_norm_bwd,
+                        vae_encoder_groupnorms)
 from contexture_nerf_tpu.ops.groupnorm import (group_norm_silu as j_gn,
                                                group_norm_silu_pallas,
                                                group_norm_silu_reference)
@@ -322,14 +333,18 @@ def emulate_k6(x, scale, bias, groups, eps, act, out_dtype, p,
     return y.to(out_dtype)
 
 
-def _small_plan(n, bg, itemsize, vec, cap, min_bytes, max_cluster):
-    """gn.plan with a shared memory of `cap` bytes a CTA and shares of at
-    least `min_bytes`, so small inputs take the cluster and overflow
-    paths."""
+def _small_plan(n, bg, itemsize, vec, cap, min_bytes, max_cluster,
+                g_itemsize=None):
+    """gn.plan (gn.bwd_plan with g_itemsize) with a shared memory of `cap`
+    bytes a CTA and shares of at least `min_bytes`, so small inputs take
+    the cluster and overflow paths."""
     old = gn.SMEM_CAP, gn.MIN_CTA_BYTES
     gn.SMEM_CAP, gn.MIN_CTA_BYTES = cap, min_bytes
     try:
-        return gn.plan.__wrapped__(n, bg, itemsize, vec, max_cluster)
+        if g_itemsize is None:
+            return gn.plan.__wrapped__(n, bg, itemsize, vec, max_cluster)
+        return gn.bwd_plan.__wrapped__(n, bg, itemsize, g_itemsize, vec,
+                                       max_cluster)
     finally:
         gn.SMEM_CAP, gn.MIN_CTA_BYTES = old
 
@@ -411,3 +426,260 @@ def test_towers_hand_groupnorm_contiguous_inputs():
         towers["encoder"](torch.randn(1, 3, 32, 32))
         towers["decoder"](torch.randn(1, 4, 8, 8))
     assert len(seen) > 50 and all(seen)
+
+
+# -- the backward ---------------------------------------------------------------
+
+# (B, C, H, W): groups of 30, 91 (ragged: not whole 16-byte vectors) and 100
+# elements, 2, 3 and 4 channels a group
+BWD_SHAPES = [(2, 64, 6, 5), (1, 96, 7, 13), (2, 128, 5, 5)]
+NEEDS = [(True, True, True), (True, False, False)]
+
+
+def _bwd_inputs(shape, dt, seed=0):
+    gen = torch.Generator().manual_seed(seed + sum(shape))
+    x = activations(torch, shape, dt, gen)
+    C = shape[1]
+    s = (1 + 0.3 * torch.randn((C,), generator=gen)).to(dt)
+    b = (0.2 * torch.randn((C,), generator=gen)).to(dt)
+    return x, s, b, output_gradient(torch, x, dt, gen)
+
+
+def _assert_within(got, plain, limit):
+    for a, p in zip(got, plain):
+        assert (a is None) == (p is None)
+        if a is not None:
+            assert a.dtype == p.dtype and a.shape == p.shape
+    assert groupnorm_bwd_ratio(torch, got, plain, limit) <= 1.0
+
+
+@pytest.mark.parametrize("need", NEEDS)
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("act", [True, False])
+@pytest.mark.parametrize("shape", BWD_SHAPES)
+def test_bwd_plain_matches_autograd(shape, act, dt, need):
+    """The closed form against autograd through group_norm_silu_plain (x,
+    scale and bias in dt, the output in dt), within chip_smoke's backward
+    limit; None exactly where a gradient is not asked for."""
+    x, s, b, g = _bwd_inputs(shape, dt)
+    ins = [t.clone().requires_grad_(r) for t, r in zip((x, s, b), need)]
+    y = gn.group_norm_silu_plain(*ins, 32, 1e-6, act, dt)
+    got = torch.autograd.grad(y, [t for t, r in zip(ins, need) if r], g)
+    it = iter(got)
+    ref = [next(it) if r else None for r in need]
+    plain = gn.group_norm_silu_bwd_plain(x, s, b, g, 32, 1e-6, act, need)
+    _assert_within(ref, plain,
+                   groupnorm_bwd_limit(torch, x, s, b, g, 32, 1e-6, act,
+                                       plain))
+
+
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32])
+def test_bwd_limits_pass_reordered_sums_and_reject_faults(dt):
+    """A stand-in for gn_bwd that differs from the closed form only in the
+    order of its sums (each taken in f64, rounded to f32) stays within the
+    limits; the planted faults do not."""
+    x, s, b, g = _bwd_inputs((2, 128, 24, 20), dt, seed=5)
+    plain = gn.group_norm_silu_bwd_plain(x, s, b, g, 32, 1e-6, True)
+    limit = groupnorm_bwd_limit(torch, x, s, b, g, 32, 1e-6, True, plain)
+
+    dx, ds, db = (t.to(dt) for t in closed_form_bwd(
+        torch, x, s, b, g, 32, 1e-6, True, torch.float32,
+        sum_dtype=torch.float64)[:3])
+    assert ds.shape == (128,)
+    assert groupnorm_bwd_ratio(torch, (dx, ds, db), plain, limit) <= 1.0
+    for fault in BWD_FAULTS:
+        bad = planted_group_norm_bwd(torch, x, s, b, g, 32, 1e-6, True,
+                                     fault)
+        assert groupnorm_ratio(torch, bad, plain[0], limit[0]) > 1.0, fault
+
+
+@pytest.mark.parametrize("act", [True, False])
+@pytest.mark.parametrize("shape", BWD_SHAPES)
+def test_smoke_closed_form_is_the_plain_one(shape, act):
+    """chip_smoke.closed_form_bwd, which the limits move and the planted
+    faults break, is group_norm_silu_bwd_plain: in f64 on f64 inputs to
+    f64's rounding, and in f32 within the backward limit."""
+    x, s, b, g = _bwd_inputs(shape, torch.float32)
+    wide = [t.double() for t in (x, s, b, g)]
+    ref = gn.group_norm_silu_bwd_plain(*wide, 32, 1e-6, act)
+    got = closed_form_bwd(torch, *wide, 32, 1e-6, act)[:3]
+    for a, r in zip(got, ref):
+        assert a.dtype == r.dtype == torch.float64
+        torch.testing.assert_close(a, r, rtol=1e-12, atol=1e-12)
+    plain = gn.group_norm_silu_bwd_plain(x, s, b, g, 32, 1e-6, act)
+    f32 = closed_form_bwd(torch, x, s, b, g, 32, 1e-6, act,
+                          torch.float32)[:3]
+    _assert_within(f32, plain, groupnorm_bwd_limit(
+        torch, x, s, b, g, 32, 1e-6, act, plain))
+
+
+@pytest.mark.parametrize("act", [True, False])
+def test_smoke_library_bwd_is_the_same_gradient(act):
+    """chip_smoke.library_bwd, the library's backward the smoke times
+    beside gn_bwd, computes the same dx (f32, within the backward limit)."""
+    x, s, b, g = _bwd_inputs((2, 128, 5, 5), torch.float32, seed=3)
+    plain = gn.group_norm_silu_bwd_plain(x, s, b, g, 32, 1e-6, act)
+    limit = groupnorm_bwd_limit(torch, x, s, b, g, 32, 1e-6, act, plain)
+    got = library_bwd(torch, x, s, b, g, 32, 1e-6, act)()
+    assert groupnorm_ratio(torch, got, plain[0], limit[0]) <= 1.0
+
+
+@pytest.mark.parametrize("part,hw", [("slice encode", STEP_SLICE),
+                                     ("canvas encode", STEP_CANVAS)])
+def test_encoder_groupnorms_are_the_towers(monkeypatch, part, hw):
+    """chip_smoke.vae_encoder_groupnorms, the shapes the card tests hold
+    gn_bwd at, are the SDS step's encoder GroupNorm calls: 22, bf16."""
+    sigs = _tower_signatures(monkeypatch, part)
+    calls = vae_encoder_groupnorms(*hw)
+    assert len(calls) == 22 == sum(sigs.values())
+    want = {}
+    for shape, _ in calls:
+        want[(shape, torch.bfloat16)] = want.get((shape, torch.bfloat16),
+                                                 0) + 1
+    assert want == sigs
+    assert sum(1 for _, act in calls if not act) == 1
+
+
+def _check_bwd_plan(n, bg, sx, sg, max_cluster):
+    p = gn.bwd_plan(n, bg, sx, sg, True, max_cluster)
+    pack = 16 // min(sx, sg)
+    assert p.vec == (n % pack == 0)
+    assert 1 <= p.cluster <= max_cluster <= gn.MAX_CLUSTER
+    # equal chunks, none empty, none missing
+    assert (p.cluster - 1) * p.chunk < n <= p.cluster * p.chunk
+    # x's and g's kept elements together within a CTA's shared memory
+    assert 0 <= p.keep <= p.chunk and p.keep * (sx + sg) <= gn.SMEM_CAP
+    if p.vec:
+        assert p.chunk % pack == 0 and p.keep % pack == 0
+        if n * (sx + sg) <= max_cluster * gn.SMEM_CAP:
+            assert p.keep == p.chunk
+    else:
+        assert p.keep == 0
+    assert p.path == ("cta" if p.cluster == 1 else "cluster") + (
+        "+overflow" if p.keep < p.chunk else "")
+    assert (bg * p.cluster >= gn.SMS or p.cluster == max_cluster
+            or n * (sx + sg) < 2 * p.cluster * gn.MIN_CTA_BYTES)
+    return p
+
+
+ITEMSIZES = [(2, 2), (4, 4), (2, 4), (4, 2)]
+
+
+@pytest.mark.parametrize("max_cluster", [16, 8])
+@pytest.mark.parametrize("hw", [(448, 448), (960, 640)])
+def test_bwd_plan_covers_the_encoder_signatures(hw, max_cluster):
+    """gn_bwd's plan at the 22 encoder GroupNorms of the slice and of the
+    canvas, bf16 as the step runs them (every one whole 16-byte vectors)
+    and in the other dtype pairs the kernel takes."""
+    for shape, _ in vae_encoder_groupnorms(*hw):
+        n = math.prod(shape) // 32
+        for sx, sg in ITEMSIZES:
+            p = _check_bwd_plan(n, 32, sx, sg, max_cluster)
+            assert p.vec, shape
+
+
+@pytest.mark.parametrize("n,bg", [(3 * 91, 32), (7, 64), (1, 32),
+                                  (2 ** 20 + 6, 32), (40961, 2)])
+def test_bwd_plan_covers_ragged_groups(n, bg):
+    for sx, sg in ITEMSIZES:
+        for max_cluster in (16, 8, 4):
+            _check_bwd_plan(n, bg, sx, sg, max_cluster)
+
+
+def test_bwd_plans_of_the_largest_groups():
+    """The canvas's 2.46 M-element groups and the slice's 0.8 M-element ones
+    in clusters of 16 with an overflow (a rank keeps 28,672 elements of x and
+    of g: 112 KB), the mid blocks' on chip in 8 (canvas) and 4 (slice)."""
+    for n, chunk in ((4 * 960 * 640, 153600), (4 * 448 * 448, 50176)):
+        assert gn.bwd_plan(n, 32, 2, 2) == gn.Plan(
+            "cluster+overflow", 16, chunk, 28672, True)
+    assert gn.bwd_plan(16 * 120 * 80, 32, 2, 2) == gn.Plan(
+        "cluster", 8, 19200, 19200, True)
+    assert gn.bwd_plan(16 * 56 * 56, 32, 2, 2).path == "cluster"
+    assert gn.bwd_plan(240, 64, 4, 4) == gn.Plan("cta", 1, 240, 240, True)
+    assert gn.bwd_plan(3 * 91, 32, 4, 2).path == "cta+overflow"
+
+
+def emulate_gn_bwd(x, scale, bias, g, groups, eps, act, need, p):
+    """csrc/groupnorm.cu gn_bwd's partition in torch for plan p: rank r of a
+    group's cluster owns units [r chunk, (r + 1) chunk) of the group,
+    clipped to it (units of 16 / min(element sizes) elements with vec, else
+    one); each rank's (sum x, sum x^2), then (sum dxhat, sum dxhat xhat),
+    over its elements in f32, the ranks' added in rank order; dx element by
+    element; and for dscale / dbias each rank's sums of g' xhat and g' over
+    the part of each channel of its group that its share holds (zero for
+    the others), laid out (B G cs, C/G, 2) and added over the batch and the
+    ranks as the wrapper adds them."""
+    B, C = x.shape[:2]
+    cpg = C // groups
+    xf = x.float().reshape(B * groups, -1)
+    gf = g.float().reshape(B * groups, -1)
+    n = xf.shape[1]
+    hw = n // cpg
+    unit = 16 // min(x.element_size(), g.element_size()) if p.vec else 1
+    nu, cu = n // unit, p.chunk // unit
+    spans = []
+    for r in range(p.cluster):
+        lo = min(r * cu, nu)
+        spans.append((lo * unit, min(lo + cu, nu) * unit))
+    assert spans[-1][1] == n and all(a < b for a, b in spans)
+
+    def in_rank_order(*terms):
+        tot = torch.zeros(B * groups, len(terms))
+        for e0, e1 in spans:
+            tot = tot + torch.stack([t[:, e0:e1].sum(1) for t in terms], 1)
+        return [tot[:, i:i + 1] / n for i in range(len(terms))]
+
+    mean, e2 = in_rank_order(xf, xf * xf)
+    rstd = torch.rsqrt(e2 - mean * mean + eps)
+    cidx = (torch.arange(B * groups) % groups)[:, None] * cpg + (
+        torch.arange(n) // hw)[None, :]
+    sc, bi = scale.float()[cidx], bias.float()[cidx]
+    xh = (xf - mean) * rstd
+    gp = gf
+    if act:
+        y = xh * sc + bi
+        sig = 1.0 / (1.0 + torch.exp(-y))
+        gp = gf * sig * (1 + y * (1 - sig))
+    d = gp * sc
+    m1, m2 = in_rank_order(d, d * xh)
+    dx = (rstd * (d - m1 - xh * m2)).reshape(x.shape).to(x.dtype)
+    part = torch.zeros(B * groups, p.cluster, cpg, 2)
+    for r, (e0, e1) in enumerate(spans):
+        for c in range(cpg):
+            b0, b1 = max(e0, c * hw), min(e1, (c + 1) * hw)
+            part[:, r, c, 0] = (gp * xh)[:, b0:b1].sum(1)
+            part[:, r, c, 1] = gp[:, b0:b1].sum(1)
+    sums = part.view(B, groups, p.cluster, cpg, 2).sum((0, 2)).view(C, 2)
+    return (dx if need[0] else None,
+            sums[:, 0].to(scale.dtype) if need[1] else None,
+            sums[:, 1].to(bias.dtype) if need[2] else None)
+
+
+# (plan label, SMEM_CAP, MIN_CTA_BYTES, max cluster)
+EMULATED_BWD_PLANS = [("as planned", None, None, 16),
+                      ("cluster", 1 << 20, 64, 4),
+                      ("cluster+overflow", 64, 32, 3),
+                      ("cta+overflow", 192, 1 << 20, 1)]
+
+
+@pytest.mark.parametrize("label,cap,min_bytes,max_cluster",
+                         EMULATED_BWD_PLANS)
+@pytest.mark.parametrize("shape,act,dt", [
+    ((2, 64, 6, 5), True, torch.float32),
+    ((1, 96, 7, 13), False, torch.float32),
+    ((2, 128, 5, 5), True, torch.bfloat16)])
+def test_emulated_bwd_matches_plain(shape, act, dt, label, cap, min_bytes,
+                                    max_cluster):
+    x, s, b, g = _bwd_inputs(shape, dt, seed=9)
+    n, bg = math.prod(shape[1:]) // 32, shape[0] * 32
+    sx = sg = x.element_size()
+    p = (gn.bwd_plan(n, bg, sx, sg) if cap is None else
+         _small_plan(n, bg, sx, True, cap, min_bytes, max_cluster, sg))
+    if label != "as planned":
+        assert p.path == label or not p.vec, p
+    need = (True, True, True)
+    got = emulate_gn_bwd(x, s, b, g, 32, 1e-6, act, need, p)
+    plain = gn.group_norm_silu_bwd_plain(x, s, b, g, 32, 1e-6, act, need)
+    _assert_within(got, plain, groupnorm_bwd_limit(
+        torch, x, s, b, g, 32, 1e-6, act, plain))

@@ -34,7 +34,14 @@ arithmetic and sums the f32 statistics in another order: bf16 output within one 
 plain output plus a floor from the statistics' rounding, f32 output within
 4x the plain f32 path's distance from f64 (chip_smoke.groupnorm_limit), two
 runs bit-identical; a group boundary shifted by one channel, a dropped SiLU
-and one CTA's share left out of the sums must miss those limits.
+and one CTA's share left out of the sums must miss those limits. Its
+backward (gn_bwd) at the VAE encoder's GroupNorms of the SDS step (the
+448x448 slice and the 960x640 canvas) and at ragged or misaligned inputs:
+each output within one ulp of its dtype at the closed form's magnitude plus
+what its f32 sums' rounding can move it (chip_smoke.groupnorm_bwd_limit),
+two runs bit-identical, and SiLU's slope cut to sigmoid(y), the projection
+term dropped and one CTA's share left out of the group's sums must miss the
+limit; under autograd, K6's gradients are gn_bwd's, within the same limit.
 """
 
 import pytest
@@ -50,10 +57,13 @@ from contexture_nerf_tpu_torch.ops import mlp_kernel as mk
 from contexture_nerf_tpu_torch.raster import raster_kernel as rk
 from contexture_nerf_tpu_torch.raster.rasterize import rasterize_geometry
 from contexture_nerf_tpu_torch.training.trainer import view_angles
-from chip_smoke import (ATTENTION_FAULTS, activations, attention_limit,
-                        attention_ratio, binned_plain, groupnorm_limit,
-                        groupnorm_ratio, numpy_uv_sphere, planted_attention,
-                        planted_group_norm, shrunk_ranges)
+from chip_smoke import (ATTENTION_FAULTS, BWD_FAULTS, activations,
+                        attention_limit, attention_ratio, binned_plain,
+                        groupnorm_bwd_limit, groupnorm_bwd_ratio,
+                        groupnorm_limit, groupnorm_ratio, numpy_uv_sphere,
+                        output_gradient, planted_attention,
+                        planted_group_norm, planted_group_norm_bwd,
+                        shrunk_ranges, vae_encoder_groupnorms)
 from tools.make_shapes import uv_sphere
 
 pytestmark = pytest.mark.cuda
@@ -494,11 +504,15 @@ def test_groupnorm_kernel_gradients_match_plain(cuda):
         (fn(*ins, 32, 1e-5, True, torch.float32) * w).sum().backward()
         return [t.grad for t in ins]
 
-    before = _build.launch_counts["groupnorm"]
+    before = dict(_build.launch_counts)
     got = grads(gn.group_norm_silu)
-    assert _build.launch_counts["groupnorm"] == before + 1
-    for a, b in zip(got, grads(gn.group_norm_silu_plain)):
-        torch.testing.assert_close(a, b, rtol=0, atol=1e-5)
+    assert _build.launch_counts["groupnorm"] == before["groupnorm"] + 1
+    assert _build.launch_counts["groupnorm_bwd"] == \
+        before["groupnorm_bwd"] + 1
+    plain = gn.group_norm_silu_bwd_plain(x, scale, bias, w, 32, 1e-5, True)
+    limit = groupnorm_bwd_limit(torch, x, scale, bias, w, 32, 1e-5, True,
+                                plain)
+    assert groupnorm_bwd_ratio(torch, got, plain, limit) <= 1.0
 
 
 def test_groupnorm_kernel_rejects_what_it_does_not_take(cuda):
@@ -512,6 +526,139 @@ def test_groupnorm_kernel_rejects_what_it_does_not_take(cuda):
         gn.group_norm_silu(x[:, :40].contiguous(), s[:40], s[:40])
     with pytest.raises(ValueError, match="CUDA"):
         gn.group_norm_silu_kernel(x.cpu(), s.cpu(), s.cpu())
+
+
+def _encoder_cases():
+    seen = []
+    for hw in ((448, 448), (960, 640)):
+        for shape, act in vae_encoder_groupnorms(*hw):
+            if (shape, act) not in seen:
+                seen.append((shape, act))
+    bf = torch.bfloat16
+    return [(shape, act, bf, bf, (True, False, False), 0)
+            for shape, act in seen]
+
+
+# (x shape, act, x dtype, g dtype, gradients asked for, x's offset in
+# elements from a 16-byte boundary): the VAE encoder's GroupNorms as the
+# SDS step runs them (dx only), then every gradient, mixed dtypes, ragged
+# groups (not whole 16-byte vectors) and a misaligned x
+ALL = (True, True, True)
+GN_BWD_CASES = _encoder_cases() + [
+    ((2, 320, 24, 20), True, torch.bfloat16, torch.bfloat16, ALL, 0),
+    ((2, 320, 24, 20), True, torch.float32, torch.float32, ALL, 0),
+    ((2, 640, 32, 32), True, torch.float32, torch.bfloat16, ALL, 0),
+    ((2, 320, 20, 24), False, torch.bfloat16, torch.float32, ALL, 0),
+    ((1, 128, 480, 320), True, torch.bfloat16, torch.bfloat16,
+     (False, True, True), 0),
+    ((1, 96, 7, 13), True, torch.float32, torch.float32, ALL, 0),
+    ((2, 64, 5, 9), False, torch.bfloat16, torch.bfloat16, ALL, 0),
+    ((1, 64, 129, 131), True, torch.float32, torch.float32, ALL, 0),
+    ((1, 128, 120, 80), True, torch.bfloat16, torch.bfloat16, ALL, 1),
+]
+
+
+def _gn_bwd_inputs(cuda, shape, dt, gdt, offset):
+    x, scale, bias = _gn_inputs(cuda, shape, dt, dt)
+    if offset:  # the same values, `offset` elements past an aligned start
+        buf = torch.empty(x.numel() + offset, dtype=dt, device=cuda)
+        buf[offset:].copy_(x.flatten())
+        x = buf[offset:].view(shape)
+    gen = torch.Generator(device=cuda).manual_seed(sum(shape) + 1)
+    return x, scale, bias, output_gradient(torch, x, gdt, gen)
+
+
+@pytest.mark.parametrize("shape,act,dt,gdt,need,offset", GN_BWD_CASES)
+def test_groupnorm_bwd_kernel_matches_plain(cuda, shape, act, dt, gdt, need,
+                                            offset):
+    x, scale, bias, g = _gn_bwd_inputs(cuda, shape, dt, gdt, offset)
+    args = (32, 1e-6, act, need)
+    before = _build.launch_counts["groupnorm_bwd"]
+    got = gn.group_norm_silu_bwd_kernel(x, scale, bias, g, *args)
+    assert _build.launch_counts["groupnorm_bwd"] == before + 1
+    again = gn.group_norm_silu_bwd_kernel(x, scale, bias, g, *args)
+    plain = gn.group_norm_silu_bwd_plain(x, scale, bias, g, *args)
+    for a, b, p in zip(got, again, plain):
+        assert (a is None) == (b is None) == (p is None)
+        if a is not None:
+            assert a.dtype == p.dtype and a.shape == p.shape
+            assert torch.isfinite(a.float()).all() and torch.equal(a, b)
+    limit = groupnorm_bwd_limit(torch, x, scale, bias, g, 32, 1e-6, act,
+                                plain)
+    assert groupnorm_bwd_ratio(torch, got, plain, limit) <= 1.0
+    if act and need[0] and dt == torch.bfloat16:
+        for fault in BWD_FAULTS:
+            bad = planted_group_norm_bwd(torch, x, scale, bias, g, 32, 1e-6,
+                                         act, fault)
+            assert groupnorm_ratio(torch, bad, plain[0], limit[0]) > 1.0, \
+                fault
+
+
+def test_groupnorm_bwd_cases_take_every_path(cuda):
+    paths = set()
+    for shape, _, dt, gdt, _, offset in GN_BWD_CASES:
+        x, _, _, g = _gn_bwd_inputs(cuda, shape, dt, gdt, offset)
+        p = gn.bwd_kernel_plan(x, g)
+        assert p.vec == (offset == 0 and shape not in (
+            (1, 96, 7, 13), (2, 64, 5, 9), (1, 64, 129, 131))), (shape, p)
+        paths.add(p.path)
+    assert {"cta", "cluster", "cluster+overflow", "cta+overflow"} <= paths, \
+        paths
+
+
+def test_groupnorm_autograd_takes_a_strided_gradient(cuda):
+    """A permuted view after the GroupNorm hands its backward a
+    non-contiguous gradient, as the VAE's mid attention does."""
+    x, scale, bias, _ = _gn_bwd_inputs(cuda, (1, 512, 12, 10),
+                                       torch.bfloat16, torch.bfloat16, 0)
+    w = torch.randn((1, 12, 10, 512), device=cuda)
+
+    def grad(fn):
+        xx = x.clone().requires_grad_()
+        y = fn(xx, scale, bias, 32, 1e-6, False, torch.bfloat16)
+        (y.permute(0, 2, 3, 1).float() * w).sum().backward()
+        return xx.grad
+
+    got, ref = grad(gn.group_norm_silu), grad(gn.group_norm_silu_plain)
+    g = (w.permute(0, 3, 1, 2)).to(torch.bfloat16)
+    plain = gn.group_norm_silu_bwd_plain(x, scale, bias, g, 32, 1e-6, False)
+    limit = groupnorm_bwd_limit(torch, x, scale, bias, g, 32, 1e-6, False,
+                                plain)
+    assert groupnorm_ratio(torch, got, plain[0], limit[0]) <= 1.0
+    assert groupnorm_ratio(torch, ref, plain[0], limit[0]) <= 1.0
+
+
+def test_groupnorm_bwd_kernel_takes_a_strided_g(cuda):
+    """A strided g is copied contiguous inside the wrapper: the same
+    results, bit for bit, as from its contiguous copy."""
+    x, scale, bias, g = _gn_bwd_inputs(cuda, (1, 128, 24, 20),
+                                       torch.bfloat16, torch.bfloat16, 0)
+    strided = g.transpose(2, 3).contiguous().transpose(2, 3)
+    assert not strided.is_contiguous() and torch.equal(strided, g)
+    args = (32, 1e-6, True, ALL)
+    for a, b in zip(gn.group_norm_silu_bwd_kernel(x, scale, bias, strided,
+                                                  *args),
+                    gn.group_norm_silu_bwd_kernel(x, scale, bias, g, *args)):
+        assert torch.equal(a, b)
+
+
+def test_groupnorm_bwd_kernel_rejects_what_it_does_not_take(cuda):
+    s = torch.ones(64, device=cuda)
+    x = torch.zeros((1, 64, 8, 8), device=cuda)
+    g = torch.ones_like(x)
+    bwd = gn.group_norm_silu_bwd_kernel
+    with pytest.raises(ValueError, match="contiguous"):
+        bwd(x.transpose(2, 3), s, s, g)
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        bwd(x.half(), s, s, g)
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        bwd(x, s, s, g.half())
+    with pytest.raises(ValueError, match="multiple of groups"):
+        bwd(x[:, :40].contiguous(), s[:40], s[:40], g[:, :40].contiguous())
+    with pytest.raises(ValueError, match="shaped like x"):
+        bwd(x, s, s, g[:, :, :4].contiguous())
+    with pytest.raises(ValueError, match="CUDA"):
+        bwd(x.cpu(), s.cpu(), s.cpu(), g.cpu())
 
 
 def test_int_mm_shape_rules(cuda):

@@ -143,10 +143,12 @@ def test_package_phase_is_a_span_and_still_timed():
 
 
 def test_k6_wrapper_spans(monkeypatch):
-    """K6's forward and backward spans, the kernel's launch stood in for by
-    the plain version (a CPU tensor cannot reach the kernel)."""
+    """K6's forward and backward spans, the kernels' launches stood in for
+    by their plain versions (a CPU tensor cannot reach the kernels)."""
     monkeypatch.setattr(gn, "_group_norm_silu_kernel",
                         gn.group_norm_silu_plain)
+    monkeypatch.setattr(gn, "_group_norm_silu_bwd_kernel",
+                        gn.group_norm_silu_bwd_plain)
     x = torch.randn(1, 64, 4, 4, requires_grad=True)
     scale, bias = torch.ones(64), torch.zeros(64)
 
