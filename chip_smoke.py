@@ -6,7 +6,8 @@ Run from the root of a checkout, on a machine with one NVIDIA GPU:
     python3 chip_smoke.py [--seed N] [--profile] [--sweep]
                           [--mlp-only | --raster-only [--against DIR] |
                            --snapshot-only | --mesh-only | --generate-only |
-                           --int8-only | --tools-only | --parallel-only]
+                           --int8-only | --tools-only | --parallel-only |
+                           --sv3d-only]
 
 It builds the hand-written CUDA kernels from csrc/, holds each against its
 plain PyTorch version at the shapes the main path gives it (and checks that
@@ -79,11 +80,18 @@ own (no result line). --generate-only runs only the generation path, on
 towers of its own (no result line). --int8-only runs only the int8 path,
 on a trainer of its own without the bootstrap; --tools-only only the
 tools path, on towers of its own (no result line). --parallel-only runs
-only the parallel path (no result line).
+only the parallel path (no result line). --sv3d-only runs only SV3D_p's
+kernel shapes (K3 at 42 frames x 5 heads of 5,184 tokens and at level 1,
+K6 forward on the frame-stacked layout, gn_bwd at the 576^2 frame encode)
+and its paint loop at full width (a step's launches, spans and host reads,
+its time), then prints those shapes' records, with a step's launches, as
+its `kernels` line; the full script runs both and adds the records to its
+own `kernels` line.
 """
 
 import argparse
 import contextlib
+import gc
 import json
 import math
 import subprocess
@@ -1442,6 +1450,227 @@ GN_BWD_OPS = 40  # gn_bwd's FP32 operations an element, counted high
 GN_BWD_SRC = "contexture_nerf_tpu_torch/csrc/groupnorm.cu"
 GN_BWD_REPLACES = ("no TPU counterpart (the reference's custom VJP "
                    "recomputes through its plain version)")
+
+
+# SV3D_p's shapes: K3 at the video UNet's two routed levels (42 frames of
+# 72^2 and 36^2 latents), K6 on the frame-stacked (B, C, T, h w) layout of
+# the temporal ResBlocks (groups of up to 10 ch x 21 x 72 x 72), a spatial
+# ResBlock's and the 21 frames' VAE encode's; gn_bwd at the sampled
+# frame's 576^2 encode
+SV3D_ATTN = [("level 0", 42, 5, 72 * 72), ("level 1", 42, 10, 36 * 36)]
+SV3D_GN = [
+    ("time_stack level 0", (2, 320, 21, 72 * 72), 1e-5),
+    ("time_stack level 1", (2, 640, 21, 36 * 36), 1e-5),
+    ("time_stack level 2", (2, 1280, 21, 18 * 18), 1e-5),
+    ("time_stack level 3", (2, 1280, 21, 9 * 9), 1e-5),
+    ("spatial resnet level 0", (42, 320, 72, 72), 1e-5),
+    ("VAE encode of the 21 frames, level 0", (21, 128, 576, 576), 1e-6)]
+SV3D_FRAME = (576, 576)
+
+
+def _ms(t):
+    """A device time as printed: four decimals, or what NotMeasured says."""
+    return f"{t:.4f}" if isinstance(t, float) else f"{t}"
+
+
+def sv3d_kernels(torch, seed, failures):
+    """K3 and K6 (forward, then gn_bwd) at SV3D_p's shapes against their
+    plain versions, within attention_limit / groupnorm_limit /
+    groupnorm_bwd_limit, two runs bit-identical, the planted faults that
+    apply outside the limits; device times against their bounds. Returns
+    their shape records, keyed as _build.launch_shapes keys launches (a
+    K3 or K6 record: one call; the gn_bwd record: the sampled frame's
+    encode, 22 calls); sv3d_launches gives them a step's launches."""
+    from contexture_nerf_tpu_torch.ops import attention as att
+    from contexture_nerf_tpu_torch.ops import groupnorm as gn
+
+    dev, bf = torch.device("cuda"), torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(seed + 21)
+    recs = {}
+    for label, B, H, S in SV3D_ATTN:
+        # q, k, v as CrossAttention passes them: strided views of the
+        # projections' (B, S, H d) memory
+        qkv = torch.randn((B, S, 3, H, att.HEAD_DIM), generator=gen,
+                          device=dev).to(bf)
+        q, k, v = (qkv[:, :, i].permute(0, 2, 1, 3) for i in range(3))
+        args = (q, k, v, None, None)
+        name = f"K3 sv3d {label} ({B} x {H} heads, {S} tokens)"
+        attention_check(torch, att, args, failures, name)
+        rec = recs[("flash_attn_single", B, H, S, S, 0)] = \
+            attention_shape_record(torch, args, "flash_attn_single (sv3d_p's "
+                                   f"UNet call, {label}: {B} x {H} heads, "
+                                   f"{S} tokens)")
+        dms = device_ms(lambda: att.flash_attention(*args), reps=5)
+        b_ms, by = bound(4.0 * B * H * S * S * att.HEAD_DIM,
+                         2.0 * B * H * att.HEAD_DIM * 4 * S)
+        print(f"    a call: device {_ms(dms)} ms, plain "
+              f"{rec.d['plain_ms']:.3f} ms, bound {b_ms:.3f} ms ({by}); "
+              f"{share_of_bound(b_ms, dms)}")
+        del qkv, q, k, v, args
+        torch.cuda.empty_cache()
+    for label, shape, eps in SV3D_GN:
+        x = activations(torch, shape, bf, gen)
+        C = shape[1]
+        scale = (1 + 0.3 * torch.randn((C,), generator=gen,
+                                       device=dev)).to(bf)
+        bias = (0.2 * torch.randn((C,), generator=gen, device=dev)).to(bf)
+        args = (scale, bias, 32, eps, True, bf)
+        p = gn.kernel_plan(x)
+        got = gn.group_norm_silu_kernel(x, *args)
+        same = torch.equal(got, gn.group_norm_silu_kernel(x, *args))
+        plain = gn.group_norm_silu_plain(x, *args)
+        limit = groupnorm_limit(torch, x, scale, bias, 32, eps, True, plain)
+        ratio = groupnorm_ratio(torch, got, plain, limit)
+        err = float((got.float() - plain.float()).abs().max())
+        ok = ratio <= 1.0 and same and bool(torch.isfinite(got.float()).all())
+        name = (f"K6 sv3d {label} {shape} groups of "
+                f"{x.numel() // (shape[0] * 32)} [{p.path}, {p.cluster} "
+                f"CTA{'s' * (p.cluster > 1)}]")
+        print(f"  {name}: max_abs_err {err:.3e}, max err/limit "
+              f"{ratio:.3f}, two runs bit-identical {same} "
+              f"{'ok' if ok else 'MISS'}")
+        if not ok:
+            failures.append(name)
+        for fault, what in FAULTS.items():
+            r = groupnorm_ratio(torch, planted_group_norm(
+                torch, x, *args, fault), plain, limit)
+            print(f"    planted fault {what}: max err/limit {r:.2f} "
+                  f"{'caught' if r > 1 else 'NOT CAUGHT'}")
+            if not r > 1:
+                failures.append(f"{name}: limit passes planted fault {fault}")
+        del got, plain, limit
+
+        def k6():
+            return gn.group_norm_silu_kernel(x, *args)
+
+        def lib():
+            return torch.nn.functional.silu(
+                torch.nn.functional.group_norm(x, 32, scale, bias, eps))
+
+        nbytes = groupnorm_bytes(torch, x, bf)
+        rec = recs[("groupnorm", *shape)] = Record(
+            f"groupnorm (sv3d_p's {label}, {shape})",
+            "contexture_nerf_tpu_torch/csrc/groupnorm.cu",
+            "contexture_nerf_tpu/ops/groupnorm.py:69", H100_FP32_FLOPS)
+        rec.add(err, cuda_ms(k6), cuda_ms(lambda: gn.group_norm_silu_plain(
+            x, *args), reps=3), 12.0 * x.numel(), nbytes,
+            lib_ms=cuda_ms(lib))
+        dms, lms = device_ms(k6, reps=5), device_ms(lib, reps=5)
+        b_ms = nbytes / H100_BYTES_S * 1e3
+        print(f"    a call: device {_ms(dms)} ms (F.group_norm + F.silu "
+              f"{_ms(lms)} ms), bound {b_ms:.3f} ms (bytes); "
+              f"{share_of_bound(b_ms, dms)}")
+        del x
+        torch.cuda.empty_cache()
+    rec = recs[("groupnorm_bwd", "sv3d frame")] = Record(
+        f"groupnorm_bwd (gn_bwd; sv3d's {SV3D_FRAME[0]}^2 frame encode, 22 "
+        "calls)", GN_BWD_SRC, GN_BWD_REPLACES, peak=H100_FP32_FLOPS,
+        keys=sorted({("groupnorm_bwd", *shape) for shape, _ in
+                     vae_encoder_groupnorms(*SV3D_FRAME)}))
+    groupnorm_bwd_phase(torch, seed, [("sv3d frame", SV3D_FRAME, rec)],
+                        failures)
+    return recs
+
+
+def sv3d_launches(recs, shapes, failures):
+    """Each of sv3d_kernels' records gets the launches of its shapes in one
+    step (sv3d_step's `shapes`); a shape the step never launches fails."""
+    for key, rec in recs.items():
+        rec.d["launches"] = n = sum(shapes.get(k, 0)
+                                    for k in rec.keys or [key])
+        print(f"  {rec.d['name']}: {n} launches a step")
+        if not n:
+            failures.append(f"{rec.d['name']} was not launched in the SV3D_p "
+                            "step")
+
+
+def sv3d_step(torch, seed, failures):
+    """The SV3D_p paint loop at full width on the torus: prepare_sds
+    (guide.teacher sv3d_p, without the bootstrap) timed by phase; one step's
+    launches against OrbitSDSTrainer.expected_kernel_launches; one step
+    under the profiler: its teacher.temporal spans inside sds.teacher
+    (38), its host reads (one); then timed steps and the peak memory.
+    Returns the counted step's launches by kernel and call sizes
+    (_build.launch_shapes)."""
+    from contexture_nerf_tpu_torch.core.config import config_from_dict
+    from contexture_nerf_tpu_torch.diffusion.video_unet import \
+        temporal_layers
+    from contexture_nerf_tpu_torch.ops import _build
+    from contexture_nerf_tpu_torch.training import trainer as tr
+
+    cfg = config_from_dict({"guide": {
+        "shape_path": str(ROOT / "shapes" / "torus.obj"), "teacher": "sv3d_p",
+        "text": "a photo of a dairy cow"}, "optim": {"seed": seed}})
+    timings = {}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer, _ = tr.build_sds_trainer(cfg, device="cuda", timings=timings,
+                                      skip_bootstrap=True)
+    torch.cuda.synchronize()
+    print(f"  built and prepared in {time.perf_counter() - t0:.1f} s; "
+          "prepare phases (ms): "
+          + ", ".join(f"{k} {v:.0f}" for k, v in timings.items()))
+    ts = trainer.t_schedule(5000).tolist()
+    trainer.step(ts[1000])
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    trainer.step(ts[1001])
+    torch.cuda.synchronize()
+    want = trainer.expected_kernel_launches()
+    got = {k: _build.launch_counts.get(k, 0) for k in want}
+    shapes = dict(_build.launch_shapes)
+    ok = got == want
+    print(f"  one step's launches {got}, expected {want} "
+          f"{'ok' if ok else 'MISS'}")
+    if not ok:
+        failures.append(f"sv3d step launches {got} != {want}")
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        trainer.step(ts[1002])
+        torch.cuda.synchronize()
+    ev = [(e.name, e.time_range.start, e.time_range.end)
+          for e in prof.events()]
+    teach = [(a, b) for n, a, b in ev if n == "sds.teacher"]
+    temporal = [a for n, a, _ in ev if n == "teacher.temporal"]
+    inside = sum(1 for a in temporal
+                 if any(lo <= a <= hi for lo, hi in teach))
+    reads = sum(1 for n, _, _ in ev if n.startswith("sync."))
+    per_call = sum(temporal_layers(trainer.teacher.unet_config))
+    ok = len(teach) == 1 and inside == len(temporal) == per_call \
+        and reads == 1
+    print(f"  one step under the profiler: {len(teach)} sds.teacher, "
+          f"{len(temporal)} teacher.temporal ({inside} inside it; a UNet "
+          f"call has {per_call}), {reads} host read(s) "
+          f"{'ok' if ok else 'MISS'}")
+    if not ok:
+        failures.append("sv3d step spans")
+    torch.cuda.reset_peak_memory_stats()
+    n = 5
+    t0 = time.perf_counter()
+    for i in range(n):
+        _, loss, *_ = trainer.step(ts[1003 + i])
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / n
+    print(f"  {n} steps: {ms:.1f} ms a step, loss {float(loss):.4g}, peak "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB "
+          f"[{card_line()}]")
+    if not math.isfinite(float(loss)):
+        failures.append("sv3d step loss not finite")
+    del trainer, loss
+    gc.collect()
+    torch.cuda.empty_cache()
+    return shapes
+
+
+def sv3d_phases(torch, seed, failures):
+    """SV3D_p's kernel shapes, its paint loop's step, and the shapes'
+    records with the step's launches; returns the records."""
+    print("SV3D_p's kernel shapes (kernel vs plain, bf16):")
+    recs = sv3d_kernels(torch, seed, failures)
+    print("SV3D_p's paint loop at full width on the torus")
+    shapes = sv3d_step(torch, seed, failures)
+    sv3d_launches(recs, shapes, failures)
+    return recs
 
 
 def library_bwd(torch, x, scale, bias, g, groups, eps, act):
@@ -4911,6 +5140,11 @@ def main():
                     "visible GPU, up to 4: the sharded SDS step, ring "
                     "attention, a TP teacher call, the sharded eval) and "
                     "stop (no result line)")
+    ap.add_argument("--sv3d-only", action="store_true",
+                    help="run only SV3D_p's kernel shapes (K3, K6 forward "
+                    "and gn_bwd) and its paint loop at full width (the "
+                    "launches, spans and host reads of a step, its time) "
+                    "and stop (no result line)")
     ap.add_argument("--k5-times-of", metavar="DIR", help=argparse.SUPPRESS)
     args = ap.parse_args()
     t_script = time.perf_counter()
@@ -5047,6 +5281,14 @@ def main():
         for f in failures:
             print(f"FAIL: {f}")
         return 1 if failures else 0
+    if args.sv3d_only:
+        sv3d_recs = sv3d_phases(torch, args.seed, failures)
+        for f in failures:
+            print(f"FAIL: {f}")
+        if failures:
+            return 1
+        print(json.dumps({"kernels": [r.out() for r in sv3d_recs.values()]}))
+        return 0
     if args.parallel_only:
         print("parallel path alone")
         parallel_path(torch, args.seed, failures)
@@ -5109,6 +5351,7 @@ def main():
         ("slice", STEP_SLICE, recs["groupnorm_bwd"]),
         ("canvas", STEP_CANVAS, shape_recs[("groupnorm_bwd", "canvas")])],
         failures)
+    sv3d_recs = sv3d_phases(torch, args.seed, failures)
     print("main path: shapes/torus.obj -> prepare_sds (SD2-depth bootstrap) "
           "-> full-width SDS steps")
     launches, trainer = main_path(torch, args.seed, args.profile, recs,
@@ -5172,8 +5415,8 @@ def main():
         for f in failures:
             print(f"FAIL: {f}")
         return 1
-    print(json.dumps({"kernels": [r.out() for r in (*recs.values(),
-                                                    *shape_recs.values())]}))
+    print(json.dumps({"kernels": [r.out() for r in (
+        *recs.values(), *shape_recs.values(), *sv3d_recs.values())]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -5,6 +5,16 @@ The dataclasses, their field names and defaults are the JAX package's
 drives both. `load_config` reads a YAML file and `--section.key value` or
 `--section.key=value` overrides, as contexture_nerf_tpu/core/config.py's
 does; `dump_config` writes the config back as YAML.
+
+A section may also take keys of the port alone (`PORT_KEYS`: name -> its
+allowed values, the default first): they are not dataclass fields, so the
+field list stays the JAX package's. The loader sets them as instance
+attributes, checked against their allowed values, and `config_to_dict`
+writes one only where it differs from its default, so a config that sets
+none gives the JAX package's dict.
+The one such key is `guide.teacher`: "zero123plus" (the default) or
+"sv3d_p" (the SDS loop over SV3D_p's 21-frame orbit,
+training/orbit.py).
 """
 
 from __future__ import annotations
@@ -12,7 +22,7 @@ from __future__ import annotations
 import argparse
 from dataclasses import dataclass, field, fields, is_dataclass
 from pathlib import Path
-from typing import Any, List, Optional, Tuple, get_type_hints
+from typing import Any, ClassVar, Dict, List, Optional, Tuple, get_type_hints
 
 
 @dataclass
@@ -98,6 +108,10 @@ class GuideConfig:
     inpaint_model_path: Optional[str] = None
     zero123plus_path: Optional[str] = None
     controlnet_path: Optional[str] = None
+    # keys of the port alone (module docstring): the SDS teacher
+    PORT_KEYS: ClassVar[Dict[str, Tuple[str, ...]]] = {
+        "teacher": ("zero123plus", "sv3d_p")}
+    teacher: ClassVar[str] = "zero123plus"
 
 
 @dataclass
@@ -209,7 +223,8 @@ def _coerce(value: Any, ftype: Any, name: str) -> Any:
 def _build_dataclass(cls, data: dict, section: str = "",
                      unknown: Optional[list] = None):
     kwargs = {}
-    names = {f.name for f in fields(cls)}
+    port_keys = getattr(cls, "PORT_KEYS", {})
+    names = {f.name for f in fields(cls)} | set(port_keys)
     if unknown is not None:
         unknown.extend(f"{section}.{k}" for k in data if k not in names)
     # the annotations resolved: under `from __future__ import annotations`
@@ -226,7 +241,20 @@ def _build_dataclass(cls, data: dict, section: str = "",
                 non_none = [a for a in args if a is not type(None)]
                 ftype = non_none[0] if non_none else Any
             kwargs[f.name] = _coerce(v, ftype, f.name)
-    return cls(**kwargs)
+    obj = cls(**kwargs)
+    for key in port_keys:
+        if key in data:
+            set_port_key(obj, key, data[key])
+    return obj
+
+
+def set_port_key(section, key: str, value) -> None:
+    """Set a port-only key of a config section; a value outside its
+    `PORT_KEYS` choices raises."""
+    choices = type(section).PORT_KEYS[key]
+    if value not in choices:
+        raise ValueError(f"{key}: {value!r} is not one of {choices}")
+    setattr(section, key, value)
 
 
 def config_from_dict(data: dict, strict: bool = False) -> TrainConfig:
@@ -260,7 +288,11 @@ def config_from_dict(data: dict, strict: bool = False) -> TrainConfig:
 def config_to_dict(cfg: TrainConfig) -> dict:
     def enc(obj):
         if is_dataclass(obj):
-            return {f.name: enc(getattr(obj, f.name)) for f in fields(obj)}
+            out = {f.name: enc(getattr(obj, f.name)) for f in fields(obj)}
+            for key, choices in getattr(obj, "PORT_KEYS", {}).items():
+                if getattr(obj, key) != choices[0]:
+                    out[key] = enc(getattr(obj, key))
+            return out
         if isinstance(obj, Path):
             return str(obj)
         if isinstance(obj, tuple):

@@ -35,6 +35,11 @@ The eval renders the turntable (K5 once a frame) with one texture map (K1
 once an `evaluate` call: the map depends on the parameters only), filled
 with the painted texels' median after painting.
 
+guide.teacher "sv3d_p" swaps the teacher for SV3D_p's video UNet over a
+21-frame orbit (training/orbit.py: `prepare_orbit_sds`, `OrbitSDSTrainer`
+through `make_sds_trainer`; `step` is this module's), chosen when the
+models and the trainer are built; the Zero123++ path is unchanged.
+
 On several ranks (torchrun, optim.data_parallel), `make_mesh` builds the
 reference's (views), (views x tp) or (views x sp) mesh. The step splits the
 student's query rows into contiguous blocks over `views` (each rank runs
@@ -56,7 +61,7 @@ import os
 import time
 from collections import deque
 from pathlib import Path
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -198,12 +203,6 @@ class SDSTrainer:
                  device="cuda", generator: Optional[torch.Generator] = None,
                  mesh_model: Optional[TexturedMeshModel] = None,
                  mesh="config"):
-        dev = self.device = resolve_device(device)
-        self.mesh = make_mesh(cfg) if mesh == "config" else mesh
-        self.n_views = pmesh.axis_size(self.mesh, "views")
-        self.sp = pmesh.axis_size(self.mesh, "sp")
-        self.tp = pmesh.axis_size(self.mesh, "tp")
-        self._grad_rows_split = False
         self.exact = bool(cfg.optim.exact_lattice_render)
         if self.exact and (mesh_model is None
                            or setup.get("cache6") is None):
@@ -212,25 +211,16 @@ class SDSTrainer:
                 "texture map through the rasterizer's cache of the 6 target "
                 "views: pass mesh_model and a setup from prepare_sds with "
                 "exact_lattice_render on (its cache6)")
-        self.mesh_model = mesh_model
-        self.cfg = cfg
-        self.generator = generator or torch.Generator(
-            device=dev).manual_seed(cfg.optim.seed)
-        self.teacher = apply_int8(cfg, teacher or Zero123PlusTeacher(
-            tiny=tiny, device=dev, generator=self.generator))
+        self._init_common(cfg, Zero123PlusTeacher, teacher, mlp, tiny,
+                          device, generator, mesh_model, mesh)
+        dev = self.device
         if self.tp > 1:
             for tower in (self.teacher.unet, self.teacher.controlnet,
                           self.teacher.vae_encoder):
                 shard_params_tp(tower, self.mesh, "tp")
-        self.dtype = self.teacher.dtype
-        self.mlp_dtype = mlp_dtype(self.dtype, dev)
-        self.mlp = mlp or NeRF2D(generator=self.generator, device=dev)
-        self.mlp.to(dev)
         self.tile_px = self.teacher.tile_px
-        self.vae_down = self.teacher.vae_config.downsample
         self.lat_tile = self.tile_px // self.vae_down
         self.grid_hw = (3 * self.tile_px, 2 * self.tile_px)
-        self.acp = self.teacher.alphas_cumprod
         opt = cfg.optim
         self.local_grad = bool(opt.local_sds_grad)
         if self.local_grad and self.exact:
@@ -280,6 +270,33 @@ class SDSTrainer:
             # loop-invariant ControlNet hint embedding, hoisted
             self.cn_cond_emb = self.teacher.embed_control_cond(
                 self.depth_grid, lat_hw)
+
+    def _init_common(self, cfg, teacher_cls, teacher, mlp, tiny, device,
+                     generator, mesh_model, mesh):
+        """What the trainer of every view layout holds: the device, the
+        mesh and its axis sizes, the generator, the teacher (a
+        `teacher_cls` made from the generator when None; W8A8 where the
+        config asks), the MLP and its dtype, the teacher's noise table and
+        Adam over the MLP."""
+        dev = self.device = resolve_device(device)
+        self.mesh = make_mesh(cfg) if mesh == "config" else mesh
+        self.n_views = pmesh.axis_size(self.mesh, "views")
+        self.sp = pmesh.axis_size(self.mesh, "sp")
+        self.tp = pmesh.axis_size(self.mesh, "tp")
+        self._grad_rows_split = False
+        self.mesh_model = mesh_model
+        self.cfg = cfg
+        self.generator = generator or torch.Generator(
+            device=dev).manual_seed(cfg.optim.seed)
+        self.teacher = apply_int8(cfg, teacher or teacher_cls(
+            tiny=tiny, device=dev, generator=self.generator))
+        self.dtype = self.teacher.dtype
+        self.mlp_dtype = mlp_dtype(self.dtype, dev)
+        self.mlp = mlp or NeRF2D(generator=self.generator, device=dev)
+        self.mlp.to(dev)
+        self.vae_down = self.teacher.vae_config.downsample
+        self.acp = self.teacher.alphas_cumprod
+        opt = cfg.optim
         # capturable on the card: Adam keeps its step counts there and
         # reads none back (else two `.item()` of each leaf's count a step)
         self.optimizer = torch.optim.Adam(
@@ -437,8 +454,8 @@ class SDSTrainer:
                 tile_idx = profiler.host_read(d["tile_idx"], "tile_idx")
                 eps = _to(d["eps"], dev)
                 noise = _to(d["noise"], dev, torch.float32)
-                neg_noise = _to(d["neg_noise"], dev)
-                cond_noise = _to(d["cond_noise"], dev)
+                neg_noise = _to(d.get("neg_noise"), dev)
+                cond_noise = _to(d.get("cond_noise"), dev)
                 t_t = torch.tensor([int(t)], device=dev)
             if self.local_grad:
                 z, grid, _ = self.render_grid_latent_local(eps, tile_idx)
@@ -455,11 +472,7 @@ class SDSTrainer:
                 g = torch.nan_to_num(
                     GRAD_SCALE * w * torch.sqrt(acp_t) * (v_pred - v))
                 targets = (z_sg - g).detach()
-                z_tiles = split_grid_to_6(z, self.lat_tile)
-                tgt_tiles = split_grid_to_6(targets, self.lat_tile)
-                loss = 0.5 * torch.sum(
-                    (z_tiles[tile_idx] - tgt_tiles[tile_idx]) ** 2
-                ) / z.shape[0]
+                loss = self._sds_loss(z, targets, tile_idx)
             with profiler.span("sds.backward"):
                 self.optimizer.zero_grad(set_to_none=True)
                 loss.backward()
@@ -483,6 +496,17 @@ class SDSTrainer:
                           for k, p in self.mlp.state_dict().items()}
             return (params, loss.detach(), grad_norm.detach(), fisher,
                     grid.detach())
+
+    def _sds_loss(self, z, targets, tile_idx: int):
+        """1/2 sum of squares over the sampled tile, over the batch."""
+        z_tiles = split_grid_to_6(z, self.lat_tile)
+        tgt_tiles = split_grid_to_6(targets, self.lat_tile)
+        return 0.5 * torch.sum(
+            (z_tiles[tile_idx] - tgt_tiles[tile_idx]) ** 2) / z.shape[0]
+
+    def canvas_rgb(self, grid):
+        """The step's canvas in [0, 1], for the logged images."""
+        return (unscale_image(grid) + 1) / 2
 
     def _teacher(self, z_sg, noise, t_t, neg_noise, cond_noise):
         """The teacher's CFG v-prediction at the DDPM-noised latent."""
@@ -742,27 +766,36 @@ def define_view_weights(mesh_model: TexturedMeshModel, render: RenderConfig
 
 def tile_probabilities(object_masks: torch.Tensor, view_weights: torch.Tensor,
                        mode: str) -> torch.Tensor:
-    """Sampling probabilities of the 6 grid tiles (views 1..6), from the
-    share of each view's foreground pixels whose face it sees best:
-    'uniform' (the default), 'weighted' (by that share) or 'mixed' (half
-    and half). When no view has such a pixel, the shares fall back to
-    uniform. Returns (6,) f32 on the host."""
+    """Sampling probabilities of the 6 grid tiles (views 1..6 of the 7
+    fixed views): `view_probabilities` of those views. Returns (6,) f32 on
+    the host."""
+    return view_probabilities(object_masks[1:], view_weights[1:], mode)
+
+
+def view_probabilities(object_masks: torch.Tensor, view_weights: torch.Tensor,
+                       mode: str) -> torch.Tensor:
+    """Sampling probabilities of n views (the grid's tiles, an orbit's
+    frames), from the share of each view's foreground pixels whose face it
+    sees best: 'uniform' (the default), 'weighted' (by that share) or
+    'mixed' (half and half). When no view has such a pixel, the shares fall
+    back to uniform. Returns (n,) f32 on the host."""
     if mode not in TILE_WEIGHTING:
         raise ValueError(f"optim.tile_weighting: unknown mode {mode!r} "
                          "(expected uniform|mixed|weighted)")
     fg = object_masks > 0.5
     best = view_weights & fg
     frac = best.sum(dim=(1, 2, 3)) / fg.sum(dim=(1, 2, 3)).clamp(min=1)
-    w6 = frac.float().cpu().numpy().astype(np.float64)[1:]
-    uniform = np.full(6, 1.0 / 6.0)
-    if w6.sum() <= 0:
+    w = frac.float().cpu().numpy().astype(np.float64)
+    n = w.shape[0]
+    uniform = np.full(n, 1.0 / n)
+    if w.sum() <= 0:
         if mode != "uniform":
             logger.warning("all view weights are zero; tile_weighting "
                            f"'{mode}' falls back to uniform")
-        w6 = uniform.copy()
-    w6 = w6 / w6.sum()
-    probs = {"uniform": uniform, "weighted": w6,
-             "mixed": 0.5 * uniform + 0.5 * w6}[mode]
+        w = uniform.copy()
+    w = w / w.sum()
+    probs = {"uniform": uniform, "weighted": w,
+             "mixed": 0.5 * uniform + 0.5 * w}[mode]
     return torch.from_numpy((probs / probs.sum()).astype(np.float32))
 
 
@@ -857,16 +890,32 @@ def paint_viewpoint(cfg: TrainConfig, mesh_model: TexturedMeshModel,
     return rgb_output, object_mask, rgb_render, intermediates
 
 
-@torch.no_grad()
 def prepare_sds(cfg: TrainConfig, mesh_model: TexturedMeshModel, mlp: NeRF2D,
-                teacher: Zero123PlusTeacher,
-                eps: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-                skip_bootstrap: bool = False,
+                teacher, eps=None, skip_bootstrap: bool = False,
                 generator: Optional[torch.Generator] = None,
                 timings: Optional[Dict[str, float]] = None,
                 diffusion: Optional[StableDiffusionDepth] = None,
                 bootstrap_draws: Optional[Dict[str, torch.Tensor]] = None
                 ) -> Dict:
+    """The static setup of guide.teacher's SDS loop (`teacher_path`):
+    `prepare_grid_sds` for Zero123++, `orbit.prepare_orbit_sds` for
+    SV3D_p (eps is then the condition image's augmentation draw, (1, 3, P,
+    P))."""
+    return teacher_path(cfg).prepare(cfg, mesh_model, mlp, teacher, eps,
+                                     skip_bootstrap, generator, timings,
+                                     diffusion, bootstrap_draws)
+
+
+@torch.no_grad()
+def prepare_grid_sds(cfg: TrainConfig, mesh_model: TexturedMeshModel,
+                     mlp: NeRF2D, teacher: Zero123PlusTeacher,
+                     eps: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                     skip_bootstrap: bool = False,
+                     generator: Optional[torch.Generator] = None,
+                     timings: Optional[Dict[str, float]] = None,
+                     diffusion: Optional[StableDiffusionDepth] = None,
+                     bootstrap_draws: Optional[Dict[str, torch.Tensor]] = None
+                     ) -> Dict:
     """The front-view bootstrap, all-view geometry and the one-time teacher
     conditioning: the static setup that `SDSTrainer` takes. The bootstrap
     (`paint_viewpoint` through `diffusion`, the SD2-depth stack) repaints
@@ -1113,8 +1162,8 @@ def build_models(cfg: TrainConfig, tiny: bool = False, device="cuda",
     sd_wp = sd_weight_paths(cfg.guide)
     generator = torch.Generator(device=dev).manual_seed(cfg.optim.seed)
     if teacher is None:
-        teacher = Zero123PlusTeacher(tiny=tiny, device=dev,
-                                     generator=generator, weight_paths=z_wp)
+        teacher = teacher_path(cfg).teacher(
+            tiny=tiny, device=dev, generator=generator, weight_paths=z_wp)
         if z_wp is not None:
             logger.info(_loaded_line("Zero123++", z_wp, teacher.loaded))
     apply_int8(cfg, teacher)
@@ -1161,10 +1210,41 @@ def build_sds_trainer(cfg: TrainConfig, tiny: bool = False, device="cuda",
                         skip_bootstrap=skip_bootstrap, generator=generator,
                         timings=timings, diffusion=diffusion,
                         bootstrap_draws=bootstrap_draws)
-    trainer = SDSTrainer(cfg, setup, teacher=teacher, mlp=mlp, tiny=tiny,
-                         device=dev, generator=generator,
-                         mesh_model=mesh_model)
+    trainer = make_sds_trainer(cfg, setup, teacher=teacher, mlp=mlp,
+                               tiny=tiny, device=dev, generator=generator,
+                               mesh_model=mesh_model)
     return trainer, setup
+
+
+def make_sds_trainer(cfg: TrainConfig, setup: Dict, **kwargs) -> SDSTrainer:
+    """The SDS loop of guide.teacher (`teacher_path`): `SDSTrainer` over
+    the Zero123++ grid, or `orbit.OrbitSDSTrainer` over SV3D_p's orbit;
+    the keyword arguments are SDSTrainer's."""
+    return teacher_path(cfg).trainer(cfg, setup, **kwargs)
+
+
+class TeacherPath(NamedTuple):
+    """What guide.teacher selects: the teacher's class, the static setup
+    (prepare_sds's signature), the trainer's class and the setup's kernel
+    launches (prepare_sds_kernel_launches's signature)."""
+    teacher: type
+    prepare: Callable
+    trainer: type
+    prepare_launches: Callable
+
+
+def teacher_path(cfg: TrainConfig) -> TeacherPath:
+    """guide.teacher's path; SV3D_p's modules are imported only when the
+    config asks for them."""
+    if cfg.guide.teacher == "sv3d_p":
+        from contexture_nerf_tpu_torch.diffusion.sv3d import SV3DTeacher
+        from contexture_nerf_tpu_torch.training import orbit
+
+        return TeacherPath(SV3DTeacher, orbit.prepare_orbit_sds,
+                           orbit.OrbitSDSTrainer,
+                           orbit.prepare_orbit_kernel_launches)
+    return TeacherPath(Zero123PlusTeacher, prepare_grid_sds, SDSTrainer,
+                       prepare_sds_kernel_launches)
 
 
 # -- the eval render -----------------------------------------------------------------
@@ -1377,11 +1457,10 @@ class ConTEXTure:
         setup = prepare_sds(cfg, self.mesh_model, self.mlp, self.teacher,
                             generator=self.generator,
                             diffusion=self.diffusion)
-        sds = self.sds = SDSTrainer(cfg, setup, teacher=self.teacher,
-                                    mlp=self.mlp, tiny=self.tiny,
-                                    device=self.device,
-                                    generator=self.generator,
-                                    mesh_model=self.mesh_model, mesh=mesh)
+        sds = self.sds = make_sds_trainer(
+            cfg, setup, teacher=self.teacher, mlp=self.mlp, tiny=self.tiny,
+            device=self.device, generator=self.generator,
+            mesh_model=self.mesh_model, mesh=mesh)
         iterations = cfg.optim.sds_iterations
         ts = [int(t) for t in sds.t_schedule(iterations).tolist()]
 
@@ -1441,7 +1520,7 @@ class ConTEXTure:
                 win_t0, win_i0 = time.time(), i
             if self.writer and cfg.log.log_images and logs_images(i):
                 self.log_texture_map(i)
-                self.log_train_image((unscale_image(grid) + 1) / 2,
+                self.log_train_image(sds.canvas_rgb(grid),
                                      f"rendered_grid_clean_{i}")
             if self.writer and saves_checkpoint(
                     i, iterations, cfg.optim.checkpoint_interval):
@@ -1502,8 +1581,8 @@ class ConTEXTure:
         cfg, n = self.cfg, self.cfg.optim.sds_iterations
         its = range(start_iter, n)
         logged = its if self.writer else ()
-        counts = prepare_sds_kernel_launches(cfg, self.teacher,
-                                             self.diffusion)
+        counts = teacher_path(cfg).prepare_launches(cfg, self.teacher,
+                                                    self.diffusion)
         for k, v in seed_texture_kernel_launches(cfg).items():
             counts[k] += v
         for k, v in self.sds.expected_kernel_launches().items():

@@ -1,7 +1,8 @@
 """Camera poses: the port's counterparts of
 contexture_nerf_tpu/training/views_dataset.py `rand_poses`,
 `rand_modal_poses`, `circle_pose`, `Zero123PlusDataset`,
-`MultiviewDataset` and `ViewsDataset` (the eval turntable). Poses are a
+`MultiviewDataset` and `ViewsDataset` (the eval turntable), and the
+port's `OrbitDataset` (SV3D_p's orbit). Poses are a
 handful of host floats read once at setup; each is a dict {dir, theta,
 phi, radius, base_theta}, angles in radians. Random poses come from a
 numpy generator.
@@ -99,6 +100,32 @@ class Zero123PlusDataset:
             d["base_theta"] = math.radians(self.cfg.base_theta)
             out.append(d)
         return out
+
+    def __iter__(self):
+        return iter(self.poses())
+
+
+class OrbitDataset:
+    """The orbit of a video teacher (SV3D_p): `frames` poses at one
+    elevation (10 degrees by default), azimuths 360 k / frames for
+    k = 1..frames (the last at 0, the front), as simple_video_sample.py
+    sets them for sv3d_p; radius render.radius."""
+
+    def __init__(self, cfg, frames: int = 21, elevation_deg: float = 10.0):
+        self.cfg = cfg
+        self.phis = [float(a) for a in
+                     np.linspace(0, 360, frames + 1)[1:] % 360]
+        self.thetas = [90.0 - elevation_deg] * frames
+        self.size = frames
+
+    def __len__(self) -> int:
+        return self.size
+
+    def poses(self) -> List[Dict]:
+        return [circle_pose(radius=self.cfg.radius, theta=theta, phi=phi,
+                            angle_overhead=self.cfg.overhead_range,
+                            angle_front=self.cfg.front_range)
+                for theta, phi in zip(self.thetas, self.phis)]
 
     def __iter__(self):
         return iter(self.poses())
