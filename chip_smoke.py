@@ -7,7 +7,7 @@ Run from the root of a checkout, on a machine with one NVIDIA GPU:
                           [--mlp-only | --raster-only [--against DIR] |
                            --snapshot-only | --mesh-only | --generate-only |
                            --int8-only | --tools-only | --parallel-only |
-                           --sv3d-only]
+                           --sv3d-only | --k7-only]
 
 It builds the hand-written CUDA kernels from csrc/, holds each against its
 plain PyTorch version at the shapes the main path gives it (and checks that
@@ -86,7 +86,13 @@ K6 forward on the frame-stacked layout, gn_bwd at the 576^2 frame encode)
 and its paint loop at full width (a step's launches, spans and host reads,
 its time), then prints those shapes' records, with a step's launches, as
 its `kernels` line; the full script runs both and adds the records to its
-own `kernels` line.
+own `kernels` line. --k7-only runs only the K7 phase (`texture_phase`: the
+masked texture sample and its backward at the exact path's 6 x 1200^2
+views and 1024^2 texture, bilinear and nearest, and at a ragged shape,
+against their plain versions, timed beside their bounds, the plain path's
+forward and backward and the plan's build) and prints its records; the
+full script runs it after the K6 backward phase, and its records carry the
+mesh path's exact steps' launches and a step's.
 """
 
 import argparse
@@ -1787,6 +1793,195 @@ def groupnorm_bwd_phase(torch, seed, encodes, failures):
               f"library {ldms:.3f}; gn_bwd "
               f"{share_of_bound(out['bound_ms'], dms)}")
 
+K7_SRC = "contexture_nerf_tpu_torch/csrc/texture.cu"
+K7_REPLACES = ("no TPU counterpart (the reference leaves sample_texture to "
+               "XLA)")
+K7_UNIT = 2.0 ** -24  # float32's unit roundoff
+# K7's records: the exact path's 6 target views at the default
+# train_grid_size and texture_resolution, keyed as _build.launch_shapes keys
+# launches (their launches are the mesh path's exact steps')
+K7_VIEWS = 6
+K7_FWD_KEY = ("texture_fwd", K7_VIEWS, 1200, 1200, 1024, 1024)
+K7_BWD_KEY = ("texture_bwd",) + K7_FWD_KEY[1:]
+K7_FAULTS = {"view": "the last view's entries left out of the sums",
+             "texel": "each texel's list read from the next texel's"}
+
+
+def k7_limit(torch, plan, g):
+    """Per texel, how far K7's backward may sit from autograd through the
+    plain gathers: both sum the same n terms g w (the products rounded
+    differently: ((g m) (1 - wy)) (1 - wx) there, g ((m (1 - wy)) (1 -
+    wx)) here) in other orders, autograd's a view at a time and then over
+    the views, so each is within (n + 6) roundings of the exact sum of
+    |g| |w|: (2 n + 12) u S, S that sum, n the texel's entries."""
+    from contexture_nerf_tpu_torch.ops import texture as tx
+
+    n = (plan.offsets[1:] - plan.offsets[:-1]).float()
+    like = torch.empty(plan.texture_batch, 3, *plan.size, device="meta")
+    S = tx.texture_bwd_plain(plan._replace(weight=plan.weight.abs()),
+                             g.abs(), like)
+    return (2 * n.reshape(plan.texture_batch, 1, *plan.size) + 12) \
+        * K7_UNIT * S + 1e-30
+
+
+def planted_k7_bwd(torch, plan, g, like, fault):
+    """K7's backward over a plan with a planted fault (K7_FAULTS)."""
+    from contexture_nerf_tpu_torch.ops import texture as tx
+
+    B, H, W = plan.views
+    if fault == "view":
+        last = plan.pixel.long() >= (B - 1) * H * W
+        bad = plan._replace(weight=torch.where(
+            last, torch.zeros_like(plan.weight), plan.weight))
+    else:
+        bad = plan._replace(offsets=torch.cat(
+            [plan.offsets[1:], plan.offsets[-1:]]).contiguous())
+    return tx.texture_bwd_kernel(bad, g, like)
+
+
+def texture_cases(torch, seed):
+    """K7's cases: (label, uv, mask, texture (permuted, as the MLP hands
+    it), mode, timed). The exact path's: the torus's 6 target views at the
+    default train_grid_size with the default texture_resolution, bilinear
+    (the renderer's mode) and nearest; a ragged one: 2 views of 777 x 1234
+    and a 300 x 500 texture, one per view."""
+    from contexture_nerf_tpu_torch.core.config import config_from_dict
+    from contexture_nerf_tpu_torch.models.textured_mesh import \
+        TexturedMeshModel
+    from contexture_nerf_tpu_torch.training import trainer as tr
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed + 7)
+    cfg = config_from_dict({"guide": {
+        "shape_path": str(ROOT / "shapes" / "torus.obj")}})
+    res, tres = cfg.render.train_grid_size, cfg.guide.texture_resolution
+    mm = TexturedMeshModel(cfg.guide, render_grid_size=res,
+                           texture_resolution=tres, device=dev)
+    cache, _ = tr.define_view_weights(mm, cfg.render)
+    uv6 = cache.uv_features[1:].contiguous()
+    mask6 = cache.mask[1:].contiguous()
+    th, ph, r = tr.view_angles(cfg.render)
+    rag = mm.render_geometry(th[1:3], ph[1:3], r[1:3], dims=(1234, 777))
+
+    def tex(batch, h, w):
+        return torch.rand((batch, h, w, 3), generator=gen,
+                          device=dev).permute(0, 3, 1, 2)
+
+    big = tex(1, tres, tres)
+    views = f"{uv6.shape[0]}x{res}^2, texture {tres}^2"
+    return [(f"exact path {views}, bilinear", uv6, mask6, big, "bilinear",
+             True),
+            (f"exact path {views}, nearest", uv6, mask6, big, "nearest",
+             True),
+            ("ragged 2x777x1234, texture 2x300x500, bilinear",
+             rag.uv_features.contiguous(), rag.mask.contiguous(),
+             tex(2, 300, 500), "bilinear", False)]
+
+
+def texture_phase(torch, seed, recs, failures):
+    """K7 in each of `texture_cases`: the forward against
+    `masked_sample_plain` (bit for bit); the backward over the case's plan
+    against the plain segment sum on the CPU (bit for bit), against
+    autograd through the plain gathers (within k7_limit), twice
+    bit-identical, and the planted K7_FAULTS outside the limit. Timed
+    (the exact path's cases): CUDA events and device time of each kernel
+    beside its bytes' bound, the plain forward and backward (autograd, its
+    scatter-adds), the plan's build and its kept share. The bilinear exact
+    case fills `recs` at K7_FWD_KEY and K7_BWD_KEY."""
+    from contexture_nerf_tpu_torch.ops import texture as tx
+
+    dev = torch.device("cuda")
+    card = card_line()
+    gen = torch.Generator(device=dev).manual_seed(seed + 8)
+    for label, uv, mask, tex, mode, timed in texture_cases(torch, seed):
+        B, H, W = uv.shape[:3]
+        Bt, _, TH, TW = tex.shape
+        P, T = B * H * W, Bt * TH * TW
+        plan = tx.texture_plan(uv, mask, (TH, TW), mode, Bt)
+        masked = int((mask != 0).sum())
+        out = tx.texture_fwd_kernel(uv, mask, tex, mode)
+        plain = tx.masked_sample_plain(uv, mask, tex, mode)
+        fwd_same = torch.equal(out, plain)
+        g = torch.randn((B, 3, H, W), generator=gen, device=dev)
+        got = tx.texture_bwd_kernel(plan, g, tex)
+        again = tx.texture_bwd_kernel(plan, g, tex)
+        same = torch.equal(got, again)
+        cpu_plan = tx.TexturePlan(*(t.cpu() for t in plan[:3]), *plan[3:])
+        on_cpu = torch.equal(got.cpu(), tx.texture_bwd_plain(
+            cpu_plan, g.cpu(), tex.cpu()))
+        t = tex.detach().clone().requires_grad_(True)
+        tx.masked_sample_plain(uv, mask, t, mode).backward(g)
+        limit = k7_limit(torch, plan, g)
+        ratio = float(((got - t.grad).abs() / limit).max())
+        layout = got.stride() == tex.stride()
+        ok = fwd_same and same and on_cpu and ratio <= 1.0 and layout and \
+            bool(torch.isfinite(got).all())
+        print(f"  K7 {label}: forward bit-identical to plain {fwd_same}; "
+              f"backward bit-identical to the plain segment sum on the CPU "
+              f"{on_cpu}, two runs bit-identical {same}, against autograd "
+              f"max err/limit {ratio:.3f}, in the texture's layout {layout}"
+              f"; plan kept share {plan.kept:.4f} ({plan.pixel.numel()} "
+              f"entries, {masked} of {P} pixels masked) "
+              f"{'ok' if ok else 'MISS'}")
+        if not ok:
+            failures.append(f"K7 {label}")
+        for fault, what in K7_FAULTS.items():
+            bad = planted_k7_bwd(torch, plan, g, tex, fault)
+            r = float(((bad - t.grad).abs() / limit).max())
+            print(f"    planted fault {what}: max err/limit {r:.2f} "
+                  f"{'caught' if r > 1 else 'NOT CAUGHT'}")
+            if not r > 1:
+                failures.append(f"K7 {label}: limit passes planted fault "
+                                f"{fault}")
+        del again, t, limit, bad
+        if not timed:
+            continue
+
+        def fwd():
+            return tx.texture_fwd_kernel(uv, mask, tex, mode)
+
+        def bwd():
+            return tx.texture_bwd_kernel(plan, g, tex)
+
+        def plain_step():
+            t = tex.detach().requires_grad_(True)
+            tx.masked_sample_plain(uv, mask, t, mode).backward(g)
+            return t.grad
+
+        fwd_bytes = 4 * P + 8 * masked + 12 * P + 12 * T
+        bwd_bytes = (8 * plan.pixel.numel() + 4 * (T + 1) + 12 * masked
+                     + 12 * T)
+        tm = {"fms": cuda_ms(fwd), "fdms": device_ms(fwd),
+              "bms": cuda_ms(bwd), "bdms": device_ms(bwd),
+              "pfms": cuda_ms(lambda: tx.masked_sample_plain(uv, mask, tex,
+                                                             mode), reps=5),
+              "pms": cuda_ms(plain_step, reps=5),
+              "plan": cuda_ms(lambda: tx.texture_plan(uv, mask, (TH, TW),
+                                                      mode, Bt), reps=3)}
+        fb, bb = (fwd_bytes / H100_BYTES_S * 1e3,
+                  bwd_bytes / H100_BYTES_S * 1e3)
+        print(f"    forward {tm['fms']:.4f} ms (device {_ms(tm['fdms'])}), "
+              f"bound {fb:.4f} (bytes: {fwd_bytes / 1e6:.1f} MB), device "
+              f"time {share_of_bound(fb, tm['fdms'])}; plain forward "
+              f"{tm['pfms']:.3f}")
+        print(f"    backward {tm['bms']:.4f} ms (device {_ms(tm['bdms'])}), "
+              f"bound {bb:.4f} (bytes: {bwd_bytes / 1e6:.1f} MB), device "
+              f"time {share_of_bound(bb, tm['bdms'])}; plain ms (forward + "
+              f"autograd's backward) {tm['pms']:.3f}; the plan's build "
+              f"{tm['plan']:.2f} ms [{card}]")
+        if mode == "bilinear":
+            fwd_rec, bwd_rec = recs[K7_FWD_KEY], recs[K7_BWD_KEY]
+            fwd_rec.add(0.0, tm["fms"], tm["pfms"], 0, fwd_bytes)
+            bwd_rec.add(float((got - plain_step()).abs().max()), tm["bms"],
+                        tm["pms"], 0, bwd_bytes)
+            fwd_rec.d["device_ms"], bwd_rec.d["device_ms"] = (tm["fdms"],
+                                                             tm["bdms"])
+            bwd_rec.d["kept_share"], bwd_rec.d["plan_ms"] = (plan.kept,
+                                                            tm["plan"])
+        del plan, out, plain, got, g
+        torch.cuda.empty_cache()
+
+
 def check_setup(torch, setup, trainer, res, failures):
     """prepare_sds's outputs: the shapes at full width, finite values, an
     object on the canvas, UVs in [0, 1], probabilities that sum to 1, and
@@ -3356,6 +3551,7 @@ def kaolin_entries(torch, seed, sphere, launches, shapes, failures, card):
     res = cfg.render.train_grid_size
     th, ph, r = tr.view_angles(cfg.render)
     one = dict({k: 0 for k in launches}, raster=1)
+    drawn = dict(one, texture_fwd=1)  # a render: K5, then K7's sample
     ok = True
     for label, mm, n in (("the torus's 7 views", torus, 7),
                          ("the sphere's front view", sphere, 1)):
@@ -3397,16 +3593,16 @@ def kaolin_entries(torch, seed, sphere, launches, shapes, failures, card):
             torus.verts, torus.faces, attr, tex, th, ph, r,
             look_at_height=torus.dy, background_type="white", **kw)
 
-    got, secs = counted(torch, lambda: render(uv), lambda _: one,
+    got, secs = counted(torch, lambda: render(uv), lambda _: drawn,
                         f"render_multiple_view_texture on the torus "
                         f"(7x{res}^2)", launches, failures, shapes)
     want, _ = counted(torch, lambda: rnd.render_texture_with_cache(
         rnd.render_geometry(torus.verts, torus.faces, uv, th, ph, r,
                             look_at_height=torus.dy), tex, "white"),
-        lambda _: one, "render_geometry + render_texture_with_cache on the "
+        lambda _: drawn, "render_geometry + render_texture_with_cache on the "
         "torus", launches, failures, shapes)
     cached, _ = counted(torch, lambda: render(uv, render_cache=got[4]),
-                        lambda _: dict(one, raster=0),
+                        lambda _: dict(drawn, raster=0),
                         "render_multiple_view_texture, the cache given",
                         launches, failures, shapes)
     with plain_paths(torch, k1=False):
@@ -3798,6 +3994,9 @@ def mesh_path(torch, seed, teacher, shape_recs, failures):
         if not trainer.exact or trainer.local_grad or len(unwraps) != 1:
             failures.append("mesh path: the exact trainer")
         expected = trainer.expected_kernel_launches()
+        for key in (K7_FWD_KEY, K7_BWD_KEY):
+            if key in shape_recs:
+                shape_recs[key].d["step_launches"] = expected[key[0]]
         ts = trainer.t_schedule(1000).tolist()[100:104]
         state = ({k: v.clone() for k, v in trainer.mlp.state_dict().items()},
                  copy.deepcopy(trainer.optimizer.state_dict()),
@@ -3837,13 +4036,15 @@ def mesh_path(torch, seed, teacher, shape_recs, failures):
 
         def within(a, b):
             """Two exact runs from one state: the first step's forward is
-            deterministic (K1, the gather, the teacher), so its loss is
-            equal; the gather's backward adds with float atomics, so a
-            near-zero gradient may flip Adam's step: 99.9% of the parameters
-            within lr of each other, and the later losses within 1%. On an
-            H100 two sound runs kept 0.99986 of the parameters within lr and
-            their losses within 2.5e-3; with Adam's state not restored 0.86
-            of them stayed within lr, with the generator's 0.47."""
+            deterministic (K1, K7, the teacher), so its loss is equal; the
+            backward is not asked to be (cuDNN's convolution gradients in
+            the VAE), so a near-zero gradient may flip Adam's step: 99.9% of
+            the parameters within lr of each other, and the later losses
+            within 1%. On an H100 two sound runs, with the plain gather's
+            atomic backward, kept 0.99986 of the parameters within lr and
+            their losses within 2.5e-3 (with K7's backward they were
+            bit-identical); with Adam's state not restored 0.86 of them
+            stayed within lr, with the generator's 0.47."""
             (l0, p0), (l1, p1) = a, b
             first = l0[0] == l1[0]
             rel = max(abs(x - y) / abs(y) for x, y in zip(l0, l1))
@@ -4410,7 +4611,7 @@ def tools_path(torch, seed, models, failures):
 
     def renders_7(r):
         return plus(r[0].paint_kernel_launches(),
-                    {"raster": 7, "mlp_fwd": 7})
+                    {"raster": 7, "mlp_fwd": 7, "texture_fwd": 7})
 
     def crops_ok(label, written):
         shapes = [drawn_object(p) for p in written]
@@ -5017,7 +5218,8 @@ def parallel_rank(dev, seed, work):
     counted_run(f"(4) eval, 8 frames in chunks of {n}",
                 lambda: run.evaluate(run.dataloaders["val_large"],
                                      out_dir / "sharded", mesh=views),
-                {"raster": -(-8 // n), "mlp_fwd": 1})
+                {"raster": -(-8 // n), "texture_fwd": -(-8 // n),
+                 "mlp_fwd": 1})
     if rank == 0:
         import numpy as np
         from PIL import Image
@@ -5145,6 +5347,10 @@ def main():
                     "and gn_bwd) and its paint loop at full width (the "
                     "launches, spans and host reads of a step, its time) "
                     "and stop (no result line)")
+    ap.add_argument("--k7-only", action="store_true",
+                    help="run only the K7 phase (the masked texture sample "
+                    "and its backward at the exact path's shapes and a "
+                    "ragged one) and print its records")
     ap.add_argument("--k5-times-of", metavar="DIR", help=argparse.SUPPRESS)
     args = ap.parse_args()
     t_script = time.perf_counter()
@@ -5236,6 +5442,12 @@ def main():
         ("raster", 1, tres, tres, faces): Record(
             f"raster (its UV-space atlas, 1x{tres}^2)", raster_src, k5_at,
             H100_FP32_FLOPS),
+        K7_FWD_KEY: Record(
+            f"texture_fwd (K7; the exact path's {K7_VIEWS}x{res}^2 views, "
+            f"{tres}^2 texture)", K7_SRC, K7_REPLACES, H100_FP32_FLOPS),
+        K7_BWD_KEY: Record(
+            f"texture_bwd (K7; the exact path's {K7_VIEWS}x{res}^2 views, "
+            f"{tres}^2 texture)", K7_SRC, K7_REPLACES, H100_FP32_FLOPS),
         ("groupnorm_bwd", "canvas"): Record(
             f"groupnorm_bwd (gn_bwd; the exact path's {STEP_CANVAS[0]}x"
             f"{STEP_CANVAS[1]} canvas encode, 22 calls)", GN_BWD_SRC,
@@ -5281,6 +5493,17 @@ def main():
         for f in failures:
             print(f"FAIL: {f}")
         return 1 if failures else 0
+    if args.k7_only:
+        print("K7 phase (the masked texture sample and its backward against "
+              "their plain versions, f32):")
+        texture_phase(torch, args.seed, shape_recs, failures)
+        for f in failures:
+            print(f"FAIL: {f}")
+        if failures:
+            return 1
+        print(json.dumps({"kernels": [shape_recs[k].out() for k in (
+            K7_FWD_KEY, K7_BWD_KEY)]}))
+        return 0
     if args.sv3d_only:
         sv3d_recs = sv3d_phases(torch, args.seed, failures)
         for f in failures:
@@ -5351,6 +5574,9 @@ def main():
         ("slice", STEP_SLICE, recs["groupnorm_bwd"]),
         ("canvas", STEP_CANVAS, shape_recs[("groupnorm_bwd", "canvas")])],
         failures)
+    print("K7 phase (the masked texture sample and its backward against "
+          "their plain versions, f32):")
+    texture_phase(torch, args.seed, shape_recs, failures)
     sv3d_recs = sv3d_phases(torch, args.seed, failures)
     print("main path: shapes/torus.obj -> prepare_sds (SD2-depth bootstrap) "
           "-> full-width SDS steps")

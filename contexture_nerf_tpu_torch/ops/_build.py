@@ -41,13 +41,14 @@ SOURCES: Dict[str, tuple] = {
     "flash_attn": ("flash_attn.cu", ("hopper.cuh",)),
     "raster": ("raster.cu", ()),
     "groupnorm": ("groupnorm.cu", ("hopper.cuh",)),
+    "texture": ("texture.cu", ()),
 }
 
 # launches per kernel, by the names chip_smoke.py reports
 launch_counts: Dict[str, int] = {
     "mlp_fwd": 0, "mlp_bwd": 0,
     "flash_attn_single": 0, "flash_attn_two_source": 0, "raster": 0,
-    "groupnorm": 0, "groupnorm_bwd": 0,
+    "groupnorm": 0, "groupnorm_bwd": 0, "texture_fwd": 0, "texture_bwd": 0,
 }
 
 # the same launches by kernel and call sizes: (name, *sizes) -> launches

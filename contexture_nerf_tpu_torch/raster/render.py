@@ -16,7 +16,8 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from contexture_nerf_tpu_torch.ops.texture import sample_texture
+from contexture_nerf_tpu_torch.ops.texture import (TexturePlan,
+                                                   sample_texture_masked)
 from contexture_nerf_tpu_torch.raster import camera as cam
 from contexture_nerf_tpu_torch.raster.raster_kernel import rasterize_geometry
 from contexture_nerf_tpu_torch.raster.rasterize import interpolate_attributes
@@ -103,32 +104,35 @@ class Renderer:
                                   texture_map: torch.Tensor,
                                   background_type: str = "none",
                                   background_noise: Optional[
-                                      torch.Tensor] = None):
-        """Sample texture_map (B|1, 3, TH, TW) at the cached UVs. Returns
-        (image (B,3,H,W); mask (B,1,H,W); depth (B,1,H,W); normals
-        (B,3,H,W)). The image's background is zero ("none"), one
+                                      torch.Tensor] = None,
+                                  plan: Optional[TexturePlan] = None):
+        """Sample texture_map (B|1, 3, TH, TW) at the cached UVs, times the
+        mask (`sample_texture_masked`: K7 on the card; its backward over
+        `plan`, the `texture_plan` of this cache, or over one built for the
+        call). Returns (image (B,3,H,W); mask (B,1,H,W); depth (B,1,H,W);
+        normals (B,3,H,W)). The image's background is zero ("none"), one
         ("white") or `background_noise` (B|1,1,1,3) ("random"; zero when
         not given)."""
-        image = sample_texture(cache.uv_features, texture_map,
-                               self.interpolation_mode)  # (B,H,W,3)
-        mask_hw1 = cache.mask.permute(0, 2, 3, 1)
-        image = image * mask_hw1
+        mask = cache.mask
+        image = sample_texture_masked(cache.uv_features.contiguous(),
+                                      mask.contiguous(), texture_map,
+                                      self.interpolation_mode, plan)
         if background_type == "white":
-            image = image + 1.0 * (1 - mask_hw1)
+            image = image + 1.0 * (1 - mask)
         elif background_type == "random":
-            noise = (background_noise if background_noise is not None
-                     else torch.zeros((1, 1, 1, 3), dtype=image.dtype,
+            noise = (background_noise.permute(0, 3, 1, 2)
+                     if background_noise is not None
+                     else torch.zeros((1, 3, 1, 1), dtype=image.dtype,
                                       device=image.device))
-            image = image + noise * (1 - mask_hw1)
+            image = image + noise * (1 - mask)
         elif background_type != "none":
             raise ValueError(f"no background type {background_type!r}")
         B, H, W = cache.face_idx.shape
         safe = cache.face_idx.clamp(min=0).reshape(B, -1).long()
         normals = torch.gather(cache.face_normals, 1,
                                safe[..., None].expand(-1, -1, 3))
-        normals = normals.reshape(B, H, W, 3) * mask_hw1
-        return (image.permute(0, 3, 1, 2), cache.mask, cache.depth_map,
-                normals.permute(0, 3, 1, 2))
+        normals = normals.reshape(B, H, W, 3) * mask.permute(0, 2, 3, 1)
+        return image, mask, cache.depth_map, normals.permute(0, 3, 1, 2)
 
     def render_multiple_view_texture(self, verts: torch.Tensor,
                                      faces: torch.Tensor,

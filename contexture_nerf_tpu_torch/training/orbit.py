@@ -158,14 +158,15 @@ def prepare_orbit_sds(cfg, mesh_model: TexturedMeshModel, mlp: NeRF2D,
 def prepare_orbit_kernel_launches(cfg, teacher: SV3DTeacher, diffusion
                                   ) -> Dict[str, int]:
     """Kernel launches of `prepare_orbit_sds` on the card: K5 once for the
-    orbit's geometry; the front's render (K5, K1) or the bootstrap's
-    launches; K6 in the condition image's VAE encode (CLIP's 257 tokens
-    take the plain attention path)."""
+    orbit's geometry; the front's render (K5, K1, K7's sample) or the
+    bootstrap's launches; K6 in the condition image's VAE encode (CLIP's
+    257 tokens take the plain attention path)."""
     counts = {k: 0 for k in _build.launch_counts}
     counts["raster"] = 1
     if diffusion is None:
         counts["raster"] += 1
         counts["mlp_fwd"] += 1
+        counts["texture_fwd"] += 1
     else:
         for k, v in tr.paint_viewpoint_kernel_launches(cfg, diffusion).items():
             counts[k] += v
@@ -311,4 +312,5 @@ class OrbitSDSTrainer(tr.SDSTrainer):
                                                                      lat),
                 "flash_attn_two_source": 0, "raster": 0,
                 "groupnorm": tr.groupnorm_launches(gn),
-                "groupnorm_bwd": tr.groupnorm_launches(vae_gn)}
+                "groupnorm_bwd": tr.groupnorm_launches(vae_gn),
+                "texture_fwd": 0, "texture_bwd": 0}

@@ -99,6 +99,7 @@ from contexture_nerf_tpu_torch.ops.image import (color_with_shade,
 from contexture_nerf_tpu_torch.ops.mlp_kernel import (fused_nerf2d,
                                                       fused_nerf2d_emb,
                                                       pad_embedding)
+from contexture_nerf_tpu_torch.ops.texture import texture_plan
 from contexture_nerf_tpu_torch.ops.view_consistency import \
     compute_view_consistency
 from contexture_nerf_tpu_torch.ops.view_weights import compute_view_weights
@@ -250,6 +251,13 @@ class SDSTrainer:
         self.tile_probs = _to(setup["tile_probs"], dev, torch.float32)
         if self.exact:
             self.cache6 = RenderCache(*(_to(x, dev) for x in setup["cache6"]))
+            # the sampler's transpose at the 6 views' fixed UVs, for K7's
+            # backward: built once here, so no step sorts
+            res = mesh_model.texture_resolution
+            self.texture_plan = texture_plan(
+                self.cache6.uv_features.contiguous(),
+                self.cache6.mask.contiguous(), (res, res),
+                mesh_model.renderer.interpolation_mode)
             self.bboxes6 = [tuple(int(v) for v in b)
                             for b in setup["bboxes6"]]
             self.mask_grid = self.uv_pts = self.emb_pts = None
@@ -370,7 +378,7 @@ class SDSTrainer:
             return self._composite(rgb, *self.grid_hw, self.mask_grid), rgb
         texture, _ = self.mesh_model.get_texture_map(self.mlp)
         image, mask, _, _ = self.mesh_model.renderer.render_texture_with_cache(
-            self.cache6, texture, "none")
+            self.cache6, texture, "none", plan=self.texture_plan)
         image = torch.clamp(image * mask + 0.5 * (1 - mask), 0.0, 1.0)
         tiles = [crop_and_resize(image[i:i + 1], self.bboxes6[i],
                                  self.tile_px, self.tile_px)
@@ -556,7 +564,8 @@ class SDSTrainer:
         launch) for every GroupNorm of the two UNet passes, the ControlNet
         and the VAE encodes (the canvas, and the slice with local_sds_grad),
         and its backward (one launch) for every GroupNorm of the one encode
-        the loss differentiates; the rasterizer never (it runs in
+        the loss differentiates; K7's sample and its backward once each
+        with exact_lattice_render; the rasterizer never (it runs in
         prepare_sds)."""
         ucfg = self.teacher.unet_config
         single, two = teacher_attention_launches(
@@ -569,7 +578,8 @@ class SDSTrainer:
         return {"mlp_fwd": encodes, "mlp_bwd": 1,
                 "flash_attn_single": single, "flash_attn_two_source": two,
                 "raster": 0, "groupnorm": groupnorm_launches(gn),
-                "groupnorm_bwd": groupnorm_launches(vae_gn)}
+                "groupnorm_bwd": groupnorm_launches(vae_gn),
+                "texture_fwd": int(self.exact), "texture_bwd": int(self.exact)}
 
 
 # -- launches derived from the configs ----------------------------------------------
@@ -656,15 +666,16 @@ def prepare_sds_kernel_launches(cfg: TrainConfig,
                                 teacher: Zero123PlusTeacher,
                                 diffusion: Optional[StableDiffusionDepth]
                                 ) -> Dict[str, int]:
-    """Kernel launches of prepare_sds on the card: K5 and K1 once for the 7
-    views, K6 in the two VAE encodes of the condition pair; with the
-    bootstrap (`diffusion` given), K5 and K1 once more for the front pose,
-    and for each of the PLMS sequence's UNet calls its K3 self-attentions
-    and K6 GroupNorms, then K6 in the decode (and in the intermediate
-    decodes with log.vis_diffusion_steps); K6 launches once a GroupNorm.
-    CLIP's 77 and 257 tokens route to the plain attention path."""
+    """Kernel launches of prepare_sds on the card: K5, K1 and K7's sample
+    once for the 7 views, K6 in the two VAE encodes of the condition pair;
+    with the bootstrap (`diffusion` given), K5, K1 and K7's sample once
+    more for the front pose, and for each of the PLMS sequence's UNet calls
+    its K3 self-attentions and K6 GroupNorms, then K6 in the decode (and in
+    the intermediate decodes with log.vis_diffusion_steps); K6 launches
+    once a GroupNorm. CLIP's 77 and 257 tokens route to the plain attention
+    path."""
     counts = {k: 0 for k in _build.launch_counts}
-    counts["raster"] = counts["mlp_fwd"] = 1
+    counts["raster"] = counts["mlp_fwd"] = counts["texture_fwd"] = 1
     counts["groupnorm"] = groupnorm_launches(
         2 * vae_groupnorms(teacher.vae_config))
     if diffusion is not None:
@@ -676,15 +687,15 @@ def prepare_sds_kernel_launches(cfg: TrainConfig,
 def paint_viewpoint_kernel_launches(cfg: TrainConfig,
                                     diffusion: StableDiffusionDepth,
                                     paint_step: int = 1) -> Dict[str, int]:
-    """Kernel launches of one `paint_viewpoint` pass on the card: K5 and
-    K1 once for the front render (the median fill is plain), then for
-    each of the PLMS sequence's UNet calls its K3 self-attentions and K6
-    GroupNorms (the inpaint UNet's at 10 < i < 20 on a repaint pass with
-    guide.use_inpainting, after one VAE encode of the masked image), then
-    K6 in the decode (and in the intermediate decodes with
+    """Kernel launches of one `paint_viewpoint` pass on the card: K5, K1
+    and K7's sample once for the front render (the median fill is plain),
+    then for each of the PLMS sequence's UNet calls its K3 self-attentions
+    and K6 GroupNorms (the inpaint UNet's at 10 < i < 20 on a repaint pass
+    with guide.use_inpainting, after one VAE encode of the masked image),
+    then K6 in the decode (and in the intermediate decodes with
     log.vis_diffusion_steps)."""
     counts = {k: 0 for k in _build.launch_counts}
-    counts["raster"] = counts["mlp_fwd"] = 1
+    counts["raster"] = counts["mlp_fwd"] = counts["texture_fwd"] = 1
     steps = len(diffusion.scheduler.timesteps(BOOTSTRAP_STEPS))
     lat = diffusion.latent_shape()[2:]
     inpaint = sum(1 for i in range(steps) if 10 < i < 20) \
@@ -1274,13 +1285,14 @@ def eval_frame(mesh_model: TexturedMeshModel, texture: torch.Tensor, theta,
 def full_eval_kernel_launches(cfg: TrainConfig, n_views: int = 1,
                               writer: bool = True) -> Dict[str, int]:
     """Kernel launches of `ConTEXTure.full_eval` on one rank of the card:
-    K5 once for each of its turntable frames (the frames go in chunks of
-    the mesh's `views` size n_views, the last one filled); K1 once for the
-    texture map, which `evaluate` computes once for all its frames (it
-    depends on the parameters only), and once more for export_mesh's
-    albedo with log.save_mesh on the rank that writes."""
+    K5 and K7's sample once for each of its turntable frames (the frames
+    go in chunks of the mesh's `views` size n_views, the last one filled);
+    K1 once for the texture map, which `evaluate` computes once for all its
+    frames (it depends on the parameters only), and once more for
+    export_mesh's albedo with log.save_mesh on the rank that writes."""
     counts = {k: 0 for k in _build.launch_counts}
-    counts["raster"] = -(-cfg.log.full_eval_size // n_views)
+    counts["raster"] = counts["texture_fwd"] = \
+        -(-cfg.log.full_eval_size // n_views)
     counts["mlp_fwd"] = 1 + (1 if cfg.log.save_mesh and writer else 0)
     return counts
 

@@ -42,6 +42,15 @@ what its f32 sums' rounding can move it (chip_smoke.groupnorm_bwd_limit),
 two runs bit-identical, and SiLU's slope cut to sigmoid(y), the projection
 term dropped and one CTA's share left out of the group's sums must miss the
 limit; under autograd, K6's gradients are gn_bwd's, within the same limit.
+The masked texture sample (K7) at the exact path's 6 x 1200^2 views and
+1024^2 texture (bilinear and nearest) and at a ragged shape: its forward
+bit-identical to the plain version (both round every operation on its own
+in one order), its backward bit-identical to the plain segment sum on the
+CPU (the plan's order), within chip_smoke.k7_limit of autograd through the
+plain gathers (the same terms in other orders), two runs bit-identical, and
+a view left out of the sums and each texel's list read from the next
+texel's must miss the limit; one exact_lattice_render step launches K7's
+forward and backward once each, as the trainer derives.
 """
 
 import pytest
@@ -54,16 +63,18 @@ from contexture_nerf_tpu_torch.ops import _build
 from contexture_nerf_tpu_torch.ops import attention as att
 from contexture_nerf_tpu_torch.ops import groupnorm as gn
 from contexture_nerf_tpu_torch.ops import mlp_kernel as mk
+from contexture_nerf_tpu_torch.ops import texture as tx
 from contexture_nerf_tpu_torch.raster import raster_kernel as rk
 from contexture_nerf_tpu_torch.raster.rasterize import rasterize_geometry
 from contexture_nerf_tpu_torch.training.trainer import view_angles
-from chip_smoke import (ATTENTION_FAULTS, BWD_FAULTS, activations,
+from chip_smoke import (ATTENTION_FAULTS, BWD_FAULTS, K7_FAULTS, activations,
                         attention_limit, attention_ratio, binned_plain,
                         groupnorm_bwd_limit, groupnorm_bwd_ratio,
-                        groupnorm_limit, groupnorm_ratio, numpy_uv_sphere,
-                        output_gradient, planted_attention,
+                        groupnorm_limit, groupnorm_ratio, k7_limit,
+                        numpy_uv_sphere, output_gradient, planted_attention,
                         planted_group_norm, planted_group_norm_bwd,
-                        shrunk_ranges, vae_encoder_groupnorms)
+                        planted_k7_bwd, shrunk_ranges, texture_cases,
+                        vae_encoder_groupnorms)
 from tools.make_shapes import uv_sphere
 
 pytestmark = pytest.mark.cuda
@@ -659,6 +670,120 @@ def test_groupnorm_bwd_kernel_rejects_what_it_does_not_take(cuda):
         bwd(x, s, s, g[:, :, :4].contiguous())
     with pytest.raises(ValueError, match="CUDA"):
         bwd(x.cpu(), s.cpu(), s.cpu(), g.cpu())
+
+
+@pytest.fixture(scope="module")
+def k7_cases():
+    """chip_smoke.texture_cases, made once: the exact path's 6 x 1200^2
+    views of the torus and 1024^2 texture (bilinear, nearest), a ragged
+    2 x 777 x 1234 with a texture a view."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; chip_smoke.py runs the kernels on "
+                    "the card")
+    return texture_cases(torch, 0)
+
+
+@pytest.mark.parametrize("case", range(3))
+def test_texture_kernels_match_plain(k7_cases, case):
+    """K7's forward equals masked_sample_plain bit for bit; its backward
+    equals the plain segment sum on the CPU bit for bit, sits within
+    k7_limit of autograd through the plain gathers, runs bit-identically
+    twice and writes the texture's layout; the planted faults miss the
+    limit."""
+    _, uv, mask, tex, mode, _ = k7_cases[case]
+    plan = tx.texture_plan(uv, mask, tuple(tex.shape[2:]), mode,
+                           tex.shape[0])
+    assert torch.equal(tx.texture_fwd_kernel(uv, mask, tex, mode),
+                       tx.masked_sample_plain(uv, mask, tex, mode))
+    g = torch.randn((uv.shape[0], 3) + tuple(uv.shape[1:3]),
+                    generator=torch.Generator(device=uv.device).manual_seed(
+                        case), device=uv.device)
+    got = tx.texture_bwd_kernel(plan, g, tex)
+    assert torch.equal(got, tx.texture_bwd_kernel(plan, g, tex))
+    assert got.stride() == tex.stride()
+    cpu_plan = tx.TexturePlan(*(t.cpu() for t in plan[:3]), *plan[3:])
+    assert torch.equal(got.cpu(), tx.texture_bwd_plain(cpu_plan, g.cpu(),
+                                                       tex.cpu()))
+    t = tex.detach().clone().requires_grad_(True)
+    tx.masked_sample_plain(uv, mask, t, mode).backward(g)
+    limit = k7_limit(torch, plan, g)
+    assert bool(((got - t.grad).abs() <= limit).all())
+    for fault in K7_FAULTS:
+        bad = planted_k7_bwd(torch, plan, g, tex, fault)
+        assert not bool(((bad - t.grad).abs() <= limit).all()), fault
+
+
+def test_texture_autograd_takes_k7(k7_cases):
+    """A CUDA texture that needs a gradient goes through K7 both ways, with
+    a plan built for the call; one that does not launches the forward
+    alone."""
+    _, uv, mask, tex, mode, _ = k7_cases[2]
+    before = dict(_build.launch_counts)
+    t = tex.detach().clone().requires_grad_(True)
+    out = tx.sample_texture_masked(uv, mask, t, mode)
+    g = torch.ones_like(out)
+    out.backward(g)
+    plan = tx.texture_plan(uv, mask, tuple(tex.shape[2:]), mode,
+                           tex.shape[0])
+    assert torch.equal(t.grad, tx.texture_bwd_kernel(plan, g, tex))
+    with torch.no_grad():
+        tx.sample_texture_masked(uv, mask, t, mode)
+    assert _build.launch_counts["texture_fwd"] == before["texture_fwd"] + 2
+    assert _build.launch_counts["texture_bwd"] == before["texture_bwd"] + 2
+
+
+def test_texture_kernels_reject_what_they_do_not_take(cuda):
+    uv = torch.rand((2, 5, 7, 2), device=cuda)
+    mask = torch.ones((2, 1, 5, 7), device=cuda)
+    tex = torch.rand((1, 3, 8, 6), device=cuda)
+    fwd = tx.texture_fwd_kernel
+    with pytest.raises(ValueError, match="float32"):
+        fwd(uv, mask, tex.double())
+    with pytest.raises(ValueError, match="float32"):
+        fwd(uv.bfloat16(), mask, tex)
+    with pytest.raises(ValueError, match="CUDA"):
+        fwd(uv, mask.cpu(), tex)
+    with pytest.raises(ValueError, match="contiguous"):
+        fwd(uv.transpose(1, 2), mask.transpose(2, 3), tex)
+    with pytest.raises(ValueError, match="contiguous"):
+        fwd(uv, mask.transpose(2, 3), tex)
+    with pytest.raises(ValueError, match="texture must be"):
+        fwd(uv, mask, tex[:, :2])
+    plan = tx.texture_plan(uv, mask, (8, 6))
+    g = torch.ones((2, 3, 5, 7), device=cuda)
+    bwd = tx.texture_bwd_kernel
+    with pytest.raises(ValueError, match="float32"):
+        bwd(plan, g.double(), tex)
+    with pytest.raises(ValueError, match="plan's"):
+        bwd(plan, g[:, :, :4], tex)
+    with pytest.raises(ValueError, match="CUDA"):
+        bwd(tx.TexturePlan(*(t.cpu() for t in plan[:3]), *plan[3:]), g, tex)
+    with pytest.raises(ValueError, match="int32"):
+        bwd(plan._replace(pixel=plan.pixel.long()), g, tex)
+
+
+def test_exact_step_launches_k7_once_each(cuda, tmp_path):
+    """One exact_lattice_render step (full-width towers, the torus's views
+    at 64^2, a 64^2 texture) launches K7's forward and backward once each,
+    and every kernel as SDSTrainer.expected_kernel_launches derives."""
+    from contexture_nerf_tpu_torch.training import trainer as tr
+
+    cfg = config_from_dict({
+        "log": {"exp_root": str(tmp_path)},
+        "render": {"train_grid_size": 64, "eval_grid_size": 64},
+        "guide": {"text": "k7", "shape_path": "shapes/torus.obj",
+                  "texture_resolution": 64},
+        "optim": {"seed": 0, "exact_lattice_render": True}})
+    trainer, _ = tr.build_sds_trainer(cfg, device=cuda, skip_bootstrap=True)
+    assert trainer.texture_plan.kept > 0
+    trainer.step(500)  # the first step's allocations
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    trainer.step(500)
+    torch.cuda.synchronize()
+    want = trainer.expected_kernel_launches()
+    assert want["texture_fwd"] == want["texture_bwd"] == 1
+    assert dict(_build.launch_counts) == want
 
 
 def test_int_mm_shape_rules(cuda):
