@@ -24,11 +24,15 @@ ControlNet + SD VAE encoder + 8x256 MLP on a 960x640 canvas, bf16, random
 towers from the seed) for one warm-up and three timed SDS steps, then one
 step with the GroupNorms and the attention layers hooked (K6's calls, bytes
 and per-shape times; K3/K4 held to their limit on every kernel-routed call,
-as on one bootstrap UNet call) and one with the plain GroupNorm path;
-`teacher_v_pred` at the step's inputs must equal the step's own teacher
-call bit for bit (a planted guidance scale of 1 must not). prepare_sds's
-launches and each step's must equal the counts derived for them. Then the paint path (the CLI on spot_quick_test.yaml, its resume, the
-default-size eval) and the snapshot path: the paint path's first CLI run
+as on one bootstrap UNet call); `teacher_v_pred` at the step's inputs must
+equal the step's own teacher call bit for bit (a planted guidance scale of
+1 must not). Every run's K3, K4, K6 and gn_bwd launches are held to the
+census of the calls it routes to them (`tools/launches.py` in the port);
+the other kernels' launches are printed as counted. Two planted routing
+faults (one GroupNorm call on the plain version, one kernel-routed
+attention call on the plain route) must fail that check. Then the paint
+path (the CLI on spot_quick_test.yaml, its resume, the default-size eval)
+and the snapshot path: the paint path's first CLI run
 again from its seeded towers written to disk as diffusers snapshots (17.6 GB
 at F32 under build/snapshots/, deleted after), which must equal the
 random-tower run bit for bit. Then the mesh path (`mesh_path`): a
@@ -757,29 +761,6 @@ def attention_phases(torch, rec1, rec2, seed, sweep, failures):
               f"device time {dms:.3f} ms (SDPA {dlms:.3f})")
 
 
-@contextlib.contextmanager
-def routed_attention_calls():
-    """While active, record the (q, k, v, extra_k, extra_v) of every
-    attention() call of the attention layers that routes to the kernel, as
-    the layers pass them (views, not copies)."""
-    from contexture_nerf_tpu_torch.diffusion import layers
-    from contexture_nerf_tpu_torch.ops import attention as att
-
-    calls, orig = [], layers.attention
-
-    def record(q, k, v, extra_k=None, extra_v=None):
-        se = 0 if extra_k is None else extra_k.shape[2]
-        if q.is_cuda and att.routes_to_kernel(q.shape[2], k.shape[2], se):
-            calls.append((q, k, v, extra_k, extra_v))
-        return orig(q, k, v, extra_k=extra_k, extra_v=extra_v)
-
-    layers.attention = record
-    try:
-        yield calls
-    finally:
-        layers.attention = orig
-
-
 # the K3/K4 call shapes (B, H, Sq, Skv, Se) and the K6 signatures held to
 # their plain versions so far in this run: a later path records the ones
 # no earlier path ran as shape records of their own
@@ -1486,7 +1467,7 @@ def sv3d_kernels(torch, seed, failures):
     apply outside the limits; device times against their bounds. Returns
     their shape records, keyed as _build.launch_shapes keys launches (a
     K3 or K6 record: one call; the gn_bwd record: the sampled frame's
-    encode, 22 calls); sv3d_launches gives them a step's launches."""
+    encode, 22 calls); record_launches gives them a step's launches."""
     from contexture_nerf_tpu_torch.ops import attention as att
     from contexture_nerf_tpu_torch.ops import groupnorm as gn
 
@@ -1578,30 +1559,30 @@ def sv3d_kernels(torch, seed, failures):
     return recs
 
 
-def sv3d_launches(recs, shapes, failures):
-    """Each of sv3d_kernels' records gets the launches of its shapes in one
-    step (sv3d_step's `shapes`); a shape the step never launches fails."""
+def record_launches(recs, shapes, where, failures):
+    """Each shape record gets the launches of its shapes (keyed as
+    _build.launch_shapes keys launches) in `shapes`, the launches of
+    `where`; a shape that `where` never launches fails."""
     for key, rec in recs.items():
         rec.d["launches"] = n = sum(shapes.get(k, 0)
                                     for k in rec.keys or [key])
-        print(f"  {rec.d['name']}: {n} launches a step")
+        print(f"  {rec.d['name']}: {n} launches {where}")
         if not n:
-            failures.append(f"{rec.d['name']} was not launched in the SV3D_p "
-                            "step")
+            failures.append(f"{rec.d['name']} was not launched {where}")
 
 
 def sv3d_step(torch, seed, failures):
     """The SV3D_p paint loop at full width on the torus: prepare_sds
     (guide.teacher sv3d_p, without the bootstrap) timed by phase; one step's
-    launches against OrbitSDSTrainer.expected_kernel_launches; one step
-    under the profiler: its teacher.temporal spans inside sds.teacher
-    (38), its host reads (one); then timed steps and the peak memory.
-    Returns the counted step's launches by kernel and call sizes
-    (_build.launch_shapes)."""
+    launches held to its census; one step under the profiler: its
+    teacher.temporal spans inside sds.teacher (38), its host reads (one);
+    then timed steps and the peak memory. Returns the counted step's
+    launches by kernel and call sizes (_build.launch_shapes)."""
     from contexture_nerf_tpu_torch.core.config import config_from_dict
     from contexture_nerf_tpu_torch.diffusion.video_unet import \
         temporal_layers
     from contexture_nerf_tpu_torch.ops import _build
+    from contexture_nerf_tpu_torch.tools.launches import census
     from contexture_nerf_tpu_torch.training import trainer as tr
 
     cfg = config_from_dict({"guide": {
@@ -1620,16 +1601,11 @@ def sv3d_step(torch, seed, failures):
     trainer.step(ts[1000])
     torch.cuda.synchronize()
     _build.reset_launch_counts()
-    trainer.step(ts[1001])
-    torch.cuda.synchronize()
-    want = trainer.expected_kernel_launches()
-    got = {k: _build.launch_counts.get(k, 0) for k in want}
+    with census() as c:
+        trainer.step(ts[1001])
+        torch.cuda.synchronize()
+    hold_to_census(c, "sv3d step", failures)
     shapes = dict(_build.launch_shapes)
-    ok = got == want
-    print(f"  one step's launches {got}, expected {want} "
-          f"{'ok' if ok else 'MISS'}")
-    if not ok:
-        failures.append(f"sv3d step launches {got} != {want}")
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
         trainer.step(ts[1002])
@@ -1675,7 +1651,7 @@ def sv3d_phases(torch, seed, failures):
     recs = sv3d_kernels(torch, seed, failures)
     print("SV3D_p's paint loop at full width on the torus")
     shapes = sv3d_step(torch, seed, failures)
-    sv3d_launches(recs, shapes, failures)
+    record_launches(recs, shapes, "in the SV3D_p step", failures)
     return recs
 
 
@@ -2179,24 +2155,6 @@ def main_config(seed):
         "shape_path": str(ROOT / "shapes" / "torus.obj")}})
 
 
-def teacher_call_launches(trainer):
-    """Kernel launches of one teacher call (`teacher_v_pred` /
-    `_cfg_v_pred`) at the trainer's shapes: its routed self-attentions (K3,
-    K4) and K6 for the GroupNorms of the two UNet passes and the
-    ControlNet."""
-    from contexture_nerf_tpu_torch.ops import _build
-    from contexture_nerf_tpu_torch.training import trainer as tr
-
-    ucfg = trainer.teacher.unet_config
-    k3, k4 = tr.teacher_attention_launches(
-        ucfg, trainer.latent_shape()[2:],
-        tuple(trainer.cond_lat_pair.shape[2:]))
-    return dict({k: 0 for k in _build.launch_counts}, **{
-        "flash_attn_single": k3, "flash_attn_two_source": k4,
-        "groupnorm": tr.groupnorm_launches(
-            2 * tr.unet_groupnorms(ucfg) + tr.unet_groupnorms(ucfg, True))})
-
-
 def teacher_v_pred_check(torch, seed, trainer, t, failures):
     """`teacher_v_pred`, the public single-step teacher, at the main path's
     shapes: one SDS step with its teacher call recorded, then
@@ -2205,7 +2163,7 @@ def teacher_v_pred_check(torch, seed, trainer, t, failures):
     bit for bit; with a planted guidance scale of 1 for 10 it must not;
     and with its draws taken from a generator it must equal the call on
     the same draws given as tensors. Returns the launches, each run's held
-    to its derivation."""
+    to its census."""
     import inspect
 
     from contexture_nerf_tpu_torch.ops import _build
@@ -2225,19 +2183,17 @@ def teacher_v_pred_check(torch, seed, trainer, t, failures):
     tch._cfg_v_pred = recorded
     try:
         counted(torch, lambda: trainer.step(t),
-                lambda _: trainer.expected_kernel_launches(),
                 "teacher_v_pred: an SDS step, its teacher call recorded",
                 launches, failures)
     finally:
         del tch._cfg_v_pred
-    one = teacher_call_launches(trainer)
 
     def call(label, scale, *noises, **kw):
         with torch.no_grad():
             return counted(torch, lambda: tch.teacher_v_pred(
                 seen["latents"], seen["t"], trainer.cond_lat_pair,
                 trainer.ehs, trainer.depth_grid, scale, *noises,
-                cn_cond_emb=trainer.cn_cond_emb, **kw), lambda _: one,
+                cn_cond_emb=trainer.cn_cond_emb, **kw),
                 f"teacher_v_pred, {label}", launches, failures)
 
     draws = (seen["neg_noise"], seen["cond_noise"])
@@ -2273,11 +2229,77 @@ def teacher_v_pred_check(torch, seed, trainer, t, failures):
     return launches
 
 
+def census_cost(torch, trainer, t, rounds=2):
+    """What the census's hooks cost a step: steps without it and under it
+    in turns, each on the host clock with the card synchronised; prints
+    the medians."""
+    from contexture_nerf_tpu_torch.tools.launches import census
+
+    times = {False: [], True: []}
+    for _ in range(rounds):
+        for on in (False, True):
+            torch.cuda.synchronize()
+            with census() if on else contextlib.nullcontext():
+                a = time.perf_counter()
+                trainer.step(t)
+                torch.cuda.synchronize()
+                times[on].append((time.perf_counter() - a) * 1e3)
+    off, on = (sorted(times[k])[rounds // 2] for k in (False, True))
+    print(f"  the census's cost: a step {off:.1f} ms without it, {on:.1f} ms "
+          f"under it (medians of {rounds}, in turns) [{card_line()}]")
+
+
+def routing_faults(torch, trainer, t, failures):
+    """The census check must fail on each planted routing fault, in one
+    teacher call at the step's shapes: one GroupNormSiLU call on the plain
+    version with a CUDA tensor, one kernel-routed attention call on the
+    plain route."""
+    from contexture_nerf_tpu_torch.ops import _build
+    from contexture_nerf_tpu_torch.ops import attention as att
+    from contexture_nerf_tpu_torch.ops import groupnorm as gn
+    from contexture_nerf_tpu_torch.tools.launches import census
+    from contexture_nerf_tpu_torch.training import trainer as tr
+
+    dev = trainer.device
+    g = torch.Generator(device=dev).manual_seed(0)
+    z = torch.randn(trainer.latent_shape(), generator=g,
+                    device=dev).to(trainer.dtype)
+    for what, module, name, plain in (
+            ("one GroupNormSiLU call on the plain version", gn,
+             "group_norm_silu", gn.group_norm_silu_plain),
+            ("one kernel-routed attention call on the plain route", att,
+             "flash_attention", att.flash_attention_plain)):
+        real, calls = getattr(module, name), []
+
+        def once(*args, real=real, plain=plain, calls=calls):
+            calls.append(1)
+            return (plain if len(calls) == 1 else real)(*args)
+
+        setattr(module, name, once)
+        try:
+            _build.reset_launch_counts()
+            with torch.no_grad(), census() as c:
+                trainer.teacher.teacher_v_pred(
+                    z, torch.tensor([int(t)], device=dev),
+                    trainer.cond_lat_pair, trainer.ehs, trainer.depth_grid,
+                    tr.GUIDANCE_SCALE, generator=g,
+                    cn_cond_emb=trainer.cn_cond_emb)
+                torch.cuda.synchronize()
+        finally:
+            setattr(module, name, real)
+        bad = c.unmatched(_build.launch_counts)
+        print(f"  planted fault, {what}: (launched, census) "
+              f"{json.dumps(bad)} {'caught' if bad else 'NOT CAUGHT'}")
+        if not bad:
+            failures.append(f"the census check passes a planted fault: "
+                            f"{what}")
+
+
 def main_path(torch, seed, profile, recs, failures):
     from contexture_nerf_tpu_torch.diffusion.sd_depth import \
         StableDiffusionDepth
     from contexture_nerf_tpu_torch.ops import _build
-    from contexture_nerf_tpu_torch.ops import groupnorm as gn
+    from contexture_nerf_tpu_torch.tools.launches import census
     from contexture_nerf_tpu_torch.training import trainer as tr
 
     cfg = main_config(seed)
@@ -2293,11 +2315,11 @@ def main_path(torch, seed, profile, recs, failures):
     _build.reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    trainer, setup = tr.build_sds_trainer(cfg, device="cuda",
-                                          timings=timings, diffusion=sd)
-    torch.cuda.synchronize()
+    with census() as prep_census:
+        trainer, setup = tr.build_sds_trainer(cfg, device="cuda",
+                                              timings=timings, diffusion=sd)
+        torch.cuda.synchronize()
     built_s = time.perf_counter() - t0
-    prep = dict(_build.launch_counts)
     prep_peak = torch.cuda.max_memory_allocated() / 2 ** 30
     n_params = sum(p.numel() for p in trainer.teacher.parameters())
     n_clip = sum(p.numel() for m in (trainer.teacher.text_encoder,
@@ -2308,9 +2330,10 @@ def main_path(torch, seed, profile, recs, failures):
     print(f"  SD2-depth stack (UNet, inpaint UNet, VAE, text tower) "
           f"{n_sd / 1e6:.1f} M params in {sd.dtype}, random init "
           f"{sd_s:.1f} s")
-    print(f"  build_sds_trainer (teacher init + prepare_sds + trainer) "
-          f"{built_s:.1f} s: teacher {n_params / 1e6:.1f} M params "
-          f"({n_clip / 1e6:.1f} M of them CLIP) in {trainer.dtype}, canvas "
+    print(f"  build_sds_trainer (teacher init + prepare_sds + trainer; "
+          f"under the census) {built_s:.1f} s: teacher "
+          f"{n_params / 1e6:.1f} M params ({n_clip / 1e6:.1f} M of them "
+          f"CLIP) in {trainer.dtype}, canvas "
           f"{trainer.grid_hw}, backward slice {trainer.sl_h}x{trainer.sl_w}")
     if (trainer.sl_h, trainer.sl_w) != STEP_SLICE or \
             trainer.grid_hw != STEP_CANVAS:
@@ -2318,12 +2341,8 @@ def main_path(torch, seed, profile, recs, failures):
                         f"and {STEP_CANVAS}, where gn_bwd was held")
     print(f"  prepare_sds {prep_ms:.1f} ms (bootstrap {boot_ms:.1f}): "
           + ", ".join(f"{k} {v:.1f}" for k, v in timings.items())
-          + f" ms; peak memory {prep_peak:.2f} GiB; launches "
-          f"{json.dumps(prep)}")
-    want = tr.prepare_sds_kernel_launches(cfg, trainer.teacher, sd)
-    print(f"  expected launches of prepare_sds: {json.dumps(want)}")
-    if prep != want:
-        failures.append(f"prepare_sds launches {prep} != {want}")
+          + f" ms; peak memory {prep_peak:.2f} GiB")
+    prep = hold_to_census(prep_census, "build_sds_trainer", failures)
     check_setup(torch, setup, trainer, cfg.render.train_grid_size, failures)
 
     # K6's share of prepare_sds, from one more call of each part with the
@@ -2333,7 +2352,7 @@ def main_path(torch, seed, profile, recs, failures):
     lat_in = torch.cat([torch.cat([lat] * 2), torch.randn(
         (2, 1) + sd.latent_shape()[2:], device=dev)], 1)
     text = sd.get_text_embeds([cfg.guide.text])
-    with torch.no_grad(), routed_attention_calls() as boot_calls:
+    with torch.no_grad(), census(keep_calls=True) as boot:
         parts = {
             "UNet call": (steps, groupnorm_traffic(
                 torch, [sd.unet], lambda: sd.unet(lat_in, 981, text))),
@@ -2356,10 +2375,9 @@ def main_path(torch, seed, profile, recs, failures):
           + f"), {p_bytes / 1e9:.3f} GB to move, bound_ms {p_bound:.3f} "
           f"(bytes), K6 stream time {p_stream:.2f} ms (CUDA events around "
           "each call, launch gaps included)")
-    if p_calls * gn.LAUNCHES_PER_CALL != want["groupnorm"]:
-        failures.append(f"K6 launches in prepare_sds "
-                        f"{p_calls * gn.LAUNCHES_PER_CALL} != "
-                        f"{want['groupnorm']}")
+    if p_calls != prep_census.counts["groupnorm"]:
+        failures.append(f"K6's parts of prepare_sds: {p_calls} calls != the "
+                        f"census's {prep_census.counts['groupnorm']}")
     # K6 held against its plain version at every signature of prepare_sds;
     # the times are printed here and kept out of the per-step record
     sigs = {}
@@ -2374,37 +2392,39 @@ def main_path(torch, seed, profile, recs, failures):
           f"over its calls: ms {ms:.3f} plain_ms {pms:.3f} library_ms "
           f"{lms:.3f} bound_ms {p_bound:.3f}; device time K6 {dms:.3f} ms, "
           f"library {ldms:.3f}; max_abs_err {err:.3e}")
-    # K3 on the bootstrap UNet call's real self-attention inputs
-    err, single, _ = check_routed_calls(torch, boot_calls,
+    # K3 on the bootstrap UNet call's real self-attention inputs; its
+    # routed calls, times the steps, are prepare_sds's
+    err, single, _ = check_routed_calls(torch, boot.calls,
                                         "a bootstrap UNet call", failures)
     recs["flash_attn_single"].d["max_abs_err"] = max(
         recs["flash_attn_single"].d["max_abs_err"], err)
-    if steps * single != want["flash_attn_single"]:
+    if steps * single != prep_census.counts["flash_attn_single"]:
         failures.append(f"K3 in prepare_sds: {steps} x {single} routed calls "
-                        f"!= {want['flash_attn_single']}")
-    del sd, parts, sigs, lat, lat_in, text, boot_calls
+                        f"!= the census's "
+                        f"{prep_census.counts['flash_attn_single']}")
+    del sd, parts, sigs, lat, lat_in, text, boot
     torch.cuda.empty_cache()
 
-    expected = trainer.expected_kernel_launches()
-    print(f"  expected launches per step: {json.dumps(expected)}")
+    # every step under the census (what it costs a step: census_cost below)
     init = {k: v.clone() for k, v in trainer.mlp.state_dict().items()}
     ts = trainer.t_schedule(1000).tolist()[100:104]
     torch.cuda.reset_peak_memory_stats()
-    _build.reset_launch_counts()
+    launches = dict.fromkeys(prep, 0)
     step_ms, losses = [], []
     for i, t in enumerate(ts):
-        before = dict(_build.launch_counts)
+        _build.reset_launch_counts()
         torch.cuda.synchronize()
-        a = time.perf_counter()
-        params, loss, gnorm, fisher, grid = trainer.step(t)
-        torch.cuda.synchronize()
-        ms = (time.perf_counter() - a) * 1e3
-        delta = {k: _build.launch_counts[k] - before[k] for k in before}
+        with census() as c:
+            a = time.perf_counter()
+            params, loss, gnorm, fisher, grid = trainer.step(t)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - a) * 1e3
         print(f"  step {i} ({'warm-up' if i == 0 else 'timed'}) t={t}: "
               f"loss {float(loss):.6g} grad_norm {float(gnorm):.6g} fisher "
-              f"{float(fisher):.6g} {ms:.1f} ms launches {json.dumps(delta)}")
-        if delta != expected:
-            failures.append(f"step {i} launches {delta} != {expected}")
+              f"{float(fisher):.6g} {ms:.1f} ms")
+        got = hold_to_census(c, f"step {i}", failures)
+        for k in launches:
+            launches[k] += got[k]
         finite = all(bool(torch.isfinite(x).all())
                      for x in (loss, gnorm, fisher, grid))
         if not finite or not all(bool(torch.isfinite(p).all())
@@ -2415,10 +2435,9 @@ def main_path(torch, seed, profile, recs, failures):
         losses.append(float(loss))
         if i:
             step_ms.append(ms)
-    launches = {k: prep[k] + _build.launch_counts[k] for k in prep}
     changed = any(not torch.equal(init[k], params[k]) for k in init)
     checked = teacher_v_pred_check(torch, seed, trainer, ts[-1], failures)
-    launches = plus(launches, checked)
+    launches = {k: prep[k] + launches[k] + checked[k] for k in prep}
     if not changed:
         failures.append("params did not change")
     step_ms.sort()
@@ -2428,42 +2447,26 @@ def main_path(torch, seed, profile, recs, failures):
           f"(timed {', '.join(f'{m:.1f}' for m in step_ms)}), peak memory "
           f"{mem:.2f} GiB, params changed: {changed} [{card_line()}]")
 
-    # K6 and the routed attention calls on one more step, hooked; then the
-    # plain GroupNorm path beside it
-    with routed_attention_calls() as step_calls:
+    # K6 and the routed attention calls on one more step, hooked
+    _build.reset_launch_counts()
+    with census(keep_calls=True) as c:
         k6 = groupnorm_traffic(torch, [trainer.teacher],
                                lambda: trainer.step(ts[-1]))
-    err, single, two = check_routed_calls(torch, step_calls, "one SDS step",
-                                          failures)
-    del step_calls
-    for key, n in (("flash_attn_single", single),
-                   ("flash_attn_two_source", two)):
+    hold_to_census(c, "one SDS step, hooked", failures)
+    err, _, _ = check_routed_calls(torch, c.calls, "one SDS step", failures)
+    del c
+    for key in ("flash_attn_single", "flash_attn_two_source"):
         recs[key].d["max_abs_err"] = max(recs[key].d["max_abs_err"], err)
-        if n != expected[key]:
-            failures.append(f"{key}: {n} routed calls in a step != "
-                            f"{expected[key]}")
-    gn.USE_KERNEL = False
-    try:
-        torch.cuda.synchronize()
-        a = time.perf_counter()
-        trainer.step(ts[-1])
-        torch.cuda.synchronize()
-        plain_step_ms = (time.perf_counter() - a) * 1e3
-        pl = groupnorm_traffic(torch, [trainer.teacher],
-                               lambda: trainer.step(ts[-1]))
-    finally:
-        gn.USE_KERNEL = True
     print(f"  K6 on one step: {k6['calls']} GroupNorm calls, "
           f"{k6['bytes'] / 1e9:.3f} GB to move (x read once, y written "
           f"once), bound_ms {k6['bound_ms']:.3f} ({k6['bound_by']}); stream "
-          f"time K6 {k6['stream_ms']:.2f} ms, plain {pl['stream_ms']:.2f} ms "
-          f"(CUDA events around each call, launch gaps included)")
-    print(f"  SDS step with USE_KERNEL=False (plain GroupNorm): "
-          f"{plain_step_ms:.1f} ms, beside K6's median {med:.1f} ms")
-    if k6["calls"] * gn.LAUNCHES_PER_CALL != expected["groupnorm"]:
-        failures.append(f"K6 launches in a step "
-                        f"{k6['calls'] * gn.LAUNCHES_PER_CALL} != "
-                        f"{expected['groupnorm']}")
+          f"time K6 {k6['stream_ms']:.2f} ms (CUDA events around each call, "
+          f"launch gaps included)")
+    if k6["calls"] != got["groupnorm"]:
+        failures.append(f"K6 in a step: {k6['calls']} hooked calls != "
+                        f"{got['groupnorm']} launches")
+    census_cost(torch, trainer, ts[-1])
+    routing_faults(torch, trainer, ts[-1], failures)
     ms, pms, lms, err, dms, ldms = groupnorm_signature_times(
         torch, k6["sigs"], failures, "step")
     print(f"  K6 at the step's {len(k6['sigs'])} shapes, timed alone and "
@@ -2656,10 +2659,10 @@ def int8_path(torch, seed, trainer, failures):
     bf16 cuDNN conv or cuBLAS GEMM of the same shape. (3) The CUDA kernels
     a teacher call launches in bf16 and with int8_teacher. (4) SDS steps
     with bf16, int8_controlnet and int8_teacher in turns (one warm-up
-    each, then three rounds), each step's K1-K6 launches held to
-    expected_kernel_launches, losses finite; median ms and peak memory by
-    mode. (5) The int8-vs-bf16 v-prediction error (printed, not gated:
-    random towers) and a generate step (the Euler loop body of
+    each, then three rounds), each step's launches held to its census,
+    losses finite; median ms and peak memory by mode. (5) The
+    int8-vs-bf16 v-prediction error (printed, not gated: random towers)
+    and a generate step (the Euler loop body of
     Zero123PlusPipeline.generate) in bf16 and with int8_teacher. The
     teacher is left in bf16. Returns (launches by kernel, seconds)."""
     import copy
@@ -2669,6 +2672,7 @@ def int8_path(torch, seed, trainer, failures):
     from contexture_nerf_tpu_torch.diffusion import schedulers as sch
     from contexture_nerf_tpu_torch.ops import _build
     from contexture_nerf_tpu_torch.ops import quant as Q
+    from contexture_nerf_tpu_torch.tools.launches import census
     from contexture_nerf_tpu_torch.training import trainer as tr
 
     card = card_line()
@@ -2764,7 +2768,6 @@ def int8_path(torch, seed, trainer, failures):
           f"{sum(calls.values())} quantized calls)")
 
     # (4) SDS steps, the three modes in turns
-    expected = trainer.expected_kernel_launches()
     ts = trainer.t_schedule(1000).tolist()[200:204]
     times = {m: [] for m, _, _ in INT8_MODES}
     peaks = {m: 0.0 for m, _, _ in INT8_MODES}
@@ -2774,11 +2777,12 @@ def int8_path(torch, seed, trainer, failures):
             torch.cuda.reset_peak_memory_stats()
             _build.reset_launch_counts()
             torch.cuda.synchronize()
-            a = time.perf_counter()
-            params, loss, gnorm, fisher, grid = trainer.step(t)
-            torch.cuda.synchronize()
-            ms = (time.perf_counter() - a) * 1e3
-            got = dict(_build.launch_counts)
+            with census() as c:
+                a = time.perf_counter()
+                params, loss, gnorm, fisher, grid = trainer.step(t)
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - a) * 1e3
+            got = hold_to_census(c, f"{mode} step {r}", failures)
             for k in launches:
                 launches[k] += got[k]
             peaks[mode] = max(peaks[mode],
@@ -2786,11 +2790,7 @@ def int8_path(torch, seed, trainer, failures):
             finite = all(bool(torch.isfinite(v).all())
                          for v in (loss, gnorm, fisher, grid))
             print(f"  {mode} step {r} t={t}: loss {float(loss):.6g} "
-                  f"grad_norm {float(gnorm):.6g} {ms:.1f} ms launches "
-                  f"{'= derived' if got == expected else json.dumps(got)}")
-            if got != expected:
-                failures.append(f"int8 path {mode} step launches {got} != "
-                                f"{expected}")
+                  f"grad_norm {float(gnorm):.6g} {ms:.1f} ms")
             if not finite:
                 failures.append(f"int8 path {mode} step: non-finite output")
             if r:
@@ -2873,28 +2873,42 @@ def plain_paths(torch, k5=True, k1=True):
             setattr(m, n, f)
 
 
-def counted(torch, fn, want, label, launches, failures, shapes=None):
-    """Run fn() with the launch counts set to 0 just before and read just
-    after, timed on the host clock with the card synchronised; hold the
-    counts to want(result) (the derived launches) and add them to
-    `launches`, and the launches by call sizes to the Counter `shapes`
-    where given. Returns (result, seconds)."""
+def hold_to_census(census, label, failures, out=print):
+    """Report (through `out`) the launches counted since the last reset and
+    hold K3, K4, K6 and gn_bwd to `census`, the calls of the same run that
+    route to them. Returns the launches by kernel."""
+    from contexture_nerf_tpu_torch.ops import _build
+
+    got = dict(_build.launch_counts)
+    bad = census.unmatched(got)
+    out(f"  {label}: launches {json.dumps(got)} "
+        + (f"!= census {json.dumps(bad)} (launched, census)" if bad
+           else "= census"))
+    if bad:
+        failures.append(f"{label}: launches != census {bad}")
+    return got
+
+
+def counted(torch, fn, label, launches, failures, shapes=None):
+    """Run fn() under the census with the launch counts set to 0 just
+    before, timed on the host clock with the card synchronised (the
+    census's hooks included); hold the launches to the census
+    (`hold_to_census`) and add them to `launches`, and the launches by call
+    sizes to the Counter `shapes` where given. Returns (result,
+    seconds)."""
     from contexture_nerf_tpu_torch.core import profiler
     from contexture_nerf_tpu_torch.ops import _build
+    from contexture_nerf_tpu_torch.tools.launches import census
 
     profiler.GLOBAL_TIMINGS = profiler.Timings()  # this run's timings
     _build.reset_launch_counts()
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    out = fn()
-    torch.cuda.synchronize()
-    secs = time.perf_counter() - t0
-    got, exp = dict(_build.launch_counts), want(out)
-    ok = got == exp
-    print(f"  {label}: launches {json.dumps(got)} "
-          f"{'= derived' if ok else '!= derived ' + json.dumps(exp)}")
-    if not ok:
-        failures.append(f"{label} launches {got} != {exp}")
+    with census() as c:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    got = hold_to_census(c, label, failures)
     for k in launches:
         launches[k] += got[k]
     if shapes is not None:
@@ -3084,7 +3098,7 @@ def paint_path(torch, seed, trainer, recs, failures):
     before its steps, is made anew: 0.4 s of random init), full_eval, the
     view-consistency metric and the
     UV-space atlas at the default config's sizes on the torus, each with
-    its launches held to the derived counts, and their new K5 and K1
+    its launches held to its census, and their new K5 and K1
     shapes held to the plain versions (K5 bit for bit, K1 within mlp_tol).
     Returns the launches of these runs."""
     import gc
@@ -3106,7 +3120,6 @@ def paint_path(torch, seed, trainer, recs, failures):
     exp = exp_root / "spot_quick"
     torch.cuda.reset_peak_memory_stats()
     run, secs = counted(torch, lambda: run_contexture.main(argv),
-                        lambda r: r.paint_kernel_launches(0),
                         "CLI paint run", launches, failures)
     n_frames = run.cfg.log.full_eval_size
     metrics, timings = check_paint_outputs(torch, exp, seed, n_frames,
@@ -3137,8 +3150,7 @@ def paint_path(torch, seed, trainer, recs, failures):
     (exp / "checkpoints" / "iter_000010").unlink()
     run, secs = counted(
         torch, lambda: run_contexture.main(argv + ["--optim.resume=true"]),
-        lambda r: r.paint_kernel_launches(5), "CLI resumed run", launches,
-        failures)
+        "CLI resumed run", launches, failures)
     second = run.mlp.state_dict()
     resumed = json.loads((exp / "metrics.json").read_text())
     exact = all(torch.equal(first[k], second[k]) for k in first)
@@ -3179,21 +3191,18 @@ def paint_path(torch, seed, trainer, recs, failures):
     mm, mlp = ct.mesh_model, ct.mlp
     torch.cuda.reset_peak_memory_stats()
 
-    one_each = {k: int(k in ("raster", "mlp_fwd")) for k in launches}
     vc, vc_s = counted(torch, lambda: float(ct._view_consistency_metric()),
-                       lambda _: one_each,
                        "view-consistency metric (first call)", launches,
                        failures)
     vc_ms = cuda_ms(lambda: ct._view_consistency_metric(), reps=5)
     _, eval_s = counted(torch, ct.full_eval,
-                        lambda _: tr.full_eval_kernel_launches(cfg),
                         f"full_eval ({cfg.log.full_eval_size} frames at "
                         f"{cfg.render.eval_grid_size}^2, texture "
                         f"{cfg.guide.texture_resolution}^2)", launches,
                         failures)
     summ = profiler.GLOBAL_TIMINGS.summary()
     atlas, _ = counted(torch, lambda: mm.get_texture_map_only_valid_areas(
-        mlp), lambda _: one_each, "UV-space atlas", launches, failures)
+        mlp), "UV-space atlas", launches, failures)
     eval_peak = torch.cuda.max_memory_allocated() / 2 ** 30
 
     torch.cuda.synchronize()
@@ -3315,8 +3324,8 @@ def snapshot_path(torch, seed, reference, failures):
     inpaint snapshot, F32, no tokenizer/), dropped from the page cache, and
     the CLI runs with guide.diffusion_name, inpaint_model_path,
     zero123plus_path and controlnet_path pointing there. Every loaded
-    tower must equal the written one bit for bit, the launches the derived
-    ones, the final MLP parameters and the last metrics entry (less its
+    tower must equal the written one bit for bit, the launches their
+    census, the final MLP parameters and the last metrics entry (less its
     wall time) the random-tower run's (`reference`, from paint_path; run
     here first when None) bit for bit, and the outputs must pass
     check_paint_outputs. The directory is deleted at the end. Returns the
@@ -3339,7 +3348,6 @@ def snapshot_path(torch, seed, reference, failures):
     argv = paint_argv(seed, exp_root)
     if reference is None:
         run, secs = counted(torch, lambda: run_contexture.main(argv),
-                            lambda r: r.paint_kernel_launches(0),
                             "CLI paint run (random towers)", launches,
                             failures)
         metrics = json.loads((exp_root / "spot_quick" / "metrics.json")
@@ -3409,7 +3417,6 @@ def snapshot_path(torch, seed, reference, failures):
         torch.cuda.reset_peak_memory_stats()
         with HostPeakRSS() as rss:
             run, secs = counted(torch, lambda: run_contexture.main(args),
-                                lambda r: r.paint_kernel_launches(0),
                                 "CLI paint run from snapshots", launches,
                                 failures)
         card_peak = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -3535,10 +3542,12 @@ def kaolin_entries(torch, seed, sphere, launches, shapes, failures, card):
     plain call on the UV features of a face order rolled by one, must
     differ. `Renderer.render_multiple_view_texture` on the torus (a random
     1024^2 texture, white background) equal bit for bit to render_geometry
-    + render_texture_with_cache, and with the cache given to itself; the
-    same planted fault on its UV attributes must differ."""
+    + render_texture_with_cache, and with the cache given to itself and
+    without a rasterization; the same planted fault on its UV attributes
+    must differ."""
     from contexture_nerf_tpu_torch.core.config import config_from_dict
     from contexture_nerf_tpu_torch.models import textured_mesh as tmm
+    from contexture_nerf_tpu_torch.ops import _build
     from contexture_nerf_tpu_torch.raster.rasterize import rasterize
     from contexture_nerf_tpu_torch.training import trainer as tr
 
@@ -3550,8 +3559,6 @@ def kaolin_entries(torch, seed, sphere, launches, shapes, failures, card):
         texture_resolution=cfg.guide.texture_resolution, device=dev)
     res = cfg.render.train_grid_size
     th, ph, r = tr.view_angles(cfg.render)
-    one = dict({k: 0 for k in launches}, raster=1)
-    drawn = dict(one, texture_fwd=1)  # a render: K5, then K7's sample
     ok = True
     for label, mm, n in (("the torus's 7 views", torus, 7),
                          ("the sphere's front view", sphere, 1)):
@@ -3559,7 +3566,7 @@ def kaolin_entries(torch, seed, sphere, launches, shapes, failures, card):
         fvz = fvc[..., 2].contiguous()
         uv = mm.face_attributes.expand(n, -1, -1, -1)
         (img, idx), secs = counted(
-            torch, lambda: rasterize(res, res, fvz, fvi, uv), lambda _: one,
+            torch, lambda: rasterize(res, res, fvz, fvi, uv),
             f"rasterize (backend=None) on {label} ({n}x{res}^2, "
             f"F={fvz.shape[1]})", launches, failures, shapes)
         p_img, p_idx = rasterize(res, res, fvz, fvi, uv, backend="plain",
@@ -3593,29 +3600,29 @@ def kaolin_entries(torch, seed, sphere, launches, shapes, failures, card):
             torus.verts, torus.faces, attr, tex, th, ph, r,
             look_at_height=torus.dy, background_type="white", **kw)
 
-    got, secs = counted(torch, lambda: render(uv), lambda _: drawn,
+    got, secs = counted(torch, lambda: render(uv),
                         f"render_multiple_view_texture on the torus "
                         f"(7x{res}^2)", launches, failures, shapes)
     want, _ = counted(torch, lambda: rnd.render_texture_with_cache(
         rnd.render_geometry(torus.verts, torus.faces, uv, th, ph, r,
                             look_at_height=torus.dy), tex, "white"),
-        lambda _: drawn, "render_geometry + render_texture_with_cache on the "
-        "torus", launches, failures, shapes)
+        "render_geometry + render_texture_with_cache on the torus", launches,
+        failures, shapes)
     cached, _ = counted(torch, lambda: render(uv, render_cache=got[4]),
-                        lambda _: dict(drawn, raster=0),
                         "render_multiple_view_texture, the cache given",
                         launches, failures, shapes)
+    same_cached = all(torch.equal(a, b) for a, b in zip(got[:4], cached[:4])
+                      ) and _build.launch_counts["raster"] == 0
     with plain_paths(torch, k1=False):
         rolled = render(uv.roll(1, dims=1))
     same = all(torch.equal(a, b) for a, b in zip(got[:4], want))
-    same_cached = all(torch.equal(a, b) for a, b in zip(got[:4], cached[:4]))
     caught = not torch.equal(got[0], rolled[0])
     finite = all(bool(torch.isfinite(x).all()) for x in got[:4])
     print(f"  render_multiple_view_texture on the torus: {1e3 * secs:.1f} ms;"
           f" image, mask, depth, normals bit-identical to render_geometry + "
-          f"render_texture_with_cache {same}, with the cache given "
-          f"{same_cached}, finite {finite}; planted rolled face order "
-          f"{'caught' if caught else 'NOT CAUGHT'} [{card}]")
+          f"render_texture_with_cache {same}, with the cache given (no "
+          f"rasterization) {same_cached}, finite {finite}; planted rolled "
+          f"face order {'caught' if caught else 'NOT CAUGHT'} [{card}]")
     ok &= same and same_cached and finite
     if not caught:
         failures.append("render_multiple_view_texture's check passes a "
@@ -3632,8 +3639,8 @@ def off_cli_runs(torch, seed, obj, verts, faces, unwraps, launches, shapes,
     Mesh.load must read to the OBJ's arrays; then the CLI at full width on
     the OBJ and on the OFF (optim.sds_iterations=2, a 2-frame eval), each
     unwrapping into its own cache/<stem>/ (one unwrap each: the OFF run
-    does not read the OBJ's atlas), each run's launches held to
-    paint_kernel_launches. The two runs must give the same atlas, MLP,
+    does not read the OBJ's atlas), each run's launches held to its
+    census. The two runs must give the same atlas, MLP,
     losses and files (the albedo PNG, the turntable, the atlas PNG, the
     logged images) bit for bit."""
     import gc
@@ -3668,7 +3675,6 @@ def off_cli_runs(torch, seed, obj, verts, faces, unwraps, launches, shapes,
                 f"--optim.seed={seed}", "--optim.sds_iterations=2",
                 "--log.full_eval_size=2"]
         run, secs = counted(torch, lambda: run_contexture.main(argv),
-                            lambda r: r.paint_kernel_launches(0),
                             f"(e) the CLI on {shape.name}", launches,
                             failures, shapes)
         exp = exp_root / shape.stem
@@ -3761,14 +3767,15 @@ def mesh_path(torch, seed, teacher, shape_recs, failures):
     the 300-step fit to an image written here, whose MSE must fall (K1 and
     K2 at its and the lattice's point counts are held in mlp_phases). (c)
     build_sds_trainer on the mesh with exact_lattice_render and that image
-    as guide.initial_texture: one warm-up and three timed steps, launches as
-    derived, peak memory; the same steps again from the same state, held to
-    the first at a stated tolerance, and twice with a planted fault that
-    must miss it. (d) the default path with guide.reference_texture the
-    current texture map as PNG: the change mask is empty and a step leaves
-    the MLP as it was; a planted mask of ones changes it. (e) the sphere
-    as an OFF through the CLI beside its OBJ (`off_cli_runs`). Every run of
-    the path counts its launches; shape_recs, keyed by launch sizes as
+    as guide.initial_texture: one warm-up and three timed steps, launches
+    held to their census, peak memory; the same steps again from the same
+    state, held to the first at a stated tolerance, and twice with a
+    planted fault that must miss it. (d) the default path with
+    guide.reference_texture the current texture map as PNG: the change
+    mask is empty and a step leaves the MLP as it was; a planted mask of
+    ones changes it. (e) the sphere as an OFF through the CLI beside its
+    OBJ (`off_cli_runs`). Every run of the path holds its launches to its
+    census; shape_recs, keyed by launch sizes as
     _build.launch_shapes keys them, get this path's launches at theirs.
     Returns the launches by kernel."""
     import copy
@@ -3911,10 +3918,9 @@ def mesh_path(torch, seed, teacher, shape_recs, failures):
         a = rk.raster_agreement(idx, bary, p_idx, p_bary, fvz_uv)
         mlp_a = NeRF2D(generator=torch.Generator(device=dev).manual_seed(
             seed + 3), device=dev)
-        one = {k: int(k in ("raster", "mlp_fwd")) for k in launches}
         atlas, _ = counted(torch, lambda: mm.get_texture_map_only_valid_areas(
-            mlp_a), lambda _: one, "(a) UV-space atlas of the unwrapped "
-            "sphere", launches, failures, shapes)
+            mlp_a), "(a) UV-space atlas of the unwrapped sphere", launches,
+            failures, shapes)
         with plain_paths(torch, k1=False):
             atlas_p = mm.get_texture_map_only_valid_areas(mlp_a)
         atlas_same = torch.equal(atlas, atlas_p)
@@ -3947,13 +3953,11 @@ def mesh_path(torch, seed, teacher, shape_recs, failures):
                                       cfg.guide.texture_resolution)
         mlp_b = NeRF2D(generator=torch.Generator(device=dev).manual_seed(
             seed + 4), device=dev)
-        fit = {k: 0 for k in launches}
-        fit["mlp_fwd"] = fit["mlp_bwd"] = tr.FIT_STEPS
         losses, fit_s = counted(
             torch, lambda: mm.fit_texture_to_image(
                 mlp_b, image, steps=tr.FIT_STEPS,
                 generator=torch.Generator(device=dev).manual_seed(seed)),
-            lambda _: fit, f"(b) fit_texture_to_image ({tr.FIT_STEPS} "
+            f"(b) fit_texture_to_image ({tr.FIT_STEPS} "
             "steps of 4,096 points)", launches, failures, shapes)
         losses = losses.cpu()
         first, last = float(losses[:10].mean()), float(losses[-10:].mean())
@@ -3971,21 +3975,13 @@ def mesh_path(torch, seed, teacher, shape_recs, failures):
         cfg_c = cfg_of({"exact_lattice_render": True},
                        initial_texture=str(work / "initial.png"))
 
-        def built(cfg_x, diffusion):
-            def want(out):
-                c = tr.prepare_sds_kernel_launches(cfg_x, teacher, diffusion)
-                for k, n in tr.seed_texture_kernel_launches(cfg_x).items():
-                    c[k] += n
-                return c
-            return want
-
         torch.cuda.reset_peak_memory_stats()
         (trainer, setup), build_s = counted(
             torch, lambda: tr.build_sds_trainer(cfg_c, device="cuda",
                                                 teacher=teacher,
                                                 diffusion=sd),
-            built(cfg_c, sd), "(c) build_sds_trainer, exact_lattice_render "
-            "+ initial_texture", launches, failures, shapes)
+            "(c) build_sds_trainer, exact_lattice_render + initial_texture",
+            launches, failures, shapes)
         build_peak = torch.cuda.max_memory_allocated() / 2 ** 30
         print(f"  (c) built in {build_s:.1f} s (the atlas from the cache: "
               f"unwraps {len(unwraps)}); exact {trainer.exact}, "
@@ -3993,10 +3989,6 @@ def mesh_path(torch, seed, teacher, shape_recs, failures):
               f"{build_peak:.2f} GiB")
         if not trainer.exact or trainer.local_grad or len(unwraps) != 1:
             failures.append("mesh path: the exact trainer")
-        expected = trainer.expected_kernel_launches()
-        for key in (K7_FWD_KEY, K7_BWD_KEY):
-            if key in shape_recs:
-                shape_recs[key].d["step_launches"] = expected[key[0]]
         ts = trainer.t_schedule(1000).tolist()[100:104]
         state = ({k: v.clone() for k, v in trainer.mlp.state_dict().items()},
                  copy.deepcopy(trainer.optimizer.state_dict()),
@@ -4015,9 +4007,13 @@ def mesh_path(torch, seed, teacher, shape_recs, failures):
             losses, times = [], []
             for i, t in enumerate(ts):
                 (_, loss, _, _, grid), secs = counted(
-                    torch, lambda: trainer.step(t), lambda _: expected,
+                    torch, lambda: trainer.step(t),
                     f"(c) exact step {i} of {label}", launches, failures,
                     shapes)
+                for key in (K7_FWD_KEY, K7_BWD_KEY):
+                    if key in shape_recs:
+                        shape_recs[key].d["step_launches"] = \
+                            _build.launch_counts[key[0]]
                 losses.append(float(loss))
                 times.append(1e3 * secs)
                 if not (np.isfinite(losses[-1]) and bool(
@@ -4091,23 +4087,22 @@ def mesh_path(torch, seed, teacher, shape_recs, failures):
             torch, lambda: tr.build_sds_trainer(cfg_d, device="cuda",
                                                 teacher=teacher, mlp=mlp_d,
                                                 diffusion=sd),
-            built(cfg_d, sd), "(d) build_sds_trainer, reference_texture",
-            launches, failures, shapes)
+            "(d) build_sds_trainer, reference_texture", launches, failures,
+            shapes)
         change = trainer.mesh_model.edit_change_mask
         pts = setup["edit_mask_pts"]
         empty = (change is not None and pts is not None
                  and float(change.sum()) == 0 and float(pts.abs().sum()) == 0)
-        expected = trainer.expected_kernel_launches()
         before = {k: v.clone() for k, v in mlp_d.state_dict().items()}
         t = trainer.t_schedule(1000).tolist()[100]
         (_, loss, _, _, _), secs = counted(
-            torch, lambda: trainer.step(t), lambda _: expected,
+            torch, lambda: trainer.step(t),
             "(d) default step, empty change mask", launches, failures, shapes)
         kept = all(torch.equal(before[k], v)
                    for k, v in mlp_d.state_dict().items())
         trainer.edit_mask = torch.ones_like(trainer.edit_mask)  # planted
         (_, loss1, _, _, _), secs1 = counted(
-            torch, lambda: trainer.step(t), lambda _: expected,
+            torch, lambda: trainer.step(t),
             "(d) default step, a planted mask of ones", launches, failures,
             shapes)
         moved = any(not torch.equal(before[k], v)
@@ -4132,26 +4127,12 @@ def mesh_path(torch, seed, teacher, shape_recs, failures):
         tmm.atlas_unwrap = real_unwrap
     gc.collect()
     torch.cuda.empty_cache()
-    for key, rec in shape_recs.items():
-        rec.d["launches"] = n = sum(shapes[k] for k in rec.keys or [key])
-        print(f"  {rec.d['name']}: {n} launches on the mesh path")
-        if not n:
-            failures.append(f"{rec.d['name']} was not launched on the mesh "
-                            "path")
+    record_launches(shape_recs, shapes, "on the mesh path", failures)
     print(f"  mesh path {time.perf_counter() - t_phase:.1f} s")
     return launches
 
 
 GEN_STEPS = 28  # check_gt_zero123plus's default, the reference's
-
-
-def plus(*counts):
-    """The sum of launch-count dicts."""
-    out = {}
-    for c in counts:
-        for k, v in c.items():
-            out[k] = out.get(k, 0) + v
-    return out
 
 
 def attention_shape_record(torch, args, name):
@@ -4200,7 +4181,7 @@ def generation_path(torch, seed, models, recs, shape_recs, failures):
     K6 held to groupnorm_limit at every signature of a generate step, an
     inpaint step and the 960x640 decode. A signature or shape no earlier
     path held becomes a shape record, with its launches on this path. Every
-    run counts its launches against the derivation (`counted`). `models`
+    run holds its launches to its census (`counted`). `models`
     (teacher, mlp) go to the driver's ConTEXTure. Returns (the launches by
     kernel, the path's seconds)."""
     import gc
@@ -4216,6 +4197,7 @@ def generation_path(torch, seed, models, recs, shape_recs, failures):
     from contexture_nerf_tpu_torch.ops.image import (crop_and_resize,
                                                      get_nonzero_region_tuple,
                                                      resize_nearest)
+    from contexture_nerf_tpu_torch.tools.launches import census
     from contexture_nerf_tpu_torch.training import trainer as tr
 
     card = card_line()
@@ -4223,16 +4205,14 @@ def generation_path(torch, seed, models, recs, shape_recs, failures):
     dev = torch.device("cuda")
     launches = {k: 0 for k in _build.launch_counts}
     shapes = Counter()  # the path's launches by call sizes
-    none = {k: 0 for k in _build.launch_counts}
     work = ROOT / "build" / "generation_path"
     shutil.rmtree(work, ignore_errors=True)
     grids, gt = work / "grids", work / "gt"
     peaks = {}
 
-    def run(label, fn, want):
+    def run(label, fn):
         torch.cuda.reset_peak_memory_stats()
-        out, secs = counted(torch, fn, want, label, launches, failures,
-                            shapes)
+        out, secs = counted(torch, fn, label, launches, failures, shapes)
         peaks[label] = torch.cuda.max_memory_allocated() / 2 ** 30
         return out, secs
 
@@ -4247,14 +4227,11 @@ def generation_path(torch, seed, models, recs, shape_recs, failures):
         lambda: gd.main(["--shape_path", str(ROOT / "shapes" / "torus.obj"),
                          "--text", "a photo of a dairy cow", "--out_dir",
                          str(grids), f"--optim.seed={seed}"], device="cuda",
-                        timings=t_boot, **models),
-        lambda r: plus({"raster": 1}, tr.paint_viewpoint_kernel_launches(
-            r[0].cfg, r[0].diffusion, 1)))
+                        timings=t_boot, **models))
     pose = ct.dataloaders["train"].poses()[0]
     (rgb2, mask2), re_s = run(
         "(1) ConTEXTure.paint_viewpoint again (paint step 2: median fill, "
-        "inpaint UNet)", lambda: ct.paint_viewpoint(pose, timings=t_re),
-        lambda _: tr.paint_viewpoint_kernel_launches(ct.cfg, ct.diffusion, 2))
+        "inpaint UNet)", lambda: ct.paint_viewpoint(pose, timings=t_re))
     mh, mw, Mh, Mw = get_nonzero_region_tuple(mask1[0, 0])
     box = torch.zeros_like(rgb1, dtype=torch.bool)
     box[..., mh:Mh, mw:Mw] = True
@@ -4283,10 +4260,7 @@ def generation_path(torch, seed, models, recs, shape_recs, failures):
         lambda: cg.main(["--cond", str(grids / "cond_image.png"),
                          "--depth_grid", str(grids / "depth_grid.png"),
                          "--out_dir", str(gt), "--steps", str(GEN_STEPS)],
-                        device="cuda", timings=t_gen),
-        lambda r: tr.generate_kernel_launches(
-            r[0], GEN_STEPS, 3 * r[0].tile_px, 2 * r[0].tile_px,
-            (r[0].tile_px, r[0].tile_px)))
+                        device="cuda", timings=t_gen))
     t = pipe.tile_px
     H, W = 3 * t, 2 * t
     down = pipe.vae_config.downsample
@@ -4302,11 +4276,7 @@ def generation_path(torch, seed, models, recs, shape_recs, failures):
             guidance_scale=cg.GUIDANCE_SCALE, height=H, width=W,
             generator=torch.Generator(device=dev).manual_seed(cg.SEED), **kw)
 
-    def plain_want(_):
-        return tr.generate_kernel_launches(pipe, GEN_STEPS, H, W, (t, t))
-
-    again, again_s = run("(2) generate again from the same draws", gen,
-                         plain_want)
+    again, again_s = run("(2) generate again from the same draws", gen)
     same = torch.equal(grid, again)
     ok = written and in_range(grid) and tuple(grid.shape) == (1, 3, H, W)
     print(f"  {GEN_STEPS}-step generate at {H}x{W}: wrote {names}; grid in "
@@ -4324,8 +4294,7 @@ def generation_path(torch, seed, models, recs, shape_recs, failures):
             cache.mask[i, 0]), t, t) for i in range(1, cache.mask.shape[0])]
         return merge_6_to_grid(torch.cat(tiles))
 
-    mask_px, _ = run("(3) the 6 views' masks", mask_grid,
-                     lambda _: plus(none, {"raster": 1}))
+    mask_px, _ = run("(3) the 6 views' masks", mask_grid)
     mask = (resize_nearest(mask_px, lat_hw) > 0.5).float()
     mask_up = resize_nearest(mask, (H, W))
     cond_grid = merge_6_to_grid(((cond + 1) / 2).repeat(6, 1, 1, 1))
@@ -4340,30 +4309,24 @@ def generation_path(torch, seed, models, recs, shape_recs, failures):
     (renders, masked), _ = run(
         "(3) renders and masked latents (two VAE encodes)",
         lambda: (encode(cond_grid, eps[0]),
-                 encode(cond_grid * (1 - mask_up) + 0.5 * mask_up, eps[1])),
-        lambda _: plus(none, {"groupnorm": tr.groupnorm_launches(
-            2 * tr.vae_groupnorms(pipe.vae_config))}))
+                 encode(cond_grid * (1 - mask_up) + 0.5 * mask_up, eps[1])))
     pipe.attach_inpaint_unet(ct.diffusion.inpaint_unet)
     t_inp = {}
     blended, inp_s = run(
         "(3) generate, use_blending and use_inpaint",
         lambda: gen(use_blending=True, use_inpaint=True,
                     latent_mask_grid=mask, latent_renders_grid=renders,
-                    masked_input_latents=masked, timings=t_inp),
-        lambda _: tr.generate_kernel_launches(pipe, GEN_STEPS, H, W, (t, t),
-                                              use_inpaint=True))
+                    masked_input_latents=masked, timings=t_inp))
     ones, _ = run("(3) generate, use_blending, mask 1",
                   lambda: gen(use_blending=True,
                               latent_mask_grid=torch.ones_like(mask),
-                              latent_renders_grid=renders), plain_want)
+                              latent_renders_grid=renders))
     zeros, _ = run("(3) generate, use_blending, mask 0",
                    lambda: gen(use_blending=True,
                                latent_mask_grid=torch.zeros_like(mask),
-                               latent_renders_grid=renders), plain_want)
+                               latent_renders_grid=renders))
     decoded, _ = run(
-        "(3) the decode of the renders", lambda: pipe.decode_grid(renders),
-        lambda _: plus(none, {"groupnorm": tr.groupnorm_launches(
-            tr.vae_groupnorms(pipe.vae_config, decoder=True))}))
+        "(3) the decode of the renders", lambda: pipe.decode_grid(renders))
     share = float(mask.mean())
     ones_same, zeros_same = torch.equal(ones, grid), torch.equal(zeros,
                                                                   decoded)
@@ -4406,38 +4369,30 @@ def generation_path(torch, seed, models, recs, shape_recs, failures):
     def repaint_step():
         return sd.inpaint_unet(sd_nine, 501, text)
 
-    icfg = pipe.inpaint_unet.config
-    steps = (("one generate step (main UNet)", main_step, [pipe],
-              tr.teacher_attention_launches(pipe.unet_config, lat_hw,
-                                            (t // down, t // down))),
+    steps = (("one generate step (main UNet)", main_step, [pipe]),
              ("one inpaint-UNet step (the 120x80 canvas latent)",
-              inpaint_step, [pipe.inpaint_unet],
-              (tr.unet_self_attention_launches(icfg, lat_hw), 0)),
+              inpaint_step, [pipe.inpaint_unet]),
              ("one repaint inpaint step (its 64^2 latent)", repaint_step,
-              [sd.inpaint_unet],
-              (tr.unet_self_attention_launches(sd.inpaint_config,
-                                               sd.latent_shape()[2:]), 0)))
+              [sd.inpaint_unet]))
     seen_att, seen_gn = set(ATTENTION_SEEN), set(GROUPNORM_SEEN)
     new_att, sigs = {}, {}
     with torch.no_grad():
-        for label, fn, towers, (want1, want2) in steps:
-            with routed_attention_calls() as calls:
+        for label, fn, towers in steps:
+            _build.reset_launch_counts()
+            with census(keep_calls=True) as c:
                 traffic = groupnorm_traffic(torch, towers, fn)
-            for args in calls:
+            hold_to_census(c, f"(4) {label}", failures)
+            for args in c.calls:
                 key = attention_shape(args)
                 if key not in seen_att:
                     new_att.setdefault(key, (label, args))
-            err, single, two = check_routed_calls(torch, calls, label,
-                                                  failures)
-            for name, got, want in (("flash_attn_single", single, want1),
-                                    ("flash_attn_two_source", two, want2)):
+            err, _, _ = check_routed_calls(torch, c.calls, label, failures)
+            for name in ("flash_attn_single", "flash_attn_two_source"):
                 recs[name].d["max_abs_err"] = max(recs[name].d["max_abs_err"],
                                                   err)
-                if got != want:
-                    failures.append(f"{label}: {got} {name} calls != {want}")
-            for key, (c, a) in traffic["sigs"].items():
-                sigs.setdefault(key, [0, a])[0] += c
-            del calls
+            for key, (n, a) in traffic["sigs"].items():
+                sigs.setdefault(key, [0, a])[0] += n
+            del c
         dec = groupnorm_traffic(torch, [pipe.vae_decoder],
                                 lambda: pipe.decode_grid(renders))
         for key, (c, a) in dec["sigs"].items():
@@ -4470,13 +4425,8 @@ def generation_path(torch, seed, models, recs, shape_recs, failures):
         new_recs.append((kind, *key))
         shape_recs[new_recs[-1]] = attention_shape_record(
             torch, args, f"{kind} (generation path: {label}, {key})")
-    for key in new_recs:
-        rec = shape_recs[key]
-        rec.d["launches"] = shapes[key]
-        print(f"  new shape {rec.d['name']}: {shapes[key]} launches on the "
-              "generation path")
-        if not shapes[key]:
-            failures.append(f"{rec.d['name']} was not launched")
+    record_launches({k: shape_recs[k] for k in new_recs}, shapes,
+                    "on the generation path", failures)
 
     secs = time.perf_counter() - t_phase
     print(f"  generate: {GEN_STEPS} steps {gen_s:.2f} s whole ("
@@ -4531,7 +4481,7 @@ def tools_path(torch, seed, models, failures):
     with `models` (the main path's teacher and MLP, and an SD2-depth stack
     made here) at 2 SDS iterations and a 2-frame eval: the two rendering
     drivers' 7 crops 320x320 with the object in them, the ablation's
-    metrics; launches held to paint_kernel_launches (+ 7 renders). (3)
+    metrics; every run's launches held to its census. (3)
     render_face_normals_face_idx on the torus's 7 views at 1200^2 (K5 once)
     against the plain rasterizer on the card, bit for bit, and at 128^2
     against the CPU run. (4) volume_render at bench.py's shape (65,536
@@ -4561,27 +4511,9 @@ def tools_path(torch, seed, models, failures):
     work = ROOT / "build" / "tools_path"
     shutil.rmtree(work, ignore_errors=True)
 
-    def run(label, fn, want=None):
-        """fn() with the counts set to 0 just before and read just after,
-        held to want(result) where given."""
-        _build.reset_launch_counts()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        secs = time.perf_counter() - t0
-        got = dict(_build.launch_counts)
-        for k in launches:
-            launches[k] += got[k]
-        note = ""
-        if want is not None:
-            exp = want(out)
-            note = " = derived" if got == exp else \
-                f" != derived {json.dumps(exp)}"
-            if got != exp:
-                failures.append(f"tools path {label}: launches {got} != "
-                                f"{exp}")
-        print(f"  {label}: {secs:.1f} s, launches {json.dumps(got)}{note}")
+    def run(label, fn):
+        out, secs = counted(torch, fn, label, launches, failures)
+        print(f"    {secs:.1f} s")
         return out, secs
 
     # (1) the semantic smoke, then the green-target fault
@@ -4609,10 +4541,6 @@ def tools_path(torch, seed, models, failures):
            "log": {"exp_root": str(work / "runs"), "full_eval_size": 2,
                    "log_images": False, "save_mesh": False}}
 
-    def renders_7(r):
-        return plus(r[0].paint_kernel_launches(),
-                    {"raster": 7, "mlp_fwd": 7, "texture_fwd": 7})
-
     def crops_ok(label, written):
         shapes = [drawn_object(p) for p in written]
         ok = len(written) == 7 and all(
@@ -4628,20 +4556,18 @@ def tools_path(torch, seed, models, failures):
         "(2) generate_survey_textures.run_one",
         lambda: gs.run_one(torus, "a photo of a dairy cow",
                            work / "survey", overrides=cut, device="cuda",
-                           **models), renders_7)
+                           **models))
     crops_ok("survey crops", written)
     pair = dict(gr.PAIRS[1], path=torus)
     (_, written), _ = run(
         "(2) get_texture_renders_cond_grid.run_one",
         lambda: gr.run_one(pair, pair["prompts"][1], work / "renders",
-                           overrides=cut, device="cuda", **models),
-        renders_7)
+                           overrides=cut, device="cuda", **models))
     crops_ok("texture-render crops", written)
     ablation, _ = run(
         "(2) run_ablation_study.run_one (gi 3, gt 5)",
         lambda: ab.run_one(3, 5, overrides=dict(
-            cut, guide={"shape_path": torus}), device="cuda", **models),
-        lambda r: r.paint_kernel_launches())
+            cut, guide={"shape_path": torus}), device="cuda", **models))
     metrics = json.loads((ablation.exp_path / "metrics.json").read_text())
     ok = bool(metrics) and all(math.isfinite(e["sds_loss"]) for e in metrics
                                if "sds_loss" in e)
@@ -4666,8 +4592,7 @@ def tools_path(torch, seed, models, failures):
             th, ph, rad)
 
     card_out, _ = run("(3) render_face_normals_face_idx 7x1200^2",
-                      lambda: face_normals(1200, "cuda"),
-                      lambda _: {**{k: 0 for k in launches}, "raster": 1})
+                      lambda: face_normals(1200, "cuda"))
     with plain_paths(torch, k5=True, k1=False):
         plain_out = face_normals(1200, "cuda")
     same = all(torch.equal(a, b) for a, b in zip(card_out, plain_out))
@@ -4952,6 +4877,7 @@ def parallel_rank(dev, seed, work):
     from contexture_nerf_tpu_torch.parallel import mesh as pm
     from contexture_nerf_tpu_torch.parallel import tp
     from contexture_nerf_tpu_torch.parallel.ring import ring_attention
+    from contexture_nerf_tpu_torch.tools.launches import census
     from contexture_nerf_tpu_torch.training import trainer as tr
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4961,22 +4887,17 @@ def parallel_rank(dev, seed, work):
     lines, failures = [], []
     launches = {k: 0 for k in _build.launch_counts}
 
-    def counted_run(label, fn, want):
-        """fn() with the counts set to 0 just before and read just after,
-        held to the derived `want`."""
+    def counted_run(label, fn):
+        """fn() under the census with the counts set to 0 just before; the
+        launches held to the census (K3, K4, K6, gn_bwd)."""
         _build.reset_launch_counts()
-        out = fn()
-        torch.cuda.synchronize(dev)
-        got = dict(_build.launch_counts)
+        with census() as c:
+            out = fn()
+            torch.cuda.synchronize(dev)
+        got = hold_to_census(c, f"parallel path {label}", failures,
+                             lines.append)
         for k in launches:
             launches[k] += got[k]
-        exp = {k: want.get(k, 0) for k in got}
-        ok = got == exp
-        lines.append(f"  {label}: launches {json.dumps(got)}"
-                     + (" = derived" if ok else
-                        f" != derived {json.dumps(exp)}"))
-        if not ok:
-            failures.append(f"parallel path {label}: launches {got} != {exp}")
         return out
 
     cfg = main_config(seed)
@@ -5022,7 +4943,7 @@ def parallel_rank(dev, seed, work):
             f"(1) {name} step, mesh "
             f"{None if t.mesh is None else tuple(t.mesh.mesh.shape)} "
             f"{None if t.mesh is None else t.mesh.mesh_dim_names}",
-            lambda: t.step(500, draws), t.expected_kernel_launches())
+            lambda: t.step(500, draws))
         results[name] = (params, float(loss), mlp_grads(t.mlp))
         coll = dict(pm.collective_counts)
         torch.cuda.reset_peak_memory_stats(dev)
@@ -5132,7 +5053,7 @@ def parallel_rank(dev, seed, work):
     for label, extra in (("one source", ()), ("two sources", (ek, ev))):
         out = counted_run(f"(2) ring_attention {label} {RING_SHAPE}",
                           lambda: ring_attention(q, k, v, sp_mesh, "sp",
-                                                 *extra), {})
+                                                 *extra))
         ref = flash_attention_plain(*(t.float() for t in (q, k, v) + extra))
         err = (out.float() - ref).abs()
         ok = bool((err <= bf16_ulp(torch, ref) + 1e-6).all())
@@ -5167,12 +5088,11 @@ def parallel_rank(dev, seed, work):
         return teacher
 
     sharded = shard(copy.deepcopy(run.teacher))
-    want = teacher_call_launches(single)
     with torch.no_grad():
         rep = counted_run("(3) replicated teacher call",
-                          lambda: call(run.teacher), want)
+                          lambda: call(run.teacher))
         got = counted_run(f"(3) teacher call, towers sharded over tp={n}",
-                          lambda: call(sharded), want)
+                          lambda: call(sharded))
     held = sum(tp.parameter_bytes(getattr(sharded, t)) for t in towers)
     del sharded
     # the same two calls in f32 (attention through the plain path, which
@@ -5217,9 +5137,7 @@ def parallel_rank(dev, seed, work):
     out_dir = Path(work) / "eval"
     counted_run(f"(4) eval, 8 frames in chunks of {n}",
                 lambda: run.evaluate(run.dataloaders["val_large"],
-                                     out_dir / "sharded", mesh=views),
-                {"raster": -(-8 // n), "texture_fwd": -(-8 // n),
-                 "mlp_fwd": 1})
+                                     out_dir / "sharded", mesh=views))
     if rank == 0:
         import numpy as np
         from PIL import Image
@@ -5264,7 +5182,7 @@ def parallel_path(torch, seed, failures):
     f32 call than TP_BF16_MARGIN x the replicated bf16 call; the per-rank
     parameter bytes at tp = 1, 2, 4; (4) the 8-frame eval in
     chunks over `views` against the single frames, bit for bit. Every
-    launch count is held to its derivation. Returns (rank 0's launches,
+    run's launches are held to its census. Returns (rank 0's launches,
     seconds)."""
     from contexture_nerf_tpu_torch.parallel.launch import run_ranks
 

@@ -7,9 +7,10 @@ sources and flags, so an edited source rebuilds and an unchanged one loads.
 Nothing here runs when the module is imported: the first call that needs a
 kernel builds it (or `build_all` builds every one, in parallel).
 
-Every wrapper adds one to `launch_counts[name]` where it launches its
-kernel, and nowhere else, so a run can show which kernels it went through;
-`launch_shapes` keeps the same launches by the call's sizes.
+`launch_counts` are the wrappers' own launches, by kernel: every wrapper
+adds one to `launch_counts[name]` where it launches its kernel, and nowhere
+else, so a run can show which kernels it went through; `launch_shapes` keeps
+the same launches by the call's sizes.
 """
 
 from __future__ import annotations
@@ -44,7 +45,7 @@ SOURCES: Dict[str, tuple] = {
     "texture": ("texture.cu", ()),
 }
 
-# launches per kernel, by the names chip_smoke.py reports
+# the wrappers' launches, by kernel
 launch_counts: Dict[str, int] = {
     "mlp_fwd": 0, "mlp_bwd": 0,
     "flash_attn_single": 0, "flash_attn_two_source": 0, "raster": 0,
@@ -64,10 +65,10 @@ def reset_launch_counts() -> None:
     launch_shapes.clear()
 
 
-def count_launch(name: str, *sizes: int, n: int = 1) -> None:
-    """Count n launches of kernel `name` at the call's `sizes`."""
-    launch_counts[name] += n
-    launch_shapes[(name, *sizes)] += n
+def count_launch(name: str, *sizes: int) -> None:
+    """Count one launch of kernel `name` at the call's `sizes`."""
+    launch_counts[name] += 1
+    launch_shapes[(name, *sizes)] += 1
 
 
 def _nvcc() -> str:

@@ -14,10 +14,9 @@ and the cast.
 The reference keeps its kernel off (`USE_PALLAS = False`): on a TPU, XLA
 fuses the chain to the same two reads and one write. Eager PyTorch fuses
 nothing (the plain version is some ten launches and several f32 copies of
-x), so the port's switch `USE_KERNEL` is on: a CUDA tensor goes to K6, and
-to the plain version only when the switch is off (chip_smoke.py turns it off
-to time the plain path). A CPU tensor takes the plain version. A CUDA tensor
-that the kernel does not take raises; nothing falls back.
+x), so the port has no such switch: a CUDA tensor goes to K6 (and its
+gradient to gn_bwd), a CPU tensor to the plain version. A CUDA tensor that
+the kernel does not take raises; nothing falls back.
 """
 
 from __future__ import annotations
@@ -31,10 +30,7 @@ import torch
 from contexture_nerf_tpu_torch.core.profiler import span
 from contexture_nerf_tpu_torch.ops import _build
 
-USE_KERNEL = True
-
 THREADS = 512  # the kernel's CTA size
-LAUNCHES_PER_CALL = 1  # every plan is one launch (gn_fused; gn_bwd too)
 SMS = 132  # the H100's SMs: the plan gives every SM at least one CTA
 SMEM_CAP = 112 * 1024  # bytes a CTA keeps on chip (x; gn_bwd x and g): two an SM
 PIECE_BYTES = THREADS * 4 * 16  # one bulk copy (csrc PIECE_VECS vectors)
@@ -266,7 +262,7 @@ def _group_norm_silu_kernel(x, scale, bias, groups, eps, act, out_dtype):
         bg, groups, C // groups, n, n // (C // groups), p.cluster, p.chunk,
         p.keep, eps, act, p.vec, _build.stream_ptr(x.device))
     _build.check(err, "groupnorm_fwd")
-    _build.count_launch("groupnorm", *x.shape, n=LAUNCHES_PER_CALL)
+    _build.count_launch("groupnorm", *x.shape)
     return out
 
 
@@ -309,7 +305,7 @@ def _group_norm_silu_bwd_kernel(x, scale, bias, g, groups, eps, act, need):
         bg, groups, cpg, n, n // cpg, p.cluster, p.chunk, p.keep, eps, act,
         p.vec, _build.stream_ptr(x.device))
     _build.check(err, "groupnorm_bwd")
-    _build.count_launch("groupnorm_bwd", *x.shape, n=LAUNCHES_PER_CALL)
+    _build.count_launch("groupnorm_bwd", *x.shape)
     if part is None:
         return dx, None, None
     sums = part.view(B, groups, p.cluster, cpg, 2).sum((0, 2)).view(C, 2)
@@ -340,20 +336,17 @@ def group_norm_silu(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                     groups: int = 32, eps: float = 1e-5, act: bool = True,
                     out_dtype=None) -> torch.Tensor:
     """GroupNorm(+SiLU) over NCHW x, differentiable: K6 for a CUDA tensor
-    (through the autograd Function only where a gradient is wanted; the
-    plain version when USE_KERNEL is off), the plain version for a CPU
-    tensor."""
+    (through the autograd Function only where a gradient is wanted), the
+    plain version for a CPU tensor."""
     out_dtype = out_dtype or x.dtype
     if x.is_cuda:
-        if USE_KERNEL:
-            if torch.is_grad_enabled() and (
-                    x.requires_grad or scale.requires_grad
-                    or bias.requires_grad):
-                return _GroupNormSiLUKernel.apply(x, scale, bias, groups, eps,
-                                                  act, out_dtype)
-            return group_norm_silu_kernel(x, scale, bias, groups, eps, act,
-                                          out_dtype)
-    elif x.device.type != "cpu":
+        if torch.is_grad_enabled() and (
+                x.requires_grad or scale.requires_grad or bias.requires_grad):
+            return _GroupNormSiLUKernel.apply(x, scale, bias, groups, eps,
+                                              act, out_dtype)
+        return group_norm_silu_kernel(x, scale, bias, groups, eps, act,
+                                      out_dtype)
+    if x.device.type != "cpu":
         raise ValueError(f"unsupported device {x.device}")
     return group_norm_silu_plain(x, scale, bias, groups, eps, act, out_dtype)
 

@@ -37,10 +37,8 @@ from contexture_nerf_tpu_torch.core import profiler
 from contexture_nerf_tpu_torch.diffusion import schedulers as sch
 from contexture_nerf_tpu_torch.diffusion.sv3d import SV3DTeacher
 from contexture_nerf_tpu_torch.diffusion.vae import encode_moments
-from contexture_nerf_tpu_torch.diffusion.video_unet import temporal_layers
 from contexture_nerf_tpu_torch.models.fields import NeRF2D
 from contexture_nerf_tpu_torch.models.textured_mesh import TexturedMeshModel
-from contexture_nerf_tpu_torch.ops import _build
 from contexture_nerf_tpu_torch.ops.image import (crop_and_resize,
                                                  get_nonzero_region_tuple)
 from contexture_nerf_tpu_torch.ops.mlp_kernel import (fused_nerf2d,
@@ -153,26 +151,6 @@ def prepare_orbit_sds(cfg, mesh_model: TexturedMeshModel, mlp: NeRF2D,
             "z_cond": z_cond, "context": context,
             "frame_probs": probs.to(dev), "bboxes": bboxes,
             "front_rgb": rgb_front}
-
-
-def prepare_orbit_kernel_launches(cfg, teacher: SV3DTeacher, diffusion
-                                  ) -> Dict[str, int]:
-    """Kernel launches of `prepare_orbit_sds` on the card: K5 once for the
-    orbit's geometry; the front's render (K5, K1, K7's sample) or the
-    bootstrap's launches; K6 in the condition image's VAE encode (CLIP's
-    257 tokens take the plain attention path)."""
-    counts = {k: 0 for k in _build.launch_counts}
-    counts["raster"] = 1
-    if diffusion is None:
-        counts["raster"] += 1
-        counts["mlp_fwd"] += 1
-        counts["texture_fwd"] += 1
-    else:
-        for k, v in tr.paint_viewpoint_kernel_launches(cfg, diffusion).items():
-            counts[k] += v
-    counts["groupnorm"] += tr.groupnorm_launches(
-        tr.vae_groupnorms(teacher.vae_config))
-    return counts
 
 
 class OrbitSDSTrainer(tr.SDSTrainer):
@@ -293,24 +271,3 @@ class OrbitSDSTrainer(tr.SDSTrainer):
         """1/2 sum of squares over the sampled frame."""
         return 0.5 * torch.sum((self._sampled(z, tile_idx)
                                 - self._sampled(targets, tile_idx)) ** 2)
-
-    def expected_kernel_launches(self) -> Dict[str, int]:
-        """Kernel launches of one step on the card: K1 over the frames and
-        over the sampled frame, K2 once, the UNet call's spatial
-        self-attentions that the routing rule sends to K3 (the 21-frame
-        temporal attention and the one-token cross-attentions never are),
-        K6 for every GroupNorm of the UNet call (four in each
-        VideoResBlock) and of the two encodes, gn_bwd for the sampled
-        frame's encode."""
-        ucfg = self.teacher.unet_config
-        lat = self.latent_shape()[2:]
-        vae_gn = tr.vae_groupnorms(self.teacher.vae_config)
-        gn = (tr.unet_groupnorms(ucfg) + 2 * temporal_layers(ucfg)[0]
-              + 2 * vae_gn)
-        return {"mlp_fwd": 2, "mlp_bwd": 1,
-                "flash_attn_single": tr.unet_self_attention_launches(ucfg,
-                                                                     lat),
-                "flash_attn_two_source": 0, "raster": 0,
-                "groupnorm": tr.groupnorm_launches(gn),
-                "groupnorm_bwd": tr.groupnorm_launches(vae_gn),
-                "texture_fwd": 0, "texture_bwd": 0}

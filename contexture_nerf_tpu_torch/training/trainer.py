@@ -77,18 +77,13 @@ from contexture_nerf_tpu_torch.core.imagewriter import (AsyncImageWriter,
 from contexture_nerf_tpu_torch.diffusion import schedulers as sch
 from contexture_nerf_tpu_torch.diffusion.sd_depth import (SDWeightPaths,
                                                           StableDiffusionDepth)
-from contexture_nerf_tpu_torch.diffusion.unet import UNetConfig
-from contexture_nerf_tpu_torch.diffusion.vae import VAEConfig, encode_moments
+from contexture_nerf_tpu_torch.diffusion.vae import encode_moments
 from contexture_nerf_tpu_torch.diffusion.zero123plus import (
-    Zero123PlusPipeline, Zero123PlusTeacher, Zero123PlusWeightPaths,
-    scale_image, scale_latents, unscale_image)
+    Zero123PlusTeacher, Zero123PlusWeightPaths, scale_image, scale_latents,
+    unscale_image)
 from contexture_nerf_tpu_torch.models.fields import NeRF2D
 from contexture_nerf_tpu_torch.models.textured_mesh import TexturedMeshModel
-from contexture_nerf_tpu_torch.ops import _build
-from contexture_nerf_tpu_torch.ops import groupnorm
-from contexture_nerf_tpu_torch.ops.attention import (ring_eligible_lengths,
-                                                     routes_to_kernel,
-                                                     sequence_parallel)
+from contexture_nerf_tpu_torch.ops.attention import sequence_parallel
 from contexture_nerf_tpu_torch.ops.grid import merge_6_to_grid, split_grid_to_6
 from contexture_nerf_tpu_torch.ops.image import (color_with_shade,
                                                  crop_and_resize,
@@ -552,201 +547,6 @@ class SDSTrainer:
                                                               "fisher")})
         return metrics
 
-    # -- launches the step makes -------------------------------------------------
-
-    def expected_kernel_launches(self) -> Dict[str, int]:
-        """Kernel launches of one step on the card, derived from the
-        configs and the attention routing rule: the MLP forward once for the
-        canvas, or for the texture lattice with exact_lattice_render (plus
-        once for the backward slice with local_sds_grad), its backward once,
-        every teacher self-attention the rule routes to the flash kernel
-        (cross-attention's 77 tokens never are), and K6 (one
-        launch) for every GroupNorm of the two UNet passes, the ControlNet
-        and the VAE encodes (the canvas, and the slice with local_sds_grad),
-        and its backward (one launch) for every GroupNorm of the one encode
-        the loss differentiates; K7's sample and its backward once each
-        with exact_lattice_render; the rasterizer never (it runs in
-        prepare_sds)."""
-        ucfg = self.teacher.unet_config
-        single, two = teacher_attention_launches(
-            ucfg, self.latent_shape()[2:], tuple(self.cond_lat_pair.shape[2:]),
-            self.sp)
-        encodes = 2 if self.local_grad else 1
-        vae_gn = vae_groupnorms(self.teacher.vae_config)
-        gn = (2 * unet_groupnorms(ucfg) + unet_groupnorms(ucfg, True)
-              + encodes * vae_gn)
-        return {"mlp_fwd": encodes, "mlp_bwd": 1,
-                "flash_attn_single": single, "flash_attn_two_source": two,
-                "raster": 0, "groupnorm": groupnorm_launches(gn),
-                "groupnorm_bwd": groupnorm_launches(vae_gn),
-                "texture_fwd": int(self.exact), "texture_bwd": int(self.exact)}
-
-
-# -- launches derived from the configs ----------------------------------------------
-
-def tokens_at(hw, level: int) -> int:
-    """Tokens of a (h, w) latent after `level` stride-2 downsamples."""
-    h, w = hw
-    for _ in range(level):
-        h, w = -(-h // 2), -(-w // 2)
-    return h * w
-
-
-def self_attention_levels(ucfg: UNetConfig, controlnet: bool = False
-                          ) -> List[Tuple[int, int]]:
-    """(level, self-attentions) of one UNet call (or ControlNet call, which
-    has the down and mid blocks only)."""
-    nb = len(ucfg.block_out_channels)
-    lpb, depth = ucfg.layers_per_block, ucfg.transformer_depth
-    out = []
-    for bi in range(nb):
-        per = lpb if controlnet else 2 * lpb + 1
-        n = (per if ucfg.is_cross(bi) else 0) * depth
-        if bi == nb - 1:  # the mid block's transformer
-            n += depth
-        out.append((bi, n))
-    return out
-
-
-def teacher_attention_launches(ucfg: UNetConfig, lat_hw, cond_hw, sp: int = 1
-                               ) -> Tuple[int, int]:
-    """(K3, K4) launches of one teacher call (`_cfg_core`, any number of
-    CFG branches: they share a call) on a (h, w) latent with a (hc, wc)
-    cond latent: the write pass's, the read pass's (with the reference
-    tokens) and the ControlNet's self-attentions that the routing rule
-    sends to the kernel (cross-attention's 77 tokens never are). Under
-    sequence parallelism of size sp > 1 the calls that ring attention
-    takes (`ring_eligible_lengths`) launch neither."""
-    calls = []  # (Sq, Skv, Se) of each self-attention
-    for (level, n_unet), (_, n_cn) in zip(self_attention_levels(ucfg),
-                                          self_attention_levels(
-                                              ucfg, controlnet=True)):
-        tc, tl = tokens_at(cond_hw, level), tokens_at(lat_hw, level)
-        calls += [(tc, tc, 0)] * n_unet  # write pass
-        calls += [(tl, tl, tc)] * n_unet  # read pass, reference tokens
-        calls += [(tl, tl, 0)] * n_cn  # ControlNet
-    calls = [c for c in calls if routes_to_kernel(*c) and not (
-        sp > 1 and ring_eligible_lengths(*c, sp, SP_MIN_SEQ))]
-    single = sum(1 for c in calls if c[2] == 0)
-    return single, len(calls) - single
-
-
-def unet_self_attention_launches(ucfg: UNetConfig, lat_hw) -> int:
-    """K3 launches of one plain UNet call on a (h, w) latent."""
-    return sum(n for level, n in self_attention_levels(ucfg)
-               if routes_to_kernel(tokens_at(lat_hw, level),
-                                   tokens_at(lat_hw, level)))
-
-
-def unet_groupnorms(ucfg: UNetConfig, controlnet: bool = False) -> int:
-    """GroupNorm calls of one UNet (or ControlNet) call: two in each resnet,
-    one in each transformer, and the UNet's conv_norm_out."""
-    nb, lpb = len(ucfg.block_out_channels), ucfg.layers_per_block
-    n_cross = sum(1 for bi in range(nb) if ucfg.is_cross(bi))
-    if controlnet:
-        return 2 * (nb * lpb + 2) + n_cross * lpb + 1
-    return 2 * (nb * (2 * lpb + 1) + 2) + n_cross * (2 * lpb + 1) + 1 + 1
-
-
-def groupnorm_launches(calls: int) -> int:
-    """K6's launches for `calls` GroupNorm calls on the card, one a call
-    whatever the plan (none when the kernel is switched off)."""
-    return groupnorm.LAUNCHES_PER_CALL * calls if groupnorm.USE_KERNEL else 0
-
-
-def vae_groupnorms(vcfg: VAEConfig, decoder: bool = False) -> int:
-    """GroupNorm calls of one VAE encode (or decode): two in each resnet,
-    the mid attention's, and conv_norm_out."""
-    nb, lpb = len(vcfg.block_out_channels), vcfg.layers_per_block
-    resnets = nb * (lpb + 1 if decoder else lpb) + 2
-    return 2 * resnets + 2
-
-
-def prepare_sds_kernel_launches(cfg: TrainConfig,
-                                teacher: Zero123PlusTeacher,
-                                diffusion: Optional[StableDiffusionDepth]
-                                ) -> Dict[str, int]:
-    """Kernel launches of prepare_sds on the card: K5, K1 and K7's sample
-    once for the 7 views, K6 in the two VAE encodes of the condition pair;
-    with the bootstrap (`diffusion` given), K5, K1 and K7's sample once
-    more for the front pose, and for each of the PLMS sequence's UNet calls
-    its K3 self-attentions and K6 GroupNorms, then K6 in the decode (and in
-    the intermediate decodes with log.vis_diffusion_steps); K6 launches
-    once a GroupNorm. CLIP's 77 and 257 tokens route to the plain attention
-    path."""
-    counts = {k: 0 for k in _build.launch_counts}
-    counts["raster"] = counts["mlp_fwd"] = counts["texture_fwd"] = 1
-    counts["groupnorm"] = groupnorm_launches(
-        2 * vae_groupnorms(teacher.vae_config))
-    if diffusion is not None:
-        for k, v in paint_viewpoint_kernel_launches(cfg, diffusion).items():
-            counts[k] += v
-    return counts
-
-
-def paint_viewpoint_kernel_launches(cfg: TrainConfig,
-                                    diffusion: StableDiffusionDepth,
-                                    paint_step: int = 1) -> Dict[str, int]:
-    """Kernel launches of one `paint_viewpoint` pass on the card: K5, K1
-    and K7's sample once for the front render (the median fill is plain),
-    then for each of the PLMS sequence's UNet calls its K3 self-attentions
-    and K6 GroupNorms (the inpaint UNet's at 10 < i < 20 on a repaint pass
-    with guide.use_inpainting, after one VAE encode of the masked image),
-    then K6 in the decode (and in the intermediate decodes with
-    log.vis_diffusion_steps)."""
-    counts = {k: 0 for k in _build.launch_counts}
-    counts["raster"] = counts["mlp_fwd"] = counts["texture_fwd"] = 1
-    steps = len(diffusion.scheduler.timesteps(BOOTSTRAP_STEPS))
-    lat = diffusion.latent_shape()[2:]
-    inpaint = sum(1 for i in range(steps) if 10 < i < 20) \
-        if cfg.guide.use_inpainting and paint_step > 1 else 0
-    gn = 0
-    for ucfg, n in ((diffusion.unet_config, steps - inpaint),
-                    (diffusion.inpaint_config, inpaint)):
-        counts["flash_attn_single"] += n * unet_self_attention_launches(
-            ucfg, lat)
-        gn += n * unet_groupnorms(ucfg)
-    if inpaint:
-        gn += vae_groupnorms(diffusion.vae_config)
-    decodes = 1 + (min(10, steps) if cfg.log.vis_diffusion_steps else 0)
-    gn += decodes * vae_groupnorms(diffusion.vae_config, decoder=True)
-    counts["groupnorm"] = groupnorm_launches(gn)
-    return counts
-
-
-def generate_kernel_launches(pipe: Zero123PlusPipeline,
-                             num_inference_steps: int, height: int,
-                             width: int, cond_hw,
-                             use_inpaint: bool = False) -> Dict[str, int]:
-    """Kernel launches of `Zero123PlusPipeline.generate` on the card: K6 in
-    the two VAE encodes of the conditioning (CLIP's 77 and 257 tokens take
-    the plain attention path); each step a teacher call (K3/K4 as
-    `teacher_attention_launches`, K6 in the two UNet passes and the
-    ControlNet) or, at 10 < i < 20 with use_inpaint, one inpaint UNet call
-    (K3, K6); then K6 in the decode."""
-    counts = {k: 0 for k in _build.launch_counts}
-    down = pipe.vae_config.downsample
-    lat = (height // down, width // down)
-    cond = (cond_hw[0] // down, cond_hw[1] // down)
-    steps = len(pipe.euler.timesteps_and_sigmas(num_inference_steps)[0])
-    inpaint = sum(1 for i in range(steps) if 10 < i < 20) \
-        if use_inpaint else 0
-    ucfg = pipe.unet_config
-    single, two = teacher_attention_launches(ucfg, lat, cond)
-    counts["flash_attn_single"] = (steps - inpaint) * single
-    counts["flash_attn_two_source"] = (steps - inpaint) * two
-    gn = ((steps - inpaint) * (2 * unet_groupnorms(ucfg)
-                               + unet_groupnorms(ucfg, True))
-          + 2 * vae_groupnorms(pipe.vae_config)
-          + vae_groupnorms(pipe.vae_config, decoder=True))
-    if inpaint:
-        icfg = pipe.inpaint_unet.config
-        counts["flash_attn_single"] += inpaint * \
-            unet_self_attention_launches(icfg, lat)
-        gn += inpaint * unet_groupnorms(icfg)
-    counts["groupnorm"] = groupnorm_launches(gn)
-    return counts
-
 
 # -- prepare_sds: mesh -> views -> setup -------------------------------------------
 
@@ -1133,21 +933,6 @@ def seed_texture_field(cfg: TrainConfig, mesh_model: TexturedMeshModel,
             mesh_model.edit_change_mask = (diff > 0.1).float()
 
 
-def seed_texture_kernel_launches(cfg: TrainConfig) -> Dict[str, int]:
-    """Kernel launches of `seed_texture_field` on the card: the fit's K1
-    and K2 once a step, K1 once for the texture map the change mask is
-    taken against; none for a file that does not exist."""
-    counts = {k: 0 for k in _build.launch_counts}
-    g = cfg.guide
-    if g.initial_texture is not None and Path(g.initial_texture).exists():
-        counts["mlp_fwd"] += FIT_STEPS
-        counts["mlp_bwd"] += FIT_STEPS
-    if g.reference_texture is not None and \
-            Path(g.reference_texture).exists():
-        counts["mlp_fwd"] += 1
-    return counts
-
-
 def build_models(cfg: TrainConfig, tiny: bool = False, device="cuda",
                  teacher: Optional[Zero123PlusTeacher] = None,
                  mlp: Optional[NeRF2D] = None,
@@ -1236,12 +1021,10 @@ def make_sds_trainer(cfg: TrainConfig, setup: Dict, **kwargs) -> SDSTrainer:
 
 class TeacherPath(NamedTuple):
     """What guide.teacher selects: the teacher's class, the static setup
-    (prepare_sds's signature), the trainer's class and the setup's kernel
-    launches (prepare_sds_kernel_launches's signature)."""
+    (prepare_sds's signature) and the trainer's class."""
     teacher: type
     prepare: Callable
     trainer: type
-    prepare_launches: Callable
 
 
 def teacher_path(cfg: TrainConfig) -> TeacherPath:
@@ -1252,10 +1035,8 @@ def teacher_path(cfg: TrainConfig) -> TeacherPath:
         from contexture_nerf_tpu_torch.training import orbit
 
         return TeacherPath(SV3DTeacher, orbit.prepare_orbit_sds,
-                           orbit.OrbitSDSTrainer,
-                           orbit.prepare_orbit_kernel_launches)
-    return TeacherPath(Zero123PlusTeacher, prepare_grid_sds, SDSTrainer,
-                       prepare_sds_kernel_launches)
+                           orbit.OrbitSDSTrainer)
+    return TeacherPath(Zero123PlusTeacher, prepare_grid_sds, SDSTrainer)
 
 
 # -- the eval render -----------------------------------------------------------------
@@ -1280,21 +1061,6 @@ def eval_frame(mesh_model: TexturedMeshModel, texture: torch.Tensor, theta,
     rgb = rgb_render.permute(0, 2, 3, 1).clamp(0, 1)
     depth = outputs["depth"].permute(0, 2, 3, 1)
     return rgb, depth, z_normals
-
-
-def full_eval_kernel_launches(cfg: TrainConfig, n_views: int = 1,
-                              writer: bool = True) -> Dict[str, int]:
-    """Kernel launches of `ConTEXTure.full_eval` on one rank of the card:
-    K5 and K7's sample once for each of its turntable frames (the frames
-    go in chunks of the mesh's `views` size n_views, the last one filled);
-    K1 once for the texture map, which `evaluate` computes once for all its
-    frames (it depends on the parameters only), and once more for
-    export_mesh's albedo with log.save_mesh on the rank that writes."""
-    counts = {k: 0 for k in _build.launch_counts}
-    counts["raster"] = counts["texture_fwd"] = \
-        -(-cfg.log.full_eval_size // n_views)
-    counts["mlp_fwd"] = 1 + (1 if cfg.log.save_mesh and writer else 0)
-    return counts
 
 
 # -- the paint run -------------------------------------------------------------------
@@ -1581,35 +1347,6 @@ class ConTEXTure:
         self.log_diffusion_steps(steps_vis)
         self.log_train_image(rgb_output, "full_output")
         return rgb_output, object_mask
-
-    def paint_kernel_launches(self, start_iter: int = 0) -> Dict[str, int]:
-        """Kernel launches of a run on the card (the models' construction
-        and a `paint_zero123plus` that began at start_iter; after it ran:
-        the step's derivation needs its SDSTrainer): seed_texture_field's,
-        prepare_sds's, each step's, the view-consistency metric's (K5 once
-        for its cached geometry, K1 once a call), K1 once for each texture
-        map logged (the metric and the maps on the rank that writes only),
-        and full_eval's, on this rank."""
-        cfg, n = self.cfg, self.cfg.optim.sds_iterations
-        its = range(start_iter, n)
-        logged = its if self.writer else ()
-        counts = teacher_path(cfg).prepare_launches(cfg, self.teacher,
-                                                    self.diffusion)
-        for k, v in seed_texture_kernel_launches(cfg).items():
-            counts[k] += v
-        for k, v in self.sds.expected_kernel_launches().items():
-            counts[k] += len(its) * v
-        vc = sum(1 for i in logged if logs_metrics(i, n)
-                 and logs_view_consistency(i, n))
-        counts["raster"] += 1 if vc else 0
-        counts["mlp_fwd"] += vc
-        if cfg.log.log_images:
-            counts["mlp_fwd"] += sum(1 for i in logged if logs_images(i))
-        for k, v in full_eval_kernel_launches(
-                cfg, pmesh.axis_size(self.mesh, "views"),
-                self.writer).items():
-            counts[k] += v
-        return counts
 
     @torch.no_grad()
     def _view_consistency_metric(self) -> torch.Tensor:

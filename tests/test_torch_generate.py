@@ -36,11 +36,9 @@ from contexture_nerf_tpu_torch.diffusion import schedulers as tsch
 from contexture_nerf_tpu_torch.diffusion.sd_depth import StableDiffusionDepth
 from contexture_nerf_tpu_torch.diffusion.zero123plus import (
     GENERATION_STEP_DRAWS, Zero123PlusPipeline, Zero123PlusTeacher)
-from contexture_nerf_tpu_torch.ops.groupnorm import (LAUNCHES_PER_CALL,
-                                                     GroupNormSiLU)
+from contexture_nerf_tpu_torch.ops.groupnorm import GroupNormSiLU
 from contexture_nerf_tpu_torch.ops.image import save_image, tensor2numpy
-from contexture_nerf_tpu_torch.training.trainer import \
-    generate_kernel_launches
+from contexture_nerf_tpu_torch.tools.launches import census
 
 H, W = 48, 32  # a 3x2 canvas of 16 px tiles; the tiny VAE halves it
 LAT = (1, 4, H // 2, W // 2)
@@ -330,9 +328,11 @@ def test_pipeline_keeps_the_teachers_towers():
 
 
 def test_generate_groupnorms_equal_the_derived_launches(pipes):
-    """K6's launches of generate with inpaint: one a GroupNorm call of the
-    conditioning's encodes, the teacher's steps, the inpaint steps and the
-    decode (the attention counts need the card's routing sizes)."""
+    """The census of generate with inpaint: one K6 launch for each
+    GroupNorm call of the pipeline's towers (the conditioning's encodes,
+    the teacher's steps, the inpaint steps, the decode) and no gn_bwd, since
+    nothing is differentiated; the tiny lengths route no attention call to
+    the kernel."""
     _, port = pipes
     cond, depth, mask, renders, masked = _inputs()
     seen = []
@@ -340,19 +340,19 @@ def test_generate_groupnorms_equal_the_derived_launches(pipes):
              for tower in (port, port.inpaint_unet) for m in tower.modules()
              if isinstance(m, GroupNormSiLU)]
     try:
-        port.generate(torch.from_numpy(cond), torch.from_numpy(depth),
-                      num_inference_steps=12, height=H, width=W,
-                      use_blending=True, use_inpaint=True,
-                      latent_mask_grid=torch.from_numpy(mask),
-                      latent_renders_grid=torch.from_numpy(renders),
-                      masked_input_latents=torch.from_numpy(masked))
+        with census() as c:
+            port.generate(torch.from_numpy(cond), torch.from_numpy(depth),
+                          num_inference_steps=12, height=H, width=W,
+                          use_blending=True, use_inpaint=True,
+                          latent_mask_grid=torch.from_numpy(mask),
+                          latent_renders_grid=torch.from_numpy(renders),
+                          masked_input_latents=torch.from_numpy(masked))
     finally:
         for h in hooks:
             h.remove()
-    want = generate_kernel_launches(port, 12, H, W, (32, 32),
-                                    use_inpaint=True)
-    assert want["groupnorm"] == LAUNCHES_PER_CALL * len(seen) > 0
-    assert want["raster"] == want["mlp_fwd"] == want["mlp_bwd"] == 0
+    assert len(seen) > 0
+    assert c.counts == {"flash_attn_single": 0, "flash_attn_two_source": 0,
+                        "groupnorm": len(seen), "groupnorm_bwd": 0}
 
 
 def test_check_gt_zero123plus_writes_the_grid_and_six_views(tmp_path):

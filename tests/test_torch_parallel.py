@@ -42,6 +42,7 @@ ROOT = Path(__file__).resolve().parent.parent
 FAULT_MODES = {"n_fold_gather": "dp", "no_grad_reduce": "dp",
                "tp_copy_no_reduce": "tp", "tp_row_no_reduce": "tp"}
 SHAPE = (2, 3, 64, 16)  # ring inputs (B, H, S, d), as test_parallel.py
+KERNEL_ROUTES = ("flash_attn_single", "flash_attn_two_source")
 
 
 def _cfg_dict(tmp, **optim):
@@ -157,10 +158,15 @@ def _tp_teacher(dev):
 
 def _steps(dev, tmp):
     from contexture_nerf_tpu_torch.core.config import config_from_dict
+    from contexture_nerf_tpu_torch.ops import attention as att
     from contexture_nerf_tpu_torch.parallel import mesh as pm
+    from contexture_nerf_tpu_torch.tools.launches import census
     from contexture_nerf_tpu_torch.training import trainer as tr
 
     tr.SP_MIN_SEQ = 16  # so the tiny teacher's attention takes the ring
+    # and, in the census, the kernel route (a CPU tensor takes the plain
+    # route whatever the lengths)
+    att.MIN_SQ_KERNEL = att.MIN_KV_KERNEL = 16
     out = {}
     for mode, knobs in (("dp", {}), ("tp", {"tensor_parallel": 2}),
                         ("sp", {"sequence_parallel": 2})):
@@ -178,14 +184,15 @@ def _steps(dev, tmp):
         many = tr.SDSTrainer(cfg, setup, teacher=teacher, mlp=mlp, tiny=True,
                              device=dev, generator=gen)
         pm.collective_counts.clear()
-        p2, l2, n2, _, _ = many.step(500, draws)
+        with census() as launches:
+            p2, l2, n2, _, _ = many.step(500, draws)
         out[mode] = {"single": (p1, float(l1), mlp_grads(one.mlp)),
                      "sharded": (p2, float(l2), mlp_grads(many.mlp)),
                      "grad_norm": (float(n1), float(n2)),
                      "mesh": (tuple(many.mesh.mesh.shape),
                               many.mesh.mesh_dim_names),
                      "collectives": dict(pm.collective_counts),
-                     "launches": many.expected_kernel_launches(),
+                     "launches": launches.counts,
                      "faults": {}}
         for fault in (f for f, m in FAULT_MODES.items() if m == mode):
             bad = tr.SDSTrainer(cfg, setup, teacher=teacher,
@@ -394,9 +401,12 @@ def test_sharded_step_matches_the_single_device_step(ranks, mode):
         assert c.get("all_gather", 0) >= 1
         if mode == "sp":
             assert c.get("send_recv", 0) > 0  # the ring ran
-            single = got["steps"]["dp"]["launches"]
+            # the ring takes calls the kernel would take without it
+            dp = got["steps"]["dp"]["launches"]
             assert s["launches"]["flash_attn_two_source"] <= \
-                single["flash_attn_two_source"]
+                dp["flash_attn_two_source"]
+            assert sum(s["launches"][k] for k in KERNEL_ROUTES) < \
+                sum(dp[k] for k in KERNEL_ROUTES)
 
 
 @pytest.mark.parametrize("fault", list(FAULT_MODES))

@@ -41,12 +41,10 @@ from contexture_nerf_tpu_torch.core.config import \
 from contexture_nerf_tpu_torch.diffusion.sd_depth import (DRAWS,
                                                           StableDiffusionDepth)
 from contexture_nerf_tpu_torch.models.fields import NeRF2D
-from contexture_nerf_tpu_torch.ops.groupnorm import (LAUNCHES_PER_CALL,
-                                                     GroupNormSiLU)
+from contexture_nerf_tpu_torch.ops.groupnorm import GroupNormSiLU
 from contexture_nerf_tpu_torch.ops.image import get_nonzero_region_tuple
 from contexture_nerf_tpu_torch.training.trainer import (
-    ConTEXTure, define_view_weights, paint_viewpoint_kernel_launches,
-    prepare_sds)
+    ConTEXTure, define_view_weights, prepare_sds)
 
 TORUS = "shapes/torus.obj"
 TEXT = "a photo of a dairy cow"
@@ -152,9 +150,9 @@ def test_paint_viewpoint_passes_match_reference(reference, port, step):
 def test_repaint_differs_and_keeps_the_background(port):
     """The repaint is another image inside the object's box (the inpaint
     UNet and the median-filled render), and the same outside it (both keep
-    the render's background there). The GroupNorm calls of each pass are
-    the ones its K6 launches are derived from: the repaint's 9 inpaint UNet
-    calls and the encode of its masked crop are counted."""
+    the render's background there). The repaint makes more GroupNorm
+    calls than the first pass: its 9 inpaint UNet calls and the encode of
+    its masked crop."""
     ct, _, passes, n_calls = port
     (a, mask), (b, _) = passes
     mh, mw, Mh, Mw = get_nonzero_region_tuple(mask[0, 0])
@@ -162,10 +160,6 @@ def test_repaint_differs_and_keeps_the_background(port):
     box[..., mh:Mh, mw:Mw] = True
     assert torch.equal(a[~box], b[~box])
     assert float((a[box] - b[box]).abs().max()) > 1e-2
-    for step, n in zip((1, 2), n_calls):
-        want = paint_viewpoint_kernel_launches(ct.cfg, ct.diffusion, step)
-        assert want["groupnorm"] == LAUNCHES_PER_CALL * n
-        assert want["raster"] == want["mlp_fwd"] == 1
     assert n_calls[1] > n_calls[0]
 
 
