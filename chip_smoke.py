@@ -21,16 +21,21 @@ bootstrap: the SD2 text tower, 51 PLMS steps of the SD2-depth UNet under
 CFG at 7.5 and the 512^2 VAE decode; then the CLIP text and vision towers
 and the VAE conditioning of `prepare_sds`, then the Zero123++ UNet + depth
 ControlNet + SD VAE encoder + 8x256 MLP on a 960x640 canvas, bf16, random
-towers from the seed) for one warm-up and three timed SDS steps, then one
-step with the GroupNorms and the attention layers hooked (K6's calls, bytes
-and per-shape times; K3/K4 held to their limit on every kernel-routed call,
+towers from the seed) for one warm-up and three timed SDS steps (the
+teacher's call eager in the first, captured as CUDA graphs in the second,
+replayed after: diffusion/teacher_graph.py; its counters and the bytes
+its graphs keep are printed), then one step with the graphs dropped and
+the GroupNorms and the attention layers hooked (K6's calls, bytes and
+per-shape times; K3/K4 held to their limit on every kernel-routed call,
 as on one bootstrap UNet call); `teacher_v_pred` at the step's inputs must
 equal the step's own teacher call bit for bit (a planted guidance scale of
 1 must not). Every run's K3, K4, K6 and gn_bwd launches are held to the
-census of the calls it routes to them (`tools/launches.py` in the port);
-the other kernels' launches are printed as counted. Two planted routing
-faults (one GroupNorm call on the plain version, one kernel-routed
-attention call on the plain route) must fail that check. Then the paint
+census of the calls it routes to them (`tools/launches.py` in the port;
+a replay runs those calls eagerly between its graphs, so they are
+launched and counted as without graphs); the other kernels' launches are
+printed as counted. Two planted routing faults (one GroupNorm call on the
+plain version, one kernel-routed attention call on the plain route), each
+in a replayed teacher call, must fail that check. Then the paint
 path (the CLI on spot_quick_test.yaml, its resume, the default-size eval)
 and the snapshot path: the paint path's first CLI run
 again from its seeded towers written to disk as diffusers snapshots (17.6 GB
@@ -2229,6 +2234,15 @@ def teacher_v_pred_check(torch, seed, trainer, t, failures):
     return launches
 
 
+def teacher_graphs_line(torch, teacher, label):
+    """Print the teacher's CUDA-graph counters (captures, replays, eager
+    calls by reason, fallbacks), the bytes its graphs keep allocated, and
+    the card's allocated and reserved memory."""
+    print(f"  teacher graphs, {label}: {json.dumps(teacher.graphs.stats())}; "
+          f"allocated {torch.cuda.memory_allocated()} B, reserved "
+          f"{torch.cuda.memory_reserved()} B")
+
+
 def census_cost(torch, trainer, t, rounds=2):
     """What the census's hooks cost a step: steps without it and under it
     in turns, each on the host clock with the card synchronised; prints
@@ -2236,6 +2250,7 @@ def census_cost(torch, trainer, t, rounds=2):
     from contexture_nerf_tpu_torch.tools.launches import census
 
     times = {False: [], True: []}
+    trainer.step(t)  # the teacher's graphs captured, if they were dropped
     for _ in range(rounds):
         for on in (False, True):
             torch.cuda.synchronize()
@@ -2251,7 +2266,8 @@ def census_cost(torch, trainer, t, rounds=2):
 
 def routing_faults(torch, trainer, t, failures):
     """The census check must fail on each planted routing fault, in one
-    teacher call at the step's shapes: one GroupNormSiLU call on the plain
+    replayed teacher call at the step's shapes (the faulted calls run
+    eagerly between its graphs): one GroupNormSiLU call on the plain
     version with a CUDA tensor, one kernel-routed attention call on the
     plain route."""
     from contexture_nerf_tpu_torch.ops import _build
@@ -2264,6 +2280,17 @@ def routing_faults(torch, trainer, t, failures):
     g = torch.Generator(device=dev).manual_seed(0)
     z = torch.randn(trainer.latent_shape(), generator=g,
                     device=dev).to(trainer.dtype)
+    graphs = trainer.teacher.graphs
+
+    def call():
+        trainer.teacher.teacher_v_pred(
+            z, torch.tensor([int(t)], device=dev), trainer.cond_lat_pair,
+            trainer.ehs, trainer.depth_grid, tr.GUIDANCE_SCALE, generator=g,
+            cn_cond_emb=trainer.cn_cond_emb)
+
+    with torch.no_grad():
+        call()  # the key's graphs captured, if these shapes are new
+        call()
     for what, module, name, plain in (
             ("one GroupNormSiLU call on the plain version", gn,
              "group_norm_silu", gn.group_norm_silu_plain),
@@ -2276,23 +2303,26 @@ def routing_faults(torch, trainer, t, failures):
             return (plain if len(calls) == 1 else real)(*args)
 
         setattr(module, name, once)
+        replays = graphs.counts["replays"]
         try:
             _build.reset_launch_counts()
             with torch.no_grad(), census() as c:
-                trainer.teacher.teacher_v_pred(
-                    z, torch.tensor([int(t)], device=dev),
-                    trainer.cond_lat_pair, trainer.ehs, trainer.depth_grid,
-                    tr.GUIDANCE_SCALE, generator=g,
-                    cn_cond_emb=trainer.cn_cond_emb)
+                call()
                 torch.cuda.synchronize()
         finally:
             setattr(module, name, real)
         bad = c.unmatched(_build.launch_counts)
-        print(f"  planted fault, {what}: (launched, census) "
-              f"{json.dumps(bad)} {'caught' if bad else 'NOT CAUGHT'}")
+        replayed = graphs.counts["replays"] == replays + 1
+        print(f"  planted fault, {what}, in a replayed teacher call: "
+              f"(launched, census) {json.dumps(bad)} "
+              f"{'caught' if bad else 'NOT CAUGHT'}"
+              f"{'' if replayed else ' (the call did not replay)'}")
         if not bad:
             failures.append(f"the census check passes a planted fault: "
                             f"{what}")
+        if not replayed:
+            failures.append(f"the planted fault's teacher call ({what}) "
+                            "did not replay the teacher's graphs")
 
 
 def main_path(torch, seed, profile, recs, failures):
@@ -2447,7 +2477,12 @@ def main_path(torch, seed, profile, recs, failures):
           f"(timed {', '.join(f'{m:.1f}' for m in step_ms)}), peak memory "
           f"{mem:.2f} GiB, params changed: {changed} [{card_line()}]")
 
-    # K6 and the routed attention calls on one more step, hooked
+    teacher_graphs_line(torch, trainer.teacher, "after the timed steps")
+    # K6 and the routed attention calls on one more step, hooked. The
+    # teacher's graphs are dropped for it: the census keeps the routed
+    # calls' inputs, which in a replay are views of the graphs' pool that
+    # later graphs overwrite
+    trainer.teacher.graphs.clear()
     _build.reset_launch_counts()
     with census(keep_calls=True) as c:
         k6 = groupnorm_traffic(torch, [trainer.teacher],

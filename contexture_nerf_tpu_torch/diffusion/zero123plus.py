@@ -18,6 +18,7 @@ snapshot's model_index.json.
 
 from __future__ import annotations
 
+import functools
 import json
 import warnings
 from dataclasses import dataclass
@@ -38,6 +39,7 @@ from contexture_nerf_tpu_torch.diffusion.clip import (
 from contexture_nerf_tpu_torch.diffusion.controlnet import (ControlNet,
                                                             embed_cond)
 from contexture_nerf_tpu_torch.diffusion.layers import set_quant
+from contexture_nerf_tpu_torch.diffusion.teacher_graph import TeacherGraphs
 from contexture_nerf_tpu_torch.diffusion.unet import (UNet2DCondition,
                                                       UNetConfig)
 from contexture_nerf_tpu_torch.diffusion.vae import (Decoder, Encoder,
@@ -167,7 +169,9 @@ class Zero123PlusTeacher(nn.Module):
     the 3x2 grid's tiles. `set_int8` (optim.int8_controlnet /
     int8_teacher) quantizes the ControlNet, or the UNet and the
     ControlNet, to W8A8 on the fly; the weights and the state_dicts stay
-    as they are."""
+    as they are. `graphs` holds the CFG call's CUDA graphs
+    (diffusion/teacher_graph.py) and their counters; `set_int8` drops
+    them."""
 
     CONDITIONING_SCALE = 2.0  # the depth ControlNet's, reference trainer
 
@@ -218,6 +222,7 @@ class Zero123PlusTeacher(nn.Module):
             ("vision_encoder", self.vision_encoder, wp.vision_encoder,
              W.convert_clip_vision, self.vision_config)])
         self.alphas_cumprod = sch.make_alphas_cumprod(device=dev)
+        self.graphs = TeacherGraphs()
         self.set_int8()
 
     def set_int8(self, int8_controlnet: bool = False,
@@ -229,6 +234,7 @@ class Zero123PlusTeacher(nn.Module):
         self.int8_unet = bool(int8_unet)
         set_quant(self.unet, self.int8_unet)
         set_quant(self.controlnet, self.int8_controlnet or self.int8_unet)
+        self.graphs.clear()
 
     # -- conditioning ------------------------------------------------------------
 
@@ -296,7 +302,33 @@ class Zero123PlusTeacher(nn.Module):
         for the negative branch (row 0), `cond_noise` shared by the rest;
         the cond latent is DDPM-noised to t and fed as it is.
         `scale_input` scales the denoised branches' input (EulerAncestral's
-        scale_model_input); None, the DDPM teacher's, scales nothing."""
+        scale_model_input); None, the DDPM teacher's, scales nothing.
+        On the card the passes run from CUDA graphs where the call allows
+        (`graphs`): the tensors returned are then views of the graphs'
+        static output, which the next call of the same shapes overwrites."""
+        t = torch.as_tensor(t, device=latents.device).reshape(-1)
+        args = (latents, t, branch_cond_lats, branch_ehs,
+                depth_image if cn_cond_emb is None else None, neg_noise,
+                cond_noise, cn_cond_emb)
+        v = self.graphs(
+            functools.partial(self._cfg_passes, scale_input=scale_input),
+            args, extra=(self.int8_controlnet, self.int8_unet),
+            sharded=self._sharded,
+            bypass=None if scale_input is None else "an input scale")
+        return list(v.chunk(branch_cond_lats.shape[0], dim=0))
+
+    def _sharded(self) -> bool:
+        """Whether tensor_parallel cut a layer of the UNet or ControlNet."""
+        return any(getattr(m, "tp", None) is not None
+                   for tower in (self.unet, self.controlnet)
+                   for m in tower.modules())
+
+    def _cfg_passes(self, latents, t, branch_cond_lats, branch_ehs,
+                    depth_image, neg_noise, cond_noise, cn_cond_emb,
+                    scale_input=None) -> torch.Tensor:
+        """`_cfg_core`'s write pass, ControlNet and read pass at t (a (1,)
+        tensor on the card); the branches' v-predictions stacked
+        (nb B,4,H,W). `depth_image` is read only without `cn_cond_emb`."""
         B = latents.shape[0]
         nb = branch_cond_lats.shape[0]
         branch_noise = torch.stack([neg_noise] + [cond_noise] * (nb - 1)).to(
@@ -312,7 +344,6 @@ class Zero123PlusTeacher(nn.Module):
         if cn_cond_emb is None and tuple(depth_image.shape[2:]) != (th, tw):
             depth_image = resize_linear(depth_image, (th, tw))
 
-        t = torch.as_tensor(t, device=latents.device).reshape(-1)
         ref: list = []
         with span("teacher.write"):
             noisy_cond = sch.add_noise(self.alphas_cumprod, cond_lats, noise,
@@ -330,7 +361,7 @@ class Zero123PlusTeacher(nn.Module):
         with span("teacher.read"):
             v = self.unet(lat_in, t, ehs, down_residuals=downs,
                           mid_residual=mid, ref_kv_list=ref)
-        return list(v.chunk(nb, dim=0))
+        return v
 
     def _cfg_v_pred(self, latents, t, cond_lat_pair, encoder_hidden_states,
                     depth_image, guidance_scale, neg_noise, cond_noise,

@@ -31,6 +31,7 @@ TEACHER = ("teacher.write", "teacher.control", "teacher.read")
 NEW_METRICS = ("render_ms.sds", "encode_ms.sds", "backward_ms.sds",
                "adam_ms.sds", "groupnorm_bwd_ms.sds",
                "groupnorm_host_us.sds", "syncs_per_step.sds")
+REPLAY_SHARE = "teacher_replay_share.sds"
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -166,10 +167,11 @@ def test_k6_wrapper_spans(monkeypatch):
 # -- the readers on a hand-built trace --------------------------------------
 
 
-def _events(program_spans=True):
+def _events(program_spans=True, replay="teacher.replay"):
     """Two steps (pb.unit at 0 and 1000 µs) of known spans and kernels; K6's
     backward and the backward's launches on thread 2 while `sds.backward`
-    is open on thread 1. A launch between the steps is no step's."""
+    is open on thread 1. A launch between the steps is no step's. The
+    teacher call is a `replay` of its CUDA graphs."""
     ev, corr = [], [0]
 
     def span(name, a, b, tid=1):
@@ -203,6 +205,7 @@ def _events(program_spans=True):
             span("k6.fwd", t + 85, t + 97)
             span("sds.render", t + 100, t + 110)
             span("sds.teacher", t + 110, t + 200)
+            span(replay, t + 112, t + 198)
             span("teacher.read", t + 140, t + 190)
             span("sds.loss", t + 200, t + 220)
             span("sds.backward", t + 220, t + 300)
@@ -249,6 +252,31 @@ def test_readers_without_program_spans_read_none():
     assert spanread.stage_coverage(tr) == (0.0, 194.0)
 
 
+@pytest.mark.parametrize("span,want", [("teacher.replay", 100.0),
+                                       ("teacher.capture", 0.0),
+                                       ("teacher.eager", 0.0),
+                                       ("teacher.other", None)])
+def test_the_replay_share_on_a_hand_built_trace(span, want):
+    """`teacher_replay_share.sds`: the steps' `teacher.replay` spans over
+    their `sds.teacher` spans; None in a trace of a program that opens
+    none of the teacher's replay, capture and eager spans."""
+    read = harness.Cell("sds_default").reader(REPLAY_SHARE).read
+    got = read(tracekit.Trace(_events(replay=span), 2, {}, {}, 1.0))
+    assert got == want
+    assert read(tracekit.Trace(_events(program_spans=False), 2, {}, {},
+                               1.0)) is None
+
+
+def test_a_tiny_step_on_the_cpu_reads_no_replay(state):
+    """A step on the CPU opens `teacher.eager` once inside `sds.teacher`:
+    the share reads 0."""
+    tr = _trace(lambda: state.trainer.step(state.ts[state.it]))
+    eager = spanread.intervals(tr, "teacher.eager")
+    assert len(eager) == 1 and _inside(eager,
+                                       spanread.intervals(tr, "sds.teacher"))
+    assert harness.Cell("sds_default").reader(REPLAY_SHARE).read(tr) == 0.0
+
+
 def test_the_new_metrics_are_in_the_benchmark():
     b = harness.load_json(harness.ROOT / "BENCHMARK.json")
     entries = {m["name"]: m for m in b["per_layer"]}
@@ -260,3 +288,7 @@ def test_the_new_metrics_are_in_the_benchmark():
     names = [m["name"] for m in b["per_layer"]]
     i = names.index(NEW_METRICS[0])
     assert names[i:i + 7] == list(NEW_METRICS)
+    m = entries[REPLAY_SHARE]
+    assert (m["layer"], m["moves"], m["better"], m["unit"]) == (
+        "teacher", "sds_step_ms", "higher", "%")
+    assert m["workloads"] == ["sds_default", "sds_exact"]
