@@ -7,7 +7,7 @@ Run from the root of a checkout, on a machine with one NVIDIA GPU:
                           [--mlp-only | --raster-only [--against DIR] |
                            --snapshot-only | --mesh-only | --generate-only |
                            --int8-only | --tools-only | --parallel-only |
-                           --sv3d-only | --k7-only]
+                           --sv3d-only | --flux-only | --k7-only]
 
 It builds the hand-written CUDA kernels from csrc/, holds each against its
 plain PyTorch version at the shapes the main path gives it (and checks that
@@ -95,7 +95,12 @@ K6 forward on the frame-stacked layout, gn_bwd at the 576^2 frame encode)
 and its paint loop at full width (a step's launches, spans and host reads,
 its time), then prints those shapes' records, with a step's launches, as
 its `kernels` line; the full script runs both and adds the records to its
-own `kernels` line. --k7-only runs only the K7 phase (`texture_phase`: the
+own `kernels` line. --flux-only does the same for FLUX.1 Depth (K3 at head
+dim 128 at its joint attention of 24 heads over 2,912 tokens, with v read
+through the fused linear's strides, and at a ragged shape; a full-width
+step: its launches held to the census, K3's 57 at d = 128 among them, its
+flux.double / flux.single spans and host reads, the teacher's counters, its
+time). --k7-only runs only the K7 phase (`texture_phase`: the
 masked texture sample and its backward at the exact path's 6 x 1200^2
 views and 1024^2 texture, bilinear and nearest, and at a ragged shape,
 against their plain versions, timed beside their bounds, the plain path's
@@ -774,8 +779,10 @@ GROUPNORM_SEEN = set()
 
 
 def attention_shape(args):
+    """(B, H, Sq, Skv, Se, d) of a call, as _build.launch_shapes keys it."""
     q, k, _, ek, _ = args
-    return (*q.shape[:3], k.shape[2], 0 if ek is None else ek.shape[2])
+    return (*q.shape[:3], k.shape[2], 0 if ek is None else ek.shape[2],
+            q.shape[3])
 
 
 def check_routed_calls(torch, calls, label, failures):
@@ -1482,19 +1489,19 @@ def sv3d_kernels(torch, seed, failures):
     for label, B, H, S in SV3D_ATTN:
         # q, k, v as CrossAttention passes them: strided views of the
         # projections' (B, S, H d) memory
-        qkv = torch.randn((B, S, 3, H, att.HEAD_DIM), generator=gen,
+        qkv = torch.randn((B, S, 3, H, 64), generator=gen,
                           device=dev).to(bf)
         q, k, v = (qkv[:, :, i].permute(0, 2, 1, 3) for i in range(3))
         args = (q, k, v, None, None)
         name = f"K3 sv3d {label} ({B} x {H} heads, {S} tokens)"
         attention_check(torch, att, args, failures, name)
-        rec = recs[("flash_attn_single", B, H, S, S, 0)] = \
+        rec = recs[("flash_attn_single", B, H, S, S, 0, 64)] = \
             attention_shape_record(torch, args, "flash_attn_single (sv3d_p's "
                                    f"UNet call, {label}: {B} x {H} heads, "
                                    f"{S} tokens)")
         dms = device_ms(lambda: att.flash_attention(*args), reps=5)
-        b_ms, by = bound(4.0 * B * H * S * S * att.HEAD_DIM,
-                         2.0 * B * H * att.HEAD_DIM * 4 * S)
+        b_ms, by = bound(4.0 * B * H * S * S * 64,
+                         2.0 * B * H * 64 * 4 * S)
         print(f"    a call: device {_ms(dms)} ms, plain "
               f"{rec.d['plain_ms']:.3f} ms, bound {b_ms:.3f} ms ({by}); "
               f"{share_of_bound(b_ms, dms)}")
@@ -1657,6 +1664,167 @@ def sv3d_phases(torch, seed, failures):
     print("SV3D_p's paint loop at full width on the torus")
     shapes = sv3d_step(torch, seed, failures)
     record_launches(recs, shapes, "in the SV3D_p step", failures)
+    return recs
+
+
+# FLUX.1 Depth's K3 calls: the joint attention of its 57 blocks over 2,400
+# image + 512 text tokens, 24 heads of 128 (q, k as the RoPE writes them,
+# v a strided view of the single block's fused linear1 output, row stride
+# 3 h + 4 h = 21,504), and a ragged shape with a tail the kernel masks
+FLUX_ATTN = [("joint attention", 1, 24, 2912, 2912, 21504),
+             ("ragged", 1, 3, 777, 1234, 0)]
+FLUX_BLOCKS = (19, 38)  # double-stream, single-stream
+
+
+def flux_kernels(torch, seed, failures):
+    """K3 at head dim 128 at FLUX.1 Depth's shapes against the plain version
+    within attention_limit, two runs bit-identical, the planted faults that
+    apply outside the limit, a 192-row query tile refused; device time
+    against the bound. Returns the shape records keyed as
+    _build.launch_shapes keys launches."""
+    from contexture_nerf_tpu_torch.ops import attention as att
+
+    dev, bf, d = torch.device("cuda"), torch.bfloat16, 128
+    gen = torch.Generator(device=dev).manual_seed(seed + 25)
+    recs = {}
+    for label, B, H, sq, skv, row in FLUX_ATTN:
+        def heads(s):
+            return torch.randn((B, s, H, d), generator=gen, device=dev,
+                               dtype=bf).permute(0, 2, 1, 3)
+        q, k = heads(sq), heads(skv)
+        if row:
+            fused = torch.randn((B, skv, row), generator=gen, device=dev,
+                                dtype=bf)
+            v = fused[:, :, 2 * H * d:3 * H * d].unflatten(
+                -1, (H, d)).permute(0, 2, 1, 3)
+        else:
+            v = heads(skv)
+        args = (q, k, v, None, None)
+        name = f"K3 flux {label} ({B} x {H} heads of {d}, {sq} x {skv})"
+        attention_check(torch, att, args, failures, name)
+        try:
+            att.flash_attention(*args, 192)
+            failures.append(f"{name}: a 192-row query tile was not refused")
+            print("    a 192-row query tile at d = 128: NOT refused")
+        except RuntimeError:
+            print("    a 192-row query tile at d = 128: refused")
+        key = ("flash_attn_single", B, H, sq, skv, 0, d)
+        rec = recs[key] = attention_shape_record(
+            torch, args, f"flash_attn_single (flux1-depth-dev's {label}: {B} "
+            f"x {H} heads of {d}, {sq} x {skv})")
+        dms = device_ms(lambda: att.flash_attention(*args), reps=10)
+        flops = 4.0 * B * H * sq * skv * d
+        b_ms, by = bound(flops, 2.0 * B * H * d * (2 * sq + 2 * skv))
+        tf = f", {flops / dms / 1e9:.0f} TFLOP/s" \
+            if isinstance(dms, float) else ""
+        print(f"    a call: device {_ms(dms)} ms{tf}, plain "
+              f"{rec.d['plain_ms']:.3f} ms, SDPA {rec.d['library_ms']:.3f} "
+              f"ms, bound {b_ms:.3f} ms ({by}); {share_of_bound(b_ms, dms)}")
+    return recs
+
+
+def head_dim_launches(shapes, d):
+    """K3 launches at head dim d in _build.launch_shapes-keyed `shapes`."""
+    return sum(n for key, n in shapes.items()
+               if key[0] == "flash_attn_single" and key[-1] == d)
+
+
+def flux_step(torch, seed, failures):
+    """The FLUX.1 Depth paint loop at full width on the torus: prepare_sds
+    (guide.teacher flux_depth: no bootstrap) timed by phase; one step's
+    launches held to its census, K3's at d = 128 among them (57); one step
+    under the profiler: its 19 flux.double and 38 flux.single spans inside
+    sds.teacher, an attn.kernel span inside each, one host read; the
+    teacher's counters; then timed steps and the peak memory. Returns the
+    counted step's launches by kernel and call sizes."""
+    from contexture_nerf_tpu_torch.core.config import config_from_dict
+    from contexture_nerf_tpu_torch.ops import _build
+    from contexture_nerf_tpu_torch.tools.launches import census
+    from contexture_nerf_tpu_torch.training import trainer as tr
+
+    cfg = config_from_dict({"guide": {
+        "shape_path": str(ROOT / "shapes" / "torus.obj"),
+        "teacher": "flux_depth", "text": "a photo of a dairy cow"},
+        "optim": {"seed": seed}})
+    timings = {}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer, _ = tr.build_sds_trainer(cfg, device="cuda", timings=timings)
+    torch.cuda.synchronize()
+    n_par = sum(p.numel() for p in trainer.teacher.transformer.parameters())
+    print(f"  built and prepared in {time.perf_counter() - t0:.1f} s "
+          f"({n_par:,} MMDiT parameters, {trainer.teacher.dtype}); prepare "
+          "phases (ms): " + ", ".join(f"{k} {v:.0f}"
+                                      for k, v in timings.items()))
+    ts = trainer.t_schedule(5000).tolist()
+    trainer.step(ts[1000])
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    with census() as c:
+        trainer.step(ts[1001])
+        torch.cuda.synchronize()
+    hold_to_census(c, "flux step", failures)
+    shapes = dict(_build.launch_shapes)
+    d128 = head_dim_launches(shapes, 128)
+    want = c.head_dims["flash_attn_single", 128]
+    blocks = sum(FLUX_BLOCKS)
+    ok = d128 == want == blocks
+    print(f"  K3 at head dim 128: {d128} launched, census {want}, blocks "
+          f"{blocks} {'ok' if ok else 'MISS'}")
+    if not ok:
+        failures.append("flux step: K3 launches at head dim 128")
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        trainer.step(ts[1002])
+        torch.cuda.synchronize()
+    ev = [(e.name, e.time_range.start, e.time_range.end)
+          for e in prof.events()]
+    teach = [(a, b) for n, a, b in ev if n == "sds.teacher"]
+    blk = {n: [(a, b) for m, a, b in ev if m == n]
+           for n in ("flux.double", "flux.single")}
+    kern = [a for n, a, _ in ev if n == "attn.kernel"]
+    inside = all(any(lo <= a <= hi for lo, hi in teach)
+                 for iv in blk.values() for a, _ in iv)
+    each = all(sum(lo <= a <= hi for a in kern) == 1
+               for iv in blk.values() for lo, hi in iv)
+    reads = sum(1 for n, _, _ in ev if n.startswith("sync."))
+    ok = len(teach) == 1 and inside and each and reads == 1 and \
+        (len(blk["flux.double"]), len(blk["flux.single"])) == FLUX_BLOCKS
+    print(f"  one step under the profiler: {len(teach)} sds.teacher, "
+          f"{len(blk['flux.double'])} flux.double and "
+          f"{len(blk['flux.single'])} flux.single (inside it: {inside}; one "
+          f"attn.kernel in each: {each}), {reads} host read(s) "
+          f"{'ok' if ok else 'MISS'}")
+    if not ok:
+        failures.append("flux step spans")
+    print(f"  the teacher's counters: {json.dumps(trainer.teacher.counts)}")
+    torch.cuda.reset_peak_memory_stats()
+    n = 5
+    t0 = time.perf_counter()
+    for i in range(n):
+        _, loss, *_ = trainer.step(ts[1003 + i])
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / n
+    print(f"  {n} steps: {ms:.1f} ms a step, loss {float(loss):.4g}, peak "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB "
+          f"[{card_line()}]")
+    if not math.isfinite(float(loss)):
+        failures.append("flux step loss not finite")
+    del trainer, loss
+    gc.collect()
+    torch.cuda.empty_cache()
+    return shapes
+
+
+def flux_phases(torch, seed, failures):
+    """FLUX.1 Depth's K3 shapes at head dim 128, its paint loop's step, and
+    the shapes' records with the step's launches; returns the records."""
+    print("FLUX.1 Depth's K3 shapes (kernel vs plain, bf16, head dim 128):")
+    recs = flux_kernels(torch, seed, failures)
+    print("FLUX.1 Depth's paint loop at full width on the torus")
+    shapes = flux_step(torch, seed, failures)
+    record_launches({k: v for k, v in recs.items() if k[3] == 2912},
+                    shapes, "in the FLUX step", failures)
     return recs
 
 
@@ -4173,7 +4341,7 @@ GEN_STEPS = 28  # check_gt_zero123plus's default, the reference's
 def attention_shape_record(torch, args, name):
     """A K3/K4 shape record timed at one real call's inputs: the kernel, the
     plain version and SDPA on the concatenated KV (CUDA events), the bound
-    4 B H Sq (Skv + Se) 64 operations or the bytes of q, k, v, o."""
+    4 B H Sq (Skv + Se) d operations or the bytes of q, k, v, o."""
     import torch.nn.functional as F
 
     from contexture_nerf_tpu_torch.ops import attention as att
@@ -4189,7 +4357,7 @@ def attention_shape_record(torch, args, name):
                  - att.flash_attention_plain(*args).float()).abs().max())
     rec.add(err, cuda_ms(lambda: att.flash_attention(*args)),
             cuda_ms(lambda: att.flash_attention_plain(*args), reps=3),
-            4.0 * B * H * Sq * kk.shape[2] * 64,
+            4.0 * B * H * Sq * kk.shape[2] * q.shape[3],
             2 * (2 * q.numel() + kk.numel() + vv.numel()),
             lib_ms=cuda_ms(lambda: F.scaled_dot_product_attention(q, kk, vv)))
     return rec
@@ -5295,6 +5463,10 @@ def main():
                     "visible GPU, up to 4: the sharded SDS step, ring "
                     "attention, a TP teacher call, the sharded eval) and "
                     "stop (no result line)")
+    ap.add_argument("--flux-only", action="store_true",
+                    help="run only FLUX.1 Depth's phases (K3 at head dim "
+                    "128 at its shapes, a full-width step's launches, "
+                    "spans and time) and stop")
     ap.add_argument("--sv3d-only", action="store_true",
                     help="run only SV3D_p's kernel shapes (K3, K6 forward "
                     "and gn_bwd) and its paint loop at full width (the "
@@ -5457,6 +5629,14 @@ def main():
         print(json.dumps({"kernels": [shape_recs[k].out() for k in (
             K7_FWD_KEY, K7_BWD_KEY)]}))
         return 0
+    if args.flux_only:
+        flux_recs = flux_phases(torch, args.seed, failures)
+        for f in failures:
+            print(f"FAIL: {f}")
+        if failures:
+            return 1
+        print(json.dumps({"kernels": [r.out() for r in flux_recs.values()]}))
+        return 0
     if args.sv3d_only:
         sv3d_recs = sv3d_phases(torch, args.seed, failures)
         for f in failures:
@@ -5531,6 +5711,7 @@ def main():
           "their plain versions, f32):")
     texture_phase(torch, args.seed, shape_recs, failures)
     sv3d_recs = sv3d_phases(torch, args.seed, failures)
+    flux_recs = flux_phases(torch, args.seed, failures)
     print("main path: shapes/torus.obj -> prepare_sds (SD2-depth bootstrap) "
           "-> full-width SDS steps")
     launches, trainer = main_path(torch, args.seed, args.profile, recs,
@@ -5595,7 +5776,8 @@ def main():
             print(f"FAIL: {f}")
         return 1
     print(json.dumps({"kernels": [r.out() for r in (
-        *recs.values(), *shape_recs.values(), *sv3d_recs.values())]}))
+        *recs.values(), *shape_recs.values(), *sv3d_recs.values(),
+        *flux_recs.values())]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

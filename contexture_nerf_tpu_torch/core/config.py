@@ -12,9 +12,10 @@ field list stays the JAX package's. The loader sets them as instance
 attributes, checked against their allowed values, and `config_to_dict`
 writes one only where it differs from its default, so a config that sets
 none gives the JAX package's dict.
-The one such key is `guide.teacher`: "zero123plus" (the default) or
+The one such key is `guide.teacher`: "zero123plus" (the default),
 "sv3d_p" (the SDS loop over SV3D_p's 21-frame orbit,
-training/orbit.py).
+training/orbit.py) or "flux_depth" (FLUX.1 Depth [dev] over the same 3x2
+grid, diffusion/flux.py).
 """
 
 from __future__ import annotations
@@ -110,7 +111,7 @@ class GuideConfig:
     controlnet_path: Optional[str] = None
     # keys of the port alone (module docstring): the SDS teacher
     PORT_KEYS: ClassVar[Dict[str, Tuple[str, ...]]] = {
-        "teacher": ("zero123plus", "sv3d_p")}
+        "teacher": ("zero123plus", "sv3d_p", "flux_depth")}
     teacher: ClassVar[str] = "zero123plus"
 
 

@@ -1,7 +1,10 @@
 """AutoencoderKL (SD VAE) encoder and decoder, NCHW; counterpart of
 contexture_nerf_tpu/diffusion/vae.py (`VAEConfig`, `Encoder`, `Decoder`,
 `encode_moments`, `decode`, `sample_gaussian`). The SDS step uses the
-encoder; the SD2-depth bootstrap decodes its final latent.
+encoder; the SD2-depth bootstrap decodes its final latent. `VAEConfig.flux`
+is FLUX.1's AE (black-forest-labs/flux `src/flux/modules/autoencoder.py`):
+SD's block layout with 16 latent channels, no quant_conv, and latents
+taken as (z - shift_factor) * scaling_factor.
 """
 
 from __future__ import annotations
@@ -21,12 +24,15 @@ from contexture_nerf_tpu_torch.ops.groupnorm import GroupNormSiLU
 class VAEConfig:
     def __init__(self, in_channels=3, latent_channels=4,
                  block_out_channels=(128, 256, 512, 512),
-                 layers_per_block=2, scaling_factor=0.18215):
+                 layers_per_block=2, scaling_factor=0.18215,
+                 shift_factor=0.0, quant_conv=True):
         self.in_channels = in_channels
         self.latent_channels = latent_channels
         self.block_out_channels = tuple(block_out_channels)
         self.layers_per_block = layers_per_block
         self.scaling_factor = scaling_factor
+        self.shift_factor = shift_factor
+        self.quant_conv = quant_conv
 
     @staticmethod
     def sd():
@@ -35,6 +41,16 @@ class VAEConfig:
     @staticmethod
     def tiny():
         return VAEConfig(block_out_channels=(32, 64), layers_per_block=1)
+
+    @staticmethod
+    def flux(tiny: bool = False):
+        """FLUX.1's AE (flux `util.py` ae_params): 16 latent channels,
+        scale 0.3611, shift 0.1159, no quant_conv; `tiny` keeps those with
+        tiny()'s blocks."""
+        blocks = dict(block_out_channels=(32, 64), layers_per_block=1) \
+            if tiny else {}
+        return VAEConfig(latent_channels=16, scaling_factor=0.3611,
+                         shift_factor=0.1159, quant_conv=False, **blocks)
 
     @property
     def downsample(self) -> int:
@@ -87,8 +103,9 @@ class Encoder(nn.Module):
         self.mid_resnet_1 = ResnetBlock2D(ch, ch, eps=1e-6, dtype=dtype)
         self.conv_norm_out = GroupNormSiLU(ch, 32, 1e-6, out_dtype=dtype)
         self.conv_out = Conv(ch, 2 * cfg.latent_channels, 3, padding=1)
-        self.quant_conv = Conv(2 * cfg.latent_channels,
-                               2 * cfg.latent_channels, 1)
+        self.quant_conv = (Conv(2 * cfg.latent_channels,
+                                2 * cfg.latent_channels, 1)
+                           if cfg.quant_conv else None)
 
     def forward(self, x):
         cfg = self.config
@@ -99,7 +116,8 @@ class Encoder(nn.Module):
             if bi < len(cfg.block_out_channels) - 1:
                 h = getattr(self, f"down_{bi}_downsample")(h)
         h = self.mid_resnet_1(self.mid_attn(self.mid_resnet_0(h)))
-        return self.quant_conv(self.conv_out(self.conv_norm_out(h)))
+        h = self.conv_out(self.conv_norm_out(h))
+        return h if self.quant_conv is None else self.quant_conv(h)
 
 
 class Decoder(nn.Module):

@@ -25,6 +25,7 @@ card script and the tests do.
 from __future__ import annotations
 
 import contextlib
+from collections import Counter
 from typing import Dict, Iterator, List, Optional, Tuple
 
 import torch
@@ -44,11 +45,13 @@ ATTENTION_SITES = (layers, clip)
 
 class Census:
     """`counts[key]`: the calls of a census that route to kernel `key`;
-    `calls`: the kernel-routed attention calls' (q, k, v, extra_k,
-    extra_v) as the towers passed them, when kept."""
+    `head_dims[(key, d)]`: those of the attention keys by head dim d (K3 at
+    64 and at 128); `calls`: the kernel-routed attention calls' (q, k, v,
+    extra_k, extra_v) as the towers passed them, when kept."""
 
     def __init__(self, keep_calls: bool):
         self.counts: Dict[str, int] = dict.fromkeys(KEYS, 0)
+        self.head_dims: Counter = Counter()
         self.calls: Optional[List[tuple]] = [] if keep_calls else None
 
     def unmatched(self, launches: Dict[str, int]
@@ -82,8 +85,9 @@ def census(keep_calls: bool = False) -> Iterator[Census]:
             se = 0 if extra_k is None else extra_k.shape[2]
             if att.routes_to_kernel(q.shape[2], k.shape[2], se) and \
                     not att._ring_eligible(q, k, extra_k):
-                c.counts["flash_attn_two_source" if se
-                         else "flash_attn_single"] += 1
+                key = "flash_attn_two_source" if se else "flash_attn_single"
+                c.counts[key] += 1
+                c.head_dims[key, q.shape[-1]] += 1
                 if c.calls is not None:
                     c.calls.append((q, k, v, extra_k, extra_v))
             return orig(q, k, v, extra_k=extra_k, extra_v=extra_v)

@@ -38,7 +38,10 @@ with the painted texels' median after painting.
 guide.teacher "sv3d_p" swaps the teacher for SV3D_p's video UNet over a
 21-frame orbit (training/orbit.py: `prepare_orbit_sds`, `OrbitSDSTrainer`
 through `make_sds_trainer`; `step` is this module's), chosen when the
-models and the trainer are built; the Zero123++ path is unchanged.
+models and the trainer are built; guide.teacher "flux_depth" keeps the 3x2
+grid and swaps the teacher for FLUX.1 Depth [dev]'s MMDiT
+(diffusion/flux.py; `prepare_flux_sds`, `FluxSDSTrainer`); the Zero123++
+path is unchanged.
 
 On several ranks (torchrun, optim.data_parallel), `make_mesh` builds the
 reference's (views), (views x tp) or (views x sp) mesh. The step splits the
@@ -207,7 +210,7 @@ class SDSTrainer:
                 "texture map through the rasterizer's cache of the 6 target "
                 "views: pass mesh_model and a setup from prepare_sds with "
                 "exact_lattice_render on (its cache6)")
-        self._init_common(cfg, Zero123PlusTeacher, teacher, mlp, tiny,
+        self._init_common(cfg, self._teacher_class(), teacher, mlp, tiny,
                           device, generator, mesh_model, mesh)
         dev = self.device
         if self.tp > 1:
@@ -241,8 +244,6 @@ class SDSTrainer:
         self.gs_t = float(g.guidance_scale_t or 0.0)
 
         self.depth_grid = _to(setup["depth_grid"], dev, torch.float32)
-        self.cond_lat_pair = _to(setup["cond_lat_pair"], dev, self.dtype)
-        self.ehs = _to(setup["encoder_hidden_states"], dev, self.dtype)
         self.tile_probs = _to(setup["tile_probs"], dev, torch.float32)
         if self.exact:
             self.cache6 = RenderCache(*(_to(x, dev) for x in setup["cache6"]))
@@ -267,12 +268,23 @@ class SDSTrainer:
             # guide.reference_texture: the change mask at the grid's UVs
             self.edit_mask = _to(setup.get("edit_mask_pts"), dev,
                                  torch.float32)
+        with torch.no_grad():
+            self._hold_conditioning(setup)
+
+    def _teacher_class(self):
+        return Zero123PlusTeacher
+
+    def _hold_conditioning(self, setup: Dict) -> None:
+        """The teacher's loop-invariant conditioning: the condition latents,
+        the CLIP states and the ControlNet's hint embedding of the depth
+        grid, hoisted."""
+        dev = self.device
+        self.cond_lat_pair = _to(setup["cond_lat_pair"], dev, self.dtype)
+        self.ehs = _to(setup["encoder_hidden_states"], dev, self.dtype)
         lat_hw = (self.depth_grid.shape[2] // self.vae_down,
                   self.depth_grid.shape[3] // self.vae_down)
-        with torch.no_grad():
-            # loop-invariant ControlNet hint embedding, hoisted
-            self.cn_cond_emb = self.teacher.embed_control_cond(
-                self.depth_grid, lat_hw)
+        self.cn_cond_emb = self.teacher.embed_control_cond(self.depth_grid,
+                                                           lat_hw)
 
     def _init_common(self, cfg, teacher_cls, teacher, mlp, tiny, device,
                      generator, mesh_model, mesh):
@@ -425,7 +437,8 @@ class SDSTrainer:
 
     def latent_shape(self):
         H, W = self.grid_hw
-        return (1, 4, H // self.vae_down, W // self.vae_down)
+        return (1, self.teacher.vae_config.latent_channels,
+                H // self.vae_down, W // self.vae_down)
 
     def draw(self) -> Dict[str, torch.Tensor]:
         """The step's random numbers from the trainer's generator."""
@@ -546,6 +559,77 @@ class SDSTrainer:
                     "fisher_divergence_t": profiler.host_read(fisher,
                                                               "fisher")})
         return metrics
+
+
+class FluxSDSTrainer(SDSTrainer):
+    """`SDSTrainer` under FLUX.1 Depth [dev] (guide.teacher "flux_depth",
+    diffusion/flux.py) over the same 3x2 grid: the render, the backward
+    slice, the loss, the backward and Adam are SDSTrainer's. `setup` is
+    `prepare_flux_sds`'s. What differs: the canvas goes to FLUX's AE in
+    [-1, 1] and its latents are (z - shift) scale with a 16-channel draw;
+    the held conditioning is the depth grid's packed control latents
+    (encoded once, here), the prompt's states and the guidance; the teacher
+    is one FLUX call a step at batch 1 (`FluxDepthTeacher.teacher_v_pred`).
+    One rank only; optim.exact_lattice_render and the tile's individual
+    CFG do not apply."""
+
+    def __init__(self, cfg: TrainConfig, setup: Dict, teacher=None,
+                 mlp: Optional[NeRF2D] = None, tiny: bool = False,
+                 device="cuda", generator: Optional[torch.Generator] = None,
+                 mesh_model: Optional[TexturedMeshModel] = None,
+                 mesh="config"):
+        g = cfg.guide
+        if cfg.optim.exact_lattice_render:
+            raise ValueError("optim.exact_lattice_render renders the grid "
+                             "through the Zero123++ path; guide.teacher "
+                             "'flux_depth' has no such path")
+        if g.individual_control_of_conditions and g.guidance_scale_i \
+                is not None and g.guidance_scale_t is not None:
+            raise ValueError("guide.individual_control_of_conditions is "
+                             "Zero123++'s three-branch CFG; FLUX.1 Depth "
+                             "takes one guided forward")
+        mesh = make_mesh(cfg) if mesh == "config" else mesh
+        if mesh is not None:
+            raise ValueError("guide.teacher 'flux_depth' runs on one rank: "
+                             "optim.data_parallel has no FLUX path")
+        super().__init__(cfg, setup, teacher, mlp, tiny, device, generator,
+                         mesh_model, None)
+
+    def _teacher_class(self):
+        from contexture_nerf_tpu_torch.diffusion.flux import FluxDepthTeacher
+
+        return FluxDepthTeacher
+
+    def _hold_conditioning(self, setup: Dict) -> None:
+        dev = self.device
+        self.control = self.teacher.control_latents(self.depth_grid)
+        self.txt = _to(setup["txt"], dev, self.dtype)
+        self.vec = _to(setup["vec"], dev, self.dtype)
+        self.guidance = self.teacher.guidance
+
+    def _composite(self, rgb, h, w, mask):
+        img = rgb.reshape(h, w, 3).permute(2, 0, 1)[None].contiguous()
+        img = torch.clamp(img * mask + 0.5 * (1 - mask), 0.0, 1.0)
+        return img * 2 - 1
+
+    def _encode(self, img, eps):
+        return self.teacher.latents(img, eps)
+
+    def canvas_rgb(self, grid):
+        return (grid + 1) / 2
+
+    def draw(self) -> Dict[str, torch.Tensor]:
+        g, dev = self.generator, self.device
+        shape = self.latent_shape()
+        return {
+            "tile_idx": torch.multinomial(self.tile_probs, 1, generator=g),
+            "eps": torch.randn(shape, generator=g, device=dev).to(self.dtype),
+            "noise": torch.randn(shape, generator=g, device=dev)}
+
+    def _teacher(self, z_sg, noise, t_t, neg_noise, cond_noise):
+        latents_noisy = sch.add_noise(self.acp, z_sg, noise, t_t)
+        return self.teacher.teacher_v_pred(latents_noisy, t_t, self.control,
+                                           self.txt, self.vec, self.guidance)
 
 
 # -- prepare_sds: mesh -> views -> setup -------------------------------------------
@@ -711,7 +795,8 @@ def prepare_sds(cfg: TrainConfig, mesh_model: TexturedMeshModel, mlp: NeRF2D,
     """The static setup of guide.teacher's SDS loop (`teacher_path`):
     `prepare_grid_sds` for Zero123++, `orbit.prepare_orbit_sds` for
     SV3D_p (eps is then the condition image's augmentation draw, (1, 3, P,
-    P))."""
+    P)), `prepare_flux_sds` for FLUX.1 Depth (eps is then the prompt's
+    states)."""
     return teacher_path(cfg).prepare(cfg, mesh_model, mlp, teacher, eps,
                                      skip_bootstrap, generator, timings,
                                      diffusion, bootstrap_draws)
@@ -776,41 +861,13 @@ def prepare_grid_sds(cfg: TrainConfig, mesh_model: TexturedMeshModel,
             cfg, mesh_model, mlp, diffusion, text_z, draws=bootstrap_draws,
             timings=timings)
     with phase(timings, "crops", dev):
-        masks_np = object_masks[:, 0].cpu().numpy()
-        bboxes = [get_nonzero_region_tuple(m) for m in masks_np]
         # the condition image: the front view cropped to tp^2 on gray
         bbox_front = get_nonzero_region_tuple(mask_front[0, 0])
         front_rgb = crop_and_resize(rgb_front, bbox_front, tp, tp)
         front_a = crop_and_resize(mask_front, bbox_front, tp, tp)
         cond_image = front_rgb * front_a + 0.5 * (1 - front_a)
-        # the 6 target views: depth on gray, and the mask-weighted UVs
-        uv_maps = cache.uv_features.permute(0, 3, 1, 2)
-        depth_tiles, uv_tiles, m_tiles = [], [], []
-        for i in range(1, len(bboxes)):
-            a = crop_and_resize(object_masks[i:i + 1], bboxes[i], tp, tp)
-            d = crop_and_resize(depth_maps[i:i + 1], bboxes[i], tp, tp)
-            depth_tiles.append(torch.cat([d, d, d], dim=1) * a + 0.5 * (1 - a))
-            if exact:
-                continue
-            m = cache.mask[i:i + 1]
-            m_t = crop_and_resize(m, bboxes[i], tp, tp)
-            uvm = crop_and_resize(uv_maps[i:i + 1] * m, bboxes[i], tp, tp)
-            uv_tiles.append(uvm / m_t.clamp(min=1e-6))
-            m_tiles.append(m_t)
-        depth_grid = merge_6_to_grid(torch.cat(depth_tiles))
-        mask_grid = uv_pts = edit_pts = None
-        if not exact:
-            uv_grid = merge_6_to_grid(torch.cat(uv_tiles))
-            mask_grid = merge_6_to_grid(torch.cat(m_tiles))
-            uv_pts = uv_grid[0].permute(1, 2, 0).reshape(-1, 2).clamp(
-                0.0, 1.0).contiguous()
-            change = mesh_model.edit_change_mask
-            if change is not None:
-                # the lattice's row is v (res - 1), its column u (res - 1)
-                res = change.shape[-1]
-                edit_pts = map_coordinates_linear(
-                    change[0].to(dev), uv_pts[:, 1] * (res - 1),
-                    uv_pts[:, 0] * (res - 1))[:, None]
+        grid = grid_tiles(mesh_model, cache, object_masks, depth_maps, tp,
+                          exact)
     with phase(timings, "vae", dev):
         cond_lat_pair = teacher.encode_condition_pair(cond_image * 2 - 1,
                                                       eps_cond, eps_neg)
@@ -818,14 +875,105 @@ def prepare_grid_sds(cfg: TrainConfig, mesh_model: TexturedMeshModel,
         ehs = teacher.clip_hidden_states(cond_image * 2 - 1)
     tile_probs = tile_probabilities(object_masks, view_weights,
                                     cfg.optim.tile_weighting)
-    return {"depth_grid": depth_grid, "mask_grid": mask_grid,
-            "uv_grid_pts": uv_pts, "edit_mask_pts": edit_pts,
-            "cond_image": cond_image,
+    return {**grid, "cond_image": cond_image,
             "cond_lat_pair": cond_lat_pair, "encoder_hidden_states": ehs,
-            "tile_probs": tile_probs.to(dev), "bboxes6": bboxes[1:],
+            "tile_probs": tile_probs.to(dev),
             "cache6": (RenderCache(*(x[1:] for x in cache)) if exact
                        else None),
             "front_rgb": rgb_front}
+
+
+def grid_tiles(mesh_model: TexturedMeshModel, cache: RenderCache,
+               object_masks: torch.Tensor, depth_maps: torch.Tensor, tp: int,
+               exact: bool) -> Dict:
+    """The 6 target views of the 7 fixed ones (`cache`, their masks and
+    depth maps), each cropped to its object's box and resized to a tp^2
+    tile of the 3x2 grid: depth_grid (1,3,3t,2t) (depth on gray), and,
+    unless `exact`, mask_grid (1,1,3t,2t), uv_grid_pts (6t^2, 2) (the
+    mask-weighted UVs) and edit_mask_pts (the mesh model's
+    edit_change_mask at the grid's UVs, or None); bboxes6, the 6 views'
+    crop boxes."""
+    dev = mesh_model.device
+    bboxes = [get_nonzero_region_tuple(m)
+              for m in object_masks[:, 0].cpu().numpy()]
+    uv_maps = cache.uv_features.permute(0, 3, 1, 2)
+    depth_tiles, uv_tiles, m_tiles = [], [], []
+    for i in range(1, len(bboxes)):
+        a = crop_and_resize(object_masks[i:i + 1], bboxes[i], tp, tp)
+        d = crop_and_resize(depth_maps[i:i + 1], bboxes[i], tp, tp)
+        depth_tiles.append(torch.cat([d, d, d], dim=1) * a + 0.5 * (1 - a))
+        if exact:
+            continue
+        m = cache.mask[i:i + 1]
+        m_t = crop_and_resize(m, bboxes[i], tp, tp)
+        uvm = crop_and_resize(uv_maps[i:i + 1] * m, bboxes[i], tp, tp)
+        uv_tiles.append(uvm / m_t.clamp(min=1e-6))
+        m_tiles.append(m_t)
+    depth_grid = merge_6_to_grid(torch.cat(depth_tiles))
+    mask_grid = uv_pts = edit_pts = None
+    if not exact:
+        uv_grid = merge_6_to_grid(torch.cat(uv_tiles))
+        mask_grid = merge_6_to_grid(torch.cat(m_tiles))
+        uv_pts = uv_grid[0].permute(1, 2, 0).reshape(-1, 2).clamp(
+            0.0, 1.0).contiguous()
+        change = mesh_model.edit_change_mask
+        if change is not None:
+            # the lattice's row is v (res - 1), its column u (res - 1)
+            res = change.shape[-1]
+            edit_pts = map_coordinates_linear(
+                change[0].to(dev), uv_pts[:, 1] * (res - 1),
+                uv_pts[:, 0] * (res - 1))[:, None]
+    return {"depth_grid": depth_grid, "mask_grid": mask_grid,
+            "uv_grid_pts": uv_pts, "edit_mask_pts": edit_pts,
+            "bboxes6": bboxes[1:]}
+
+
+@torch.no_grad()
+def prepare_flux_sds(cfg: TrainConfig, mesh_model: TexturedMeshModel,
+                     mlp: NeRF2D, teacher,
+                     eps: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                     skip_bootstrap: bool = False,
+                     generator: Optional[torch.Generator] = None,
+                     timings: Optional[Dict[str, float]] = None,
+                     diffusion: Optional[StableDiffusionDepth] = None,
+                     bootstrap_draws: Optional[Dict[str, torch.Tensor]] = None
+                     ) -> Dict:
+    """The static setup of `FluxSDSTrainer`: the grid's geometry as
+    `prepare_grid_sds` makes it (the 7 fixed views, the 6 target views'
+    depth, mask and UV tiles, the tiles' probabilities) and the prompt's
+    states. FLUX.1 Depth takes no condition image, so there is no
+    bootstrap (skip_bootstrap, diffusion and bootstrap_draws are not used)
+    and no CLIP or condition latents. `eps` = (txt, vec), the prompt's T5
+    states and pooled vector, drawn from `generator` when None
+    (`FluxDepthTeacher.prompt_states`). `timings` receives geometry,
+    render, crops and prompt. Returns depth_grid, mask_grid, uv_grid_pts,
+    edit_mask_pts, bboxes6, txt (1, L, 4096), vec (1, 768), tile_probs
+    (6,), cache6 (None) and front_rgb (the front view's render)."""
+    if cfg.optim.exact_lattice_render:
+        raise ValueError("optim.exact_lattice_render renders the grid "
+                         "through the Zero123++ path; guide.teacher "
+                         "'flux_depth' has no such path")
+    dev = mesh_model.device
+    with phase(timings, "geometry", dev):
+        cache, view_weights = define_view_weights(mesh_model, cfg.render)
+    with phase(timings, "render", dev):
+        outputs = mesh_model.render(
+            mlp, render_cache=cache,
+            background=torch.tensor([0.5, 0.5, 0.5], device=dev))
+        object_masks = outputs["mask"]
+        depth_maps = 1.0 - outputs["depth"]
+    with phase(timings, "crops", dev):
+        grid = grid_tiles(mesh_model, cache, object_masks, depth_maps,
+                          teacher.tile_px, False)
+    with phase(timings, "prompt", dev):
+        txt, vec = eps if eps is not None else teacher.prompt_states(
+            generator or torch.Generator(device=dev).manual_seed(
+                cfg.optim.seed))
+    tile_probs = tile_probabilities(object_masks, view_weights,
+                                    cfg.optim.tile_weighting)
+    return {**grid, "txt": txt.to(dev), "vec": vec.to(dev),
+            "tile_probs": tile_probs.to(dev), "cache6": None,
+            "front_rgb": outputs["image"][:1]}
 
 
 def map_coordinates_linear(img: torch.Tensor, rows: torch.Tensor,
@@ -963,6 +1111,9 @@ def build_models(cfg: TrainConfig, tiny: bool = False, device="cuda",
         if z_wp is not None:
             logger.info(_loaded_line("Zero123++", z_wp, teacher.loaded))
     apply_int8(cfg, teacher)
+    # a teacher without a condition image (FLUX.1 Depth) needs no repaint
+    skip_bootstrap = skip_bootstrap or not getattr(teacher, "BOOTSTRAPS",
+                                                   True)
     mlp = mlp or NeRF2D(generator=generator, device=dev)
     mesh_model = TexturedMeshModel(
         cfg.guide, render_grid_size=cfg.render.train_grid_size,
@@ -1014,8 +1165,9 @@ def build_sds_trainer(cfg: TrainConfig, tiny: bool = False, device="cuda",
 
 def make_sds_trainer(cfg: TrainConfig, setup: Dict, **kwargs) -> SDSTrainer:
     """The SDS loop of guide.teacher (`teacher_path`): `SDSTrainer` over
-    the Zero123++ grid, or `orbit.OrbitSDSTrainer` over SV3D_p's orbit;
-    the keyword arguments are SDSTrainer's."""
+    the Zero123++ grid, `orbit.OrbitSDSTrainer` over SV3D_p's orbit, or
+    `FluxSDSTrainer` over the grid under FLUX.1 Depth; the keyword
+    arguments are SDSTrainer's."""
     return teacher_path(cfg).trainer(cfg, setup, **kwargs)
 
 
@@ -1028,14 +1180,19 @@ class TeacherPath(NamedTuple):
 
 
 def teacher_path(cfg: TrainConfig) -> TeacherPath:
-    """guide.teacher's path; SV3D_p's modules are imported only when the
-    config asks for them."""
+    """guide.teacher's path; SV3D_p's and FLUX's modules are imported only
+    when the config asks for them."""
     if cfg.guide.teacher == "sv3d_p":
         from contexture_nerf_tpu_torch.diffusion.sv3d import SV3DTeacher
         from contexture_nerf_tpu_torch.training import orbit
 
         return TeacherPath(SV3DTeacher, orbit.prepare_orbit_sds,
                            orbit.OrbitSDSTrainer)
+    if cfg.guide.teacher == "flux_depth":
+        from contexture_nerf_tpu_torch.diffusion.flux import FluxDepthTeacher
+
+        return TeacherPath(FluxDepthTeacher, prepare_flux_sds,
+                           FluxSDSTrainer)
     return TeacherPath(Zero123PlusTeacher, prepare_grid_sds, SDSTrainer)
 
 

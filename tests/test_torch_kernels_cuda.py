@@ -264,6 +264,52 @@ def test_flash_attention_rejects_what_it_does_not_take(cuda):
         att.flash_attention(w, w, w)
 
 
+@pytest.mark.parametrize("B,H,sq,skv,strided", [
+    (1, 24, 2912, 2912, True), (1, 3, 777, 1234, True),
+    (2, 2, 130, 144, False)])
+def test_flash_attention_at_head_dim_128_matches_plain(cuda, B, H, sq, skv,
+                                                       strided):
+    """K3 at FLUX.1 Depth's head dim: its joint attention (24 heads over
+    2,912 tokens), ragged tails, contiguous and strided inputs."""
+    gen = torch.Generator(device=cuda).manual_seed(sq + skv + 128)
+
+    def rnd(s):
+        if strided:
+            return torch.randn((B, s, H, 128), generator=gen, device=cuda,
+                               dtype=torch.bfloat16).permute(0, 2, 1, 3)
+        return torch.randn((B, H, s, 128), generator=gen, device=cuda,
+                           dtype=torch.bfloat16)
+
+    args = (rnd(sq), rnd(skv), rnd(skv), None, None)
+    before = _build.launch_shapes[("flash_attn_single", B, H, sq, skv, 0,
+                                   128)]
+    out = att.flash_attention(*args)
+    assert _build.launch_shapes[("flash_attn_single", B, H, sq, skv, 0,
+                                 128)] == before + 1
+    assert out.shape == args[0].shape and torch.isfinite(out.float()).all()
+    assert torch.equal(out, att.flash_attention(*args))
+    plain = att.flash_attention_plain(*args)
+    limit = attention_limit(torch, *args, plain)
+    assert attention_ratio(torch, out, plain, limit) <= 1.0
+    pad = -skv % att.KV_TILE
+    for fault in ("scale", "tail"):
+        bad = planted_attention(torch, att.flash_attention, *args, fault,
+                                att.KV_TILE)
+        if bad is not None and (fault != "tail" or pad >= 0.02 * skv):
+            assert attention_ratio(torch, bad, plain, limit) > 1.0, fault
+
+
+def test_head_dim_128_refuses_a_second_source_and_a_192_row_tile(cuda):
+    q = torch.zeros((1, 2, 300, 128), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="second KV source"):
+        att.flash_attention(q, q, q, q, q)
+    with pytest.raises(RuntimeError, match="flash_attn_fwd"):
+        att.flash_attention(q, q, q, None, None, 192)
+    with pytest.raises(ValueError, match="head dim 96"):
+        w = torch.zeros((1, 1, 8, 96), device=cuda, dtype=torch.bfloat16)
+        att.flash_attention(w, w, w)
+
+
 def _faces(cuda, shape):
     """(fvz, fvi) of the 7 fixed views of the torus, or of a 50,880-face
     UV sphere (0.6 across, as the paint path normalizes) on the front
